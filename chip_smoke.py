@@ -4,23 +4,40 @@
 Phases, each fatal on failure:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: the dense codec kernels from ``fastqpacker_tpu_torch/csrc`` with
-   nvcc for sm_90a, with the build time and the ``-Xptxas -v`` report;
+2. build: every kernel source under ``fastqpacker_tpu_torch/csrc`` with nvcc
+   for sm_90a (one nvcc per source, started together), with the build times
+   and the ``-Xptxas -v`` report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (R = 37,500 and 100,000 records, L = 160) and at
-   edge shapes; outputs must be byte-equal (tolerance 0). Times come from
-   CUDA events over many launches queued behind a sleep kernel, inputs
-   rotated past the L2 cache;
-4. end to end: compress and decompress of ``--mb`` MiB of synthetic FASTQ
-   (seeded by ``--seed``) on the card at the default block size, checked
-   against the input and against the port's own CPU compress, with the
-   launch counters reset just before and read just after each direction;
-   then a variable-length (50-300 bp) run.
+   the main paths' shapes and at edge shapes; outputs must be byte-equal
+   (tolerance 0). Dense codec: R = 37,500 and 100,000 records, L = 160.
+   Order-0 rANS (encode, compact, decode): 256, 4,096 and 16,384 lanes with
+   ragged last rows, one-symbol and 256-symbol streams, decode(encode(x))
+   == x, a stream that lost words raises; timed at the v3 path's quality
+   stream (15.1 MB, 16,384 lanes) and sequence stream (3.8 MB, 4,096
+   lanes). CRC32: equal to ``zlib.crc32`` at lengths 0, 1, one chunk +- 1
+   and 15.1 MB. Times come from CUDA events over launches queued behind a
+   sleep kernel, inputs rotated past the L2 cache. Each kernel's bound is
+   the larger of its bytes (inputs read once, outputs written once) over
+   3.35 TB/s and its operations over 67 TOP/s. ``library_ms`` is the time
+   of the one PyTorch call that computes the same function, where there is
+   one (``torch.masked_select`` for the compaction); the port never calls
+   it;
+4. end to end, FQZ v2: compress and decompress of ``--mb`` MiB of synthetic
+   FASTQ (seeded by ``--seed``) on the card at the default block size,
+   checked against the input and against the port's own CPU compress, with
+   the launch counters reset just before and read just after each
+   direction; then a variable-length (50-300 bp) run;
+5. end to end, FQZ v3 (``Options(version=3)``): the same on ``--mb`` MiB of
+   data whose quality streams are coded with order-0 rANS, at the v3
+   default block size (100,000 records): the stream tags are read from the
+   container, the rANS, CRC32 and dense launch counts are held against
+   them, and the card's container is held against the CPU's on the first
+   48 MiB (the CPU's plain versions are slow).
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py [--mb 256] [--seed 0] [--varlen-mb 16]
+Usage: python3 chip_smoke.py [--mb 256] [--varlen-mb 16] [--seed 0]
 """
 
 from __future__ import annotations
@@ -31,14 +48,28 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
-ENCODE_REPLACES = "fastqpacker_tpu/ops/pallas_kernels.py:41"
-DECODE_REPLACES = "fastqpacker_tpu/ops/pallas_kernels.py:186"
-KERNEL_SOURCE = "fastqpacker_tpu_torch/csrc/dense_codec.cu"
+# The kernels are integer code outside the tensor cores; the published rate
+# nearest to that is float32 outside the tensor cores.
+OPS_PER_S = 67e12
+CSRC = "fastqpacker_tpu_torch/csrc/"
+# kernel -> (source, the TPU program it replaces)
+KERNELS = {
+    "fq_dense_encode": ("dense_codec.cu", "fastqpacker_tpu/ops/pallas_kernels.py:41"),
+    "fq_dense_decode": ("dense_codec.cu", "fastqpacker_tpu/ops/pallas_kernels.py:186"),
+    "fq_rans_encode": ("rans_codec.cu", "fastqpacker_tpu/ops/rans.py:162"),
+    "fq_rans_compact": ("rans_codec.cu", "fastqpacker_tpu/ops/rans.py:218"),
+    "fq_rans_decode": ("rans_codec.cu", "fastqpacker_tpu/ops/rans.py:291"),
+    "fq_crc32_chunks": ("crc32.cu", "fastqpacker_tpu/ops/crc32.py:87"),
+}
+QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
+SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
+V3_CPU_BYTES = 48 << 20  # prefix of the v3 input that the CPU compresses too
 DEV = torch.device("cuda")
 
 
@@ -116,6 +147,14 @@ def rotations(tensors, bytes_per_call: int) -> list:
     return [tuple(t.clone() for t in tensors) for _ in range(k)]
 
 
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least ms the card could take, and what sets it: the bytes moved
+    once over the memory rate or the operations over the peak rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def encode_bytes(r: int, l: int) -> int:
     # reads seq, qual (R*L each) and lengths; writes packed (L/4),
     # nmask (L/8), deltas (L) per row and n_counts
@@ -161,7 +200,7 @@ def kernel_case(ck, devops, rng, r, l, offset, alphabet, full_len=None,
     return (s, q, n), ref, enc_err, dec_err
 
 
-def phase_kernels(ck, devops, rng) -> dict:
+def phase_kernels(ck, devops, refops, rng) -> dict:
     edge = [
         (4, 8, 33, b"ACGTNacgt.RY"),
         (16, 31, 64, b"ACGTNacgt.RY"),
@@ -176,13 +215,21 @@ def phase_kernels(ck, devops, rng) -> dict:
         errs[ck.ENCODE] = max(errs[ck.ENCODE], e)
         errs[ck.DECODE] = max(errs[ck.DECODE], d)
         print(f"phase=kernels edge R={r} L={l} offset={off} byte_equal=true")
-    _, ref, e, d = kernel_case(ck, devops, rng, 3, 65544, 33, b"ACGT",
-                               full_len=65544, n_rate=0, tail_n=True)
+    inputs, ref, e, d = kernel_case(ck, devops, rng, 3, 65544, 33, b"ACGT",
+                                    full_len=65544, n_rate=0, tail_n=True)
     errs[ck.ENCODE] = max(errs[ck.ENCODE], e)
     errs[ck.DECODE] = max(errs[ck.DECODE], d)
     check(bool((ref.n_counts == 0).all()), "no N counted past the cap")
     print("phase=kernels edge R=3 L=65544 offset=33 tail_N_past_cap=true "
           "byte_equal=true")
+    # FQZ v3 tracks N positions without the cap
+    s, q, n = inputs
+    wide = ck.encode_arrays(s, q, n, 33, refops.NPOS_CAP_WIDE)
+    wide_ref = devops.encode_arrays_plain(s, q, n, 33, refops.NPOS_CAP_WIDE)
+    check(all(torch.equal(a, b) for a, b in zip(wide, wide_ref)),
+          "encode kernel == plain without the tracking cap")
+    check(bool((wide.n_counts == 8).all()), "every tail N counted without the cap")
+    print("phase=kernels edge R=3 L=65544 offset=33 no_cap=true byte_equal=true")
 
     out = {}
     for r in (37_500, 100_000):
@@ -195,24 +242,286 @@ def phase_kernels(ck, devops, rng) -> dict:
         s, q, n = inputs
         enc_sets = rotations((s, q, n), encode_bytes(r, l))
         dec_sets = rotations((ref.packed, ref.qual_delta, n), decode_bytes(r, l))
-        for name, fn, plain, sets, nbytes in (
+        # operations per base: encode classifies, packs 2 bits, masks, counts
+        # and takes a delta (~12); decode unpacks, looks up and sums (~8)
+        for name, fn, plain, sets, nbytes, ops in (
             (ck.ENCODE, ck.encode_arrays, devops.encode_arrays_plain,
-             enc_sets, encode_bytes(r, l)),
+             enc_sets, encode_bytes(r, l), 12 * r * l),
             (ck.DECODE, ck.decode_arrays, devops.decode_arrays_plain,
-             dec_sets, decode_bytes(r, l)),
+             dec_sets, decode_bytes(r, l), 8 * r * l),
         ):
             kms = gpu_ms(lambda *a: fn(*a, off), sets, 200)
             pms = gpu_ms(lambda *a: plain(*a, off), sets, 20)
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            print(
-                f"phase=kernels kernel={name} R={r} L={l} kernel_ms={kms:.6f} "
-                f"bound_us={bound_ms * 1e3:.3f} bytes={nbytes} "
-                f"plain_ms={pms:.6f} library_ms=null "
-                f"roofline_share={bound_ms / kms:.3f} max_abs_err={errs[name]}"
-            )
-            out[(name, r)] = (kms, pms, bound_ms)
+            out[(name, r)] = report(name, f"R={r} L={l}", kms, pms, None,
+                                    nbytes, ops, errs[name])
         del enc_sets, dec_sets
     return {"errs": errs, "times": out}
+
+
+def report(name: str, shape: str, kms: float, pms: float, lms: float | None,
+           nbytes: int, ops: int, err: int) -> tuple:
+    """Print one kernel's times (``lms``: the library call's, if there is
+    one) beside its bound; returns the numbers of its ``kernels`` entry."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    library = "null" if lms is None else f"{lms:.6f}"
+    print(
+        f"phase=kernels kernel={name} {shape} kernel_ms={kms:.6f} "
+        f"bound_us={bound_ms * 1e3:.3f} bound_by={bound_by} bytes={nbytes} "
+        f"operations={ops} plain_ms={pms:.6f} library_ms={library} "
+        f"roofline_share={bound_ms / kms:.4f} max_abs_err={err}"
+    )
+    return kms, pms, bound_ms, bound_by, lms
+
+
+def rans_case(ck, rans, data: np.ndarray, lanes: int) -> dict:
+    """One stream through the three rANS kernels and their plain versions
+    on the card, every output compared in full; decode(encode(x)) == x."""
+    n = len(data)
+    steps = -(-n // lanes)
+    hist = np.bincount(data, minlength=256).astype(np.int64)
+    pad = int(np.argmax(hist))
+    hist[pad] += steps * lanes - n
+    freq = rans.normalize_freqs(hist)
+    fc = np.stack([freq.astype(np.int32), rans.cumulative(freq).astype(np.int32)])
+    d, t = torch.from_numpy(data).to(DEV), torch.from_numpy(fc).to(DEV)
+    what = f"n={n} lanes={lanes}"
+
+    words, flags, states = ck.rans_encode(d, steps, lanes, pad, t)
+    pw, pf, ps = rans.rans_encode_plain(d, steps, lanes, pad, t)
+    enc_err = max(max_err(words, pw), max_err(flags, pf), max_err(states, ps))
+    check(enc_err == 0, f"rans encode kernel == plain at {what}")
+
+    flat, total = ck.rans_compact(words, flags)
+    pflat, ptotal = rans.rans_compact_plain(words, flags)
+    k = int(total)
+    check(k == int(ptotal), f"rans compact total == plain at {what}")
+    cmp_err = max_err(flat[:k], pflat[:k])
+    check(cmp_err == 0, f"rans compact kernel == plain at {what}")
+
+    tab = torch.from_numpy(rans.pack_slot_table(freq).view(np.int32)).to(DEV)
+    stream = flat[:k].clone()
+    out, consumed = ck.rans_decode(stream, states, tab, steps, lanes)
+    pout, pconsumed = rans.rans_decode_plain(stream, states, tab, steps, lanes)
+    dec_err = max_err(out, pout)
+    check(dec_err == 0, f"rans decode kernel == plain at {what}")
+    check(int(consumed) == int(pconsumed) == k, f"words consumed == carried at {what}")
+    check(torch.equal(out[:n], d), f"decode(encode(x)) == x at {what}")
+    torch.cuda.synchronize()
+    return {
+        "enc": (d, steps, lanes, pad, t), "cmp": (words, flags),
+        "dec": (stream, states, tab, steps, lanes),
+        "errs": (enc_err, cmp_err, dec_err), "n": n, "steps": steps,
+        "lanes": lanes, "total": k,
+    }
+
+
+def walk_deltas(rng, n: int) -> np.ndarray:
+    """IID quality deltas with the step distribution of the "walk" data."""
+    from fastqpacker_tpu_torch.utils.synth import walk_steps
+
+    return walk_steps(rng, n).astype(np.uint8)
+
+
+def library_compact(words, flags):
+    """The one PyTorch call that computes the compaction: the flagged words
+    in flat order, whose count is the total. A yardstick only."""
+    return torch.masked_select(words, flags.bool())
+
+
+def phase_rans(ck, rans, rng) -> dict:
+    errs = {ck.RANS_ENCODE: 0, ck.RANS_COMPACT: 0, ck.RANS_DECODE: 0}
+
+    def fold(case):
+        for name, e in zip(errs, case["errs"]):
+            errs[name] = max(errs[name], e)
+
+    for lanes in (256, 4096, 16384):
+        n = 37 * lanes + lanes // 3 + 1  # a ragged last row
+        for label, data in (
+            ("one_symbol", np.full(n, 65, np.uint8)),
+            ("256_symbols", rng.integers(0, 256, n).astype(np.uint8)),
+            ("qualities", walk_deltas(rng, n)),
+            ("full_rows", walk_deltas(rng, 8 * lanes)),
+        ):
+            fold(rans_case(ck, rans, data, lanes))
+            print(f"phase=kernels rans lanes={lanes} stream={label} "
+                  f"n={len(data)} byte_equal=true round_trip=true")
+
+    # a stream that lost words: no read out of bounds, and the API raises
+    data = walk_deltas(rng, 300_000)
+    good = rans.encode_stream(data, device=DEV)
+    check(rans.decode_stream(good, device=DEV) == data.tobytes(), "stream API round trip")
+    off = 8 + 512 + 4 * 256
+    total = int.from_bytes(good[off : off + 4], "little")
+    bad = good[:off] + (total - 100).to_bytes(4, "little") + good[off + 4 : -200]
+    try:
+        rans.decode_stream(bad, device=DEV)
+    except rans.RansError as e:
+        check(str(e) == "corrupted rANS stream data", "corrupt stream message")
+        print("phase=kernels rans corrupt_words raises=true")
+    else:
+        raise RuntimeError("check failed: a stream that lost words decoded")
+
+    out = {}
+    for label, data, lanes in (
+        ("qual", walk_deltas(rng, QUAL_STREAM), 16384),
+        ("seq", rng.integers(0, 256, SEQ_STREAM).astype(np.uint8), 4096),
+    ):
+        check(rans._pick_lanes(len(data)) == lanes, f"{label} stream's lane tier")
+        case = rans_case(ck, rans, data, lanes)
+        fold(case)
+        n, steps, m, k = case["n"], case["steps"], case["steps"] * lanes, case["total"]
+        shape = f"stream={label} n={n} lanes={lanes} steps={steps} words={k}"
+        d, *enc_rest = case["enc"]
+        stream, *dec_rest = case["dec"]
+        # operations per cell: encode reads its table entry, tests, shifts,
+        # divides, takes the remainder and recombines (~10); compact tests
+        # the flag, adds it into the prefix and moves the word (~4); decode
+        # masks, reads and unpacks its entry, multiplies, compares, ranks
+        # and refills (~12)
+        lib = library_compact(*case["cmp"])
+        check(lib.numel() == k and torch.equal(lib, ck.rans_compact(*case["cmp"])[0][:k]),
+              f"masked_select == compact kernel at {shape}")
+        for name, fn, plain, library, sets, nbytes, ops in (
+            (ck.RANS_ENCODE, ck.rans_encode, rans.rans_encode_plain, None,
+             [(x, *enc_rest) for (x,) in rotations((d,), n + 3 * m)],
+             n + 2 * 256 * 4 + 3 * m + 4 * lanes, 10 * m),
+            (ck.RANS_COMPACT, ck.rans_compact, rans.rans_compact_plain,
+             library_compact,
+             rotations(case["cmp"], 3 * m + 2 * k), 3 * m + 2 * k + 8, 4 * m),
+            (ck.RANS_DECODE, ck.rans_decode, rans.rans_decode_plain, None,
+             [(x, *dec_rest) for (x,) in rotations((stream,), 2 * k + m)],
+             2 * k + 4 * lanes + 4 * 4096 + m + 8, 12 * m),
+        ):
+            kms = gpu_ms(fn, sets, 20)
+            pms = gpu_ms(plain, sets[:1], 1)
+            lms = gpu_ms(library, sets, 20) if library else None
+            out[(name, label)] = (
+                *report(name, shape, kms, pms, lms, nbytes, ops, errs[name]), steps)
+        del case, sets
+    return {"errs": errs, "times": out}
+
+
+def phase_crc(ck, crc32, rng) -> dict:
+    chunk = crc32.CHUNK
+    check(crc32.crc32_device(b"", device=DEV) == 0, "CRC32 of nothing is 0")
+    err = 0
+    before = ck.launches[ck.CRC32]
+    for n in (1, chunk - 1, chunk, chunk + 1, crc32.MIN_DEVICE_BYTES, SEQ_STREAM,
+              QUAL_STREAM):
+        data = rng.integers(0, 256, n).astype(np.uint8)
+        t = torch.from_numpy(data).to(DEV)
+        got = ck.crc32_chunks(t)
+        err = max(err, max_err(got, crc32.crc32_chunks_plain(t)))
+        want = zlib.crc32(data.tobytes())
+        check(int(got.item()) & 0xFFFFFFFF == want, f"CRC32 kernel == zlib at n={n}")
+        check(crc32.crc32_device(data, device=DEV) == want, f"crc32_device == zlib at n={n}")
+        print(f"phase=kernels crc32 n={n} equals_zlib=true")
+    check(err == 0, "CRC32 kernel == plain")
+    # the size rule: below MIN_DEVICE_BYTES crc32_device stays on the host
+    check(ck.launches[ck.CRC32] - before == 7 + 3, "CRC32 launches above the size rule")
+    out = {}
+    for label, n in (("qual", QUAL_STREAM), ("seq", SEQ_STREAM)):
+        data = rng.integers(0, 256, n).astype(np.uint8)
+        t = torch.from_numpy(data).to(DEV)
+        sets = rotations((t,), n)
+        kms = gpu_ms(ck.crc32_chunks, sets, 50)
+        pms = gpu_ms(crc32.crc32_chunks_plain, sets[:1], 1)
+        out[(ck.CRC32, label)] = (
+            # per byte: xor, mask, table read and xor, shift
+            *report(ck.CRC32, f"stream={label} n={n} chunk={chunk}", kms, pms,
+                    None, n + 4, 4 * n, err),
+            None,
+        )
+    return {"errs": {ck.CRC32: err}, "times": out}
+
+
+TAG_NAMES = {0: "rans", 1: "zstd", 2: "tok", 3: "qctx", 4: "sctx", 5: "sldm", 6: "wctx"}
+
+
+def stream_tags(comp: bytes, ft) -> tuple[int, dict]:
+    """Blocks of a v3 container and, per tagged slot, its streams by codec."""
+    c = ft.container
+    r = io.BytesIO(comp)
+    fh = c.read_file_header(r)
+    if fh.flags & c.FLAG_SEQ_DICT:
+        c.read_seq_dict_section(r)
+    tags = {"seq": {}, "qual": {}, "headers": {}}
+    blocks = 0
+    while (hdr := c.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(c.VERSION_2)
+        payload = r.read(sum(sizes))
+        for slot, at in (("seq", 0), ("qual", sizes[0]), ("headers", sizes[0] + sizes[1])):
+            name = TAG_NAMES[payload[at]]
+            tags[slot][name] = tags[slot].get(name, 0) + 1
+        blocks += 1
+    return blocks, tags
+
+
+def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
+    """FQZ v3 on the card, each direction with the counters reset just
+    before and read just after; the launch counts are held against the
+    stream tags read from the container."""
+    opts = ft.Options(version=ft.container.VERSION_3_NATIVE)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    comp = ft.compress_bytes(data, opts, device=DEV)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    c_counts = ck.launches.as_dict()
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = ft.decompress_bytes(comp, device=DEV)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    d_counts = ck.launches.as_dict()
+
+    check(out == data, f"{label}: decompressed output equals the input")
+    blocks, tags = stream_tags(comp, ft)
+    n_rans = tags["seq"].get("rans", 0) + tags["qual"].get("rans", 0)
+    check(tags["qual"].get("rans", 0) == blocks > 0,
+          f"{label}: every block's quality stream is TAG_RANS")
+    check(c_counts[ck.RANS_ENCODE] == c_counts[ck.RANS_COMPACT] == n_rans,
+          f"{label}: one rANS encode and compact launch per TAG_RANS stream")
+    check(d_counts[ck.RANS_DECODE] == n_rans,
+          f"{label}: one rANS decode launch per TAG_RANS stream")
+    check(c_counts[ck.RANS_DECODE] == 0 and d_counts[ck.RANS_ENCODE] == 0,
+          f"{label}: no rANS launch in the wrong direction")
+    check(c_counts[ck.CRC32] > 0 and d_counts[ck.CRC32] > 0,
+          f"{label}: CRC32 launched in both directions")
+    check(c_counts[ck.ENCODE] == blocks and d_counts[ck.DECODE] == blocks,
+          f"{label}: one dense launch per block and direction")
+
+    # the card's container against the CPU's, on a prefix that ends at a
+    # record boundary; one worker, since the probe memo depends on order
+    cut = data.rfind(b"\n@SIM0.", 0, V3_CPU_BYTES) + 1
+    small = data[:cut] if cut > 0 else data
+    one = ft.Options(version=ft.container.VERSION_3_NATIVE, workers=1)
+    t0 = time.perf_counter()
+    gpu_small = ft.compress_bytes(small, one, device=DEV)
+    t_gpu1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_small = ft.compress_bytes(small, one, device="cpu")
+    t_cpu1 = time.perf_counter() - t0
+    check(gpu_small == cpu_small, f"{label}: GPU container byte-identical to CPU's")
+    mb = len(data) / 1e6
+    print(
+        f"phase=e2e run={label} input_bytes={len(data)} container_bytes="
+        f"{len(comp)} blocks={blocks} tags={json.dumps(tags, sort_keys=True)} "
+        f"compress_s={t_c:.4f} compress_MBps={mb / t_c:.2f} "
+        f"decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
+        f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+        f"decompress_launches={json.dumps(d_counts, sort_keys=True)} "
+        f"round_trip=true"
+    )
+    print(
+        f"phase=e2e run={label} cpu_identity_bytes={len(small)} workers=1 "
+        f"gpu_compress_s={t_gpu1:.4f} cpu_compress_s={t_cpu1:.4f} "
+        f"byte_identical_to_cpu=true"
+    )
+    return {"compress": c_counts, "decompress": d_counts}
 
 
 def count_blocks(container_bytes: bytes, ft) -> int:
@@ -278,8 +587,11 @@ def main() -> int:
         return 1
     import fastqpacker_tpu_torch as ft
     from fastqpacker_tpu_torch.ops import build
+    from fastqpacker_tpu_torch.ops import crc32
     from fastqpacker_tpu_torch.ops import cuda_kernels as ck
     from fastqpacker_tpu_torch.ops import device as devops
+    from fastqpacker_tpu_torch.ops import rans
+    from fastqpacker_tpu_torch.ops import reference as refops
     from fastqpacker_tpu_torch.utils.synth import synth_fastq
 
     kind = torch.cuda.get_device_name(0)
@@ -290,16 +602,20 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    build.load("dense_codec")
-    info = build.builds["dense_codec"]
-    print(f"phase=build seconds={info.seconds:.2f} load_seconds="
-          f"{time.perf_counter() - t0:.2f} library={info.path.name}")
-    for line in info.log.splitlines():
-        if "ptxas" in line:
-            print(f"phase=build {line.strip()}")
+    build.load_all()
+    print(f"phase=build sources={len(build.builds)} wall_seconds="
+          f"{time.perf_counter() - t0:.2f}")
+    for name, info in build.builds.items():
+        print(f"phase=build source={name}.cu nvcc_seconds={info.seconds:.2f} "
+              f"library={info.path.name}")
+        for line in info.log.splitlines():
+            if "ptxas" in line:
+                print(f"phase=build {name}: {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
-    kern = phase_kernels(ck, devops, rng)
+    kern = phase_kernels(ck, devops, refops, rng)
+    kern_rans = phase_rans(ck, rans, rng)
+    kern_crc = phase_crc(ck, crc32, rng)
 
     ft.compress_bytes(synth_fastq(1, seed=args.seed + 1), device=DEV)  # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -310,25 +626,54 @@ def main() -> int:
     varlen = synth_fastq(args.varlen_mb, read_len=300, min_len=50,
                          seed=args.seed + 2)
     round_trip(ft, ck, varlen, f"varlen50_300_{args.varlen_mb:g}MiB")
+    del varlen
 
+    # FQZ v3: warm up (codecs, streams), then the rANS-picking data
+    warm = synth_fastq(1, seed=args.seed + 3, qual_model="walk")
+    v3 = ft.Options(version=ft.container.VERSION_3_NATIVE)
+    check(ft.decompress_bytes(ft.compress_bytes(warm, v3, device=DEV), device=DEV)
+          == warm, "v3 warm-up round trip")
+    torch.cuda.reset_peak_memory_stats()
+    data = synth_fastq(args.mb, seed=args.seed + 4, qual_model="walk")
+    v3_launches = round_trip_v3(ft, ck, data, f"walk151_v3_{args.mb:g}MiB")
+    print(f"phase=e2e v3_max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del data
+
+    # launches: the count from the main path's run that drives the kernel
+    # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
+    rows = [
+        (ck.ENCODE, main_launches["encode"], kern["errs"][ck.ENCODE],
+         (*kern["times"][(ck.ENCODE, 37_500)], None),
+         {"launches_v3": v3_launches["compress"][ck.ENCODE]}),
+        (ck.DECODE, main_launches["decode"], kern["errs"][ck.DECODE],
+         (*kern["times"][(ck.DECODE, 37_500)], None),
+         {"launches_v3": v3_launches["decompress"][ck.DECODE]}),
+    ]
+    for name, direction in ((ck.RANS_ENCODE, "compress"), (ck.RANS_COMPACT, "compress"),
+                            (ck.RANS_DECODE, "decompress")):
+        rows.append((name, v3_launches[direction][name], kern_rans["errs"][name],
+                     kern_rans["times"][(name, "qual")], {}))
+    rows.append((ck.CRC32, v3_launches["compress"][ck.CRC32], kern_crc["errs"][ck.CRC32],
+                 kern_crc["times"][(ck.CRC32, "qual")],
+                 {"launches_decompress": v3_launches["decompress"][ck.CRC32]}))
     kernels = []
-    for name, launches_key, replaces in (
-        (ck.ENCODE, "encode", ENCODE_REPLACES),
-        (ck.DECODE, "decode", DECODE_REPLACES),
-    ):
-        kms, pms, bound_ms = kern["times"][(name, 37_500)]
+    for name, launches, err, (kms, pms, bound_ms, bound_by, lms, steps), extra in rows:
+        check(launches > 0, f"{name} launched on a main path")
+        source, replaces = KERNELS[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": CSRC + source,
             "replaces": replaces,
-            "launches": main_launches[launches_key],
-            "max_abs_err": kern["errs"][name],
+            "launches": launches,
+            "max_abs_err": err,
             "ms": kms,
             "plain_ms": pms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes",
-            "library_ms": None,
+            "bound_by": bound_by,
+            "library_ms": lms,
+            "steps": steps,
+            **extra,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

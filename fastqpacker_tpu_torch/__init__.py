@@ -1,8 +1,9 @@
 """fastqpacker_tpu_torch: the PyTorch/CUDA port of fastqpacker_tpu.
 
-FQZ v1/v2 (fqpack-compatible, zstd) compress and decompress with the dense
-block encode and decode as hand-written CUDA kernels for Hopper
-(``csrc/dense_codec.cu``). Containers are byte-identical to the JAX
+FQZ v1/v2 (fqpack-compatible, zstd) and FQZ v3 (native: per-stream codec
+picks, order-0 rANS, block CRC32) compress and decompress, with the dense
+block transforms, the rANS coder and the CRC32 as hand-written CUDA kernels
+for Hopper (``csrc/*.cu``). Containers are byte-identical to the JAX
 package's. Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; without a card it raises.
 

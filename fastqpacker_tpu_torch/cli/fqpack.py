@@ -4,9 +4,11 @@ Same flag surface as ``fastqpacker_tpu/cli/fqpack.py`` (the reference CLI,
 cmd/fqpack/main.go:65-101): ``fqpack [-d] [-i in] [-o out] [-c]
 [-b blocksize] [-w workers] [-version] [-h]`` plus positional input/output
 paths; stdin/stdout defaults; transparent gzip input in compress mode
-only (main.go:123-174). ``--backend cuda`` (the default) runs the dense
-block transforms on the card and fails without one; ``--backend cpu`` runs
-their plain PyTorch versions.
+only (main.go:123-174). ``--format native`` writes the FQZ v3 container
+(per-stream codec picks, order-0 rANS, block CRC32); ``--max-ratio`` and
+``--lossless`` imply it. ``--backend cuda`` (the default) runs the device
+programs on the card and fails without one; ``--backend cpu`` runs their
+plain PyTorch versions.
 
 Run as ``python -m fastqpacker_tpu_torch.cli.fqpack``.
 """
@@ -42,7 +44,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-c", action="store_true", dest="to_stdout",
                    help="write to stdout (compress mode)")
     p.add_argument("-b", dest="block_size", type=int, default=0,
-                   help="records per block (0 = auto: 37500)")
+                   help="records per block (0 = auto: 37500 zstd / "
+                        "100000 native)")
     p.add_argument("-w", dest="workers", type=int, default=0,
                    help="compression workers (default: NumCPU)")
     p.add_argument("-version", action="store_true", dest="show_version",
@@ -50,16 +53,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-h", "--help", action="store_true", dest="show_help",
                    help="show help")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
-                   help="device for the dense block transforms")
+                   help="device for the kernels (dense transforms, rANS, CRC32)")
     p.add_argument("--format", choices=["zstd", "native"], default="zstd",
                    dest="wire_format",
-                   help="container flavor: zstd (fqpack-compatible v2); "
-                        f"native (v3) is {NOT_PORTED}")
+                   help="container flavor: zstd (fqpack-compatible v2) or "
+                        "native (rANS v3)")
+    p.add_argument("--max-ratio", action="store_true", dest="max_ratio",
+                   help="prefer ratio over speed: context-modeled quality "
+                        "coding and zstd level 9 (implies --format native)")
+    p.add_argument("--lossless", action="store_true", dest="lossless",
+                   help="strictly lossless: preserve lowercase bases and "
+                        "exotic symbols verbatim (implies --format native)")
     # surfaces of the JAX package's CLI that this package does not have yet
-    for flag, dest in (("--max-ratio", "max_ratio"), ("--lossless", "lossless"),
-                       ("--mesh", "mesh")):
-        p.add_argument(flag, action="store_true", dest=dest,
-                       help=f"{NOT_PORTED}")
+    p.add_argument("--mesh", action="store_true", dest="mesh",
+                   help=f"{NOT_PORTED}")
     p.add_argument("--pair", dest="pair", default="", help=f"{NOT_PORTED}")
     p.add_argument("positional", nargs="*", default=[])
     return p
@@ -70,9 +77,6 @@ def _unported(args) -> str | None:
     if args.positional and args.positional[0] in ("info", "check", "cat"):
         return args.positional[0]
     for flag, on in (
-        ("--format native", args.wire_format == "native"),
-        ("--max-ratio", args.max_ratio),
-        ("--lossless", args.lossless),
         ("--mesh", args.mesh),
         ("--pair", bool(args.pair)),
     ):
@@ -114,7 +118,16 @@ def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
             device=args.backend,
         )
         return
-    opts = api.Options(block_size=args.block_size, workers=args.workers)
+    native = args.wire_format == "native" or args.max_ratio or args.lossless
+    opts = api.Options(
+        block_size=args.block_size,
+        workers=args.workers,
+        version=(
+            container.VERSION_3_NATIVE if native else container.CURRENT_VERSION
+        ),
+        order1_qual=args.max_ratio,
+        lossless=args.lossless,
+    )
     device.compress_device(inp, out, opts, device=args.backend)
 
 
@@ -161,7 +174,7 @@ def main(argv: list[str] | None = None) -> int:
         # stdout consumer went away: the conventional 128+SIGPIPE status
         return 141
     except (container.FormatError, FastqParseError, ValueError,
-            RuntimeError, OSError) as e:
+            RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:

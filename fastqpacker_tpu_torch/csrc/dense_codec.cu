@@ -29,7 +29,6 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;  // one record row per warp
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kMaxTracked = 65536;  // u16 N positions (sequence.go:11)
 constexpr uint32_t kAcgt = 0x54474341u;  // "ACGT", little-endian
 
 // Four bytes holding 2-bit codes -> one packed byte, LSB-first.
@@ -82,7 +81,7 @@ dense_encode_kernel(const uint8_t* __restrict__ seq,
                     uint8_t* __restrict__ nmask,
                     int32_t* __restrict__ n_counts,
                     uint8_t* __restrict__ qual_delta, int rows, int width,
-                    int qual_offset) {
+                    int qual_offset, int npos_cap) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -97,7 +96,9 @@ dense_encode_kernel(const uint8_t* __restrict__ seq,
       reinterpret_cast<uint32_t*>(packed + (size_t)row * (width >> 2));
   uint16_t* mask_row =
       reinterpret_cast<uint16_t*>(nmask + (size_t)row * (width >> 3));
-  const int tracked = min(lengths[row], kMaxTracked);
+  // N positions are tracked below min(length, cap): 65,536 on the v1/v2
+  // wire (u16 positions, sequence.go:11), no cap on v3 (u32 positions)
+  const int tracked = min(lengths[row], npos_cap);
 
   // Position 0's "previous" byte is the offset, so its delta is q - offset.
   uint32_t carry = (uint32_t)qual_offset & 0xFFu;
@@ -215,14 +216,14 @@ extern "C" {
 int fq_dense_encode(const void* seq, const void* qual, const void* lengths,
                     void* packed, void* nmask, void* n_counts,
                     void* qual_delta, int rows, int width, int qual_offset,
-                    void* stream) {
+                    int npos_cap, void* stream) {
   if (width < 0 || width % 16 != 0) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
   dense_encode_kernel<<<grid_for(rows), kWarpsPerBlock * 32, 0,
                         (cudaStream_t)stream>>>(
       (const uint8_t*)seq, (const uint8_t*)qual, (const int32_t*)lengths,
       (uint8_t*)packed, (uint8_t*)nmask, (int32_t*)n_counts,
-      (uint8_t*)qual_delta, rows, width, qual_offset);
+      (uint8_t*)qual_delta, rows, width, qual_offset, npos_cap);
   return (int)cudaGetLastError();
 }
 

@@ -1,32 +1,36 @@
-"""ctypes binding to the system libzstd for the FQZ v1/v2 entropy stage.
+"""ctypes binding to the system libzstd for the FQZ entropy stages.
 
-The port's own copy of the v1/v2 part of ``fastqpacker_tpu/entropy/zstd.py``
-(the long-distance-matching profile and prefix references serve only FQZ v3
-and are not carried). Frames must be byte-identical to that module's, or
-the containers of the two packages differ: the same level, hash log,
-checksum flag, probe and stored-frame rule.
+The port's own copy of ``fastqpacker_tpu/entropy/zstd.py``. Frames must be
+byte-identical to that module's, or the containers of the two packages
+differ: the same level, hash log, checksum flag, probe, stored-frame rule,
+long-distance-matching profile and prefix references.
 
 The reference entropy stage is klauspost/compress zstd at ``SpeedFastest``
 with frame checksums on (reference: internal/compress/compress.go:113-122);
 ``SpeedFastest`` corresponds to libzstd level 1. Any standard zstd frame is
-interchangeable on the wire, so the containers stay readable by the Go
-fqpack binary and vice versa.
+interchangeable on the wire, so the v1/v2 containers stay readable by the
+Go fqpack binary and vice versa. FQZ v3 also uses level 9 (``--max-ratio``),
+the LDM profile of ``ops/sldm.py`` and prefix (dictionary) references.
 """
 
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
-import struct
 import threading
 
 _lib = None
 _lib_lock = threading.Lock()
 
-# ZSTD_cParameter enum values (zstd.h, stable API).
+# ZSTD_cParameter / ZSTD_dParameter enum values (zstd.h, stable API).
 _ZSTD_c_compressionLevel = 100
+_ZSTD_c_windowLog = 101
 _ZSTD_c_hashLog = 102
 _ZSTD_c_targetLength = 106
+_ZSTD_c_enableLongDistanceMatching = 160
+_ZSTD_c_ldmHashLog = 161
+_ZSTD_c_ldmMinMatch = 162
+_ZSTD_c_ldmHashRateLog = 164
 _ZSTD_c_checksumFlag = 201
 
 _ZSTD_CONTENTSIZE_UNKNOWN = 2**64 - 1
@@ -58,6 +62,7 @@ def _store_raw_frame(mv) -> bytes | None:
         import xxhash
     except ImportError:
         return None
+    import struct
 
     n = len(mv)
     if n == 0:
@@ -74,6 +79,18 @@ def _store_raw_frame(mv) -> bytes | None:
             break
     parts.append(struct.pack("<I", xxhash.xxh64(mv).intdigest() & 0xFFFFFFFF))
     return b"".join(parts)
+
+# Long-distance-matching profile for the coverage-redundancy sequence
+# candidate (ops/sldm.py). Tuned on genome-sampled reads: minMatch 16 /
+# hashLog 24 / rateLog 2, where the defaults (minMatch 64) miss read
+# overlaps entirely.
+# windowLog 25 covers the largest block's unpacked codes (100k x 151 =
+# 15.1 MB) with headroom for long reads; decode stays within libzstd's
+# default 2^27 window limit.
+LDM_WINDOW_LOG = 25
+LDM_MIN_MATCH = 16
+LDM_HASH_LOG = 24
+LDM_HASH_RATE_LOG = 2
 
 
 class ZstdError(RuntimeError):
@@ -126,6 +143,19 @@ def _load():
             ctypes.c_void_p,
             ctypes.c_size_t,
         ]
+        lib.ZSTD_versionNumber.restype = ctypes.c_uint
+        lib.ZSTD_CCtx_refPrefix.restype = ctypes.c_size_t
+        lib.ZSTD_CCtx_refPrefix.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_size_t,
+        ]
+        lib.ZSTD_DCtx_refPrefix.restype = ctypes.c_size_t
+        lib.ZSTD_DCtx_refPrefix.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_size_t,
+        ]
         _lib = lib
         return lib
 
@@ -156,29 +186,62 @@ def _src_view(data):
 
 
 class ZstdCodec:
-    """One compression + decompression context pair: level 1, hash log
-    13, frame checksums on.
+    """One compression + decompression context pair.
 
     Contexts are not thread-safe, so each thread owns its own
-    ``ZstdCodec`` (:func:`get_codec`) and reuses it across blocks.
+    ``ZstdCodec`` (:func:`get_codec`) and reuses it across blocks
+    (compress.go:281-285).
     """
 
-    def __init__(self):
+    def __init__(
+        self,
+        level: int = DEFAULT_LEVEL,
+        checksum: bool = True,
+        ldm: bool = False,
+    ):
         self._lib = _load()
+        self._level = level
+        self._checksum = checksum
         self._cctx = self._lib.ZSTD_createCCtx()
         self._dctx = self._lib.ZSTD_createDCtx()
         self._accel_cctx = None  # lazy, see compress_adaptive
         if not self._cctx or not self._dctx:
             raise ZstdError("failed to create zstd context")
-        for param, val in (
-            (_ZSTD_c_compressionLevel, DEFAULT_LEVEL),
-            (_ZSTD_c_hashLog, _FAST_HASH_LOG),
-            (_ZSTD_c_checksumFlag, 1),
-        ):
+        _check(
+            self._lib,
+            self._lib.ZSTD_CCtx_setParameter(
+                self._cctx, _ZSTD_c_compressionLevel, level
+            ),
+        )
+        if ldm:
+            # Long-distance matching tuned for coverage-redundant reads
+            # (ops/sldm.py): matches between overlapping reads are short
+            # (>=16 code bytes) and scattered block-wide, outside both
+            # the level-1 search and LDM's 64-byte default min-match.
+            for param, val in (
+                (_ZSTD_c_enableLongDistanceMatching, 1),
+                (_ZSTD_c_windowLog, LDM_WINDOW_LOG),
+                (_ZSTD_c_ldmMinMatch, LDM_MIN_MATCH),
+                (_ZSTD_c_ldmHashLog, LDM_HASH_LOG),
+                (_ZSTD_c_ldmHashRateLog, LDM_HASH_RATE_LOG),
+            ):
+                _check(
+                    self._lib,
+                    self._lib.ZSTD_CCtx_setParameter(self._cctx, param, val),
+                )
+        if level == 1:
             _check(
                 self._lib,
-                self._lib.ZSTD_CCtx_setParameter(self._cctx, param, val),
+                self._lib.ZSTD_CCtx_setParameter(
+                    self._cctx, _ZSTD_c_hashLog, _FAST_HASH_LOG
+                ),
             )
+        _check(
+            self._lib,
+            self._lib.ZSTD_CCtx_setParameter(
+                self._cctx, _ZSTD_c_checksumFlag, 1 if checksum else 0
+            ),
+        )
 
     def __del__(self):
         lib = getattr(self, "_lib", None)
@@ -193,6 +256,24 @@ class ZstdCodec:
         if getattr(self, "_dctx", None):
             lib.ZSTD_freeDCtx(self._dctx)
             self._dctx = None
+
+    def compress(self, data, prefix=None) -> bytes:
+        """Compress bytes-like data into a single zstd frame.
+
+        ``prefix``: bytes-like referenced as an LDM/match window prefix
+        (ZSTD_CCtx_refPrefix, one-shot — it precedes the data in the
+        window without being emitted; decode must pass the same prefix).
+        """
+        if prefix is not None:
+            pk, psrc, pn = _src_view(prefix)
+            _check(
+                self._lib,
+                self._lib.ZSTD_CCtx_refPrefix(self._cctx, psrc, pn),
+            )
+            out = self._compress_ctx(self._cctx, data)
+            del pk
+            return out
+        return self._compress_ctx(self._cctx, data)
 
     def _compress_ctx(self, cctx, data) -> bytes:
         keep, src, nbytes = _src_view(data)
@@ -221,7 +302,7 @@ class ZstdCodec:
         probe = self._compress_ctx(self._cctx, mv[:_PROBE_BYTES])
         if len(probe) < _PROBE_INCOMPRESSIBLE * _PROBE_BYTES:
             return self._compress_ctx(self._cctx, data)
-        if len(mv) <= _STORE_MAX_STREAM:
+        if self._checksum and len(mv) <= _STORE_MAX_STREAM:
             # incompressible stream -> stored raw-block frame at memcpy
             # speed (any standard decoder reads it)
             frame = _store_raw_frame(mv)
@@ -232,10 +313,10 @@ class ZstdCodec:
             if not cctx:
                 raise ZstdError("failed to create zstd context")
             for param, val in (
-                (_ZSTD_c_compressionLevel, DEFAULT_LEVEL),
+                (_ZSTD_c_compressionLevel, self._level),
                 (_ZSTD_c_hashLog, _FAST_HASH_LOG),
                 (_ZSTD_c_targetLength, 1024),
-                (_ZSTD_c_checksumFlag, 1),
+                (_ZSTD_c_checksumFlag, 1 if self._checksum else 0),
             ):
                 _check(
                     self._lib,
@@ -244,26 +325,52 @@ class ZstdCodec:
             self._accel_cctx = cctx
         return self._compress_ctx(self._accel_cctx, data)
 
-    def decompress(self, data) -> bytes:
-        """Decompress a single zstd frame (frame checksum verified)."""
+    def decompress(
+        self, data, expected_size: int | None = None, prefix=None
+    ) -> bytes:
+        """Decompress a single zstd frame (frame checksum verified).
+
+        ``prefix`` must match the prefix the frame was compressed with
+        (ZSTD_DCtx_refPrefix; re-referenced on every attempt — it is
+        one-shot on the context)."""
         keep, src, nbytes = _src_view(data)
         if nbytes == 0:
             return b""
-        size = self._lib.ZSTD_getFrameContentSize(src, nbytes)
-        guessed = size in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR)
-        if guessed:  # no declared content size: grow a guessed buffer
-            size = max(4 * nbytes, 1 << 16)
+        size = expected_size
+        guessed = False
+        if size is None:
+            got = self._lib.ZSTD_getFrameContentSize(src, nbytes)
+            if got in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR):
+                # Fall back to growing buffer via streaming-free retry.
+                size = max(4 * nbytes, 1 << 16)
+                guessed = True
+            else:
+                size = got
+        pk = psrc = pn = None
+        if prefix is not None:
+            pk, psrc, pn = _src_view(prefix)
         while True:
             dst = ctypes.create_string_buffer(max(size, 1))
+            if prefix is not None:
+                _check(
+                    self._lib,
+                    self._lib.ZSTD_DCtx_refPrefix(self._dctx, psrc, pn),
+                )
             code = self._lib.ZSTD_decompressDCtx(
                 self._dctx, dst, size, src, nbytes
             )
             if self._lib.ZSTD_isError(code):
                 name = self._lib.ZSTD_getErrorName(code).decode()
-                # Grow ONLY when the size was a guess and within a sane
-                # cap: corrupt frames can report dstSize_tooSmall forever,
-                # and each retry zeroes a 4x larger buffer — a hang.
-                if "too small" in name.lower() and guessed and size < (1 << 31):
+                # Grow ONLY when the size was a guess (frame without a
+                # declared content size) and within a sane cap: corrupt
+                # frames can report dstSize_tooSmall forever, and each
+                # retry zeroes a 4x larger buffer — an effective hang.
+                if (
+                    "too small" in name.lower()
+                    and expected_size is None
+                    and guessed
+                    and size < (1 << 31)
+                ):
                     size *= 4
                     continue
                 raise ZstdError(name)

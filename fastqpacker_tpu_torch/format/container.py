@@ -1,9 +1,8 @@
 """FQZ container format: file header and per-block headers.
 
-The port's own copy of the header parts of
-``fastqpacker_tpu/format/container.py`` (the v3 dictionary section and
-stream tags come with the v3 slice): the container is what carries between
-the two packages, so this module must stay equivalent to that one.
+The port's own copy of ``fastqpacker_tpu/format/container.py``: the
+container is what carries between the two packages, so this module must
+stay equivalent to that one.
 
 Byte-exact implementation of the FQZ wire format defined by the Go
 reference (``internal/fqformat/container.go``):
@@ -35,11 +34,28 @@ MAGIC = b"FQZ\x00"
 # Format flags (container.go:14-17).
 FLAG_PAIRED_END = 1 << 0  # defined but never set by the compressor
 FLAG_PHRED64 = 1 << 1
-# v3 only (FQZ v3 is not yet ported; the values are reserved here so the
-# port never reuses them): a sequence-dictionary section follows the file
-# header, and strictly lossless mode.
+# v3 only: a sequence-dictionary section follows the file header — block 0's
+# unpacked base codes, shared by every TAG_SLDM stream as an LDM prefix so
+# coverage matches cross block boundaries (ops/sldm.py).
 FLAG_SEQ_DICT = 1 << 2
+# v3 only: strictly lossless mode — the npos slot additionally carries a
+# per-base lowercase bitmask and the verbatim bytes of non-ACGTN symbols,
+# so decode restores the exact input (the reference normalizes lowercase
+# to uppercase and exotic symbols to N by design).
 FLAG_LOSSLESS = 1 << 4
+
+SEQ_DICT_MAX_RAW = 64 << 20  # bound attacker-declared dictionary sizes
+
+# v3 per-stream codec tags (frozen wire values; the pick logic lives in
+# pipeline/native.py)
+TAG_RANS = 0
+TAG_ZSTD = 1
+TAG_TOK = 2  # header token-delta transform (ops/tokenize.py) + zstd
+TAG_QCTX = 3  # order-1/2 context-modeled quality rANS (ops/qualctx.py)
+TAG_SCTX = 4  # order-k context-modeled sequence rANS (ops/seqctx.py)
+TAG_SLDM = 5  # unpacked base codes + long-distance-matching zstd (ops/sldm.py)
+TAG_WCTX = 6  # wide-interleaved context-modeled rANS (the device-mesh
+# entropy coder's format); not decoded by this package yet
 
 VERSION_1 = 1
 VERSION_2 = 2
@@ -94,6 +110,26 @@ def read_file_header(r: BinaryIO) -> FileHeader:
         raise FormatError("truncated file header")
     version, block_size, flags = struct.unpack("<BIB", rest)
     return FileHeader(version=version, block_size=block_size, flags=flags)
+
+
+def write_seq_dict_section(w: BinaryIO, comp: bytes, raw_len: int) -> None:
+    """Sequence-dictionary section (v3, FLAG_SEQ_DICT): u32le raw size,
+    u32le compressed size, then one zstd frame of the dictionary codes."""
+    w.write(struct.pack("<II", raw_len, len(comp)))
+    w.write(comp)
+
+
+def read_seq_dict_section(r: BinaryIO) -> tuple[int, bytes]:
+    head = r.read(8)
+    if len(head) < 8:
+        raise FormatError("truncated sequence dictionary section")
+    raw_len, comp_len = struct.unpack("<II", head)
+    if raw_len > SEQ_DICT_MAX_RAW or comp_len > SEQ_DICT_MAX_RAW:
+        raise FormatError("sequence dictionary too large")
+    comp = r.read(comp_len)
+    if len(comp) < comp_len:
+        raise FormatError("truncated sequence dictionary section")
+    return raw_len, comp
 
 
 @dataclass

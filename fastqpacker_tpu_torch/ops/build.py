@@ -2,7 +2,8 @@
 
 Each source is compiled once, on first use, into a shared library with a
 plain C interface under ``fastqpacker_tpu_torch/_build/`` (listed in
-``.gitignore``) and loaded with ``ctypes``. The library name carries a hash
+``.gitignore``) and loaded with ``ctypes``. :func:`load_all` starts one
+``nvcc`` per source at the same time. The library name carries a hash
 of the source and the flags, so an edited source is never served by a stale
 build. There is no fallback: a missing toolkit or a failed build raises
 with the compiler's output.
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -32,16 +34,32 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C signatures of the exported launchers: every pointer and the stream are
-# void*, every int an int; each returns the launch's cudaError_t.
+# void*, every int an int, every long long a long long; each returns the
+# launch's cudaError_t.
 SIGNATURES = {
     "dense_codec": {
         # seq, qual, lengths, packed, nmask, n_counts, qual_delta,
-        # rows, width, qual_offset, stream
-        "fq_dense_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # rows, width, qual_offset, npos_cap, stream
+        "fq_dense_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # packed, qual_delta, seq, qual, rows, width, qual_offset, stream
         "fq_dense_decode": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "rans_codec": {
+        # data, n, steps, lanes, pad_sym, freq_cum, words, flags, states,
+        # stream
+        "fq_rans_encode": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P],
+        # words, flags, m, tile_counts, tile_offsets, out, total, stream
+        "fq_rans_compact": [_P, _P, _L, _P, _P, _P, _P, _P],
+        # words, total_words, states, slot_tab, steps, lanes, out,
+        # consumed, stream
+        "fq_rans_decode": [_P, _L, _P, _P, _I, _I, _P, _P, _P],
+    },
+    "crc32": {
+        # data, n, chunk, out, stream
+        "fq_crc32_chunks": [_P, _L, _I, _P, _P],
     },
 }
 
@@ -100,6 +118,16 @@ def _compile(name: str) -> BuildInfo:
     return BuildInfo(out, seconds, log)
 
 
+def _register(name: str, info: BuildInfo) -> None:
+    lib = ctypes.CDLL(str(info.path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    builds[name] = info
+    _libs[name] = lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)
@@ -107,12 +135,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            info = _compile(name)
-            lib = ctypes.CDLL(str(info.path))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            builds[name] = info
-            _libs[name] = lib
+            _register(name, _compile(name))
         return _libs[name]
+
+
+def load_all() -> None:
+    """Build every source that is not loaded yet, one ``nvcc`` each, all
+    started together, and load the libraries."""
+    with _lock:
+        missing = [name for name in SIGNATURES if name not in _libs]
+        if not missing:
+            return
+        with ThreadPoolExecutor(max_workers=len(missing)) as pool:
+            infos = list(pool.map(_compile, missing))
+        for name, info in zip(missing, infos):
+            _register(name, info)

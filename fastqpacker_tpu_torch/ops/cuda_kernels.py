@@ -1,11 +1,19 @@
-"""Wrappers of the dense codec's Hopper kernels (``csrc/dense_codec.cu``).
+"""Wrappers of the port's Hopper kernels (``csrc/*.cu``).
 
-``encode_arrays`` replaces ``fastqpacker_tpu/ops/pallas_kernels.py``'s
-``encode_arrays_pallas`` and ``decode_arrays`` its ``decode_arrays_pallas``
-(and the XLA twins in ``fastqpacker_tpu/ops/device.py``). Each checks its
-tensors, allocates the outputs on their device and launches on the current
-CUDA stream. A CPU tensor goes to the plain PyTorch version
-(:mod:`.device`); a CUDA tensor launches the kernel or raises.
+Dense codec (``csrc/dense_codec.cu``): ``encode_arrays`` replaces
+``fastqpacker_tpu/ops/pallas_kernels.py``'s ``encode_arrays_pallas`` and
+``decode_arrays`` its ``decode_arrays_pallas`` (and the XLA twins in
+``fastqpacker_tpu/ops/device.py``). Order-0 rANS (``csrc/rans_codec.cu``):
+``rans_encode``, ``rans_compact`` and ``rans_decode`` replace the XLA
+programs ``_encode_kernel``, ``_compact_global`` and ``_decode_kernel`` of
+``fastqpacker_tpu/ops/rans.py``. CRC32 (``csrc/crc32.cu``):
+``crc32_chunks`` replaces ``_crc_lanes_kernel`` of
+``fastqpacker_tpu/ops/crc32.py`` and the host combine around it.
+
+Each wrapper checks its tensors, allocates the outputs on their device and
+launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
+version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`); a CUDA tensor
+launches the kernel or raises.
 
 ``launches`` counts kernel launches per kernel, so a run can show that its
 main path went through the kernels.
@@ -18,18 +26,56 @@ import threading
 import torch
 
 from . import build
+from . import reference as refops
+from .crc32 import CHUNK as CRC_CHUNK
+from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
+from .rans import rans_compact_plain, rans_decode_plain, rans_encode_plain
 
 ENCODE = "fq_dense_encode"
 DECODE = "fq_dense_decode"
+RANS_ENCODE = "fq_rans_encode"
+RANS_COMPACT = "fq_rans_compact"
+RANS_DECODE = "fq_rans_decode"
+CRC32 = "fq_crc32_chunks"
 
-launches = {ENCODE: 0, DECODE: 0}
-_launch_lock = threading.Lock()  # pipeline workers launch concurrently
+# which library (csrc/<name>.cu) exports each launcher
+_LIBRARY = {
+    fn: lib for lib, fns in build.SIGNATURES.items() for fn in fns
+}
+
+
+class LaunchCounts:
+    """Launches per kernel. Pipeline workers launch from many threads, so
+    every read-modify-write happens under one lock."""
+
+    def __init__(self, names):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(names, 0)
+
+    def bump(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._counts:
+                self._counts[name] = 0
+
+    def __getitem__(self, name: str) -> int:
+        with self._lock:
+            return self._counts[name]
+
+    def as_dict(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+
+launches = LaunchCounts(_LIBRARY)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.reset()
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -60,18 +106,19 @@ def _fit_cols(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch ``name`` on ``device``'s current stream with ``args``
+    (tensors pass as pointers, integers as they are) and count it."""
     for a in args:
         if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
             raise ValueError(f"{name}: tensor storage is not 16-byte aligned")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    lib = build.load("dense_codec")
+    lib = build.load(_LIBRARY[name])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        with _launch_lock:
-            rc = getattr(lib, name)(*ptrs, stream)
-            if rc != 0:
-                raise RuntimeError(f"{name} failed to launch: cudaError_t {rc}")
-            launches[name] += 1
+        rc = getattr(lib, name)(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError_t {rc}")
+    launches.bump(name)
 
 
 def _plain_or_cuda(dev: torch.device) -> bool:
@@ -87,16 +134,20 @@ def encode_arrays(
     qual: torch.Tensor,
     lengths: torch.Tensor,
     qual_offset: int,
+    npos_cap: int = refops.MAX_SEQUENCE_LENGTH,
 ) -> DenseEncoded:
-    """Dense block encode of (R, L) uint8 seq/qual and (R,) int32 lengths."""
+    """Dense block encode of (R, L) uint8 seq/qual and (R,) int32 lengths;
+    N positions are tracked below ``min(length, npos_cap)``."""
     r, l = seq.shape
     dev = seq.device
     _check("seq", seq, torch.uint8, (r, l), dev)
     _check("qual", qual, torch.uint8, (r, l), dev)
     _check("lengths", lengths, torch.int32, (r,), dev)
     _check_offset(qual_offset)
+    if not 0 < npos_cap <= refops.NPOS_CAP_WIDE:
+        raise ValueError(f"npos_cap must be a positive int32, got {npos_cap}")
     if _plain_or_cuda(dev):
-        return encode_arrays_plain(seq, qual, lengths, qual_offset)
+        return encode_arrays_plain(seq, qual, lengths, qual_offset, npos_cap)
     w = -(-l // 16) * 16
     seq_w, qual_w = _fit_cols(seq, w), _fit_cols(qual, w)
     packed = torch.empty((r, w // 4), dtype=torch.uint8, device=dev)
@@ -105,7 +156,7 @@ def encode_arrays(
     delta = torch.empty((r, w), dtype=torch.uint8, device=dev)
     if r:
         _launch(ENCODE, dev, seq_w, qual_w, lengths, packed, nmask, n_counts,
-                delta, r, w, qual_offset)
+                delta, r, w, qual_offset, npos_cap)
     return DenseEncoded(
         packed[:, : -(-l // 4)], nmask[:, : -(-l // 8)], n_counts, delta[:, :l]
     )
@@ -138,3 +189,114 @@ def decode_arrays(
     if r:
         _launch(DECODE, dev, packed_w, delta_w, seq, qual, r, w, qual_offset)
     return seq[:, :l], qual[:, :l]
+
+
+# ---------------------------------------------------------------------------
+# order-0 rANS
+# ---------------------------------------------------------------------------
+
+_SCAN_TILE = 4096  # cells per block of the compaction (csrc/rans_codec.cu)
+
+
+def _check_lanes(lanes: int) -> None:
+    if lanes <= 0 or lanes & (lanes - 1):
+        raise ValueError(f"lanes must be a power of two, got {lanes}")
+
+
+def rans_encode(
+    data: torch.Tensor,
+    steps: int,
+    lanes: int,
+    pad_sym: int,
+    freq_cum: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward lockstep rANS encode of an (n,) uint8 stream laid out as
+    (steps, lanes); see :func:`..ops.rans.rans_encode_plain`."""
+    n = data.numel()
+    dev = data.device
+    _check("data", data, torch.uint8, (n,), dev)
+    _check("freq_cum", freq_cum, torch.int32, (2, 256), dev)
+    _check_lanes(lanes)
+    if not 0 < n <= steps * lanes or n <= (steps - 1) * lanes:
+        raise ValueError(f"{n} bytes do not fill {steps} rows of {lanes} lanes")
+    if not 0 <= pad_sym <= 255:
+        raise ValueError(f"pad_sym must be a byte, got {pad_sym}")
+    if _plain_or_cuda(dev):
+        return rans_encode_plain(data, steps, lanes, pad_sym, freq_cum)
+    m = steps * lanes
+    words = torch.empty((m,), dtype=torch.int16, device=dev)
+    flags = torch.empty((m,), dtype=torch.uint8, device=dev)
+    states = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    _launch(RANS_ENCODE, dev, data, n, steps, lanes, pad_sym, freq_cum,
+            words, flags, states)
+    return words, flags, states
+
+
+def rans_compact(
+    words: torch.Tensor, flags: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flagged words in flat order; see
+    :func:`..ops.rans.rans_compact_plain`."""
+    m = words.numel()
+    dev = words.device
+    _check("words", words, torch.int16, (m,), dev)
+    _check("flags", flags, torch.uint8, (m,), dev)
+    if m == 0:
+        raise ValueError("nothing to compact")
+    if _plain_or_cuda(dev):
+        return rans_compact_plain(words, flags)
+    tiles = -(-m // _SCAN_TILE)
+    tile_counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty((tiles,), dtype=torch.int64, device=dev)
+    out = torch.empty((m,), dtype=torch.int16, device=dev)
+    total = torch.empty((1,), dtype=torch.int64, device=dev)
+    _launch(RANS_COMPACT, dev, words, flags, m, tile_counts, tile_offsets,
+            out, total)
+    return out, total
+
+
+def rans_decode(
+    words: torch.Tensor,
+    states: torch.Tensor,
+    slot_tab: torch.Tensor,
+    steps: int,
+    lanes: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward lockstep rANS decode; see
+    :func:`..ops.rans.rans_decode_plain`."""
+    dev = states.device
+    _check("words", words, torch.int16, (words.numel(),), dev)
+    _check("states", states, torch.int32, (lanes,), dev)
+    _check("slot_tab", slot_tab, torch.int32, (4096,), dev)
+    _check_lanes(lanes)
+    if steps <= 0:
+        raise ValueError(f"steps must be positive, got {steps}")
+    if _plain_or_cuda(dev):
+        return rans_decode_plain(words, states, slot_tab, steps, lanes)
+    if lanes > 16384:
+        raise ValueError(f"the decode kernel holds at most 16384 lanes, got {lanes}")
+    out = torch.empty((steps * lanes,), dtype=torch.uint8, device=dev)
+    consumed = torch.empty((1,), dtype=torch.int64, device=dev)
+    _launch(RANS_DECODE, dev, words, words.numel(), states, slot_tab, steps,
+            lanes, out, consumed)
+    return out, consumed
+
+
+# ---------------------------------------------------------------------------
+# CRC32
+# ---------------------------------------------------------------------------
+
+
+def crc32_chunks(data: torch.Tensor) -> torch.Tensor:
+    """CRC32 of an (n,) uint8 tensor, n >= 1 -> (1,) int32 holding the u32
+    bit pattern; see :func:`..ops.crc32.crc32_chunks_plain`."""
+    n = data.numel()
+    dev = data.device
+    _check("data", data, torch.uint8, (n,), dev)
+    if n == 0:
+        raise ValueError("empty input (its CRC32 is 0 by definition)")
+    if _plain_or_cuda(dev):
+        return crc32_chunks_plain(data)
+    out = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _launch(CRC32, dev, data, n, CRC_CHUNK, out)
+    return out

@@ -14,6 +14,8 @@ kernel wrappers.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +50,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_worker_streams = threading.local()
+
+
+@contextlib.contextmanager
+def worker_stream(dev: torch.device):
+    """Run the body on the calling thread's own CUDA stream of ``dev``
+    (created on first use), so pipeline workers that launch kernels and
+    copies at the same time neither serialise on the default stream nor
+    wait for each other's work. A tensor made inside is used only inside:
+    a copy back to the host waits for this stream. No-op on the CPU."""
+    if dev.type != "cuda":
+        yield
+        return
+    streams = _worker_streams.__dict__.setdefault("streams", {})
+    stream = streams.get(dev)
+    if stream is None:
+        stream = streams[dev] = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        yield
+
+
 def _pack_fields(values: torch.Tensor, per_byte: int) -> torch.Tensor:
     """(R, L) small integers -> (R, ceil(L/per_byte)) bytes, field k of a
     byte at bits [k*bits, (k+1)*bits), LSB-first."""
@@ -67,10 +90,12 @@ def encode_arrays_plain(
     qual: torch.Tensor,
     lengths: torch.Tensor,
     qual_offset: int,
+    npos_cap: int = refops.MAX_SEQUENCE_LENGTH,
 ) -> DenseEncoded:
     """Dense block encode: base codes, 2-bit pack, ambiguity bitmask
-    (length-limited, capped at the u16 tracking bound), per-record N
-    counts and byte-wrapping quality deltas."""
+    (length-limited, capped at ``npos_cap``: the u16 tracking bound of
+    v1/v2, none for v3), per-record N counts and byte-wrapping quality
+    deltas."""
     l = seq.shape[1]
     col = torch.arange(l, device=seq.device, dtype=torch.int32)[None, :]
     upper = seq & 0xDF
@@ -80,7 +105,7 @@ def encode_arrays_plain(
     nmask = (
         ~valid
         & (col < lengths[:, None])
-        & (col < refops.MAX_SEQUENCE_LENGTH)
+        & (col < npos_cap)
     )
     qn = qual - qual_offset  # uint8 arithmetic wraps mod 256
     prev = torch.zeros_like(qn)
@@ -118,8 +143,14 @@ def decode_arrays_plain(
 # ---------------------------------------------------------------------------
 
 
-def _to(dev: torch.device, a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+def to_device(dev: torch.device, a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor on ``dev``. torch takes no read-only
+    memory (a view of a ``bytes`` stream), so such an array is copied on
+    the host first."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(dev)
 
 
 def encode_block_arrays(
@@ -128,14 +159,15 @@ def encode_block_arrays(
     lengths: np.ndarray,
     qual_offset: int,
     device=None,
+    npos_cap: int = refops.MAX_SEQUENCE_LENGTH,
 ) -> refops.EncodedArrays:
     """Host arrays in, host arrays out, the encode on ``device``."""
     from . import cuda_kernels
 
     dev = resolve_device(device)
     enc = cuda_kernels.encode_arrays(
-        _to(dev, seq), _to(dev, qual), _to(dev, lengths.astype(np.int32)),
-        qual_offset,
+        to_device(dev, seq), to_device(dev, qual), to_device(dev, lengths.astype(np.int32)),
+        qual_offset, npos_cap,
     )
     return refops.EncodedArrays(*(x.cpu().numpy() for x in enc))
 
@@ -153,7 +185,7 @@ def decode_block_arrays(
 
     dev = resolve_device(device)
     seq, qual = cuda_kernels.decode_arrays(
-        _to(dev, packed), _to(dev, qual_delta),
-        _to(dev, lengths.astype(np.int32)), qual_offset,
+        to_device(dev, packed), to_device(dev, qual_delta),
+        to_device(dev, lengths.astype(np.int32)), qual_offset,
     )
     return seq.cpu().numpy(), qual.cpu().numpy()

@@ -1,0 +1,498 @@
+"""Order-1 context-modeled quality coder (FQZ v3 ``TAG_QCTX``).
+
+The reference entropy-codes delta-transformed qualities with zstd
+(quality.go:81-118 + compress.go:523-528) — an order-0 treatment. Real
+quality strings have strong order-1 structure (the next value clusters
+around the previous one, and error rates drift along the read), which a
+static per-block context model captures while staying block-parallel:
+this is the ROADMAP path toward FQSqueezer-class ratios.
+
+Model (two-pass, static tables — no adaptive state, so blocks remain
+independently decodable and the coder parallelizes):
+
+- Symbols are the *integrated* quality values (the v3 qual stream is
+  per-record delta-coded; the codec integrates on the fly).
+- Context of symbol at in-record position ``p``:
+  ``ctx = min(p >> 4, 7) * 48 + qbin`` where ``qbin = min(prev, 46)``
+  for ``p > 0`` and the record-start sentinel ``47`` otherwise —
+  384 contexts.
+- Per-context histograms are normalized to 12-bit rANS tables with the
+  same largest-remainder algorithm as the order-0 coder
+  (:func:`..ops.rans.normalize_freqs`), serialized sparsely (symbol, freq
+  pairs) and zstd-compressed.
+- The symbol walk is split into :data:`NUM_CHUNKS` record-aligned,
+  size-balanced chunks, each coded by an independent 32-bit rANS state
+  (16-bit renorm words, backward encode / forward decode) — the
+  intra-block parallelism knob for both host threads and ILP.
+
+The port's copy of the numpy/Python reference paths of
+``fastqpacker_tpu/ops/qualctx.py``. It is a host coder by wire format (4
+chunks x 4 sequential states), not a device program; the per-symbol Python
+walks are slow (seconds per block) and stand until the host stages get
+native code. Every size estimate keeps that module's float arithmetic, so
+the picks are the same.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from . import rans
+
+NUM_QBINS = 48  # prev-quality bins; 47 doubles as the record-start sentinel
+NUM_PBUCKETS = 8
+NUM_Q2B = 8  # prev2 buckets (model 1): min(prev2,46)>>3 in 0-5, sentinel 7
+NUM_CTX = NUM_PBUCKETS * NUM_QBINS  # 384 (model 0)
+NUM_CTX2 = NUM_CTX * NUM_Q2B  # 3072 (model 1); ctx0 = ctx1 // NUM_Q2B
+MODELS = (0, 1)  # order-1 and order-2 context models
+NUM_CHUNKS = 4
+NUM_STATES = 4  # interleaved rANS states per chunk (breaks the serial
+# x-update dependency chain; symbol t of a chunk belongs to state t%4)
+PROB_BITS = rans.PROB_BITS
+PROB_SCALE = rans.PROB_SCALE
+RANS_L = rans.RANS_L
+
+
+class QctxError(ValueError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# Shared vectorized prep (used by both reference and native wrappers)
+# ---------------------------------------------------------------------------
+
+
+def integrate(delta: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Per-record integration of the delta stream (mod 256), vectorized:
+    raw[j] = cumsum(delta)[j] - cumsum(delta)[record_start - 1]."""
+    if len(delta) == 0:
+        return delta.astype(np.uint8)
+    csum = np.cumsum(delta.astype(np.int64))
+    starts = np.zeros(len(lengths), dtype=np.int64)
+    np.cumsum(lengths[:-1].astype(np.int64), out=starts[1:])
+    base = np.zeros(len(delta), dtype=np.int64)
+    nz = lengths > 0
+    base[starts[nz]] = 1  # record-start marker
+    seg = np.cumsum(base) - 1  # record id per symbol
+    start_csum = np.concatenate(([0], csum))[starts[nz]]
+    return ((csum - start_csum[seg]) % 256).astype(np.uint8)
+
+
+def contexts(
+    raw: np.ndarray, lengths: np.ndarray, model: int = 0
+) -> np.ndarray:
+    """Per-symbol context ids (vectorized); ``model`` 0 = order-1,
+    1 = order-2 (adds the bucketed second-previous value)."""
+    n = len(raw)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+    lengths = lengths.astype(np.int64)
+    starts = np.zeros(len(lengths), dtype=np.int64)
+    np.cumsum(lengths[:-1], out=starts[1:])
+    pos = np.arange(n, dtype=np.int64)
+    base = np.zeros(n, dtype=np.int64)
+    nz = lengths > 0
+    base[starts[nz]] = 1
+    seg = np.cumsum(base) - 1
+    p = pos - starts[nz][seg]  # in-record position
+    qbin = np.empty(n, dtype=np.int64)
+    qbin[0:] = NUM_QBINS - 1  # sentinel
+    prev_mask = p > 0
+    qbin[prev_mask] = np.minimum(raw[np.flatnonzero(prev_mask) - 1], 46)
+    pbucket = np.minimum(p >> 4, NUM_PBUCKETS - 1)
+    ctx = pbucket * NUM_QBINS + qbin
+    if model == 0:
+        return ctx.astype(np.int32)
+    q2b = np.full(n, NUM_Q2B - 1, dtype=np.int64)  # sentinel at p < 2
+    m2 = p > 1
+    q2b[m2] = np.minimum(raw[np.flatnonzero(m2) - 2], 46) >> 3
+    return (ctx * NUM_Q2B + q2b).astype(np.int32)
+
+
+def chunk_bounds(lengths: np.ndarray, num_chunks: int = NUM_CHUNKS):
+    """Record-aligned chunk boundaries balanced by symbol count.
+
+    Returns (record_bounds, symbol_bounds), each of len num_chunks+1.
+    Deterministic integer arithmetic — the C++ decoder recomputes this.
+    """
+    lengths = lengths.astype(np.int64)
+    csum = np.cumsum(lengths)
+    total = int(csum[-1]) if len(csum) else 0
+    rb = [0]
+    for k in range(1, num_chunks):
+        target = total * k // num_chunks
+        b = int(np.searchsorted(csum, target, side="left")) + 1 if total else 0
+        # boundary after the record containing symbol `target`; clamp
+        b = min(max(b, rb[-1]), len(lengths))
+        rb.append(b)
+    rb.append(len(lengths))
+    sb = [0 if b == 0 else int(csum[b - 1]) for b in rb]
+    return rb, sb
+
+
+def histogram(
+    raw: np.ndarray, ctx: np.ndarray, num_ctx: int = NUM_CTX2
+) -> np.ndarray:
+    """(num_ctx, 256) int64 symbol histogram."""
+    flat = ctx.astype(np.int64) * 256 + raw.astype(np.int64)
+    h = np.bincount(flat, minlength=num_ctx * 256)
+    return h.reshape(num_ctx, 256)
+
+
+def hist_for_model(hist2: np.ndarray, model: int) -> np.ndarray:
+    """The model's histogram from the max-model (order-2) histogram:
+    ctx0 = ctx1 // NUM_Q2B, so model 0 is a marginalization."""
+    if model == 1:
+        return hist2
+    return hist2.reshape(NUM_CTX, NUM_Q2B, 256).sum(axis=1)
+
+
+def normalize_tables(hist: np.ndarray) -> np.ndarray:
+    """Per-context 12-bit frequency tables (same shape as ``hist``,
+    uint16; all zeros for unused contexts)."""
+    freq = np.zeros(hist.shape, dtype=np.uint16)
+    used = hist.sum(axis=1) > 0
+    for c in np.flatnonzero(used):
+        freq[c] = rans.normalize_freqs(hist[c].copy())
+    return freq
+
+
+def estimate_size(hist: np.ndarray, freq: np.ndarray | None = None) -> int:
+    """Exact coded-bits estimate + table/state overhead (pre-encode).
+
+    ``hist`` is the model's own histogram (384 or 3072 contexts).
+    """
+    if freq is None:
+        freq = normalize_tables(hist)
+    nz = hist > 0
+    f = freq.astype(np.float64)
+    bits = float(
+        np.sum(hist[nz] * (PROB_BITS - np.log2(np.maximum(f[nz], 1))))
+    )
+    table_syms = int(nz.sum())
+    # serialized tables compress well; approximate post-zstd at 60%
+    table_bytes = int((hist.shape[0] * 2 + table_syms * 3) * 0.6)
+    overhead = 8 + 4 + table_bytes + NUM_CHUNKS * (4 * NUM_STATES + 4)
+    return int(bits / 8) + overhead
+
+
+def sample_estimate(
+    delta: np.ndarray, lengths: np.ndarray, max_syms: int = 1 << 17
+) -> int | None:
+    """Optimistic projected qctx size from a record-aligned prefix —
+    the pre-gate twin of seqctx.sample_estimate: the full model
+    histogram costs a pass over the whole stream; on quality data with
+    no order-1/2 structure that pass is waste. The probe must itself be
+    cheap (~1-2 ms: it runs on every large quality stream, win or
+    lose), so it projects from the MODEL-0 contexts of a 128k-symbol
+    prefix only — model 1 refines model 0, so an extra 7% optimism
+    factor stands in for its possible edge plus sampling under-count.
+    Optimistic is the safe direction for a skip-gate. Returns None when
+    the stream is within 2x of the sample budget (just run the real
+    estimate)."""
+    lengths = lengths.astype(np.int64)
+    total = int(lengths.sum())
+    if total <= 2 * max_syms:
+        return None
+    csum = np.cumsum(lengths)
+    nrec_s = max(1, int(np.searchsorted(csum, max_syms, side="right")))
+    lens_s = lengths[:nrec_s]
+    nb = int(lens_s.sum())
+    if nb == 0:
+        return None
+    raw_s = integrate(
+        np.ascontiguousarray(delta[:nb]).astype(np.uint8), lens_s
+    )
+    ctx0 = contexts(raw_s, lens_s, model=0)
+    hist = histogram(raw_s, ctx0, num_ctx=NUM_CTX)
+    nz = hist > 0
+    freq = normalize_tables(hist)
+    f = freq.astype(np.float64)
+    bits = float(
+        np.sum(hist[nz] * (PROB_BITS - np.log2(np.maximum(f[nz], 1))))
+    )
+    table_syms = int(nz.sum())
+    table_bytes = int((NUM_CTX * 2 + table_syms * 3) * 0.6)
+    return int(bits / nb * total / 8 * 0.93) + 12 + table_bytes
+
+
+def pick_model(hist2: np.ndarray) -> tuple[int, int]:
+    """-> (model, estimated size): the order with the smaller estimate
+    (payload bits + its own table overhead), from one max-model
+    histogram."""
+    best, best_sz = 0, None
+    for m in MODELS:
+        sz = estimate_size(hist_for_model(hist2, m))
+        if best_sz is None or sz < best_sz:
+            best, best_sz = m, sz
+    return best, best_sz
+
+
+# ---------------------------------------------------------------------------
+# Table (de)serialization
+# ---------------------------------------------------------------------------
+
+
+def serialize_tables(freq: np.ndarray) -> bytes:
+    """Sparse per-context table blob: u16 nsyms, then (u8 sym, u16 freq)*."""
+    out = bytearray()
+    for c in range(freq.shape[0]):
+        syms = np.flatnonzero(freq[c])
+        out += struct.pack("<H", len(syms))
+        for s in syms:
+            out += struct.pack("<BH", int(s), int(freq[c, s]))
+    return bytes(out)
+
+
+def deserialize_tables(blob: bytes, num_ctx: int = NUM_CTX) -> np.ndarray:
+    freq = np.zeros((num_ctx, 256), dtype=np.uint16)
+    off = 0
+    view = memoryview(blob)
+    for c in range(num_ctx):
+        if off + 2 > len(blob):
+            raise QctxError("truncated qctx table blob")
+        (nsyms,) = struct.unpack_from("<H", view, off)
+        off += 2
+        if nsyms > 256 or off + 3 * nsyms > len(blob):
+            raise QctxError("truncated qctx table blob")
+        for _ in range(nsyms):
+            s, f = struct.unpack_from("<BH", view, off)
+            off += 3
+            freq[c, s] = f
+        if nsyms and int(freq[c].astype(np.int64).sum()) != PROB_SCALE:
+            raise QctxError("invalid qctx frequency table")
+    if off != len(blob):
+        raise QctxError("trailing qctx table bytes")
+    return freq
+
+
+# ---------------------------------------------------------------------------
+# rANS walks (per-symbol Python loops)
+# ---------------------------------------------------------------------------
+
+
+def _encode_chunk(
+    raw: np.ndarray, ctx: np.ndarray, lo: int, hi: int,
+    freq: np.ndarray, cum: np.ndarray,
+) -> tuple[list[int], np.ndarray]:
+    """Backward-encode symbols [lo, hi) over NUM_STATES interleaved
+    states (symbol at chunk-local index t belongs to state t % 4);
+    returns (final_states, words in forward consumption order)."""
+    xs = [RANS_L] * NUM_STATES
+    words = []
+    for j in range(hi - 1, lo - 1, -1):
+        si = (j - lo) & (NUM_STATES - 1)
+        x = xs[si]
+        c = int(ctx[j])
+        s = int(raw[j])
+        f = int(freq[c, s])
+        cm = int(cum[c, s])
+        if x >= (f << 20):
+            words.append(x & 0xFFFF)
+            x >>= 16
+        xs[si] = ((x // f) << PROB_BITS) + (x % f) + cm
+    return xs, np.array(words[::-1], dtype=np.uint16)
+
+
+def _decode_chunk(
+    out_raw: np.ndarray, lengths: np.ndarray, rec_lo: int, rec_hi: int,
+    sym_lo: int, state, words: np.ndarray,
+    freq: np.ndarray, cum: np.ndarray, slot_sym: np.ndarray,
+    model: int = 0,
+) -> None:
+    """Forward-decode records [rec_lo, rec_hi) into out_raw[sym_lo:]."""
+    # Python ints: numpy scalars would turn the slot compares into
+    # np.bool_ (whose + is logical OR in numpy 2) and wrap at 32 bits
+    xs = [int(v) for v in state]
+    wi = 0
+    j = sym_lo
+    for r in range(rec_lo, rec_hi):
+        prev = 0
+        prev2 = 0
+        for p in range(int(lengths[r])):
+            si = (j - sym_lo) & (NUM_STATES - 1)
+            x = xs[si]
+            if p == 0:
+                qbin = NUM_QBINS - 1
+            else:
+                qbin = min(prev, 46)
+            c = min(p >> 4, NUM_PBUCKETS - 1) * NUM_QBINS + qbin
+            if model == 1:
+                q2b = NUM_Q2B - 1 if p < 2 else min(prev2, 46) >> 3
+                c = c * NUM_Q2B + q2b
+            slot = x & (PROB_SCALE - 1)
+            s = int(slot_sym[c, slot])
+            f = int(freq[c, s])
+            cm = int(cum[c, s])
+            x = f * (x >> PROB_BITS) + slot - cm
+            if x < RANS_L:
+                if wi >= len(words):
+                    raise QctxError("truncated qctx words")
+                x = (x << 16) | int(words[wi])
+                wi += 1
+            xs[si] = x
+            out_raw[j] = s
+            prev2 = prev
+            prev = s
+            j += 1
+
+
+def _slot_syms(freq: np.ndarray) -> np.ndarray:
+    """(num_ctx, PROB_SCALE) slot -> symbol tables."""
+    out = np.zeros((freq.shape[0], PROB_SCALE), dtype=np.uint8)
+    for c in range(freq.shape[0]):
+        f = freq[c].astype(np.int64)
+        if f.sum():
+            out[c] = np.repeat(np.arange(256, dtype=np.uint8), f)
+    return out
+
+
+def prepare(
+    delta: np.ndarray, lengths: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """-> (raw symbols, (NUM_CTX2, 256) max-model histogram). Both
+    models' tables derive from this one histogram
+    (:func:`hist_for_model`)."""
+    if int(lengths.sum()) != len(delta):
+        raise QctxError("qual stream length does not match record lengths")
+    raw = integrate(delta, lengths)
+    return raw, histogram(raw, contexts(raw, lengths, model=1))
+
+
+def _assemble_payload(total, blob, states, word_runs, model) -> bytes:
+    out = bytearray()
+    out += struct.pack("<IBB2x", total, NUM_CHUNKS, model)
+    out += struct.pack("<I", len(blob))
+    out += blob
+    for xs, words in zip(states, word_runs):
+        xs = np.asarray(xs).reshape(NUM_STATES)
+        out += xs.astype("<u4").tobytes()
+        out += struct.pack("<I", len(words))
+    for words in word_runs:
+        out += np.asarray(words).astype("<u2").tobytes()
+    return bytes(out)
+
+
+def encode_prepared(
+    raw: np.ndarray,
+    lengths: np.ndarray,
+    hist2: np.ndarray,
+) -> bytes:
+    """Encode from a :func:`prepare` result (lets callers reuse the
+    histogram they computed for the size estimate); picks the context
+    model with the smaller estimated size."""
+    model, _ = pick_model(hist2)
+    hist = hist_for_model(hist2, model)
+    freq = normalize_tables(hist)
+    cum = np.zeros_like(freq, dtype=np.uint32)
+    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
+    ctx = contexts(raw, lengths, model)
+    _, sb = chunk_bounds(lengths)
+    states, word_runs = [], []
+    for k in range(NUM_CHUNKS):
+        x, words = _encode_chunk(raw, ctx, sb[k], sb[k + 1], freq, cum)
+        states.append(x)
+        word_runs.append(words)
+
+    from ..entropy import zstd as zstd_entropy
+
+    blob = zstd_entropy.get_codec().compress(serialize_tables(freq))
+    return _assemble_payload(len(raw), blob, states, word_runs, model)
+
+
+def encode(delta: bytes | np.ndarray, lengths: np.ndarray) -> bytes:
+    """delta qual stream + record lengths -> qctx payload."""
+    d = (
+        np.frombuffer(delta, np.uint8)
+        if isinstance(delta, (bytes, bytearray))
+        else delta
+    )
+    lengths = np.asarray(lengths, dtype=np.int64)
+    raw, hist = prepare(d, lengths)
+    return encode_prepared(raw, lengths, hist)
+
+
+def decode(payload: bytes, lengths: np.ndarray) -> bytes:
+    """qctx payload + record lengths -> delta qual stream."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    buf = memoryview(payload)
+    if len(buf) < 12:
+        raise QctxError("truncated qctx stream")
+    total, nchunks, model = struct.unpack_from("<IBB2x", buf, 0)
+    (blob_size,) = struct.unpack_from("<I", buf, 8)
+    off = 12
+    if int(lengths.sum()) != total:
+        raise QctxError("qctx total does not match record lengths")
+    if (
+        nchunks != NUM_CHUNKS
+        or model not in MODELS
+        or len(buf) < off + blob_size
+    ):
+        raise QctxError("truncated qctx stream")
+
+    from ..entropy import zstd as zstd_entropy
+
+    try:
+        blob = zstd_entropy.get_codec().decompress(
+            bytes(buf[off : off + blob_size])
+        )
+    except zstd_entropy.ZstdError as e:
+        raise QctxError(f"corrupt qctx table blob: {e}") from None
+    freq = deserialize_tables(blob, NUM_CTX2 if model == 1 else NUM_CTX)
+    off += blob_size
+
+    states = []
+    counts = []
+    step = 4 * NUM_STATES + 4
+    for _ in range(nchunks):
+        if len(buf) < off + step:
+            raise QctxError("truncated qctx stream")
+        xs = np.frombuffer(
+            buf[off : off + 4 * NUM_STATES], "<u4"
+        ).astype(np.uint32)
+        (nw,) = struct.unpack_from("<I", buf, off + 4 * NUM_STATES)
+        states.append(xs)
+        counts.append(nw)
+        off += step
+    total_words = sum(counts)
+    if len(buf) < off + 2 * total_words:
+        raise QctxError("truncated qctx words")
+
+    word_runs = []
+    for nw in counts:
+        word_runs.append(
+            np.frombuffer(buf[off : off + 2 * nw], dtype="<u2").astype(
+                np.uint16
+            )
+        )
+        off += 2 * nw
+    cum = np.zeros_like(freq, dtype=np.uint32)
+    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
+    slot_sym = _slot_syms(freq)
+    rb, sb = chunk_bounds(lengths)
+    raw = np.zeros(total, dtype=np.uint8)
+    for k in range(NUM_CHUNKS):
+        _decode_chunk(
+            raw, lengths, rb[k], rb[k + 1], sb[k], states[k],
+            word_runs[k], freq, cum, slot_sym, model,
+        )
+    return deintegrate(raw, lengths)
+
+
+def deintegrate(raw: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Inverse of :func:`integrate` (vectorized)."""
+    n = len(raw)
+    if n == 0:
+        return b""
+    lengths = lengths.astype(np.int64)
+    starts = np.zeros(len(lengths), dtype=np.int64)
+    np.cumsum(lengths[:-1], out=starts[1:])
+    delta = np.empty(n, dtype=np.int64)
+    r64 = raw.astype(np.int64)
+    delta[0] = r64[0]
+    delta[1:] = r64[1:] - r64[:-1]
+    nz = lengths > 0
+    delta[starts[nz]] = r64[starts[nz]]
+    return (delta % 256).astype(np.uint8).tobytes()

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 
 MAX_SEQUENCE_LENGTH = 1 << 16  # 65536 (sequence.go:11)
+# FQZ v3 tracks N positions as u32: no cap short of a row's width (an int32)
+NPOS_CAP_WIDE = (1 << 31) - 1
 
 PHRED33_OFFSET = 33
 PHRED64_OFFSET = 64
@@ -37,6 +39,19 @@ class EncodedArrays:
     nmask_bits: np.ndarray  # (R, ceil(L/8)) uint8, little-endian bitmask of non-ACGT
     n_counts: np.ndarray  # (R,) int32 count of non-ACGT positions (capped at 65536)
     qual_delta: np.ndarray  # (R, L) uint8 normalized+delta quality
+
+
+def ambiguity_mask(
+    seq: np.ndarray, lengths: np.ndarray, npos_cap: int = MAX_SEQUENCE_LENGTH
+) -> np.ndarray:
+    """True where the byte is not ACGT/acgt, within the record length and
+    below the tracking cap (sequence.go:89-96; v3 passes
+    :data:`NPOS_CAP_WIDE`)."""
+    upper = seq & 0xDF
+    valid = (upper == _A) | (upper == _C) | (upper == _G) | (upper == _T)
+    col = np.arange(seq.shape[1], dtype=np.int64)[None, :]
+    in_range = col < lengths[:, None].astype(np.int64)
+    return (~valid) & in_range & (col < npos_cap)
 
 
 def detect_offset_from_min(m: int) -> int:

@@ -4,12 +4,14 @@ The port's copy of the option surface of ``fastqpacker_tpu/pipeline/api.py``
 (the reference pipeline shape, internal/compress/compress.go:125-288):
 quality encoding is detected from a fixed leading window and recorded as
 a file-wide flag, then blocks are encoded independently and written in
-input order. The pipelines themselves are in :mod:`.device`.
+input order. The pipelines themselves are in :mod:`.device` (v1/v2) and
+:mod:`.native` (v3).
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from ..format import container
@@ -63,14 +65,24 @@ def resolve_block_size(opts: "Options") -> int:
 class Options:
     """Compression options (compress.go:74-77).
 
-    ``block_size=0`` means auto (:func:`resolve_block_size`). The JAX
-    package's v3-only options (``order1_qual``, ``lossless``) and extra
-    header ``flags`` (for paired input) come with the slices that use
-    them."""
+    ``block_size=0`` means auto (:func:`resolve_block_size`): the
+    cache-tuned :data:`SPEED_BLOCK_SIZE` for v1/v2, the reference's
+    :data:`DEFAULT_BLOCK_SIZE` for v3."""
 
     block_size: int = 0
     workers: int = 0  # 0 -> os.cpu_count()
     version: int = container.CURRENT_VERSION
+    # Extra file-header flags OR'd with the detected ones (e.g.
+    # FLAG_PAIRED_END for interleaved mate input).
+    flags: int = 0
+    # v3 only: allow the context-modeled quality coder (ops/qualctx.py)
+    # on estimated size alone and code zstd streams at level 9. Slower
+    # compress, better ratio (CLI: --max-ratio).
+    order1_qual: bool = False
+    # v3 only: strictly lossless mode (CLI --lossless): preserve
+    # lowercase bases and exotic symbols verbatim instead of the
+    # reference's normalization (acgt -> ACGT, non-ACGTN -> N).
+    lossless: bool = False
 
 
 @dataclass
@@ -81,3 +93,24 @@ class DecompressOptions:
 def _resolve_workers(workers: int) -> int:
     """Explicit count wins; default is NumCPU (compress.go:132-134)."""
     return workers if workers > 0 else (os.cpu_count() or 1)
+
+
+def ordered_map_write(w, jobs, fn, workers: int) -> None:
+    """Run ``fn`` over ``jobs`` on a bounded thread pool and write the
+    results to ``w`` in input order — the collector of the v3 pipeline
+    (the reference's buffered channels + seqNum collector,
+    compress.go:241-242,365-403). ``workers <= 1`` runs inline with no
+    pool."""
+    if workers <= 1:
+        for job in jobs:
+            w.write(fn(job))
+        return
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        pending = []
+        max_inflight = workers * 2
+        for job in jobs:
+            pending.append(pool.submit(fn, job))
+            while len(pending) >= max_inflight:
+                w.write(pending.pop(0).result())
+        for fut in pending:
+            w.write(fut.result())

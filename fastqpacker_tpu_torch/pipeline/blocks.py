@@ -1,4 +1,4 @@
-"""Block-level encode/decode: dense arrays <-> FQZ v1/v2 wire streams.
+"""Block-level encode/decode: dense arrays <-> FQZ wire streams.
 
 The numpy paths of ``fastqpacker_tpu/pipeline/blocks.py``. The irregular
 parts of the format (variable-length stream concatenation, u16 N-position
@@ -15,6 +15,8 @@ Stream encodings (compress.go:490-519):
   plus    = u16le length + bytes per record ('+' stripped)
   npos    = u16le count + u16le positions per record
   lengths = u32le sequence length per record
+FQZ v3 widens the npos stream to u32 counts and positions (``wide_npos``):
+no 65,536 bp tracking cap and no overflow fail-fast.
 """
 
 from __future__ import annotations
@@ -65,18 +67,20 @@ def _exclusive_cumsum(x: np.ndarray) -> np.ndarray:
 
 
 def build_npos_stream(
-    nmask_bits: np.ndarray, n_counts: np.ndarray, max_len: int
+    nmask_bits: np.ndarray, n_counts: np.ndarray, max_len: int,
+    wide: bool = False,
 ) -> bytes:
     """N-position stream: u16 count + u16 positions per record
-    (compress.go:495-498)."""
+    (compress.go:495-498); u32 both with ``wide`` (v3)."""
+    dtype = "<u4" if wide else "<u2"
     r = len(n_counts)
     counts = n_counts.astype(np.int64)
     total = r + int(counts.sum())
-    out = np.zeros(total, dtype="<u2")
+    out = np.zeros(total, dtype=dtype)
     if r == 0:
         return out.tobytes()
     count_pos = np.arange(r, dtype=np.int64) + _exclusive_cumsum(counts)
-    out[count_pos] = counts.astype("<u2")
+    out[count_pos] = counts.astype(dtype)
     nz = np.flatnonzero(counts > 0)
     if len(nz):
         bits = np.unpackbits(
@@ -87,27 +91,33 @@ def build_npos_stream(
         first = _exclusive_cumsum(per_row)
         rank = np.arange(len(rows), dtype=np.int64) - np.repeat(first, per_row)
         dst = count_pos[nz][rows] + 1 + rank
-        out[dst] = cols.astype("<u2")
+        out[dst] = cols.astype(dtype)
     return out.tobytes()
 
 
 def parse_npos_stream(
-    data: np.ndarray, count: int
+    data: np.ndarray, count: int, wide: bool = False
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Parse npos stream -> (counts, flat_rows, flat_positions).
 
     Fast path: no N anywhere (stream is exactly `count` zero u16s).
-    Otherwise a sequential walk (compress.go:1055-1078).
+    Otherwise a sequential walk (compress.go:1055-1078). ``wide`` parses
+    the v3 u32 layout, where trailing bytes after the last record are
+    tolerated: FLAG_LOSSLESS appends its side data to this slot, and the
+    parse is self-delimiting.
     """
-    if len(data) % 2 != 0:
-        raise container.FormatError("truncated N position data")
-    u16 = data.view("<u2")
-    if len(u16) < count:
-        raise container.FormatError("truncated N position data")
-    if len(u16) == count:
-        counts = u16.astype(np.int64)
-        if counts.sum() == 0:
-            return counts, np.empty(0, np.int64), np.empty(0, np.int64)
+    if wide:
+        u16 = data[: len(data) - len(data) % 4].view("<u4")
+    else:
+        if len(data) % 2 != 0:
+            raise container.FormatError("truncated N position data")
+        u16 = data.view("<u2")
+        if len(u16) < count:
+            raise container.FormatError("truncated N position data")
+        if len(u16) == count:
+            counts = u16.astype(np.int64)
+            if counts.sum() == 0:
+                return counts, np.empty(0, np.int64), np.empty(0, np.int64)
     counts = np.zeros(count, dtype=np.int64)
     rows_list = []
     pos_list = []
@@ -166,7 +176,7 @@ EncodeArraysFn = Callable[..., refops.EncodedArrays]
 
 
 def encoded_to_raw_streams(
-    block: RecordBlock, enc: refops.EncodedArrays
+    block: RecordBlock, enc: refops.EncodedArrays, wide_npos: bool = False
 ) -> RawStreams:
     """Host stream assembly from one block's dense encode outputs; rows
     past ``block.n`` (shape-bucket padding) are ignored."""
@@ -179,7 +189,8 @@ def encoded_to_raw_streams(
         headers=block.header_stream(),
         plus=block.plus_stream(),
         npos=build_npos_stream(
-            enc.nmask_bits[:n], enc.n_counts[:n], qual_delta.shape[1]
+            enc.nmask_bits[:n], enc.n_counts[:n], qual_delta.shape[1],
+            wide=wide_npos,
         ),
         lengths=lengths.astype("<u4").tobytes(),
         num_records=n,
@@ -189,13 +200,25 @@ def encoded_to_raw_streams(
 
 
 def block_to_raw_streams(
-    block: RecordBlock, qual_offset: int, encode_arrays: EncodeArraysFn
+    block: RecordBlock,
+    qual_offset: int,
+    encode_arrays: EncodeArraysFn,
+    wide_npos: bool = False,
 ) -> RawStreams:
     """Dense transforms (``encode_arrays``, numpy in and out) + host
-    stream assembly for one block."""
-    refops.check_ambiguous_overflow(block.seq, block.lengths.astype(np.int64))
-    enc = encode_arrays(block.seq, block.qual, block.lengths, qual_offset)
-    return encoded_to_raw_streams(block, enc)
+    stream assembly for one block. ``wide_npos`` selects the v3 u32
+    N-position layout and lifts the tracking cap."""
+    if wide_npos:
+        enc = encode_arrays(
+            block.seq, block.qual, block.lengths, qual_offset,
+            npos_cap=refops.NPOS_CAP_WIDE,
+        )
+    else:
+        refops.check_ambiguous_overflow(
+            block.seq, block.lengths.astype(np.int64)
+        )
+        enc = encode_arrays(block.seq, block.qual, block.lengths, qual_offset)
+    return encoded_to_raw_streams(block, enc, wide_npos)
 
 
 def compress_raw_streams(
@@ -279,7 +302,10 @@ def decode_streams(
 
 
 def streams_to_fastq(
-    ds: DecodedStreams, qual_offset: int, decode_arrays: DecodeArraysFn
+    ds: DecodedStreams,
+    qual_offset: int,
+    decode_arrays: DecodeArraysFn,
+    wide_npos: bool = False,
 ) -> bytes:
     """Reconstruct the block's FASTQ text (compress.go:944-1078); the
     dense decode is ``decode_arrays`` (numpy in and out)."""
@@ -294,7 +320,7 @@ def streams_to_fastq(
     if int(lengths.sum()) > len(ds.qual):
         raise container.FormatError("truncated quality data")
 
-    n_counts, n_rows, n_pos = parse_npos_stream(ds.npos, r)
+    n_counts, n_rows, n_pos = parse_npos_stream(ds.npos, r, wide=wide_npos)
 
     max_len = int(lengths.max()) if r else 0
     packed = varlen.gather_rows(

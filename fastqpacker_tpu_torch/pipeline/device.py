@@ -1,6 +1,7 @@
-"""Device pipeline: FQZ v1/v2 compress and decompress on a torch device.
+"""Device pipeline: FQZ compress and decompress on a torch device.
 
-The port of ``fastqpacker_tpu/pipeline/device.py``. Compress: the main
+The port of ``fastqpacker_tpu/pipeline/device.py``. FQZ v3 routes to
+:mod:`.native`; the rest of this module is the v1/v2 path. Compress: the main
 thread parses a block, stages it padded in page-locked host memory, and
 enqueues the host-to-device copy, the dense encode kernel and the copy
 back on one CUDA stream; a thread pool waits for each block's copies and
@@ -33,9 +34,9 @@ from ..ops import reference as refops
 from ..parser.fastq import QUAL_PAD, SEQ_PAD, FastqStreamParser, RecordBlock
 from . import api
 from . import blocks as blockcodec
+from . import native
 
 LEN_BUCKET = 32
-V3_NOT_PORTED = "FQZ v3 is not yet ported"
 
 
 def _bucket_len(l: int) -> int:
@@ -131,19 +132,29 @@ def compress_device(
     opts: Optional[api.Options] = None,
     device=None,
 ) -> None:
-    """Compress FASTQ from ``r`` into an FQZ v1/v2 container on ``w`` with
-    the dense block encode on ``device`` (default: the CUDA card)."""
+    """Compress FASTQ from ``r`` into an FQZ container on ``w`` with the
+    device programs on ``device`` (default: the CUDA card)."""
     dev = devops.resolve_device(device)
     opts = opts or api.Options()
+    if opts.lossless and opts.version != container.VERSION_3_NATIVE:
+        # a flag whose whole contract is "do not lose data" must never
+        # be silently ignored (the v1/v2 wire has nowhere to put it)
+        raise ValueError(
+            "lossless mode requires the v3 native container "
+            "(Options(version=VERSION_3_NATIVE) / --format native)"
+        )
     if opts.version == container.VERSION_3_NATIVE:
-        raise NotImplementedError(V3_NOT_PORTED)
+        native.compress_native(r, w, opts, dev)
+        return
     block_size = api.resolve_block_size(opts)
     block_iter = FastqStreamParser(r, block_size=block_size).blocks()
 
     # Phred detection from the reference's fixed min(100k, file)-record
     # window regardless of -b (compress.go:48-52,137-154).
     peeked, qual_offset = api.peek_detection(block_iter)
-    flags = container.FLAG_PHRED64 if qual_offset == refops.PHRED64_OFFSET else 0
+    flags = opts.flags | (
+        container.FLAG_PHRED64 if qual_offset == refops.PHRED64_OFFSET else 0
+    )
     container.FileHeader(
         version=opts.version, block_size=block_size, flags=flags
     ).write(w)
@@ -209,18 +220,21 @@ def decompress_device(
     opts: Optional[api.DecompressOptions] = None,
     device=None,
 ) -> None:
-    """Decompress an FQZ v1/v2 container from ``r`` into FASTQ text on
-    ``w`` with the dense block decode on ``device`` (default: the card)."""
+    """Decompress an FQZ container from ``r`` into FASTQ text on ``w``
+    with the device programs on ``device`` (default: the card)."""
     dev = devops.resolve_device(device)
     opts = opts or api.DecompressOptions()
     fh = container.read_file_header(r)
-    if fh.version == container.VERSION_3_NATIVE:
-        raise NotImplementedError(V3_NOT_PORTED)
-    if fh.version not in (container.VERSION_1, container.VERSION_2):
-        raise container.FormatError(f"unsupported file version: {fh.version}")
     qual_offset = (
         refops.PHRED64_OFFSET if fh.phred64 else refops.PHRED33_OFFSET
     )
+    if fh.version == container.VERSION_3_NATIVE:
+        native.decompress_native(
+            r, w, fh, qual_offset, api._resolve_workers(opts.workers), dev
+        )
+        return
+    if fh.version not in (container.VERSION_1, container.VERSION_2):
+        raise container.FormatError(f"unsupported file version: {fh.version}")
     decoder = _padded_decoder(_Staging(dev), max(int(fh.block_size), 1))
 
     def decode_one(hdr, payload) -> bytes:

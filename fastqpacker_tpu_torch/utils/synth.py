@@ -5,6 +5,13 @@ The shape of the repo benchmark's default fixture (``bench.py``
 pool of 512 correlated random-walk rows, and fixed-width headers
 ``@SIM0.<9-digit id> <k>:N:0:ACGTACGT length=<L>``. ``min_len`` turns on
 variable read lengths, uniform in ``[min_len, read_len]``.
+
+``qual_model="walk"`` gives every record its own quality random walk with
+IID skewed steps (72% 0, 10% each +-1, 4% each +-2) at high levels (ASCII
+83-122), and '#' at N bases. Nothing repeats, so zstd finds no matches, the
+delta stream is IID with ~1.4 bits per symbol, and the levels lie above the
+context model's bins: FQZ v3 codes such a quality stream with order-0 rANS
+(``TAG_RANS``), which the tiled default never does.
 """
 
 from __future__ import annotations
@@ -13,6 +20,18 @@ import numpy as np
 
 _QUAL_POOL = 512
 _ID_DIGITS = 9
+
+# byte -> quality step of the "walk" model: 184/256 zeros, 26/256 each of
+# +-1, 10/256 each of +-2
+_WALK_STEPS = np.repeat(
+    np.array([0, 1, -1, 2, -2], dtype=np.int8), [184, 26, 26, 10, 10]
+)
+_WALK_LO, _WALK_HI = 83, 122
+
+
+def walk_steps(rng: np.random.Generator, shape) -> np.ndarray:
+    """IID quality steps of the "walk" model, int8 of ``shape``."""
+    return _WALK_STEPS[rng.integers(0, 256, size=shape, dtype=np.uint8)]
 
 
 def _headers(n: int, read_len: int) -> np.ndarray:
@@ -32,8 +51,13 @@ def synth_fastq(
     read_len: int = 151,
     seed: int = 0,
     min_len: int | None = None,
+    qual_model: str = "tiled",
 ) -> bytes:
-    """About ``target_mb`` MiB of FASTQ text, reproducible from ``seed``."""
+    """About ``target_mb`` MiB of FASTQ text, reproducible from ``seed``.
+    ``qual_model``: "tiled" (512 pooled rows) or "walk" (see the module
+    docstring)."""
+    if qual_model not in ("tiled", "walk"):
+        raise ValueError(f"unknown qual_model: {qual_model}")
     rng = np.random.default_rng(seed)
     mean_len = read_len if min_len is None else (min_len + read_len) / 2
     hw = _headers(1, read_len).shape[1]
@@ -47,11 +71,18 @@ def synth_fastq(
     seq = bases[rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)]
     nn = max(1, n * read_len // 1000)  # sparse N positions (~0.1%)
     seq[rng.integers(0, n, nn), rng.integers(0, read_len, nn)] = ord("N")
-    steps = rng.integers(-2, 3, size=(_QUAL_POOL, read_len)).astype(np.int32)
-    qrows = np.clip(33 + 30 + np.cumsum(steps, axis=1) // 3, 33, 74).astype(
-        np.uint8
-    )
-    qual = qrows[np.arange(n) % _QUAL_POOL]
+    if qual_model == "walk":
+        steps = walk_steps(rng, (n, read_len))
+        walk = np.cumsum(steps, axis=1, dtype=np.int16)
+        walk += rng.integers(95, 111, size=(n, 1), dtype=np.int16)
+        qual = np.clip(walk, _WALK_LO, _WALK_HI).astype(np.uint8)
+        qual[seq == ord("N")] = ord("#")
+    else:
+        steps = rng.integers(-2, 3, size=(_QUAL_POOL, read_len)).astype(np.int32)
+        qrows = np.clip(
+            33 + 30 + np.cumsum(steps, axis=1) // 3, 33, 74
+        ).astype(np.uint8)
+        qual = qrows[np.arange(n) % _QUAL_POOL]
 
     def col(ch: bytes) -> np.ndarray:
         return np.full((n, len(ch)), np.frombuffer(ch, np.uint8))

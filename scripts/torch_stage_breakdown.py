@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Serial per-stage times of the PyTorch/CUDA port's FQZ v2 path on one GPU.
+"""Serial per-stage times of the PyTorch/CUDA port's paths on one GPU.
 
 Runs each stage of the compress and decompress pipeline of
 ``fastqpacker_tpu_torch`` one block at a time, on one thread, and prints
@@ -8,7 +8,15 @@ copies and kernels with CUDA events. The pipeline overlaps these stages
 across its worker threads; this script shows what each one costs alone,
 so the slowest can be named.
 
-Usage: python3 scripts/torch_stage_breakdown.py [--mb 64] [--seed 0]
+``--format v2`` (default) walks the FQZ v2 stages by hand. ``--format v3``
+runs the v3 block encoder and decoder (``pipeline/native.py``) with its
+stages wrapped in timers, on data whose quality streams are coded with
+order-0 rANS: CRC32, zstd candidates, pick estimates, rANS encode and
+decode (with their copies), and the context coders and tokenizer when they
+run. A stage named ``x(incl. ...)`` contains the stages named ``x.*``.
+
+Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3] [--mb 64]
+                                                [--seed 0]
 """
 
 from __future__ import annotations
@@ -47,17 +55,17 @@ class Clock:
         self.ms: dict[str, float] = {}
         self._events: list = []
 
-    def host(self, name, fn, *args):
+    def host(self, name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
-    def device(self, name, fn, *args):
+    def device(self, name, fn, *args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         end.record()
         self._events.append((name, start, end))
         return out
@@ -77,8 +85,100 @@ def to_host(t):
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
+def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
+    """Per-stage ms of the v3 block encoder and decoder, stages timed by
+    wrapping the functions ``pipeline/native.py`` calls."""
+    from fastqpacker_tpu_torch.ops import crc32, qualctx, rans, seqctx, sldm, tokenize
+    from fastqpacker_tpu_torch.ops import device as devops
+    from fastqpacker_tpu_torch.pipeline import native
+
+    c = Clock()
+    direction = ["c."]
+
+    def wrap(kind, owner, attr, label):
+        fn = getattr(owner, attr)
+        timer = c.host if kind == "host" else c.device
+
+        def timed(*args, **kwargs):
+            return timer(direction[0] + label, fn, *args, **kwargs)
+
+        setattr(owner, attr, timed)
+
+    for owner, attr, label in (
+        (devops, "encode_block_arrays", "dense_encode(incl. copies)"),
+        (devops, "decode_block_arrays", "dense_decode(incl. copies)"),
+        (blockcodec, "encoded_to_raw_streams", "stream_assembly"),
+        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. dense_decode)"),
+        (crc32, "crc32_device", "crc32(incl. copies)"),
+        (native, "_zstd_candidate", "zstd_candidates"),
+        (zstd_entropy.ZstdCodec, "decompress", "zstd"),
+        (native, "_rans_size_estimate", "pick.rans_size_estimate"),
+        (seqctx, "sample_estimate", "pick.sctx_sample_estimate"),
+        (sldm, "coverage_probe", "pick.coverage_probe"),
+        (qualctx, "sample_estimate", "pick.qctx_sample_estimate"),
+        (qualctx, "prepare", "pick.qctx_prepare"),
+        (qualctx, "pick_model", "pick.qctx_pick_model"),
+        (seqctx, "pick_order", "pick.sctx_pick_order"),
+        (qualctx, "encode_prepared", "qctx_encode"),
+        (seqctx, "encode_prepared", "sctx_encode"),
+        (qualctx, "decode", "qctx_decode"),
+        (seqctx, "decode", "sctx_decode"),
+        (tokenize, "encode", "tok_encode"),
+        (tokenize, "decode", "tok_decode"),
+        (rans, "encode_stream", "rans_encode(incl. copies)"),
+        (rans, "decode_stream", "rans_decode(incl. copies)"),
+    ):
+        wrap("host", owner, attr, label)
+    for owner, attr, label in (
+        (cuda_kernels, "encode_arrays", "dense_encode.kernel"),
+        (cuda_kernels, "decode_arrays", "dense_decode.kernel"),
+        (cuda_kernels, "rans_encode", "rans_encode.kernel"),
+        (cuda_kernels, "rans_compact", "rans_encode.compact_kernel"),
+        (cuda_kernels, "rans_decode", "rans_decode.kernel"),
+        (cuda_kernels, "crc32_chunks", "crc32.kernel"),
+        (devops, "to_device", "dense.h2d"),
+        (rans, "to_device", "rans.h2d"),
+        (crc32, "to_device", "crc32.h2d"),
+    ):
+        wrap("device", owner, attr, label)
+
+    block_size = api.DEFAULT_BLOCK_SIZE
+    blocks = c.host("parse", lambda: list(
+        FastqStreamParser(io.BytesIO(data), block_size=block_size).blocks()))
+    _, qual_offset = api.peek_detection(iter(blocks))
+    codec = zstd_entropy.get_codec()
+    native.encode_block_native(blocks[-1], qual_offset, dev)  # warm-up
+    c.settle()
+    parse_ms = c.ms["parse"]
+    c.ms.clear()
+    c.ms["parse"] = parse_ms
+
+    comps = []
+    for blk in blocks:
+        comps.append(c.host("c.block_total", native.encode_block_native, blk,
+                            qual_offset, dev))
+        c.settle()
+    direction[0] = "d."
+    v3 = blockcodec.container.VERSION_3_NATIVE
+    for comp in comps:
+        hdr = blockcodec.container.parse_block_header(comp, v3)
+        payload = comp[blockcodec.container.BLOCK_HEADER_SIZE_V3 :]
+        c.host("d.block_total", native.decode_block_payload, hdr, payload,
+               codec, qual_offset, dev)
+        c.settle()
+    return c.ms, len(blocks), block_size
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--format", choices=["v2", "v3"], default="v2", dest="fmt")
     ap.add_argument("--mb", type=float, default=64)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -86,6 +186,19 @@ def main() -> int:
         print("torch_stage_breakdown: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    if args.fmt == "v3":
+        data = synth_fastq(args.mb, seed=args.seed, qual_model="walk")
+        ms, n, block_records = breakdown_v3(data, dev)
+        print(json.dumps({
+            "format": "v3",
+            "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi_line(),
+            "input_bytes": len(data),
+            "blocks": n,
+            "block_records": block_records,
+            "ms_per_block": {k: v / n for k, v in sorted(ms.items())},
+        }))
+        return 0
     data = synth_fastq(args.mb, seed=args.seed)
     r_pad = api.SPEED_BLOCK_SIZE
     codec = zstd_entropy.get_codec()
@@ -154,13 +267,10 @@ def main() -> int:
         c.ms["d.fastq_assembly"] -= decoder.ms
 
     n = len(blocks)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
     result = {
+        "format": "v2",
         "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": smi,
+        "nvidia_smi": smi_line(),
         "input_bytes": len(data),
         "blocks": n,
         "block_records": r_pad,

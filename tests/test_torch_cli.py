@@ -63,9 +63,6 @@ def test_cli_round_trip_matches_jax_cli(tmp_path):
 @pytest.mark.parametrize(
     "argv,name",
     [
-        (["--format", "native"], "--format native"),
-        (["--max-ratio"], "--max-ratio"),
-        (["--lossless"], "--lossless"),
         (["--mesh"], "--mesh"),
         (["--pair", "r2.fq"], "--pair"),
         (["info", "x.fqz"], "info"),

@@ -140,9 +140,69 @@ def test_cpu_path_leaves_launch_counters_at_zero():
     port_device.decode_block_arrays(
         enc.packed, enc.qual_delta, lengths, 33, device="cpu"
     )
-    assert cuda_kernels.launches == {
-        cuda_kernels.ENCODE: 0, cuda_kernels.DECODE: 0
+    counts = cuda_kernels.launches.as_dict()
+    assert set(counts) >= {cuda_kernels.ENCODE, cuda_kernels.DECODE}
+    assert not any(counts.values())
+
+
+def test_launch_counters_are_thread_safe():
+    """Pipeline workers launch from many threads: bumps from more threads
+    than cores, with a short switch interval, lose no count, and a reset
+    between two rounds starts again from zero."""
+    import sys
+    import threading
+
+    counts = cuda_kernels.LaunchCounts(["a", "b"])
+    threads, per_thread = 16, 2000
+
+    def work():
+        for i in range(per_thread):
+            counts.bump("a" if i % 2 else "b")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(2):
+            counts.reset()
+            workers = [threading.Thread(target=work) for _ in range(threads)]
+            for t in workers:
+                t.start()
+            for t in workers:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in workers)
+            assert counts.as_dict() == {
+                "a": threads * per_thread // 2, "b": threads * per_thread // 2
+            }
+    finally:
+        sys.setswitchinterval(old)
+    assert counts["a"] + counts["b"] == threads * per_thread
+    # the module's own counters are of this type, one per exported kernel
+    assert isinstance(cuda_kernels.launches, cuda_kernels.LaunchCounts)
+    assert set(cuda_kernels.launches.as_dict()) == {
+        cuda_kernels.ENCODE, cuda_kernels.DECODE, cuda_kernels.RANS_ENCODE,
+        cuda_kernels.RANS_COMPACT, cuda_kernels.RANS_DECODE, cuda_kernels.CRC32,
     }
+
+
+@pytest.mark.parametrize("cap", [None, 100, port_ref.NPOS_CAP_WIDE])
+def test_npos_cap_matches_jax(cap):
+    """The tracking cap of the ambiguity mask: the v1/v2 default, a small
+    one, and none (FQZ v3's u32 positions) on a read longer than 65,536."""
+    rng = np.random.default_rng(7)
+    r, l = 2, 65600
+    seq = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, size=(r, l))]
+    qual = rng.integers(33, 75, size=(r, l)).astype(np.uint8)
+    lengths = np.array([l, 65000], dtype=np.int32)
+    seq[1, 65000:] = SEQ_PAD
+    qual[1, 65000:] = QUAL_PAD
+    kw = {} if cap is None else {"npos_cap": cap}
+    got = port_device.encode_block_arrays(seq, qual, lengths, 33, device="cpu", **kw)
+    want = jax_ref.encode_block_arrays(seq, qual, lengths, 33, **kw)
+    _assert_encode_equal(got, want, lengths)
+    assert np.array_equal(
+        np.unpackbits(got.nmask_bits, axis=1, bitorder="little", count=l),
+        port_ref.ambiguity_mask(seq, lengths, **kw),
+    )
 
 
 def test_wrappers_refuse_other_devices_and_bad_inputs():

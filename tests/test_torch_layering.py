@@ -48,7 +48,25 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         capture_output=True, text=True, cwd=REPO, timeout=110,
     )
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 20  # every module of the package
+    assert int(p.stdout.strip()) >= 27  # every module of the package
+
+
+def test_the_v3_modules_are_in_the_package():
+    """The modules of the FQZ v3 slice exist under the port (so the walk
+    above imported them with JAX and the JAX package blocked)."""
+    import importlib
+
+    for name in ("ops.rans", "ops.crc32", "ops.tokenize", "ops.qualctx",
+                 "ops.seqctx", "ops.sldm", "pipeline.native"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+    src = (REPO / "fastqpacker_tpu_torch").rglob("*.py")
+    for path in [*src, REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), (path, line)
+                assert words[1] != "fastqpacker_tpu", (path, line)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
@@ -61,13 +79,23 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
     from fastqpacker_tpu_torch.ops import cuda_kernels
 
-    monkeypatch.setattr(cuda_kernels, "encode_arrays_plain", no_cpu)
-    monkeypatch.setattr(cuda_kernels, "decode_arrays_plain", no_cpu)
+    for plain in ("encode_arrays_plain", "decode_arrays_plain",
+                  "rans_encode_plain", "rans_compact_plain",
+                  "rans_decode_plain", "crc32_chunks_plain"):
+        monkeypatch.setattr(cuda_kernels, plain, no_cpu)
+    from fastqpacker_tpu_torch.ops import crc32 as port_crc32
+    from fastqpacker_tpu_torch.ops import rans as port_rans
+
     data = b"@r\nACGT\n+\nIIII\n"
     for call in (
         lambda: tfq.compress_bytes(data),
+        lambda: tfq.compress_bytes(data, tfq.Options(version=3)),
         lambda: tfq.decompress_bytes(b"FQZ\x00\x02" + bytes(5)),
+        lambda: tfq.decompress_bytes(b"FQZ\x00\x03" + bytes(5)),
         lambda: port_device.encode_block_arrays(None, None, None, 33),
+        lambda: port_rans.encode_stream(b"x" * 100),
+        lambda: port_rans.decode_stream(b"x" * 100),
+        lambda: port_crc32.crc32_device(b"x" * 100_000),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

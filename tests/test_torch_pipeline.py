@@ -173,11 +173,20 @@ def test_truncated_container_errors_match(jax_device_path):
 
 
 def test_v3_is_refused():
+    """What is left of the refusal now that FQZ v3 is ported
+    (tests/test_torch_native.py): v3 compresses and decodes, and only a
+    ``TAG_WCTX`` stream, the device context coder's, is refused by name."""
     data = _fastq(20, seed=10)
-    with pytest.raises(NotImplementedError, match="FQZ v3 is not yet ported"):
-        tfq.compress_bytes(data, tfq.Options(version=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="FQZ v3 is not yet ported"):
-        tfq.decompress_bytes((GOLDEN / "golden_v3.fqz").read_bytes(), device="cpu")
+    comp = tfq.compress_bytes(data, tfq.Options(version=3), device="cpu")
+    assert tfq.decompress_bytes(comp, device="cpu") == data
+    golden = tfq.decompress_bytes((GOLDEN / "golden_v3.fqz").read_bytes(), device="cpu")
+    assert golden == (GOLDEN / "golden.fq").read_bytes()
+    wctx = bytearray(comp)
+    wctx[tfq.container.FILE_HEADER_SIZE + tfq.container.BLOCK_HEADER_SIZE_V3] = (
+        tfq.container.TAG_WCTX
+    )
+    with pytest.raises(NotImplementedError, match="TAG_WCTX.*not yet ported"):
+        tfq.decompress_bytes(bytes(wctx), device="cpu")
 
 
 def test_streams_from_file_objects_and_workers(tmp_path):
