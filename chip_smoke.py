@@ -32,12 +32,28 @@ Phases, each fatal on failure:
    default block size (100,000 records): the stream tags are read from the
    container, the rANS, CRC32 and dense launch counts are held against
    them, and the card's container is held against the CPU's on the first
-   48 MiB (the CPU's plain versions are slow).
+   48 MiB (the CPU's plain versions are slow);
+6. context rANS kernels (``fq_wctx_encode``, ``fq_wctx_decode``) against
+   their plain versions, byte-equal, for the sequence model at order 2, 4, 6
+   and the quality model at order 0, 1, on 256, 1,024 and 8,192 lanes with
+   ragged lanes (zero-length records, lanes with no symbols, one record
+   longer than a lane), and at the full width of a v3 block (100,000 records
+   of 151 bp = 15.1 M symbols, the lane count the mesh path picks), where
+   they are timed; a stream that lost words raises. No single PyTorch call
+   computes either function (``library_ms`` null);
+7. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
+   ``make_mesh(1)``): ``--mesh-blocks`` blocks of 100,000 records of the
+   context-model corpus (order-1 Markov bases, per-record quality walks in
+   Phred 0-41); round trip, the ordinary ``decompress`` reads the container,
+   the tags are counted per block (``TAG_WCTX`` on every quality stream),
+   the launch counts follow the tags, and the card's container equals the
+   CPU's on a two-block prefix; then the one card listed four times at a
+   block size of 5,000 against the CPU's container for d = 4.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py [--mb 256] [--varlen-mb 16] [--seed 0]
+Usage: python3 chip_smoke.py [--mb 96] [--varlen-mb 16] [--mesh-blocks 4] [--seed 0]
 """
 
 from __future__ import annotations
@@ -66,10 +82,15 @@ KERNELS = {
     "fq_rans_compact": ("rans_codec.cu", "fastqpacker_tpu/ops/rans.py:218"),
     "fq_rans_decode": ("rans_codec.cu", "fastqpacker_tpu/ops/rans.py:291"),
     "fq_crc32_chunks": ("crc32.cu", "fastqpacker_tpu/ops/crc32.py:87"),
+    "fq_wctx_encode": ("wctx_codec.cu", "fastqpacker_tpu/ops/wctx.py:511"),
+    "fq_wctx_decode": ("wctx_codec.cu", "fastqpacker_tpu/ops/wctx.py:577"),
 }
 QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
 SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
 V3_CPU_BYTES = 48 << 20  # prefix of the v3 input that the CPU compresses too
+BLOCK_RECORDS = 100_000  # the v3 default block size
+READ_LEN = 151
+WCTX_MODELS = [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]  # (model, order)
 DEV = torch.device("cuda")
 
 
@@ -575,9 +596,322 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
     return {"encode": enc_launches, "decode": dec_launches}
 
 
+
+# ---------------------------------------------------------------------------
+# context rANS kernels
+# ---------------------------------------------------------------------------
+
+
+def context_corpus(n_records: int, seed: int, read_len: int = READ_LEN) -> bytes:
+    """``n_records`` records of the context-model corpus."""
+    from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+    one = len(synth_fastq(0, read_len=read_len))
+    data = synth_fastq((n_records * one + one // 2) / (1 << 20), read_len=read_len,
+                       seed=seed, qual_model="phredwalk", seq_model="markov")
+    check(data.count(b"\n") == 4 * n_records, "corpus record count")
+    return data
+
+
+def corpus_symbols(rng, model: int, n_records: int, read_len: int) -> np.ndarray:
+    """Flat symbols of the corpus's streams: base codes or raw qualities."""
+    from fastqpacker_tpu_torch.utils.synth import markov_codes
+
+    if model == 0:
+        return markov_codes(rng, n_records, read_len).reshape(-1)
+    steps = rng.integers(-2, 3, size=(n_records, read_len)).astype(np.int32)
+    return np.clip(30 + np.cumsum(steps, axis=1) // 3, 0, 41).astype(np.uint8).reshape(-1)
+
+
+def wctx_prep(wctx, syms, lengths, model, order, lanes=None) -> dict:
+    """One stream's host prep (the numpy functions of ops/wctx.py) and its
+    tensors on the card."""
+    C = wctx.model_geometry(model, order)[0]
+    n = len(syms)
+    if lanes is None:  # the lane count the mesh path picks for this stream
+        sb, S, seg = wctx.stream_layout(lengths, 256)
+        startm = wctx.start_matrix(lengths, sb, S)
+        symm = wctx.to_matrix(syms, sb, S, 0)
+        hist = wctx.matrix_histogram(
+            symm, wctx.context_matrix(symm, startm, model, order), C, seg)
+        lanes = wctx.pick_lanes_for(hist, n)
+    sb, S, seg = wctx.stream_layout(lengths, lanes)
+    startm = wctx.start_matrix(lengths, sb, S)
+    symm = wctx.to_matrix(syms, sb, S, int(np.argmax(np.bincount(syms, minlength=256))))
+    ctxm = wctx.context_matrix(symm, startm, model, order)
+    present, freq_p = wctx.build_tables(symm, ctxm, C, seg)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    tab = t(wctx.device_table(freq_p))
+    seg_t = t(seg)
+    return {
+        "enc": (t(wctx._sym_to_idx(present)[symm]), t(ctxm.astype(np.int16)), seg_t, tab),
+        "dec_tail": (t(startm.view(np.uint8)), seg_t, tab, t(present.astype(np.uint8))),
+        "sb": sb, "S": S, "lanes": lanes, "n": n, "C": C, "npres": len(present),
+        "present": present, "syms": syms,
+    }
+
+
+def wctx_case(ck, wctx, prep: dict, model: int, order: int) -> dict:
+    """Both kernels against their plain versions on the card, every output
+    in full; decode(encode(x)) == x."""
+    what = f"model={model} order={order} n={prep['n']} lanes={prep['lanes']}"
+    got = ck.wctx_encode(*prep["enc"])
+    want = wctx.wctx_encode_plain(*prep["enc"])
+    enc_err = max(max_err(a, b) for a, b in zip(got, want))
+    check(enc_err == 0, f"wctx encode kernel == plain at {what}")
+    words, flags, states, status = got
+    check(int(status) == 0, f"wctx encode status at {what}")
+    flat, total = ck.rans_compact(words, flags)
+    k = int(total)
+    stream = flat[:k].clone()
+    dec = (stream, states, *prep["dec_tail"])
+    out, info = ck.wctx_decode(*dec, model, order)
+    pout, pinfo = wctx.wctx_decode_plain(*dec, model, order)
+    dec_err = max(max_err(out, pout), max_err(info, pinfo))
+    check(dec_err == 0, f"wctx decode kernel == plain at {what}")
+    check(info.tolist() == [k, 0], f"wctx words consumed == carried at {what}")
+    idx = wctx.from_matrix(out.cpu().numpy(), prep["sb"])
+    check(np.array_equal(prep["present"].astype(np.uint8)[idx], prep["syms"]),
+          f"wctx decode(encode(x)) == x at {what}")
+    torch.cuda.synchronize()
+    return {"dec": dec, "errs": (enc_err, dec_err), "words": k}
+
+
+def phase_wctx(ck, wctx, rng) -> dict:
+    errs = {ck.WCTX_ENCODE: 0, ck.WCTX_DECODE: 0}
+
+    def fold(case):
+        for name, e in zip(errs, case["errs"]):
+            errs[name] = max(errs[name], e)
+
+    for lanes in (256, 1024, 8192):
+        n_rec = max(300, lanes)
+        lengths = rng.integers(0, 120, n_rec).astype(np.int64)
+        lengths[7] = 2000  # one record longer than a lane
+        lengths[20 : 20 + n_rec // 6] = 0  # zero-length records, empty lanes
+        for model, order in WCTX_MODELS:
+            syms = corpus_symbols(rng, model, 1, int(lengths.sum()))
+            prep = wctx_prep(wctx, syms, lengths, model, order, lanes)
+            check(bool((prep["enc"][2] == 0).any()), "a lane with no symbols")
+            fold(wctx_case(ck, wctx, prep, model, order))
+            print(f"phase=kernels wctx lanes={lanes} model={model} order={order} "
+                  f"n={len(syms)} steps={prep['S']} byte_equal=true round_trip=true")
+
+    # a stream that lost words: no read out of bounds, and the API raises
+    lengths = np.full(2000, 100, np.int64)
+    syms = corpus_symbols(rng, 1, 2000, 100)
+    good = wctx.encode_stream(syms, lengths, 1, 0, device=DEV)
+    check(np.array_equal(wctx.decode_stream(good, lengths, device=DEV), syms),
+          "wctx stream API round trip")
+    p = wctx.parse_stream(good)
+    nwords = len(p["words"])
+    at = len(good) - 2 * nwords - 4 * p["N"] - 4
+    bad = good[:at] + (nwords - 40).to_bytes(4, "little") + good[at + 4 : -80]
+    try:
+        wctx.decode_stream(bad, lengths, device=DEV)
+    except wctx.WctxError as e:
+        check(str(e) == "trailing wctx words", "corrupt wctx stream message")
+        print("phase=kernels wctx corrupt_words raises=true")
+    else:
+        raise RuntimeError("check failed: a wctx stream that lost words decoded")
+
+    # full width: one v3 block's stream, the lane count the mesh path picks
+    out = {}
+    lengths = np.full(BLOCK_RECORDS, READ_LEN, np.int64)
+    for model, order in WCTX_MODELS:
+        syms = corpus_symbols(rng, model, BLOCK_RECORDS, READ_LEN)
+        prep = wctx_prep(wctx, syms, lengths, model, order)
+        case = wctx_case(ck, wctx, prep, model, order)
+        fold(case)
+        S, N, C, npres, k = prep["S"], prep["lanes"], prep["C"], prep["npres"], case["words"]
+        m, live, tab_bytes = S * N, prep["n"], 2 * C * (npres + 1)
+        shape = (f"model={model} order={order} n={live} lanes={N} steps={S} "
+                 f"contexts={C} npres={npres} words={k}")
+        stream, *dec_rest = case["dec"]
+        # bytes: encode reads symbols (1) and contexts (2) and writes words (2)
+        # and flags (1) per cell; decode reads the start mask (1) and writes
+        # the symbol (1) per cell and reads the words; both read seg, the
+        # table once and the states. Operations per live cell: encode two
+        # table reads, a test, a shift, divide, remainder, recombine (~12);
+        # decode the context update (~8), log2(npres) search probes of 3 and
+        # the state update, rank and refill (~12).
+        probes = max(1, int(np.ceil(np.log2(max(npres, 2)))))
+        for name, fn, plain, sets, nbytes, ops in (
+            (ck.WCTX_ENCODE, ck.wctx_encode, wctx.wctx_encode_plain,
+             [(a, b, *prep["enc"][2:]) for a, b in rotations(prep["enc"][:2], 6 * m)],
+             6 * m + 8 * N + tab_bytes + 4, 12 * live),
+            (ck.WCTX_DECODE,
+             lambda *a: ck.wctx_decode(*a, model, order),
+             lambda *a: wctx.wctx_decode_plain(*a, model, order),
+             [(w, dec_rest[0], s, *dec_rest[2:])
+              for w, s in rotations((stream, dec_rest[1]), 2 * k + 2 * m)],
+             2 * k + 2 * m + 8 * N + tab_bytes + npres + 16,
+             (20 + 3 * probes) * live),
+        ):
+            kms = gpu_ms(fn, sets, 10)
+            pms = gpu_ms(plain, sets[:1], 1)
+            out[(name, model, order)] = (
+                *report(name, shape, kms, pms, None, nbytes, ops, errs[name]), S)
+        del case, prep, sets
+        torch.cuda.empty_cache()
+    return {"errs": errs, "times": out}
+
+
+# ---------------------------------------------------------------------------
+# the --mesh path
+# ---------------------------------------------------------------------------
+
+
+def wctx_streams(comp: bytes, ft) -> list:
+    """Per block of a v3 container: the (model, order, lanes) of its
+    TAG_WCTX sequence and quality streams (None where the tag is another)."""
+    c = ft.container
+    r = io.BytesIO(comp)
+    fh = c.read_file_header(r)
+    rows = []
+    while (hdr := c.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(c.VERSION_2)
+        payload = r.read(sum(sizes))
+        row = []
+        for at in (0, sizes[0]):
+            row.append((payload[at + 1], payload[at + 2], 1 << payload[at + 3])
+                       if payload[at] == c.TAG_WCTX else None)
+        rows.append(row)
+    return rows
+
+
+def phase_mesh(ft, ck, args) -> dict:
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    mesh = pmesh.make_mesh(1)
+    check(mesh == [torch.device("cuda", 0)], "make_mesh(1) is the card")
+    # the CLI's --mesh options: the v3 container, so 100,000-record blocks
+    v3 = ft.Options(version=ft.container.VERSION_3_NATIVE)
+    warm = context_corpus(3000, args.seed + 5)
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(
+        io.BytesIO(meshpipe.compress_mesh_bytes(warm, v3, mesh)), out, mesh)
+    check(out.getvalue() == warm, "mesh warm-up round trip")
+
+    data = context_corpus(args.mesh_blocks * BLOCK_RECORDS, args.seed + 6)
+    label = f"markov151_mesh_{args.mesh_blocks}x{BLOCK_RECORDS}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    comp = meshpipe.compress_mesh_bytes(data, v3, mesh)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    c_counts = ck.launches.as_dict()
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(comp), out, mesh)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    d_counts = ck.launches.as_dict()
+    peak = torch.cuda.max_memory_allocated()
+    check(out.getvalue() == data, f"{label}: decompress_mesh output equals the input")
+    del out
+
+    fh = ft.container.read_file_header(io.BytesIO(comp))
+    check(fh.version == ft.container.VERSION_3_NATIVE and fh.block_size == BLOCK_RECORDS,
+          f"{label}: a v3 container at the default block size")
+    blocks, tags = stream_tags(comp, ft)
+    streams = wctx_streams(comp, ft)
+    check(blocks == args.mesh_blocks, f"{label}: block count")
+    for i, (seq, qual) in enumerate(streams):
+        print(f"phase=e2e run={label} block={i} seq_wctx={seq} qual_wctx={qual}")
+    print(f"phase=e2e run={label} tags={json.dumps(tags, sort_keys=True)}")
+    n_wctx = tags["seq"].get("wctx", 0) + tags["qual"].get("wctx", 0)
+    n_rans = tags["qual"].get("rans", 0)
+    check(tags["qual"].get("wctx", 0) == blocks,
+          f"{label}: every block's quality stream is TAG_WCTX")
+    check(tags["qual"].get("qctx", 0) == 0, f"{label}: no block took the host qctx coder")
+    # compress launches every candidate that its estimate lets through, and
+    # a candidate can still lose on its real size; decompress launches one
+    # decode per stream that carries the tag
+    check(c_counts[ck.WCTX_ENCODE] >= n_wctx > 0,
+          f"{label}: at least one wctx encode launch per TAG_WCTX stream")
+    check(c_counts[ck.WCTX_ENCODE] <= 2 * blocks, f"{label}: at most two candidates a block")
+    check(c_counts[ck.RANS_COMPACT] == c_counts[ck.WCTX_ENCODE] + c_counts[ck.RANS_ENCODE],
+          f"{label}: one compaction per encode launch")
+    check(c_counts[ck.RANS_ENCODE] >= n_rans, f"{label}: rANS launches cover TAG_RANS streams")
+    check(d_counts[ck.WCTX_DECODE] == n_wctx and d_counts[ck.RANS_DECODE] == n_rans,
+          f"{label}: one decode launch per TAG_WCTX / TAG_RANS stream")
+    check(c_counts[ck.WCTX_DECODE] == 0 and d_counts[ck.WCTX_ENCODE] == 0,
+          f"{label}: no wctx launch in the wrong direction")
+    check(c_counts[ck.ENCODE] == blocks and d_counts[ck.DECODE] == blocks,
+          f"{label}: one dense launch per block and direction")
+    check(c_counts[ck.CRC32] > 0 and d_counts[ck.CRC32] > 0,
+          f"{label}: CRC32 launched in both directions")
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    check(ft.decompress_bytes(comp, device=DEV) == data,
+          f"{label}: the ordinary decompress reads the mesh container")
+    t_o = time.perf_counter() - t0
+    check(ck.launches[ck.WCTX_DECODE] == n_wctx,
+          f"{label}: the ordinary decompress decodes TAG_WCTX on the card")
+    mb = len(data) / 1e6
+    print(
+        f"phase=e2e run={label} input_bytes={len(data)} container_bytes={len(comp)} "
+        f"blocks={blocks} compress_s={t_c:.4f} compress_MBps={mb / t_c:.2f} "
+        f"decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
+        f"ordinary_decompress_s={t_o:.4f} "
+        f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+        f"decompress_launches={json.dumps(d_counts, sort_keys=True)} "
+        f"max_memory_allocated={peak} round_trip=true"
+    )
+    qual0 = streams[0][1]
+    del data, comp
+
+    # the card's container against the CPU's (the plain versions are Python
+    # loops over the steps: two small blocks)
+    small = context_corpus(40_000, args.seed + 7)
+    opts = ft.Options(block_size=20_000)
+    t0 = time.perf_counter()
+    gpu_small = meshpipe.compress_mesh_bytes(small, opts, mesh)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_small = meshpipe.compress_mesh_bytes(small, opts, pmesh.make_mesh(1, device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    check(gpu_small == cpu_small, "mesh d=1: GPU container byte-identical to CPU's")
+    _, small_tags = stream_tags(gpu_small, ft)
+    print(f"phase=e2e run=mesh_d1_cpu_identity records=40000 block_size=20000 "
+          f"tags={json.dumps(small_tags, sort_keys=True)} gpu_compress_s={t_gpu:.4f} "
+          f"cpu_compress_s={t_cpu:.4f} byte_identical_to_cpu=true")
+
+    # the group logic on the card: the one card listed four times, a full
+    # round and a partial one
+    four = mesh * 4
+    data4 = context_corpus(24_000, args.seed + 8)
+    opts4 = ft.Options(block_size=5_000)
+    ck.reset_launches()
+    gpu4 = meshpipe.compress_mesh_bytes(data4, opts4, four)
+    enc4 = ck.launches[ck.WCTX_ENCODE]
+    cpu4 = meshpipe.compress_mesh_bytes(data4, opts4, pmesh.make_mesh(4, device="cpu"))
+    check(gpu4 == cpu4, "mesh d=4: GPU container byte-identical to CPU's")
+    blocks4, tags4 = stream_tags(gpu4, ft)
+    check(blocks4 == 5 and tags4["qual"].get("wctx", 0) > 0, "mesh d=4: five blocks, TAG_WCTX picked")
+    lanes4 = [{s[2] for row in wctx_streams(gpu4, ft)[a:b] for s in row[1:] if s}
+              for a, b in ((0, 4), (4, 5))]
+    check(all(len(x) <= 1 for x in lanes4), "mesh d=4: one quality lane count per round")
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(gpu4), out, four)
+    check(out.getvalue() == data4, "mesh d=4: round trip on the card")
+    print(f"phase=e2e run=mesh_d4_one_card_four_times records=24000 block_size=5000 "
+          f"blocks={blocks4} tags={json.dumps(tags4, sort_keys=True)} "
+          f"wctx_encode_launches={enc4} byte_identical_to_cpu_d4=true round_trip=true")
+    return {"compress": c_counts, "decompress": d_counts, "qual": qual0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mb", type=float, default=256)
+    ap.add_argument("--mb", type=float, default=96)
+    ap.add_argument("--mesh-blocks", type=int, default=4)
     ap.add_argument("--varlen-mb", type=float, default=16)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -592,6 +926,7 @@ def main() -> int:
     from fastqpacker_tpu_torch.ops import device as devops
     from fastqpacker_tpu_torch.ops import rans
     from fastqpacker_tpu_torch.ops import reference as refops
+    from fastqpacker_tpu_torch.ops import wctx
     from fastqpacker_tpu_torch.utils.synth import synth_fastq
 
     kind = torch.cuda.get_device_name(0)
@@ -616,6 +951,7 @@ def main() -> int:
     kern = phase_kernels(ck, devops, refops, rng)
     kern_rans = phase_rans(ck, rans, rng)
     kern_crc = phase_crc(ck, crc32, rng)
+    kern_wctx = phase_wctx(ck, wctx, rng)
 
     ft.compress_bytes(synth_fastq(1, seed=args.seed + 1), device=DEV)  # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -639,6 +975,8 @@ def main() -> int:
     print(f"phase=e2e v3_max_memory_allocated={torch.cuda.max_memory_allocated()}")
     del data
 
+    mesh_run = phase_mesh(ft, ck, args)
+
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
     rows = [
@@ -656,6 +994,23 @@ def main() -> int:
     rows.append((ck.CRC32, v3_launches["compress"][ck.CRC32], kern_crc["errs"][ck.CRC32],
                  kern_crc["times"][(ck.CRC32, "qual")],
                  {"launches_decompress": v3_launches["decompress"][ck.CRC32]}))
+    # context rANS: the count from the mesh run; the times of the model and
+    # order that run's quality streams were coded with, the others beside
+    qual = mesh_run["qual"][:2]
+    for name, direction in ((ck.WCTX_ENCODE, "compress"), (ck.WCTX_DECODE, "decompress")):
+        by_model = {
+            f"model{m}_order{o}": dict(zip(
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "steps"),
+                kern_wctx["times"][(name, m, o)]))
+            for m, o in WCTX_MODELS
+        }
+        rows.append((name, mesh_run[direction][name], kern_wctx["errs"][name],
+                     kern_wctx["times"][(name, *qual)],
+                     {"model_order": list(qual), "by_model": by_model}))
+    for row in rows[:6]:  # the earlier kernels run on the mesh path too
+        name = row[0]
+        direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"
+        row[4]["launches_mesh"] = mesh_run[direction][name]
     kernels = []
     for name, launches, err, (kms, pms, bound_ms, bound_by, lms, steps), extra in rows:
         check(launches > 0, f"{name} launched on a main path")

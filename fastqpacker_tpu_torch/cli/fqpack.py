@@ -6,9 +6,12 @@ cmd/fqpack/main.go:65-101): ``fqpack [-d] [-i in] [-o out] [-c]
 paths; stdin/stdout defaults; transparent gzip input in compress mode
 only (main.go:123-174). ``--format native`` writes the FQZ v3 container
 (per-stream codec picks, order-0 rANS, block CRC32); ``--max-ratio`` and
-``--lossless`` imply it. ``--backend cuda`` (the default) runs the device
-programs on the card and fails without one; ``--backend cpu`` runs their
-plain PyTorch versions.
+``--lossless`` imply it. ``--mesh`` writes v3 with the seq/qual entropy
+stage on the devices (context coder ``TAG_WCTX`` or order-0 rANS, one block
+per device per round: every card with ``--backend cuda``, one CPU entry with
+``--backend cpu``); ``-d --mesh`` decodes such rounds as groups. ``--backend
+cuda`` (the default) runs the device programs on the card and fails without
+one; ``--backend cpu`` runs their plain PyTorch versions.
 
 Run as ``python -m fastqpacker_tpu_torch.cli.fqpack``.
 """
@@ -22,7 +25,8 @@ from typing import BinaryIO, Callable
 from .. import __version__
 from ..format import container
 from ..parser.fastq import FastqParseError
-from ..pipeline import api, device
+from ..parallel import mesh as pmesh
+from ..pipeline import api, device, meshpipe
 from ..utils import gzipio
 
 BUFFER_SIZE = 1 << 20
@@ -53,7 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-h", "--help", action="store_true", dest="show_help",
                    help="show help")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
-                   help="device for the kernels (dense transforms, rANS, CRC32)")
+                   help="device for the kernels (dense transforms, rANS, "
+                        "context rANS, CRC32)")
     p.add_argument("--format", choices=["zstd", "native"], default="zstd",
                    dest="wire_format",
                    help="container flavor: zstd (fqpack-compatible v2) or "
@@ -64,9 +69,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lossless", action="store_true", dest="lossless",
                    help="strictly lossless: preserve lowercase bases and "
                         "exotic symbols verbatim (implies --format native)")
-    # surfaces of the JAX package's CLI that this package does not have yet
     p.add_argument("--mesh", action="store_true", dest="mesh",
-                   help=f"{NOT_PORTED}")
+                   help="compress v3 with the entropy stage on the devices "
+                        "(TAG_WCTX / TAG_RANS seq/qual streams, one block "
+                        "per device per round; implies --format native). "
+                        "Decode needs no special flag.")
+    # surfaces of the JAX package's CLI that this package does not have yet
     p.add_argument("--pair", dest="pair", default="", help=f"{NOT_PORTED}")
     p.add_argument("positional", nargs="*", default=[])
     return p
@@ -76,12 +84,8 @@ def _unported(args) -> str | None:
     """The first requested surface this package does not have yet."""
     if args.positional and args.positional[0] in ("info", "check", "cat"):
         return args.positional[0]
-    for flag, on in (
-        ("--mesh", args.mesh),
-        ("--pair", bool(args.pair)),
-    ):
-        if on:
-            return flag
+    if args.pair:
+        return "--pair"
     return None
 
 
@@ -112,13 +116,26 @@ def open_output(path: str, to_stdout: bool) -> tuple[BinaryIO, Callable[[], None
 
 
 def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
+    if args.mesh and args.max_ratio:
+        raise RuntimeError(
+            "--mesh does not support --max-ratio (the mesh path codes "
+            "seq/qual with order-0 rANS on the device)"
+        )
+    if args.mesh and args.decompress:
+        meshpipe.decompress_mesh(
+            inp, out, pmesh.make_mesh(device=args.backend)
+        )
+        return
     if args.decompress:
         device.decompress_device(
             inp, out, api.DecompressOptions(workers=args.workers),
             device=args.backend,
         )
         return
-    native = args.wire_format == "native" or args.max_ratio or args.lossless
+    native = (
+        args.wire_format == "native" or args.max_ratio or args.lossless
+        or args.mesh
+    )
     opts = api.Options(
         block_size=args.block_size,
         workers=args.workers,
@@ -128,6 +145,13 @@ def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
         order1_qual=args.max_ratio,
         lossless=args.lossless,
     )
+    if args.mesh:
+        if args.lossless:
+            raise RuntimeError("--mesh does not support --lossless")
+        meshpipe.compress_mesh(
+            inp, out, opts, pmesh.make_mesh(device=args.backend)
+        )
+        return
     device.compress_device(inp, out, opts, device=args.backend)
 
 
@@ -145,6 +169,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.show_version:
         print(f"fqpack version {__version__}")
         return 0
+    if args.mesh and args.pair:
+        print("error: --mesh does not support --pair yet", file=sys.stderr)
+        return 1
     missing = _unported(args)
     if missing:
         print(f"error: {missing} is {NOT_PORTED}", file=sys.stderr)

@@ -61,6 +61,15 @@ SIGNATURES = {
         # data, n, chunk, out, stream
         "fq_crc32_chunks": [_P, _L, _I, _P, _P],
     },
+    "wctx_codec": {
+        # sym, ctx, seg, tab, contexts, width, steps, lanes, words, flags,
+        # states, status, stream
+        "fq_wctx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        # words, total_words, states, startm, seg, tab, contexts, width,
+        # present, model, order, steps, lanes, out, info, stream
+        "fq_wctx_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                           _P, _P, _P],
+    },
 }
 
 

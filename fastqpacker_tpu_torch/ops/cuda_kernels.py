@@ -8,12 +8,15 @@ Dense codec (``csrc/dense_codec.cu``): ``encode_arrays`` replaces
 programs ``_encode_kernel``, ``_compact_global`` and ``_decode_kernel`` of
 ``fastqpacker_tpu/ops/rans.py``. CRC32 (``csrc/crc32.cu``):
 ``crc32_chunks`` replaces ``_crc_lanes_kernel`` of
-``fastqpacker_tpu/ops/crc32.py`` and the host combine around it.
+``fastqpacker_tpu/ops/crc32.py`` and the host combine around it. Context
+rANS (``csrc/wctx_codec.cu``): ``wctx_encode`` and ``wctx_decode`` replace
+the XLA programs ``_encode_kernel`` and ``_decode_kernel`` of
+``fastqpacker_tpu/ops/wctx.py``.
 
 Each wrapper checks its tensors, allocates the outputs on their device and
 launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
-version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`); a CUDA tensor
-launches the kernel or raises.
+version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`, :mod:`.wctx`); a CUDA
+tensor launches the kernel or raises.
 
 ``launches`` counts kernel launches per kernel, so a run can show that its
 main path went through the kernels.
@@ -31,6 +34,8 @@ from .crc32 import CHUNK as CRC_CHUNK
 from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import rans_compact_plain, rans_decode_plain, rans_encode_plain
+from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
+from .wctx import wctx_decode_plain, wctx_encode_plain
 
 ENCODE = "fq_dense_encode"
 DECODE = "fq_dense_decode"
@@ -38,6 +43,8 @@ RANS_ENCODE = "fq_rans_encode"
 RANS_COMPACT = "fq_rans_compact"
 RANS_DECODE = "fq_rans_decode"
 CRC32 = "fq_crc32_chunks"
+WCTX_ENCODE = "fq_wctx_encode"
+WCTX_DECODE = "fq_wctx_decode"
 
 # which library (csrc/<name>.cu) exports each launcher
 _LIBRARY = {
@@ -280,6 +287,89 @@ def rans_decode(
     _launch(RANS_DECODE, dev, words, words.numel(), states, slot_tab, steps,
             lanes, out, consumed)
     return out, consumed
+
+
+# ---------------------------------------------------------------------------
+# context-modeled rANS
+# ---------------------------------------------------------------------------
+
+
+def _check_table(tab: torch.Tensor, dev) -> tuple[int, int]:
+    if tab.dim() != 2 or not 2 <= tab.shape[1] <= 257 or tab.shape[0] < 1:
+        raise ValueError(f"tab: expected (C, npres + 1), got {tuple(tab.shape)}")
+    _check("tab", tab, torch.int16, tab.shape, dev)
+    return tab.shape[0], tab.shape[1]
+
+
+def wctx_encode(
+    sym: torch.Tensor,
+    ctx: torch.Tensor,
+    seg: torch.Tensor,
+    tab: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward lockstep context-rANS encode of an (S, N) symbol matrix;
+    see :func:`..ops.wctx.wctx_encode_plain`."""
+    if sym.dim() != 2 or sym.shape[0] < 1:
+        raise ValueError(f"sym: expected (S, N) with S >= 1, got {tuple(sym.shape)}")
+    steps, lanes = sym.shape
+    dev = sym.device
+    _check("sym", sym, torch.uint8, (steps, lanes), dev)
+    _check("ctx", ctx, torch.int16, (steps, lanes), dev)
+    _check("seg", seg, torch.int32, (lanes,), dev)
+    contexts, width = _check_table(tab, dev)
+    _check_lanes(lanes)
+    if _plain_or_cuda(dev):
+        return wctx_encode_plain(sym, ctx, seg, tab)
+    m = steps * lanes
+    words = torch.empty((m,), dtype=torch.int16, device=dev)
+    flags = torch.empty((m,), dtype=torch.uint8, device=dev)
+    states = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    status = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _launch(WCTX_ENCODE, dev, sym, ctx, seg, tab, contexts, width, steps, lanes,
+            words, flags, states, status)
+    return words, flags, states, status
+
+
+def wctx_decode(
+    words: torch.Tensor,
+    states: torch.Tensor,
+    startm: torch.Tensor,
+    seg: torch.Tensor,
+    tab: torch.Tensor,
+    present: torch.Tensor,
+    model: int,
+    order: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward lockstep context-rANS decode; see
+    :func:`..ops.wctx.wctx_decode_plain`."""
+    if startm.dim() != 2 or startm.shape[0] < 1:
+        raise ValueError(f"startm: expected (S, N) with S >= 1, got {tuple(startm.shape)}")
+    steps, lanes = startm.shape
+    dev = states.device
+    _check("words", words, torch.int16, (words.numel(),), dev)
+    _check("states", states, torch.int32, (lanes,), dev)
+    _check("startm", startm, torch.uint8, (steps, lanes), dev)
+    _check("seg", seg, torch.int32, (lanes,), dev)
+    contexts, width = _check_table(tab, dev)
+    _check("present", present, torch.uint8, (width - 1,), dev)
+    _check_lanes(lanes)
+    if (model, order) not in ((0, 2), (0, 4), (0, 6), (1, 0), (1, 1)):
+        raise ValueError(f"unsupported wctx model/order {model}/{order}")
+    need = 4**order if model == 0 else 384 * (8 if order else 1)
+    if contexts != need:
+        raise ValueError(f"tab: model {model} order {order} has {need} contexts, got {contexts}")
+    if _plain_or_cuda(dev):
+        return wctx_decode_plain(words, states, startm, seg, tab, present,
+                                 model, order)
+    if lanes > WCTX_MAX_DECODE_LANES:
+        raise ValueError(
+            f"the decode kernel holds at most {WCTX_MAX_DECODE_LANES} lanes, got {lanes}"
+        )
+    out = torch.empty((steps, lanes), dtype=torch.uint8, device=dev)
+    info = torch.empty((2,), dtype=torch.int64, device=dev)
+    _launch(WCTX_DECODE, dev, words, words.numel(), states, startm, seg, tab,
+            contexts, width, present, model, order, steps, lanes, out, info)
+    return out, info
 
 
 # ---------------------------------------------------------------------------

@@ -262,8 +262,6 @@ def encode_stream(
     data: bytes | np.ndarray, lanes: int | None = None, device=None
 ) -> bytes:
     """rANS-encode one byte stream on ``device`` (default: the CUDA card)."""
-    from . import cuda_kernels
-
     dev = resolve_device(device)
     raw = _as_u8(data)
     n = len(raw)
@@ -278,31 +276,57 @@ def encode_stream(
     pad_sym = int(np.argmax(hist))  # before the padding is counted
     hist[pad_sym] += steps * N - n
     freq = normalize_freqs(hist)
-    cum = cumulative(freq)
+    return assemble_payload(
+        n, N, freq, *fetch_encoded(launch_encode(dev, raw, N, pad_sym, freq))
+    )
 
-    freq_cum = np.stack([freq.astype(np.int32), cum.astype(np.int32)])
+
+def launch_encode(
+    dev: torch.device, raw: np.ndarray, lanes: int, pad_sym: int,
+    freq: np.ndarray,
+):
+    """Enqueue the encode and word compaction of ``raw`` with a given table
+    (``freq`` (256,) summing to PROB_SCALE, the counts of the ``pad_sym``
+    cells that fill the last row included) on ``dev``'s current stream.
+    Returns the device tensors that :func:`fetch_encoded` reads."""
+    from . import cuda_kernels
+
+    steps = -(-len(raw) // lanes)
+    freq_cum = np.stack(
+        [freq.astype(np.int32), cumulative(freq).astype(np.int32)]
+    )
     words, flags, states = cuda_kernels.rans_encode(
-        to_device(dev, raw), steps, N, pad_sym, to_device(dev, freq_cum)
+        to_device(dev, raw), steps, lanes, pad_sym, to_device(dev, freq_cum)
     )
     flat, total = cuda_kernels.rans_compact(words, flags)
+    return flat, total, states
+
+
+def fetch_encoded(handles) -> tuple[np.ndarray, np.ndarray]:
+    """Wait for :func:`launch_encode`'s work and copy back ``(states u32,
+    words u16)``."""
+    flat, total, states = handles
     total_h = int(total.item())
     words_h = flat[:total_h].cpu().numpy().view(np.uint16)
-    states_h = states.cpu().numpy().view(np.uint32)
+    return states.cpu().numpy().view(np.uint32), words_h
 
+
+def assemble_payload(
+    n: int, lanes: int, freq: np.ndarray, states: np.ndarray,
+    words: np.ndarray,
+) -> bytes:
     out = bytearray()
-    out += struct.pack(HEADER_FMT, n, N.bit_length() - 1)
+    out += struct.pack(HEADER_FMT, n, lanes.bit_length() - 1)
     out += freq.astype("<u2").tobytes()
-    out += states_h.astype("<u4").tobytes()
-    out += struct.pack("<I", total_h)
-    out += words_h.astype("<u2").tobytes()
+    out += states.astype("<u4").tobytes()
+    out += struct.pack("<I", len(words))
+    out += words.astype("<u2").tobytes()
     return bytes(out)
 
 
 def decode_stream(payload: bytes | np.ndarray, device=None) -> bytes:
     """Decode an rANS stream produced by :func:`encode_stream` on
     ``device`` (default: the CUDA card)."""
-    from . import cuda_kernels
-
     dev = resolve_device(device)
     buf = _as_u8(payload)
     hdr_size = struct.calcsize(HEADER_FMT)
@@ -312,7 +336,6 @@ def decode_stream(payload: bytes | np.ndarray, device=None) -> bytes:
     if raw_len == 0:
         return b""
     N = 1 << lanes_log2
-    steps = -(-raw_len // N)
 
     off = hdr_size
     need = 512 + 4 * N + 4
@@ -333,13 +356,31 @@ def decode_stream(payload: bytes | np.ndarray, device=None) -> bytes:
     if N > MAX_LANES:
         raise RansError("unsupported rANS lane count")
 
-    out, consumed = cuda_kernels.rans_decode(
+    return fetch_decoded(
+        launch_decode(dev, words, states, freq, raw_len, N), raw_len,
+        total_words,
+    )
+
+
+def launch_decode(
+    dev: torch.device, words: np.ndarray, states: np.ndarray,
+    freq: np.ndarray, raw_len: int, lanes: int,
+):
+    """Enqueue the decode of ``raw_len`` symbols with a given table on
+    ``dev``'s current stream. Returns what :func:`fetch_decoded` reads."""
+    from . import cuda_kernels
+
+    return cuda_kernels.rans_decode(
         to_device(dev, words.astype("<u2").view(np.int16)),
         to_device(dev, states.view(np.int32)),
         to_device(dev, pack_slot_table(freq).view(np.int32)),
-        steps,
-        N,
+        -(-raw_len // lanes),
+        lanes,
     )
+
+
+def fetch_decoded(handles, raw_len: int, total_words: int) -> bytes:
+    out, consumed = handles
     # a sound stream uses up exactly the words it carries
     if int(consumed.item()) != total_words:
         raise RansError("corrupted rANS stream data")

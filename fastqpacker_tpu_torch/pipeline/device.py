@@ -1,7 +1,8 @@
 """Device pipeline: FQZ compress and decompress on a torch device.
 
 The port of ``fastqpacker_tpu/pipeline/device.py``. FQZ v3 routes to
-:mod:`.native`; the rest of this module is the v1/v2 path. Compress: the main
+:mod:`.native` (and, for a container with ``TAG_WCTX`` streams read on the
+card, to :mod:`.meshpipe`); the rest of this module is the v1/v2 path. Compress: the main
 thread parses a block, stages it padded in page-locked host memory, and
 enqueues the host-to-device copy, the dense encode kernel and the copy
 back on one CUDA stream; a thread pool waits for each block's copies and
@@ -18,6 +19,7 @@ runs the kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import contextlib
+import io
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from itertools import chain
@@ -32,8 +34,10 @@ from ..ops import cuda_kernels
 from ..ops import device as devops
 from ..ops import reference as refops
 from ..parser.fastq import QUAL_PAD, SEQ_PAD, FastqStreamParser, RecordBlock
+from ..utils.inmem import source_view
 from . import api
 from . import blocks as blockcodec
+from . import meshpipe
 from . import native
 
 LEN_BUCKET = 32
@@ -214,6 +218,26 @@ def _read_blocks(r: BinaryIO, version: int):
         yield hdr, payload
 
 
+def _first_block_wctx(view) -> bool:
+    """True when the first block's seq or qual stream is TAG_WCTX — the
+    cheap sniff behind the batched decode routing. Any parse trouble
+    answers False (the ordinary decoder owns error semantics)."""
+    rr = io.BytesIO(view)
+    try:
+        hdr = container.read_block_header(rr, container.VERSION_3_NATIVE)
+    except container.FormatError:
+        return False
+    if hdr is None:
+        return False
+    sizes = hdr.stream_sizes(container.VERSION_2)
+    base = rr.tell()
+    wt = native.TAG_WCTX
+    t0 = view[base] if sizes[0] > 0 and len(view) > base else -1
+    o1 = base + sizes[0]
+    t1 = view[o1] if sizes[1] > 0 and len(view) > o1 else -1
+    return t0 == wt or t1 == wt
+
+
 def decompress_device(
     r: BinaryIO,
     w: BinaryIO,
@@ -229,6 +253,21 @@ def decompress_device(
         refops.PHRED64_OFFSET if fh.phred64 else refops.PHRED33_OFFSET
     )
     if fh.version == container.VERSION_3_NATIVE:
+        # Context-coded (TAG_WCTX) containers carry the mesh coder's
+        # streams: on the card they go to the batched decoder of
+        # pipeline/meshpipe.py, on the CPU to the per-block decoder. The
+        # route follows the device the caller gave (there is no transfer
+        # probe); both give the same bytes. Dict/lossless containers and
+        # non-addressable sources keep the per-block path.
+        if dev.type == "cuda" and not (
+            fh.flags & (container.FLAG_SEQ_DICT | container.FLAG_LOSSLESS)
+        ):
+            view = source_view(r)
+            if view is not None:
+                r = io.BytesIO(view)
+                if _first_block_wctx(view):
+                    meshpipe.decompress_mesh(r, w, mesh=[dev], fh=fh)
+                    return
         native.decompress_native(
             r, w, fh, qual_offset, api._resolve_workers(opts.workers), dev
         )

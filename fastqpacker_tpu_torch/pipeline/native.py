@@ -6,7 +6,8 @@ a CRC32 field in the block header (format/container.py). Each stream's
 codec is picked by measured or estimated size and named by a 1-byte tag:
 
   seq      -> zstd / order-0 rANS / order-k context model / LDM zstd
-  qual     -> zstd / order-0 rANS / order-1/2 context model
+              / device context model (TAG_WCTX, written by the mesh path)
+  qual     -> zstd / order-0 rANS / order-1/2 context model / TAG_WCTX
   headers  -> token-delta + zstd / zstd
   plus, npos, lengths -> zstd, untagged
 
@@ -34,7 +35,7 @@ from ..entropy import zstd as zstd_entropy
 from ..format import container
 from ..ops import crc32 as dcrc
 from ..ops import device as devops
-from ..ops import qualctx, rans, seqctx, sldm, tokenize
+from ..ops import qualctx, rans, seqctx, sldm, tokenize, wctx
 from ..ops import reference as refops
 from ..parser.fastq import FastqStreamParser, RecordBlock
 from ..utils import varlen
@@ -296,11 +297,36 @@ def _decode_tagged(
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     if tag == TAG_WCTX:
-        raise NotImplementedError(
-            "TAG_WCTX streams (the device context coder, slice 3 of the "
-            "port) are not yet ported in fastqpacker_tpu_torch"
-        )
+        if lengths is None:
+            raise container.FormatError(
+                "wctx stream outside the sequence/quality slots"
+            )
+        try:
+            model = payload[0] if payload else 255
+            flat = wctx.decode_stream(payload, lengths, device=dev)
+            if model == wctx.MODEL_SEQ:
+                # symbols are unpacked base codes -> packed wire rows
+                return seqctx.pack_stream(flat, lengths).tobytes()
+            # symbols are raw qualities -> per-record delta wire stream
+            return _raw_to_delta(flat, lengths)
+        except ValueError as e:
+            raise container.FormatError(str(e)) from None
     raise container.FormatError(f"unknown stream codec tag: {tag}")
+
+
+def _raw_to_delta(raw: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Integrated qualities -> the v3 per-record delta stream (inverse
+    of qualctx.integrate), vectorized."""
+    if len(raw) == 0:
+        return b""
+    d = np.empty(len(raw), np.uint8)
+    d[0] = raw[0]
+    np.subtract(raw[1:], raw[:-1], out=d[1:])
+    starts = np.zeros(len(lengths), dtype=np.int64)
+    np.cumsum(lengths[:-1].astype(np.int64), out=starts[1:])
+    nz = lengths > 0
+    d[starts[nz]] = raw[starts[nz]]
+    return d.tobytes()
 
 
 def _encode_tagged_qual(
@@ -611,10 +637,14 @@ def decode_block_payload(
     dev: torch.device,
     seq_dict: np.ndarray | None = None,
     lossless: bool = False,
+    predecoded: dict | None = None,
 ) -> bytes:
     """Decode one v3 block payload (streams after the header) to FASTQ
     text, verifying the block CRC32, with the device programs on
-    ``dev``."""
+    ``dev``. ``predecoded`` maps stream slots (0=seq, 1=qual) to raw bytes
+    already entropy-decoded elsewhere (the batch decoder of
+    pipeline/meshpipe.py); the CRC check below still covers them, so a
+    wrong batched decode fails exactly like corrupt data."""
     sizes = hdr.stream_sizes(container.VERSION_2)
     if len(payload) < sum(sizes):
         raise container.FormatError("truncated block payload")
@@ -634,6 +664,8 @@ def decode_block_payload(
             parts.append(lengths_bytes)
         elif policy == "zstd":
             parts.append(codec.decompress(chunk))
+        elif predecoded is not None and i in predecoded:
+            parts.append(predecoded[i])
         elif i == 0:
             # the sequence slot may reference the container dictionary
             parts.append(

@@ -12,6 +12,13 @@ IID skewed steps (72% 0, 10% each +-1, 4% each +-2) at high levels (ASCII
 delta stream is IID with ~1.4 bits per symbol, and the levels lie above the
 context model's bins: FQZ v3 codes such a quality stream with order-0 rANS
 (``TAG_RANS``), which the tiled default never does.
+
+``seq_model="markov"`` draws every read from an order-1 Markov chain over
+ACGT (no N, nothing an LZ matcher finds), and ``qual_model="phredwalk"``
+gives every record its own walk in Phred 0-41 (ASCII 33-74: uniform steps
+in -2..2, summed and divided by 3, from Phred 30). Together they are the
+context-model corpus: the context coders beat zstd and order-0 rANS on both
+streams, so the ``--mesh`` path codes them ``TAG_WCTX``.
 """
 
 from __future__ import annotations
@@ -28,10 +35,33 @@ _WALK_STEPS = np.repeat(
 )
 _WALK_LO, _WALK_HI = 83, 122
 
+# order-1 transition probabilities of the "markov" bases, row = previous base
+_MARKOV = np.array(
+    [
+        [0.17, 0.45, 0.25, 0.13],
+        [0.13, 0.17, 0.45, 0.25],
+        [0.45, 0.25, 0.13, 0.17],
+        [0.25, 0.13, 0.17, 0.45],
+    ]
+)
+
 
 def walk_steps(rng: np.random.Generator, shape) -> np.ndarray:
     """IID quality steps of the "walk" model, int8 of ``shape``."""
     return _WALK_STEPS[rng.integers(0, 256, size=shape, dtype=np.uint8)]
+
+
+def markov_codes(rng: np.random.Generator, n: int, read_len: int) -> np.ndarray:
+    """(n, read_len) base codes, every row its own order-1 Markov chain
+    from base 0; one vector step per position."""
+    cum = np.cumsum(_MARKOV, axis=1)
+    codes = np.empty((n, read_len), dtype=np.uint8)
+    prev = np.zeros(n, dtype=np.int64)
+    for j in range(read_len):
+        u = rng.random(n)
+        prev = np.minimum((u[:, None] >= cum[prev]).sum(axis=1), 3)
+        codes[:, j] = prev
+    return codes
 
 
 def _headers(n: int, read_len: int) -> np.ndarray:
@@ -52,12 +82,15 @@ def synth_fastq(
     seed: int = 0,
     min_len: int | None = None,
     qual_model: str = "tiled",
+    seq_model: str = "iid",
 ) -> bytes:
     """About ``target_mb`` MiB of FASTQ text, reproducible from ``seed``.
-    ``qual_model``: "tiled" (512 pooled rows) or "walk" (see the module
-    docstring)."""
-    if qual_model not in ("tiled", "walk"):
+    ``qual_model``: "tiled" (512 pooled rows), "walk" or "phredwalk";
+    ``seq_model``: "iid" or "markov" (see the module docstring)."""
+    if qual_model not in ("tiled", "walk", "phredwalk"):
         raise ValueError(f"unknown qual_model: {qual_model}")
+    if seq_model not in ("iid", "markov"):
+        raise ValueError(f"unknown seq_model: {seq_model}")
     rng = np.random.default_rng(seed)
     mean_len = read_len if min_len is None else (min_len + read_len) / 2
     hw = _headers(1, read_len).shape[1]
@@ -68,10 +101,18 @@ def synth_fastq(
     else:
         lengths = rng.integers(min_len, read_len + 1, size=n)
     bases = np.frombuffer(b"ACGT", np.uint8)
-    seq = bases[rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)]
-    nn = max(1, n * read_len // 1000)  # sparse N positions (~0.1%)
-    seq[rng.integers(0, n, nn), rng.integers(0, read_len, nn)] = ord("N")
-    if qual_model == "walk":
+    if seq_model == "markov":
+        seq = bases[markov_codes(rng, n, read_len)]
+    else:
+        seq = bases[rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)]
+        nn = max(1, n * read_len // 1000)  # sparse N positions (~0.1%)
+        seq[rng.integers(0, n, nn), rng.integers(0, read_len, nn)] = ord("N")
+    if qual_model == "phredwalk":
+        steps = rng.integers(-2, 3, size=(n, read_len)).astype(np.int32)
+        qual = np.clip(
+            33 + 30 + np.cumsum(steps, axis=1) // 3, 33, 74
+        ).astype(np.uint8)
+    elif qual_model == "walk":
         steps = walk_steps(rng, (n, read_len))
         walk = np.cumsum(steps, axis=1, dtype=np.int16)
         walk += rng.integers(95, 111, size=(n, 1), dtype=np.int16)

@@ -13,9 +13,14 @@ runs the v3 block encoder and decoder (``pipeline/native.py``) with its
 stages wrapped in timers, on data whose quality streams are coded with
 order-0 rANS: CRC32, zstd candidates, pick estimates, rANS encode and
 decode (with their copies), and the context coders and tokenizer when they
-run. A stage named ``x(incl. ...)`` contains the stages named ``x.*``.
+run. ``--format mesh`` does the same for the ``--mesh`` path
+(``pipeline/meshpipe.py`` on a one-device list) on whole 100,000-record
+blocks of the context-model corpus, one round at a time: the plan (context
+histograms, estimates, zstd candidates, CRC32), the context coder's host
+prep (lane matrices, tables), copies, kernels, the finish, and the batched
+decode. A stage named ``x(incl. ...)`` contains the stages named ``x.*``.
 
-Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3] [--mb 64]
+Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3|mesh] [--mb 64]
                                                 [--seed 0]
 """
 
@@ -169,6 +174,110 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     return c.ms, len(blocks), block_size
 
 
+def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
+    """Per-stage ms per block of ``compress_mesh`` / ``decompress_mesh`` on
+    the device list ``[dev]``, one round (= one block) at a time, stages
+    timed by wrapping the functions the path calls."""
+    from fastqpacker_tpu_torch.format import container
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx, sldm, wctx
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe, native
+
+    c = Clock()
+    direction = ["c."]
+
+    def wrap(kind, owner, attr, label):
+        fn = getattr(owner, attr)
+        timer = c.host if kind == "host" else c.device
+
+        def timed(*args, **kwargs):
+            return timer(direction[0] + label, fn, *args, **kwargs)
+
+        setattr(owner, attr, timed)
+
+    for owner, attr, label in (
+        (native, "_raw_streams", "raw_streams(incl. dense encode, stream assembly)"),
+        (meshpipe, "_plan_round", "plan(incl. plan.*)"),
+        (seqctx, "prepare", "plan.seqctx_prepare"),
+        (qualctx, "prepare", "plan.qualctx_prepare"),
+        (qualctx, "pick_model", "plan.qctx_pick_model"),
+        (qualctx, "encode_prepared", "plan.qctx_encode(python)"),
+        (wctx, "estimate_size", "plan.wctx_estimate_size"),
+        (native, "_zstd_candidate", "zstd_candidates(plan and finish)"),
+        (native, "_rans_size_estimate", "plan.rans_size_estimate"),
+        (sldm, "coverage_probe", "plan.coverage_probe"),
+        (native, "_crc_streams", "crc32(incl. copies)"),
+        (meshpipe, "_dispatch_round", "dispatch(incl. prep.*, wctx.h2d, kernels)"),
+        (pmesh, "_wctx_block_prep", "prep(incl. prep.*)"),
+        (wctx, "stream_layout", "prep.lane_bounds"),
+        (wctx, "start_matrix", "prep.start_matrix"),
+        (wctx, "to_matrix", "prep.to_matrix"),
+        (wctx, "context_matrix", "prep.context_matrix"),
+        (wctx, "normalize_tables", "prep.normalize_tables"),
+        (meshpipe, "_finish_round", "finish(incl. finish.*)"),
+        (wctx, "fetch_encoded", "finish.fetch(wait, d2h)"),
+        (wctx, "assemble_payload", "finish.assemble_payload"),
+        (native, "_encode_tagged_headers", "finish.headers"),
+        (wctx, "parse_stream", "parse_stream"),
+        (wctx, "fetch_decoded", "fetch(wait, d2h, from_matrix)"),
+        (seqctx, "pack_stream", "pack_stream"),
+        (native, "_raw_to_delta", "raw_to_delta"),
+        (native, "decode_block_payload", "block_payload(incl. zstd, crc32, fastq_assembly)"),
+        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. dense decode)"),
+    ):
+        wrap("host", owner, attr, label)
+    for owner, attr, label in (
+        (wctx, "to_device", "wctx.h2d"),
+        (cuda_kernels, "wctx_encode", "wctx_encode.kernel"),
+        (cuda_kernels, "rans_encode", "rans_encode.kernel"),
+        (cuda_kernels, "rans_compact", "compact.kernel"),
+        (cuda_kernels, "wctx_decode", "wctx_decode.kernel"),
+        (cuda_kernels, "rans_decode", "rans_decode.kernel"),
+    ):
+        wrap("device", owner, attr, label)
+
+    mesh = [dev]
+    block_size = api.DEFAULT_BLOCK_SIZE
+    blocks = c.host("parse", lambda: list(
+        FastqStreamParser(io.BytesIO(data), block_size=block_size).blocks()))
+    _, qual_offset = api.peek_detection(iter(blocks))
+
+    def encode(blk):
+        raw = native._raw_streams(blk, qual_offset, dev)
+        return meshpipe._encode_round([raw], mesh)[0]
+
+    encode(blocks[-1])  # warm-up
+    c.settle()
+    parse_ms = c.ms["parse"]
+    c.ms.clear()
+    c.ms["parse"] = parse_ms
+    comps = []
+    for blk in blocks:
+        comps.append(c.host("c.block_total", encode, blk))
+        c.settle()
+    direction[0] = "d."
+    head = io.BytesIO()
+    container.FileHeader(
+        version=container.VERSION_3_NATIVE, block_size=block_size, flags=0
+    ).write(head)
+    out = io.BytesIO()
+    for comp in comps:
+        c.host("d.block_total", meshpipe.decompress_mesh,
+               io.BytesIO(head.getvalue() + comp), out, mesh)
+        c.settle()
+    if out.getvalue() != data:
+        raise RuntimeError("mesh breakdown: the round trip differs from the input")
+    tags = [[TAGS[comp[container.BLOCK_HEADER_SIZE_V3]],
+             TAGS[comp[container.BLOCK_HEADER_SIZE_V3
+                       + container.parse_block_header(comp, 3).seq_data_size]]]
+            for comp in comps]
+    c.ms["tags(seq, qual) per block"] = tags
+    return c.ms, len(blocks), block_size
+
+
+TAGS = {0: "rans", 1: "zstd", 2: "tok", 3: "qctx", 4: "sctx", 5: "sldm", 6: "wctx"}
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -178,7 +287,7 @@ def smi_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--format", choices=["v2", "v3"], default="v2", dest="fmt")
+    ap.add_argument("--format", choices=["v2", "v3", "mesh"], default="v2", dest="fmt")
     ap.add_argument("--mb", type=float, default=64)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -186,6 +295,26 @@ def main() -> int:
         print("torch_stage_breakdown: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    if args.fmt == "mesh":
+        one = len(synth_fastq(0))
+        n_blocks = max(1, int(args.mb * (1 << 20) / one) // api.DEFAULT_BLOCK_SIZE)
+        data = synth_fastq(
+            (n_blocks * api.DEFAULT_BLOCK_SIZE * one + one // 2) / (1 << 20),
+            seed=args.seed, qual_model="phredwalk", seq_model="markov",
+        )
+        ms, n, block_records = breakdown_mesh(data, dev)
+        tags = ms.pop("tags(seq, qual) per block")
+        print(json.dumps({
+            "format": "mesh",
+            "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi_line(),
+            "input_bytes": len(data),
+            "blocks": n,
+            "block_records": block_records,
+            "tags": tags,
+            "ms_per_block": {k: v / n for k, v in sorted(ms.items())},
+        }))
+        return 0
     if args.fmt == "v3":
         data = synth_fastq(args.mb, seed=args.seed, qual_model="walk")
         ms, n, block_records = breakdown_v3(data, dev)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card (dense codec, order-0 rANS, CRC32):
-kernel == plain version, and a GPU compress byte-identical to the CPU
-compress, for FQZ v2 and v3.
+"""The port's CUDA kernels on the card (dense codec, order-0 rANS, CRC32,
+context rANS): kernel == plain version, and a GPU compress byte-identical
+to the CPU compress, for FQZ v2, v3 and the ``--mesh`` path.
 
 Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
 False. On a machine with a card: ``python -m pytest tests/test_torch_cuda.py
@@ -201,3 +201,161 @@ def test_gpu_v3_compress_matches_cpu(cuda):
     assert tfq.decompress_bytes(comp, tfq.DecompressOptions(workers=4), device=cuda) == data
     assert cuda_kernels.launches[cuda_kernels.RANS_DECODE] == blocks
     assert cuda_kernels.launches[cuda_kernels.DECODE] == blocks
+
+
+# ---------------------------------------------------------------------------
+# context-modeled rANS (csrc/wctx_codec.cu)
+# ---------------------------------------------------------------------------
+
+
+def _wctx_case(rng, model, order, lanes, n_rec, hi_len):
+    """One stream's host prep by the port's numpy functions, with ragged
+    lanes: zero-length records, lanes with no symbols, a record longer
+    than a lane."""
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    lengths = wi.rand_lengths(rng, n_rec, 0, hi_len)
+    lengths[3] = 40 * hi_len
+    lengths[10 : 10 + n_rec // 8] = 0
+    syms = wi.symbols(rng, model, lengths)
+    C = wctx.model_geometry(model, order)[0]
+    sb, S, seg = wctx.stream_layout(lengths, lanes)
+    startm = wctx.start_matrix(lengths, sb, S)
+    symm = wctx.to_matrix(syms, sb, S, 0)
+    ctxm = wctx.context_matrix(symm, startm, model, order)
+    present, freq_p = wctx.build_tables(symm, ctxm, C, seg)
+    return dict(lengths=lengths, syms=syms, sb=sb, S=S, seg=seg, startm=startm,
+                symm=symm, ctxm=ctxm, present=present, freq_p=freq_p)
+
+
+@pytest.mark.parametrize("lanes", [32, 256, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("model,order", [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)])
+def test_wctx_kernels_match_plain(model, order, lanes, cuda):
+    """Encode and decode against their plain versions, every output in
+    full, and decode(encode(x)) == x."""
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    rng = np.random.default_rng(1000 * model + 10 * order + lanes)
+    c = _wctx_case(rng, model, order, lanes, max(64, lanes // 2), 60)
+    assert (c["seg"] == 0).any()
+    enc = wi.encode_tensors(c["symm"], c["ctxm"], c["seg"], c["freq_p"],
+                            c["present"], cuda)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.wctx_encode(*enc)
+    want = wctx.wctx_encode_plain(*enc)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    words, flags, states, status = got
+    assert int(status) == 0
+    flat, total = cuda_kernels.rans_compact(words, flags)
+    stream = flat[: int(total)].clone()
+    dec = (stream, states,
+           *wi.decode_tensors(np.zeros(0, np.uint16), np.zeros(0, np.uint32),
+                              c["startm"], c["seg"], c["freq_p"], c["present"],
+                              cuda)[2:])
+    out, info = cuda_kernels.wctx_decode(*dec, model, order)
+    pout, pinfo = wctx.wctx_decode_plain(*dec, model, order)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(info, pinfo)
+    assert info.tolist() == [int(total), 0]
+    idx = wctx.from_matrix(out.cpu().numpy(), c["sb"])
+    assert np.array_equal(c["present"].astype(np.uint8)[idx], c["syms"])
+    counts = cuda_kernels.launches.as_dict()
+    assert counts[cuda_kernels.WCTX_ENCODE] == counts[cuda_kernels.WCTX_DECODE] == 1
+
+
+@pytest.mark.parametrize("model,order", [(0, 6), (1, 1)])
+def test_wctx_stream_api_matches_cpu_and_flags_corruption(model, order, cuda):
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    rng = np.random.default_rng(5 + model)
+    lengths = wi.rand_lengths(rng, 3000, 0, 150)
+    syms = wi.symbols(rng, model, lengths)
+    good = wctx.encode_stream(syms, lengths, model, order, device=cuda)
+    assert good == wctx.encode_stream(syms, lengths, model, order, device="cpu")
+    assert np.array_equal(wctx.decode_stream(good, lengths, device=cuda), syms)
+    p = wctx.parse_stream(good)
+    nwords = len(p["words"])
+    at = len(good) - 2 * nwords - 4 * p["N"] - 4
+    lost = good[:at] + (nwords - 40).to_bytes(4, "little") + good[at + 4 : -80]
+    with pytest.raises(wctx.WctxError, match="trailing wctx words"):
+        wctx.decode_stream(lost, lengths, device=cuda)
+    # an empty context row: the kernel flags it as the plain version does
+    sb, S, seg = wctx.stream_layout(lengths, p["N"])
+    freq_p = p["freq_p"].copy()
+    freq_p[p["freq_p"].sum(axis=1).argmax() if model else 0] = 0
+    dec = wi.decode_tensors(p["words"], p["states"],
+                            wctx.start_matrix(lengths, sb, S), seg, freq_p,
+                            p["present"], cuda)
+    out, info = cuda_kernels.wctx_decode(*dec, model, order)
+    pout, pinfo = wctx.wctx_decode_plain(*dec, model, order)
+    torch.cuda.synchronize()
+    assert int(pinfo[1]) == 1
+    assert torch.equal(out, pout) and torch.equal(info, pinfo)
+
+
+def test_wctx_encode_flags_an_invalid_table(cuda):
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    rng = np.random.default_rng(9)
+    c = _wctx_case(rng, 0, 2, 256, 200, 40)
+    freq_p = c["freq_p"].copy()
+    ctx0 = int(c["ctxm"][1, 0])
+    s = int(np.flatnonzero(c["present"] == c["symm"][1, 0])[0])
+    freq_p[ctx0, (s + 1) % len(c["present"])] += freq_p[ctx0, s]
+    freq_p[ctx0, s] = 0
+    enc = wi.encode_tensors(c["symm"], c["ctxm"], c["seg"], freq_p, c["present"], cuda)
+    got = cuda_kernels.wctx_encode(*enc)
+    want = wctx.wctx_encode_plain(*enc)
+    torch.cuda.synchronize()
+    assert int(got[3]) == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    sym_idx = wctx._sym_to_idx(c["present"])[c["symm"]]
+    with pytest.raises(wctx.WctxError, match="invalid wctx frequency table"):
+        wctx.fetch_encoded(wctx.launch_encode(cuda, sym_idx, c["ctxm"], c["seg"], freq_p))
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_gpu_mesh_container_matches_cpu(d, cuda):
+    """``compress_mesh`` with the one card listed d times: the container
+    equals the CPU's for the same d, TAG_WCTX is picked, both decoders of
+    the card read it, and the launch counts follow the tags."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(9000 * one / (1 << 20), read_len=100, seed=11,
+                       qual_model="phredwalk", seq_model="markov")
+    opts = tfq.Options(block_size=1800)
+    cuda_kernels.reset_launches()
+    comp = meshpipe.compress_mesh_bytes(data, opts, [cuda] * d)
+    counts = cuda_kernels.launches.as_dict()
+    assert comp == meshpipe.compress_mesh_bytes(
+        data, opts, pmesh.make_mesh(d, device="cpu"))
+    r = io.BytesIO(comp)
+    tfq.container.read_file_header(r)
+    n_wctx = blocks = 0
+    while (hdr := tfq.container.read_block_header(r, 3)) is not None:
+        sizes = hdr.stream_sizes(2)
+        payload = r.read(sum(sizes))
+        assert payload[sizes[0]] == tfq.container.TAG_WCTX
+        n_wctx += 1 + (payload[0] == tfq.container.TAG_WCTX)
+        blocks += 1
+    assert blocks == 5 and n_wctx > blocks
+    assert counts[cuda_kernels.WCTX_ENCODE] >= n_wctx  # candidates that lost too
+    assert counts[cuda_kernels.RANS_COMPACT] == (
+        counts[cuda_kernels.WCTX_ENCODE] + counts[cuda_kernels.RANS_ENCODE])
+    cuda_kernels.reset_launches()
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(comp), out, [cuda] * d)
+    assert out.getvalue() == data
+    assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] == n_wctx
+    cuda_kernels.reset_launches()
+    assert tfq.decompress_bytes(comp, device=cuda) == data  # routed by the tag
+    assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] == n_wctx

@@ -181,6 +181,7 @@ def test_launch_counters_are_thread_safe():
     assert set(cuda_kernels.launches.as_dict()) == {
         cuda_kernels.ENCODE, cuda_kernels.DECODE, cuda_kernels.RANS_ENCODE,
         cuda_kernels.RANS_COMPACT, cuda_kernels.RANS_DECODE, cuda_kernels.CRC32,
+        cuda_kernels.WCTX_ENCODE, cuda_kernels.WCTX_DECODE,
     }
 
 

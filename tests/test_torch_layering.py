@@ -48,7 +48,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         capture_output=True, text=True, cwd=REPO, timeout=110,
     )
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 27  # every module of the package
+    assert int(p.stdout.strip()) >= 32  # every module of the package
 
 
 def test_the_v3_modules_are_in_the_package():
@@ -69,6 +69,28 @@ def test_the_v3_modules_are_in_the_package():
                 assert words[1] != "fastqpacker_tpu", (path, line)
 
 
+def test_the_mesh_slice_modules_are_in_the_package():
+    """The modules of the device context coder and the ``--mesh`` path
+    exist under the port, import neither JAX nor the JAX package, and the
+    kernel source and its launchers are registered with the build."""
+    import importlib
+
+    from fastqpacker_tpu_torch.ops import build, cuda_kernels
+
+    for name in ("ops.wctx", "parallel.mesh", "pipeline.meshpipe", "utils.inmem"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "wctx_codec.cu").is_file()
+    assert set(build.SIGNATURES["wctx_codec"]) == {"fq_wctx_encode", "fq_wctx_decode"}
+    assert {"fq_wctx_encode", "fq_wctx_decode"} <= set(cuda_kernels.launches.as_dict())
+    assert len(cuda_kernels.launches.as_dict()) == 8
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     """No ``device=`` means the card; without one the entry points raise
     before any work, and nothing runs on the CPU instead."""
@@ -81,10 +103,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
     for plain in ("encode_arrays_plain", "decode_arrays_plain",
                   "rans_encode_plain", "rans_compact_plain",
-                  "rans_decode_plain", "crc32_chunks_plain"):
+                  "rans_decode_plain", "crc32_chunks_plain",
+                  "wctx_encode_plain", "wctx_decode_plain"):
         monkeypatch.setattr(cuda_kernels, plain, no_cpu)
     from fastqpacker_tpu_torch.ops import crc32 as port_crc32
     from fastqpacker_tpu_torch.ops import rans as port_rans
+    from fastqpacker_tpu_torch.ops import wctx as port_wctx
+    from fastqpacker_tpu_torch.parallel import mesh as port_mesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe as port_meshpipe
+    import io
+    import numpy as np
 
     data = b"@r\nACGT\n+\nIIII\n"
     for call in (
@@ -96,6 +124,13 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: port_rans.encode_stream(b"x" * 100),
         lambda: port_rans.decode_stream(b"x" * 100),
         lambda: port_crc32.crc32_device(b"x" * 100_000),
+        lambda: port_wctx.encode_stream(np.zeros(9, np.uint8), np.array([9]), 0, 2),
+        lambda: port_wctx.decode_stream(b"x" * 100, np.array([9])),
+        lambda: port_mesh.make_mesh(),
+        lambda: port_mesh.entropy_encode_streams([b"x" * 100]),
+        lambda: port_meshpipe.compress_mesh_bytes(data),
+        lambda: port_meshpipe.decompress_mesh(
+            io.BytesIO(b"FQZ\x00\x03" + bytes(5)), io.BytesIO()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

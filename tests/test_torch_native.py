@@ -313,10 +313,18 @@ def test_corrupt_v3_errors_match_jax(where):
 
 
 def test_wctx_streams_are_refused_by_name():
+    """A stream that only claims ``TAG_WCTX`` (the device context coder
+    is ported now: tests/test_torch_wctx.py, test_torch_mesh.py) fails as
+    in the JAX package's per-block decoder, by the parse error's name."""
     comp = bytearray(_port(_fastq(300, 11)))
     comp[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V3] = C.TAG_WCTX
-    with pytest.raises(NotImplementedError, match="TAG_WCTX.*slice 3"):
+    with pytest.raises(Exception) as want:
+        _jax_blockwise_decode(bytes(comp))
+    with pytest.raises(Exception) as got:
         tfq.decompress_bytes(bytes(comp), device="cpu")
+    assert type(got.value).__name__ == type(want.value).__name__ == "FormatError"
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("unknown wctx model")
 
 
 def test_lossless_needs_v3():
@@ -413,3 +421,61 @@ def test_block_streams_match_jax_wide_npos():
         np.frombuffer(raw.npos, np.uint8), block.n, wide=True
     )
     assert np.array_equal(counts, jc) and np.array_equal(rows, jr) and np.array_equal(pos, jp)
+
+
+def _mesh_container():
+    """A container with TAG_WCTX sequence and quality streams, written by
+    the JAX package's mesh path on one device."""
+    from fastqpacker_tpu.parallel import mesh as jax_mesh
+    from fastqpacker_tpu.pipeline import meshpipe as jax_meshpipe
+    from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(1800 * one / (1 << 20), read_len=100, seed=31,
+                       qual_model="phredwalk", seq_model="markov")
+    comp = jax_meshpipe.compress_mesh_bytes(
+        data, jfq.Options(block_size=1800), jax_mesh.make_mesh(1)
+    )
+    return data, comp
+
+
+def test_wctx_streams_decode_in_the_per_block_decoder():
+    """The ``TAG_WCTX`` branch of ``_decode_tagged`` and the ``predecoded``
+    argument of ``decode_block_payload`` against the JAX package's."""
+    from fastqpacker_tpu.entropy import zstd as jax_zstd
+    from fastqpacker_tpu_torch.entropy import zstd as port_zstd
+
+    data, comp = _mesh_container()
+    assert tfq.decompress_bytes(comp, device="cpu") == data
+    hdr = C.parse_block_header(comp[C.FILE_HEADER_SIZE :], 3)
+    payload = comp[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V3 :]
+    assert payload[0] == payload[hdr.seq_data_size] == C.TAG_WCTX
+    codec, dev = port_zstd.get_codec(), port_native.devops.resolve_device("cpu")
+    lengths = np.full(1800, 100, np.int64)
+    streams = []
+    for at, size in ((0, hdr.seq_data_size), (hdr.seq_data_size, hdr.qual_data_size)):
+        chunk = payload[at : at + size]
+        got = port_native._decode_tagged(chunk, codec, dev, 1800, lengths)
+        assert got == jax_native._decode_tagged(chunk, jax_zstd.get_codec(), 1800, lengths)
+        streams.append(got)
+    # streams decoded elsewhere are taken as they are, under the block CRC
+    text = port_native.decode_block_payload(
+        hdr, payload, codec, 33, dev, predecoded={0: streams[0], 1: streams[1]}
+    )
+    assert text == data
+    wrong = bytes([streams[1][0] ^ 1]) + streams[1][1:]
+    with pytest.raises(C.FormatError, match="block CRC32 mismatch"):
+        port_native.decode_block_payload(
+            hdr, payload, codec, 33, dev, predecoded={1: wrong}
+        )
+    # the tag outside the two slots that carry record lengths
+    with pytest.raises(jfq.container.FormatError) as want:
+        jax_native._decode_tagged(payload[: hdr.seq_data_size], jax_zstd.get_codec(), 1800)
+    with pytest.raises(C.FormatError) as got:
+        port_native._decode_tagged(payload[: hdr.seq_data_size], codec, dev, 1800)
+    assert str(got.value) == str(want.value)
+    # a flipped byte inside the stream: typed, never a crash
+    bad = bytearray(comp)
+    bad[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V3 + hdr.seq_data_size // 2] ^= 0x40
+    with pytest.raises(C.FormatError):
+        tfq.decompress_bytes(bytes(bad), device="cpu")

@@ -173,9 +173,10 @@ def test_truncated_container_errors_match(jax_device_path):
 
 
 def test_v3_is_refused():
-    """What is left of the refusal now that FQZ v3 is ported
-    (tests/test_torch_native.py): v3 compresses and decodes, and only a
-    ``TAG_WCTX`` stream, the device context coder's, is refused by name."""
+    """Nothing is left of the refusal: FQZ v3 compresses and decodes
+    (tests/test_torch_native.py), and a ``TAG_WCTX`` stream, the device
+    context coder's, is decoded too (tests/test_torch_mesh.py). A stream
+    that only claims the tag fails as it does in the JAX package."""
     data = _fastq(20, seed=10)
     comp = tfq.compress_bytes(data, tfq.Options(version=3), device="cpu")
     assert tfq.decompress_bytes(comp, device="cpu") == data
@@ -185,7 +186,9 @@ def test_v3_is_refused():
     wctx[tfq.container.FILE_HEADER_SIZE + tfq.container.BLOCK_HEADER_SIZE_V3] = (
         tfq.container.TAG_WCTX
     )
-    with pytest.raises(NotImplementedError, match="TAG_WCTX.*not yet ported"):
+    # the string is that of the JAX package's per-block decoder
+    # (pipeline/native.py:326-343 through ops/wctx.py:parse_stream)
+    with pytest.raises(tfq.container.FormatError, match="unknown wctx model"):
         tfq.decompress_bytes(bytes(wctx), device="cpu")
 
 
