@@ -38,8 +38,11 @@ Phases, each fatal on failure:
    and the quality model at order 0, 1, on 256, 1,024 and 8,192 lanes with
    ragged lanes (zero-length records, lanes with no symbols, one record
    longer than a lane), and at the full width of a v3 block (100,000 records
-   of 151 bp = 15.1 M symbols, the lane count the mesh path picks), where
-   they are timed; a stream that lost words raises. No single PyTorch call
+   of 151 bp = 15.1 M symbols, the lane count the mesh path picks, and the
+   sequence model at order 2 on 8,192 lanes), where they are timed, per
+   launch and per step, beside their launch geometry (cluster size, threads
+   per CTA, table placement, the ``-Xptxas -v`` registers, shared memory and
+   spills); a stream that lost words raises. No single PyTorch call
    computes either function (``library_ms`` null);
 7. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
    ``make_mesh(1)``): ``--mesh-blocks`` blocks of 100,000 records of the
@@ -61,6 +64,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +95,7 @@ V3_CPU_BYTES = 48 << 20  # prefix of the v3 input that the CPU compresses too
 BLOCK_RECORDS = 100_000  # the v3 default block size
 READ_LEN = 151
 WCTX_MODELS = [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]  # (model, order)
+WIDE_LANES = 8192  # the widest tier, which less compressible streams pick
 DEV = torch.device("cuda")
 
 
@@ -715,16 +720,18 @@ def phase_wctx(ck, wctx, rng) -> dict:
     else:
         raise RuntimeError("check failed: a wctx stream that lost words decoded")
 
-    # full width: one v3 block's stream, the lane count the mesh path picks
+    # full width: one v3 block's stream, the lane count the mesh path picks,
+    # and the sequence model on the widest tier
     out = {}
     lengths = np.full(BLOCK_RECORDS, READ_LEN, np.int64)
-    for model, order in WCTX_MODELS:
+    for model, order, lanes in [(m, o, None) for m, o in WCTX_MODELS] + [(0, 2, WIDE_LANES)]:
         syms = corpus_symbols(rng, model, BLOCK_RECORDS, READ_LEN)
-        prep = wctx_prep(wctx, syms, lengths, model, order)
+        prep = wctx_prep(wctx, syms, lengths, model, order, lanes)
         case = wctx_case(ck, wctx, prep, model, order)
         fold(case)
         S, N, C, npres, k = prep["S"], prep["lanes"], prep["C"], prep["npres"], case["words"]
         m, live, tab_bytes = S * N, prep["n"], 2 * C * (npres + 1)
+        geo = ck.wctx_decode_geometry(N, C, npres + 1)
         shape = (f"model={model} order={order} n={live} lanes={N} steps={S} "
                  f"contexts={C} npres={npres} words={k}")
         stream, *dec_rest = case["dec"]
@@ -736,25 +743,60 @@ def phase_wctx(ck, wctx, rng) -> dict:
         # decode the context update (~8), log2(npres) search probes of 3 and
         # the state update, rank and refill (~12).
         probes = max(1, int(np.ceil(np.log2(max(npres, 2)))))
-        for name, fn, plain, sets, nbytes, ops in (
+        dec_sets = [(w, dec_rest[0], st, *dec_rest[2:])
+                    for w, st in rotations((stream, dec_rest[1]), 2 * k + 2 * m)]
+        for name, fn, plain, sets, nbytes, ops, launch in (
             (ck.WCTX_ENCODE, ck.wctx_encode, wctx.wctx_encode_plain,
              [(a, b, *prep["enc"][2:]) for a, b in rotations(prep["enc"][:2], 6 * m)],
-             6 * m + 8 * N + tab_bytes + 4, 12 * live),
+             6 * m + 8 * N + tab_bytes + 4, 12 * live,
+             {"cluster": 1, "ctas": N // 32, "threads_per_cta": 32, "lanes_per_thread": 1}),
             (ck.WCTX_DECODE,
              lambda *a: ck.wctx_decode(*a, model, order),
              lambda *a: wctx.wctx_decode_plain(*a, model, order),
-             [(w, dec_rest[0], s, *dec_rest[2:])
-              for w, s in rotations((stream, dec_rest[1]), 2 * k + 2 * m)],
-             2 * k + 2 * m + 8 * N + tab_bytes + npres + 16,
-             (20 + 3 * probes) * live),
+             dec_sets, 2 * k + 2 * m + 8 * N + tab_bytes + npres + 16,
+             (20 + 3 * probes) * live,
+             {"cluster": geo.cluster, "ctas": geo.cluster, "threads_per_cta": geo.threads,
+              "lanes_per_thread": 1,
+              "table": "shared" if geo.table_shared else "readonly_cache",
+              "shared_bytes": geo.shared}),
         ):
             kms = gpu_ms(fn, sets, 10)
             pms = gpu_ms(plain, sets[:1], 1)
-            out[(name, model, order)] = (
-                *report(name, shape, kms, pms, None, nbytes, ops, errs[name]), S)
-        del case, prep, sets
+            extra = {"lanes": N, "steps": S, "step_us": kms * 1e3 / S, **launch}
+            print(f"phase=kernels kernel={name} {shape} step_us={extra['step_us']:.4f} "
+                  f"geometry={json.dumps(launch, sort_keys=True)}")
+            key = (name, model, order) if lanes is None else (name, model, order, lanes)
+            out[key] = (*report(name, shape, kms, pms, None, nbytes, ops, errs[name]), extra)
+        del case, prep, sets, dec_sets
         torch.cuda.empty_cache()
     return {"errs": errs, "times": out}
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory and spills."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        if (mm := re.search(r"Compiling entry function '(\w+)'", line)):
+            cur = {"entry": mm.group(1)}
+            rows.append(cur)
+        elif cur is not None and (mm := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(mm.group(1)), int(mm.group(2))
+        elif cur is not None and (mm := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(mm.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+def wctx_entry_label(entry: str) -> str:
+    """``wctx_decode_kernel<kQual, kTabShared>`` from its mangled name."""
+    if (mm := re.search(r"wctx_decode_kernelILb(\d)ELb(\d)E", entry)):
+        return f"fq_wctx_decode<qual={mm.group(1)},table_shared={mm.group(2)}>"
+    if (mm := re.search(r"wctx_encode_kernelILb(\d)E", entry)):
+        return f"fq_wctx_encode<table_shared={mm.group(1)}>"
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -943,9 +985,9 @@ def main() -> int:
     for name, info in build.builds.items():
         print(f"phase=build source={name}.cu nvcc_seconds={info.seconds:.2f} "
               f"library={info.path.name}")
-        for line in info.log.splitlines():
-            if "ptxas" in line:
-                print(f"phase=build {name}: {line.strip()}")
+        for row in ptxas_report(info.log):
+            print(f"phase=build {name}: {wctx_entry_label(row.pop('entry'))} "
+                  f"{json.dumps(row, sort_keys=True)}")
 
     rng = np.random.default_rng(args.seed)
     kern = phase_kernels(ck, devops, refops, rng)
@@ -997,16 +1039,19 @@ def main() -> int:
     # context rANS: the count from the mesh run; the times of the model and
     # order that run's quality streams were coded with, the others beside
     qual = mesh_run["qual"][:2]
+    wt = kern_wctx["times"]
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, direction in ((ck.WCTX_ENCODE, "compress"), (ck.WCTX_DECODE, "decompress")):
         by_model = {
-            f"model{m}_order{o}": dict(zip(
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "steps"),
-                kern_wctx["times"][(name, m, o)]))
+            f"model{m}_order{o}": {**dict(zip(fields, wt[(name, m, o)])), **wt[(name, m, o)][5]}
             for m, o in WCTX_MODELS
         }
+        by_model[f"model0_order2_lanes{WIDE_LANES}"] = {
+            **dict(zip(fields, wt[(name, 0, 2, WIDE_LANES)])), **wt[(name, 0, 2, WIDE_LANES)][5]}
+        kms, pms, bound_ms, bound_by, lms, extra = wt[(name, *qual)]
+        more = {"model_order": list(qual), **extra, "by_model": by_model}
         rows.append((name, mesh_run[direction][name], kern_wctx["errs"][name],
-                     kern_wctx["times"][(name, *qual)],
-                     {"model_order": list(qual), "by_model": by_model}))
+                     (kms, pms, bound_ms, bound_by, lms, extra["steps"]), more))
     for row in rows[:6]:  # the earlier kernels run on the mesh path too
         name = row[0]
         direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"

@@ -17,20 +17,46 @@
 //
 // What bounds them. By bytes the work is small (encode reads three bytes and
 // writes three per cell, decode reads about two and writes one), but both
-// are chains of S dependent state updates per lane, each with a table
-// read that depends on the lane's context; decode also resolves the symbol by
-// a binary search of the row and needs a prefix over all lanes between two
-// steps. So their time is steps x (latency of one update). The design keeps
-// the update short: the table sits in shared memory when it fits (every
-// table but the 3,072-context quality model's, which is read through the
-// read-only cache), the division is the hardware's, states and contexts
-// stay in registers, loads and stores are coalesced across lanes. The TPU
-// formulation (int8 one-hot matrix products for the row fetch, telescoping
-// sums for the symbol, flip/roll row reversal, roll-ladder scans) is not
-// carried over.
+// are chains of S dependent state updates per lane; decode also needs a
+// prefix over all lanes between two steps. So their time is steps x (latency
+// of one step), and the design takes every load from device memory off that
+// chain and spreads the lanes over as many SMs as the chain allows:
+//
+// - encode: one warp per CTA (64-256 CTAs at the 2,048-8,192-lane tiers),
+//   one thread per lane. The symbol and context rows are staged into shared
+//   memory ahead of the backward walk, tiles of kEncodeTile steps x 32 lanes,
+//   double buffered with cp.async; the table sits in shared memory when it
+//   fits, else it is read through the read-only cache (its reads depend on
+//   the staged data only, not on the state).
+// - decode: the lanes are split over a thread block cluster of G CTAs (one
+//   per SM), one lane per thread. Per step a warp counts its refills with
+//   a ballot and sends the count to every CTA of the cluster with an
+//   asynchronous remote store (st.async) that completes on the receiver's
+//   mbarrier: there is no cluster barrier in the loop, since a release at
+//   cluster scope waits for the copies in flight. Two warp reductions over
+//   the cluster's warp counts give each warp its offset and the step's
+//   total. The word stream is staged in a shared-memory ring that cp.async
+//   keeps two steps' worst case ahead of the words consumed, the start-mask
+//   rows kRowsAhead steps ahead, and a step waits only for the oldest copy
+//   groups it needs, then meets the other warps of its CTA at one barrier. The symbol search
+//   is a fixed-depth binary lifting over the row, in each CTA's shared memory
+//   where the table fits beside the ring, else through the read-only cache.
+//   fq_wctx_decode derives the cluster geometry from the lane count and the
+//   table size (decode_geometry) and refuses one the card cannot schedule.
+//
+// The TPU formulation (int8 one-hot matrix products for the row fetch,
+// telescoping sums for the symbol, flip/roll row reversal, roll-ladder scans)
+// is not carried over.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -45,33 +71,50 @@ constexpr int kPBuckets = 8;
 constexpr int kQ2Buckets = 8;
 constexpr int kPosCap = 4000;  // positions past 112 share the last bucket
 
-// A block may use 227 KB of shared memory; keep room for the static part.
-constexpr int kMaxSharedTable = 200 * 1024;
+// A block may use 227 KB of shared memory (232,448 bytes); the static part
+// of the decode kernel takes under 4 KB.
+constexpr int kMaxDynamicShared = 232448 - 4096;
+constexpr int kMaxSharedTable = 200 * 1024;  // encode
 
-template <bool kShared>
-__device__ __forceinline__ uint32_t tab_at(const uint16_t* tab, int i) {
-  if constexpr (kShared) {
-    return tab[i];
-  } else {
-    return __ldg(tab + i);
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-// Inclusive prefix sum over a warp.
-__device__ __forceinline__ int warp_inclusive(int v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int up = __shfl_up_sync(kFullMask, v, off);
-    if (lane >= off) v += up;
-  }
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Copy `count` u16 from device to shared memory: 16-byte cp.async chunks
+// (both ends 16-byte aligned) and plain loads for the tail. The caller
+// commits and waits.
+__device__ __forceinline__ void stage_u16(uint16_t* dst, const uint16_t* src,
+                                          int count, int tid, int nthreads) {
+  const int chunks = count / 8;
+  for (int i = tid; i < chunks; i += nthreads) cp_async16(dst + 8 * i, src + 8 * i);
+  for (int i = 8 * chunks + tid; i < count; i += nthreads) dst[i] = src[i];
 }
 
 // ---------------------------------------------------------------------------
-// Encode: one thread per lane, rows walked backwards from seg[lane] - 1.
+// Encode: one warp per CTA, one thread per lane, rows walked backwards from
+// seg[lane] - 1 through tiles staged ahead in shared memory.
 // ---------------------------------------------------------------------------
 
-constexpr int kEncodeThreads = 128;
+constexpr int kEncodeThreads = 32;
+constexpr int kEncodeTile = 64;  // steps per staged tile
+
+struct EncodeTile {
+  uint8_t sym[kEncodeTile][kEncodeThreads];
+  uint16_t ctx[kEncodeTile][kEncodeThreads];
+};
+constexpr int kTileChunks = 6;  // 16-byte chunks per row: 2 of sym, 4 of ctx
 
 template <bool kShared>
 __global__ void __launch_bounds__(kEncodeThreads)
@@ -82,18 +125,37 @@ wctx_encode_kernel(const uint8_t* __restrict__ sym,    // (S, N) present index
                    int contexts, int width, int steps, int lanes,
                    uint16_t* __restrict__ words, uint8_t* __restrict__ flags,
                    uint32_t* __restrict__ states, int* __restrict__ status) {
-  extern __shared__ uint16_t tab_s[];
-  if constexpr (kShared) {
-    const int cells = contexts * width;
-    for (int i = threadIdx.x; i < cells; i += kEncodeThreads) tab_s[i] = tab_g[i];
-    __syncthreads();
-  }
+  extern __shared__ __align__(16) unsigned char smem_e[];
+  EncodeTile* tiles = reinterpret_cast<EncodeTile*>(smem_e);
+  uint16_t* tab_s = reinterpret_cast<uint16_t*>(smem_e + 2 * sizeof(EncodeTile));
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * kEncodeThreads;
+  const int lane = lane0 + tid;
+  if constexpr (kShared) stage_u16(tab_s, tab_g, contexts * width, tid, kEncodeThreads);
   const uint16_t* tab = kShared ? tab_s : tab_g;
-  const int lane = blockIdx.x * kEncodeThreads + threadIdx.x;
-  if (lane >= lanes) return;
 
   int n = seg[lane];
   n = n < 0 ? 0 : (n > steps ? steps : n);
+  const int nmax = __reduce_max_sync(kFullMask, n);
+  // tile k holds the rows [max(0, hi - kEncodeTile), hi), hi = nmax - k * T
+  auto issue = [&](int k) {
+    const int hi = nmax - k * kEncodeTile;
+    if (hi <= 0) return;
+    const int lo = hi > kEncodeTile ? hi - kEncodeTile : 0;
+    EncodeTile& tile = tiles[k & 1];
+    for (int i = tid; i < (hi - lo) * kTileChunks; i += kEncodeThreads) {
+      const int r = i / kTileChunks, part = i % kTileChunks;
+      const long long cell = (long long)(lo + r) * lanes + lane0;
+      if (part < 2) {
+        cp_async16(&tile.sym[r][16 * part], sym + cell + 16 * part);
+      } else {
+        cp_async16(&tile.ctx[r][8 * (part - 2)], ctx + cell + 8 * (part - 2));
+      }
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
   // padding cells carry no word
   for (int t = steps - 1; t >= n; --t) {
     const long long idx = (long long)t * lanes + lane;
@@ -102,40 +164,52 @@ wctx_encode_kernel(const uint8_t* __restrict__ sym,    // (S, N) present index
   }
   uint32_t x = kRansL;
   bool bad = false;
+  for (int k = 0; nmax - k * kEncodeTile > 0; ++k) {
+    issue(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the table and tile k have landed
+    __syncwarp();
+    const int hi = nmax - k * kEncodeTile;
+    const int lo = hi > kEncodeTile ? hi - kEncodeTile : 0;
+    const EncodeTile& tile = tiles[k & 1];
+    const int top = (n < hi ? n : hi) - 1;
 #pragma unroll 4
-  for (int t = n - 1; t >= 0; --t) {
-    const long long idx = (long long)t * lanes + lane;
-    const int s = sym[idx];
-    const int c = ctx[idx];
-    uint32_t cum = 0, f = 1;
-    if (s < width - 1 && c < contexts) {
-      const int at = c * width + s;
-      cum = tab_at<kShared>(tab, at);
-      f = tab_at<kShared>(tab, at + 1) - cum;
-      if (f - 1u >= kProbScale) {  // zero, or a table that is not monotone
+    for (int t = top; t >= lo; --t) {
+      const int s = tile.sym[t - lo][tid];
+      const int c = tile.ctx[t - lo][tid];
+      uint32_t cum = 0, f = 1;
+      if (s < width - 1 && c < contexts) {
+        const int at = c * width + s;
+        cum = kShared ? (uint32_t)tab[at] : (uint32_t)__ldg(tab + at);
+        f = (kShared ? (uint32_t)tab[at + 1] : (uint32_t)__ldg(tab + at + 1)) - cum;
+        if (f - 1u >= kProbScale) {  // zero, or a table that is not monotone
+          bad = true;
+          f = 1;
+        }
+      } else {
         bad = true;
-        f = 1;
       }
-    } else {
-      bad = true;
+      const long long idx = (long long)t * lanes + lane;
+      const bool emit = (x >> 20) >= f;  // x >= f << 20
+      words[idx] = (uint16_t)x;  // read back only where the flag is set
+      flags[idx] = emit ? 1 : 0;
+      if (emit) x >>= 16;
+      x = ((x / f) << kProbBits) + (x % f) + cum;
     }
-    const bool emit = (x >> 20) >= f;  // x >= f << 20
-    words[idx] = (uint16_t)x;  // read back only where the flag is set
-    flags[idx] = emit ? 1 : 0;
-    if (emit) x >>= 16;
-    x = ((x / f) << kProbBits) + (x % f) + cum;
+    __syncwarp();  // tile k is read before tile k + 2 overwrites it
   }
+  cp_async_wait<0>();
   states[lane] = x;
   if (bad) atomicOr(status, 1);
 }
 
 // ---------------------------------------------------------------------------
-// Decode: one block; thread i owns the K contiguous lanes [i*K, (i+1)*K).
-// Per step every live lane advances its context, finds the last column of the
-// context's row that is <= the state's low 12 bits, and updates its state;
-// the lanes that fell below 1 << 16 take consecutive words in lane order, so
-// each needs the exclusive prefix of the need flags over all the lanes: a
-// block scan of the per-thread counts between two steps.
+// Decode: a cluster of G CTAs; thread i of CTA r owns lane r * threads + i.
+// Per step every live lane advances its context, finds the last column of
+// the context's row that is <= the state's low 12 bits, and updates its
+// state; the lanes that fell below 1 << 16 take consecutive words in lane
+// order, at the exclusive prefix of the refill flags over all lanes of the
+// cluster.
 //
 // Per-lane context state in one word. Sequence model: the context in bits
 // 0-15, the previous raw symbol in bits 16-23. Quality model: position + 1
@@ -143,9 +217,79 @@ wctx_encode_kernel(const uint8_t* __restrict__ sym,    // (S, N) present index
 // before it in bits 24-31.
 // ---------------------------------------------------------------------------
 
-constexpr int kDecodeMaxThreads = 1024;
+constexpr int kCtaThreads = 256;  // threads per CTA up to 4,096 lanes
+constexpr int kDecodeMaxThreads = 512;
+constexpr int kDecodeMaxWarps = kDecodeMaxThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kRowsAhead = 7;  // start-mask rows staged ahead of the step
+constexpr int kStartSlots = 8;  // > kRowsAhead: a row is read before its slot is refilled
+constexpr int kMaxPending = kRowsAhead - 1;  // copy groups a step may leave in flight
+constexpr int kRingPerLane = 4;  // ring words per lane: 2 steps' worst case
+                                 // ahead, one step in use, alignment slack
 
-template <int K, bool kQual, bool kShared>
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this CTA's shared memory) in the shared memory of
+// CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Store `v` into another CTA's shared memory and count its 4 bytes on that
+// CTA's mbarrier (an asynchronous store: no fence, no cluster barrier).
+__device__ __forceinline__ void st_async_u32(unsigned remote, int v, unsigned remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n"
+      ::"r"(remote), "r"(v), "r"(remote_bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// the table in each CTA's shared memory, or in device memory through the
+// read-only cache
+template <bool kTabShared>
+__device__ __forceinline__ uint32_t row_at(const uint16_t* row, int i) {
+  if constexpr (kTabShared) {
+    return row[i];
+  } else {
+    return __ldg(row + i);
+  }
+}
+
+template <bool kQual, bool kTabShared>
 __global__ void __launch_bounds__(kDecodeMaxThreads)
 wctx_decode_kernel(const uint16_t* __restrict__ words, long long total_words,
                    const uint32_t* __restrict__ states,
@@ -157,192 +301,233 @@ wctx_decode_kernel(const uint16_t* __restrict__ words, long long total_words,
                    int order, int steps, int lanes,
                    uint8_t* __restrict__ out,  // (S, N) present index
                    long long* __restrict__ info) {
-  extern __shared__ uint16_t tab_s[];
+  extern __shared__ __align__(16) unsigned char smem_d[];
+  // the refill counts of every warp of the cluster, per step (two slots used
+  // in turn), and their arrival
+  __shared__ __align__(16) int wcnt[2][kMaxCluster * kDecodeMaxWarps];
+  __shared__ __align__(8) uint64_t cbar[2];
   __shared__ uint8_t pres[256];
-  __shared__ int sums[2][32];
-  const int npres = width - 1;
-  if constexpr (kShared) {
-    const int cells = contexts * width;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) tab_s[i] = tab_g[i];
-  }
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    pres[i] = i < npres ? present[i] : 0;
-  const uint16_t* tab = kShared ? tab_s : tab_g;
+  __shared__ uint16_t tailw[8];
+  __shared__ int cbad;
+  cg::cluster_group cluster = cg::this_cluster();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lane0 = threadIdx.x * K;
-  const bool owner = lane0 < lanes;  // lanes is a multiple of K or below 32
+  const int G = gridDim.x;  // the grid is one cluster
+  const int rank = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int my_lane = rank * nthreads + tid;
+  const int npres = width - 1;
   const uint32_t seq_mask = (1u << (2 * order)) - 1;
 
-  uint32_t x[K];
-  uint32_t m[K];
-  int n[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    x[j] = owner ? states[lane0 + j] : kRansL;
-    m[j] = 0;
-    int s = owner ? seg[lane0 + j] : 0;
-    n[j] = s < 0 ? 0 : (s > steps ? steps : s);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_d);
+  const long long rmask = (long long)kRingPerLane * lanes - 1;
+  uint8_t* srow = smem_d + 2 * kRingPerLane * lanes;
+  uint16_t* tab_s = reinterpret_cast<uint16_t*>(srow + kStartSlots * nthreads);
+  const long long full_end = total_words & ~7ll;  // words staged in chunks
+  const long long ahead = 2ll * lanes;
+  long long filled = 0;  // words requested so far
+
+  auto request_words = [&](long long upto) {
+    const long long q1 = ((upto < full_end ? upto : full_end) + 7) >> 3;
+    for (long long q = (filled >> 3) + tid; q < q1; q += nthreads)
+      cp_async16(ring + ((q << 3) & rmask), words + (q << 3));
+    if ((q1 << 3) > filled) filled = q1 << 3;
+  };
+  auto request_row = [&](int r) {
+    if (r >= steps) return;
+    const uint8_t* src = startm + (long long)r * lanes + rank * nthreads;
+    uint8_t* dst = srow + (r % kStartSlots) * nthreads;
+    for (int i = tid; i < nthreads / 16; i += nthreads) cp_async16(dst + 16 * i, src + 16 * i);
+  };
+
+  // prologue: the table, the first rows and words, the word tail
+  if constexpr (kTabShared) stage_u16(tab_s, tab_g, contexts * width, tid, nthreads);
+  for (int i = tid; i < 256; i += nthreads) pres[i] = i < npres ? present[i] : 0;
+  // slots past the cluster's warps stay 0: the count reads take four at a time
+  for (int i = tid; i < kMaxCluster * kDecodeMaxWarps; i += nthreads) {
+    wcnt[0][i] = 0;
+    wcnt[1][i] = 0;
   }
+  if (tid < 8) {
+    const long long p = full_end + tid;
+    tailw[tid] = p < total_words ? words[p] : 0;
+  }
+  if (tid == 0) {
+    cbad = 0;
+    mbar_init(&cbar[0], 1);
+    mbar_init(&cbar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int r = 0; r < kRowsAhead; ++r) request_row(r);
+  request_words(ahead);
+  cp_async_commit();
+  // cov[p]: the words requested by the copy groups up to the (p + 1)-th
+  // newest; groups before the first step's are complete
+  long long cov[kMaxPending + 1];
+#pragma unroll
+  for (int p = 0; p <= kMaxPending; ++p) cov[p] = filled;
+
+  uint32_t x = states[my_lane];
+  uint32_t m = 0;
+  int n = seg[my_lane];
+  n = n < 0 ? 0 : (n > steps ? steps : n);
+  // binary lifting over the columns [0, npres): the largest power of two
+  // <= npres - 1 (0 when there is one symbol)
+  const int top = npres > 1 ? 1 << (31 - __clz(npres - 1)) : 0;
+  cp_async_wait<0>();
   __syncthreads();
+  if (G > 1) cluster_barrier();  // every CTA's cbad and cbar are set
+  const int me = rank * nwarps + warp;  // this warp in the cluster
+  const int cluster_warps = G * nwarps;
 
   bool bad = false;
   long long base = 0;
   for (int t = 0; t < steps; ++t) {
-    uint32_t need = 0;
-    uint32_t pk[(K + 3) / 4] = {0};
-    uint32_t st[(K + 3) / 4] = {0};
-    if (owner) {
-      const uint8_t* p = startm + (long long)t * lanes + lane0;
-      if constexpr (K == 8) {
-        const uint2 v = *reinterpret_cast<const uint2*>(p);
-        st[0] = v.x;
-        st[1] = v.y;
-      } else if constexpr (K == 4) {
-        st[0] = *reinterpret_cast<const uint32_t*>(p);
-      } else {
+    // Stage ahead, in one group per step: start-mask row t + kRowsAhead and
+    // the words up to base(t) + 2 * lanes. The group of step t - 1 covers
+    // base(t - 1) + 2 * lanes >= base(t) + lanes, a step's most, so a step
+    // never waits for its own group. A ring of 4 * lanes words overwrites
+    // only words below base(t - 1), which every thread has read before the
+    // barrier of step t - 1.
+    request_row(t + kRowsAhead);
+    request_words(base + ahead);
+    cp_async_commit();
 #pragma unroll
-        for (int j = 0; j < K; ++j) st[0] |= (uint32_t)p[j] << (8 * j);
+    for (int p = kMaxPending; p > 0; --p) cov[p] = cov[p - 1];
+    cov[0] = filled;
+
+    const bool live = t < n;  // padding: trailing cells only
+    const bool start = srow[(t % kStartSlots) * nthreads + tid];
+    const uint32_t prev = (m >> 16) & 0xFFu;
+    int c;
+    if constexpr (kQual) {
+      int pp = m & 0xFFFFu;  // position + 1
+      pp = start ? 1 : (pp < kPosCap ? pp + 1 : pp);
+      const int pos = pp - 1;
+      const int qbin = start ? kQBins - 1 : (prev < 46 ? (int)prev : 46);
+      const int pb = (pos >> 4) < kPBuckets - 1 ? (pos >> 4) : kPBuckets - 1;
+      c = pb * kQBins + qbin;
+      if (order == 1) {
+        const uint32_t prev2 = m >> 24;
+        const int q2b = pos >= 2 ? (int)((prev2 < 46 ? prev2 : 46) >> 3)
+                                 : kQ2Buckets - 1;
+        c = c * kQ2Buckets + q2b;
       }
+      if (live) m = (m & 0xFFFF0000u) | (uint32_t)pp;
+    } else {
+      c = start ? 0 : (int)((((m & 0xFFFFu) << 2) | prev) & seq_mask);
+      if (live) m = (m & 0xFFFF0000u) | (uint32_t)c;
     }
+    const uint16_t* rowp = (kTabShared ? tab_s : tab_g) + c * width;
+    const uint32_t slot = x & (kProbScale - 1);
+    // last column with row[column] <= slot, fixed depth
+    int lo = 0;
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (t >= n[j]) continue;  // padding: trailing cells only
-      const bool start = (st[j / 4] >> (8 * (j % 4))) & 0xFFu;
-      const uint32_t prev = (m[j] >> 16) & 0xFFu;
-      int c;
-      if constexpr (kQual) {
-        int pp = m[j] & 0xFFFFu;  // position + 1
-        pp = start ? 1 : (pp < kPosCap ? pp + 1 : pp);
-        const int pos = pp - 1;
-        const int qbin = start ? kQBins - 1 : (prev < 46 ? (int)prev : 46);
-        const int pb = (pos >> 4) < kPBuckets - 1 ? (pos >> 4) : kPBuckets - 1;
-        c = pb * kQBins + qbin;
-        if (order == 1) {
-          const uint32_t prev2 = m[j] >> 24;
-          const int q2b = pos >= 2 ? (int)((prev2 < 46 ? prev2 : 46) >> 3)
-                                   : kQ2Buckets - 1;
-          c = c * kQ2Buckets + q2b;
-        }
-        m[j] = (m[j] & 0xFFFF0000u) | (uint32_t)pp;
-      } else {
-        c = start ? 0 : (int)((((m[j] & 0xFFFFu) << 2) | prev) & seq_mask);
-        m[j] = (m[j] & 0xFFFF0000u) | (uint32_t)c;
-      }
-      const int row = c * width;
-      const uint32_t slot = x[j] & (kProbScale - 1);
-      int lo = 0, hi = npres;  // last column with row[column] <= slot
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (tab_at<kShared>(tab, row + mid) <= slot) {
-          lo = mid;
-        } else {
-          hi = mid;
-        }
-      }
-      const uint32_t cum = tab_at<kShared>(tab, row + lo);
-      uint32_t f = tab_at<kShared>(tab, row + lo + 1) - cum;
-      if (f - 1u >= kProbScale) {  // a context the table does not hold
-        bad = true;
-        f = 1;
-      }
-      x[j] = f * (x[j] >> kProbBits) + slot - cum;
-      if (x[j] < kRansL) need |= 1u << j;
-      pk[j / 4] |= (uint32_t)lo << (8 * (j % 4));
+    for (int b = 0; b < 9; ++b) {
+      const int step = top >> b;
+      if (step == 0) break;
+      const int mid = lo + step;
+      const uint32_t v = row_at<kTabShared>(rowp, mid < npres ? mid : npres - 1);
+      lo = (mid < npres && v <= slot) ? mid : lo;
+    }
+    const uint32_t cum = row_at<kTabShared>(rowp, lo);
+    uint32_t f = row_at<kTabShared>(rowp, lo + 1) - cum;
+    if (f - 1u >= kProbScale) {  // a context the table does not hold
+      bad |= live;
+      f = 1;
+    }
+    const uint32_t y = f * (x >> kProbBits) + slot - cum;
+    const bool need = live && y < kRansL;
+    if (live) {
+      x = y;
       // contexts see raw symbol values, not present indices
-      m[j] = (m[j] & 0xFFFFu) | ((uint32_t)pres[lo] << 16) | (prev << 24);
+      m = (m & 0xFFFFu) | ((uint32_t)pres[lo] << 16) | (prev << 24);
     }
-    if (owner) {
-      uint8_t* p = out + (long long)t * lanes + lane0;
-      if constexpr (K == 8) {
-        *reinterpret_cast<uint2*>(p) = make_uint2(pk[0], pk[1]);
-      } else if constexpr (K == 4) {
-        *reinterpret_cast<uint32_t*>(p) = pk[0];
-      } else {
+    out[(long long)t * lanes + my_lane] = live ? (uint8_t)lo : 0;
+
+    // refill ranks: within the warp by ballot, across the cluster from the
+    // warp counts, which every warp sends to every CTA of the cluster
+    const unsigned nb = __ballot_sync(kFullMask, need);
+    const int in_warp = __popc(nb & ((1u << lane) - 1u));
+    const int slot2 = t & 1;
+    if (lane < G)
+      st_async_u32(cluster_addr(&wcnt[slot2][me], lane), __popc(nb),
+                   cluster_addr(&cbar[slot2], lane));
+    if (tid == 0) mbar_arrive_expect_tx(&cbar[slot2], 4u * cluster_warps);
+    // Wait for the newest copy group older than this step's that holds this
+    // step's words (up to base + lanes) and start-mask row t + 1 (in the
+    // group of step t + 1 - kRowsAhead); the groups after it stay in flight.
+    const long long need_end = base + lanes < full_end ? base + lanes : full_end;
+    int pending = 1;
 #pragma unroll
-        for (int j = 0; j < K; ++j) p[j] = (uint8_t)(pk[0] >> (8 * j));
-      }
+    for (int p = 2; p <= kMaxPending; ++p) pending = cov[p] >= need_end ? p : pending;
+    switch (pending) {
+      case 1: cp_async_wait<1>(); break;
+      case 2: cp_async_wait<2>(); break;
+      case 3: cp_async_wait<3>(); break;
+      case 4: cp_async_wait<4>(); break;
+      case 5: cp_async_wait<5>(); break;
+      default: cp_async_wait<6>(); break;
     }
-    // block scan of the per-thread need counts; the partial sums are double
-    // buffered so one barrier per step is enough
-    const int cnt = __popc(need);
-    const int incl = warp_inclusive(cnt, lane);
-    int* s = sums[t & 1];
-    if (lane == 31) s[warp] = incl;
-    __syncthreads();
-    const int ws = lane < nwarps ? s[lane] : 0;
-    const int wincl = warp_inclusive(ws, lane);
-    const int step_total = __shfl_sync(kFullMask, wincl, 31);
-    const int warp_off = __shfl_sync(kFullMask, wincl - ws, warp);
-    long long pos = base + warp_off + incl - cnt;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (need & (1u << j)) {
-        // a corrupt stream can ask for more words than it carries: read
-        // zeros instead, and let the consumed count tell the wrapper
-        const uint32_t w = pos < total_words ? (uint32_t)words[pos] : 0u;
-        x[j] = (x[j] << 16) | w;
-        ++pos;
-      }
+    __syncthreads();  // the staged words and rows are visible to all threads
+    mbar_wait(&cbar[slot2], (t >> 1) & 1);
+    int below = 0, all = 0;
+    for (int i = 4 * lane; i < cluster_warps; i += 128) {
+      const int4 v = *reinterpret_cast<const int4*>(&wcnt[slot2][i]);
+      all += v.x + v.y + v.z + v.w;
+      below += (i < me ? v.x : 0) + (i + 1 < me ? v.y : 0) + (i + 2 < me ? v.z : 0) +
+               (i + 3 < me ? v.w : 0);
     }
-    base += step_total;
+    below = __reduce_add_sync(kFullMask, below);
+    all = __reduce_add_sync(kFullMask, all);
+    if (need) {
+      // a corrupt stream can ask for more words than it carries: read zeros
+      // instead, and let the consumed count tell the wrapper
+      const long long pos = base + below + in_warp;
+      const uint32_t w = pos < full_end ? (uint32_t)ring[pos & rmask]
+                         : pos < total_words ? (uint32_t)tailw[pos - full_end]
+                                             : 0u;
+      x = (x << 16) | w;
+    }
+    base += all;
   }
+  cp_async_wait<0>();
   const int any_bad = __syncthreads_or(bad ? 1 : 0);
-  if (threadIdx.x == 0) {
+  if (G > 1) {
+    if (tid == 0 && any_bad) atomicOr(cluster.map_shared_rank(&cbad, 0), 1);
+    // no CTA leaves while another may still read its shared memory
+    cluster_barrier();
+  } else if (tid == 0) {
+    cbad = any_bad;
+  }
+  if (rank == 0 && tid == 0) {
     info[0] = base;
-    info[1] = any_bad;
+    info[1] = cbad;
   }
 }
 
-template <int K, bool kQual, bool kShared>
-int launch_decode(const void* words, long long total_words, const void* states,
-                  const void* startm, const void* seg, const void* tab,
-                  int contexts, int width, const void* present, int order,
-                  int steps, int lanes, void* out, void* info,
-                  cudaStream_t stream) {
-  int threads = lanes / K;
-  if (threads < 32) threads = 32;
-  const size_t shared =
-      kShared ? (size_t)contexts * width * sizeof(uint16_t) : 0;
-  auto kernel = wctx_decode_kernel<K, kQual, kShared>;
-  if (shared > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  kernel<<<1, threads, shared, stream>>>(
-      (const uint16_t*)words, total_words, (const uint32_t*)states,
-      (const uint8_t*)startm, (const int*)seg, (const uint16_t*)tab, contexts,
-      width, (const uint8_t*)present, order, steps, lanes, (uint8_t*)out,
-      (long long*)info);
-  return (int)cudaGetLastError();
-}
-
-template <int K>
-int launch_decode_k(bool qual, bool shared, const void* words,
-                    long long total_words, const void* states,
-                    const void* startm, const void* seg, const void* tab,
-                    int contexts, int width, const void* present, int order,
-                    int steps, int lanes, void* out, void* info,
-                    cudaStream_t s) {
-  if (qual) {
-    if (shared)
-      return launch_decode<K, true, true>(words, total_words, states, startm,
-                                          seg, tab, contexts, width, present,
-                                          order, steps, lanes, out, info, s);
-    return launch_decode<K, true, false>(words, total_words, states, startm,
-                                         seg, tab, contexts, width, present,
-                                         order, steps, lanes, out, info, s);
-  }
-  if (shared)
-    return launch_decode<K, false, true>(words, total_words, states, startm,
-                                         seg, tab, contexts, width, present,
-                                         order, steps, lanes, out, info, s);
-  return launch_decode<K, false, false>(words, total_words, states, startm,
-                                        seg, tab, contexts, width, present,
-                                        order, steps, lanes, out, info, s);
+// Checks a cluster geometry once per device, kernel and shared size with
+// cudaOccupancyMaxActiveClusters, so a geometry the card cannot schedule is
+// refused with an error, never run.
+cudaError_t check_cluster(const void* kernel, const cudaLaunchConfig_t& cfg) {
+  static std::mutex mu;
+  static std::set<std::tuple<int, const void*, unsigned, unsigned, size_t>> ok;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const auto key = std::make_tuple(dev, kernel, cfg.gridDim.x, cfg.blockDim.x,
+                                   cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> lock(mu);
+  if (ok.count(key)) return cudaSuccess;
+  int clusters = 0;
+  rc = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (rc != cudaSuccess) return rc;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  ok.insert(key);
+  return cudaSuccess;
 }
 
 inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -352,42 +537,103 @@ inline bool table_ok(int contexts, int width) {
          (long long)contexts * width <= (1ll << 24);
 }
 
+struct DecodeGeometry {
+  int threads;      // per CTA, one lane each
+  int cluster;      // CTAs, one cluster
+  bool tab_shared;  // the table in each CTA's shared memory (else __ldg)
+  long long shared; // dynamic shared bytes per CTA
+};
+
+// One lane per thread: CTAs of kCtaThreads threads in a cluster of up to
+// kMaxCluster (wider CTAs past kMaxCluster * kCtaThreads lanes, one CTA up
+// to kCtaThreads). Per CTA, the word ring of kRingPerLane words per lane of
+// the stream, kStartSlots start-mask rows of its lanes and, where it fits,
+// the table. False for a lane count the kernel does not take.
+bool decode_geometry(int lanes, int contexts, int width, DecodeGeometry* g) {
+  if (!pow2(lanes) || lanes < 32 || lanes > kMaxCluster * kDecodeMaxThreads ||
+      !table_ok(contexts, width))
+    return false;
+  int threads = lanes / kMaxCluster > kCtaThreads ? lanes / kMaxCluster : kCtaThreads;
+  if (threads > lanes) threads = lanes;
+  g->threads = threads;
+  g->cluster = lanes / threads;
+  const long long fixed = 2ll * kRingPerLane * lanes + (long long)kStartSlots * threads;
+  const long long tab = (long long)contexts * width * (long long)sizeof(uint16_t);
+  g->tab_shared = fixed + tab <= kMaxDynamicShared;
+  g->shared = fixed + (g->tab_shared ? tab : 0);
+  return g->shared <= kMaxDynamicShared;
+}
+
+template <bool kQual, bool kTabShared>
+int launch_decode(const void* words, long long total_words, const void* states,
+                  const void* startm, const void* seg, const void* tab,
+                  int contexts, int width, const void* present, int order,
+                  int steps, int lanes, const DecodeGeometry& g, void* out,
+                  void* info, cudaStream_t stream) {
+  auto kernel = wctx_decode_kernel<kQual, kTabShared>;
+  const int threads = g.threads, cluster = g.cluster;
+  const size_t shared = (size_t)g.shared;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (rc != cudaSuccess) return (int)rc;
+  if (cluster > 8) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = check_cluster((const void*)kernel, cfg);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaLaunchKernelEx(
+      &cfg, kernel, (const uint16_t*)words, total_words, (const uint32_t*)states,
+      (const uint8_t*)startm, (const int*)seg, (const uint16_t*)tab, contexts,
+      width, (const uint8_t*)present, order, steps, lanes, (uint8_t*)out,
+      (long long*)info);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of its launch, 0 on success.
+// Each returns a cudaError_t, 0 on success.
 
 // sym (u8), ctx (u16): steps*lanes cells; seg: lanes int32; tab: contexts *
 // width u16; words (u16), flags (u8): steps*lanes cells; states: lanes u32;
 // status: one int32, zeroed by the caller, set to 1 when a live cell met a
-// zero frequency or an index outside the table.
+// zero frequency or an index outside the table. lanes: a power of two >= 32.
 int fq_wctx_encode(const void* sym, const void* ctx, const void* seg,
                    const void* tab, int contexts, int width, int steps,
                    int lanes, void* words, void* flags, void* states,
                    void* status, void* stream) {
-  if (!pow2(lanes) || steps <= 0 || !table_ok(contexts, width))
+  if (!pow2(lanes) || lanes < kEncodeThreads || steps <= 0 ||
+      !table_ok(contexts, width))
     return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((lanes + kEncodeThreads - 1) / kEncodeThreads);
+  const unsigned grid = (unsigned)(lanes / kEncodeThreads);
+  const size_t tiles = 2 * sizeof(EncodeTile);
   const size_t bytes = (size_t)contexts * width * sizeof(uint16_t);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bytes <= (size_t)kMaxSharedTable) {
-    auto kernel = wctx_encode_kernel<true>;
-    if (bytes > 48 * 1024) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (rc != cudaSuccess) return (int)rc;
-    }
-    kernel<<<grid, kEncodeThreads, bytes, s>>>(
-        (const uint8_t*)sym, (const uint16_t*)ctx, (const int*)seg,
-        (const uint16_t*)tab, contexts, width, steps, lanes, (uint16_t*)words,
-        (uint8_t*)flags, (uint32_t*)states, (int*)status);
-  } else {
-    wctx_encode_kernel<false><<<grid, kEncodeThreads, 0, s>>>(
-        (const uint8_t*)sym, (const uint16_t*)ctx, (const int*)seg,
-        (const uint16_t*)tab, contexts, width, steps, lanes, (uint16_t*)words,
-        (uint8_t*)flags, (uint32_t*)states, (int*)status);
-  }
+  const bool in_shared = bytes <= (size_t)kMaxSharedTable;
+  const size_t shared = tiles + (in_shared ? bytes : 0);
+  auto kernel = in_shared ? wctx_encode_kernel<true> : wctx_encode_kernel<false>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<grid, kEncodeThreads, shared, s>>>(
+      (const uint8_t*)sym, (const uint16_t*)ctx, (const int*)seg,
+      (const uint16_t*)tab, contexts, width, steps, lanes, (uint16_t*)words,
+      (uint8_t*)flags, (uint32_t*)states, (int*)status);
   return (int)cudaGetLastError();
 }
 
@@ -395,39 +641,40 @@ int fq_wctx_encode(const void* sym, const void* ctx, const void* seg,
 // seg: lanes int32; tab: contexts * width u16; present: width - 1 bytes;
 // model 0 (sequence, order 2/4/6) or 1 (quality, order 0/1); out: steps*lanes
 // bytes; info: two int64 (words consumed, 1 if a live cell met a context the
-// table does not hold). lanes: a power of two up to 8192.
+// table does not hold). lanes: a power of two, 32-8192; the launch geometry
+// is fq_wctx_decode_geometry's.
 int fq_wctx_decode(const void* words, long long total_words, const void* states,
                    const void* startm, const void* seg, const void* tab,
                    int contexts, int width, const void* present, int model,
                    int order, int steps, int lanes, void* out, void* info,
                    void* stream) {
-  if (!pow2(lanes) || lanes > 8 * kDecodeMaxThreads || steps <= 0 ||
-      total_words < 0 || !table_ok(contexts, width) || model < 0 || model > 1 ||
-      order < 0 || order > 6)
+  DecodeGeometry g;
+  if (!decode_geometry(lanes, contexts, width, &g) || steps <= 0 ||
+      total_words < 0 || model < 0 || model > 1 || order < 0 || order > 6)
     return (int)cudaErrorInvalidValue;
-  const bool qual = model == 1;
-  const bool shared =
-      (size_t)contexts * width * sizeof(uint16_t) <= (size_t)kMaxSharedTable;
   cudaStream_t s = (cudaStream_t)stream;
-  const int k = lanes <= kDecodeMaxThreads ? 1 : lanes / kDecodeMaxThreads;
-  switch (k) {
-    case 1:
-      return launch_decode_k<1>(qual, shared, words, total_words, states,
-                                startm, seg, tab, contexts, width, present,
-                                order, steps, lanes, out, info, s);
-    case 2:
-      return launch_decode_k<2>(qual, shared, words, total_words, states,
-                                startm, seg, tab, contexts, width, present,
-                                order, steps, lanes, out, info, s);
-    case 4:
-      return launch_decode_k<4>(qual, shared, words, total_words, states,
-                                startm, seg, tab, contexts, width, present,
-                                order, steps, lanes, out, info, s);
-    default:
-      return launch_decode_k<8>(qual, shared, words, total_words, states,
-                                startm, seg, tab, contexts, width, present,
-                                order, steps, lanes, out, info, s);
-  }
+  auto launch = model == 1 ? (g.tab_shared ? launch_decode<true, true>
+                                           : launch_decode<true, false>)
+                           : (g.tab_shared ? launch_decode<false, true>
+                                           : launch_decode<false, false>);
+  return launch(words, total_words, states, startm, seg, tab, contexts, width,
+                present, order, steps, lanes, g, out, info, s);
+}
+
+// The launch geometry fq_wctx_decode takes for `lanes` lanes and a contexts x
+// width table, into out (four int32): threads per CTA, CTAs in the cluster, 1
+// if the table sits in each CTA's shared memory (0: read through the
+// read-only cache), dynamic shared bytes per CTA. Returns
+// cudaErrorInvalidValue for a lane count or table the kernel does not take.
+int fq_wctx_decode_geometry(int lanes, int contexts, int width, void* out) {
+  DecodeGeometry g;
+  if (!decode_geometry(lanes, contexts, width, &g)) return (int)cudaErrorInvalidValue;
+  int* o = (int*)out;
+  o[0] = g.threads;
+  o[1] = g.cluster;
+  o[2] = g.tab_shared ? 1 : 0;
+  o[3] = (int)g.shared;
+  return 0;
 }
 
 }  // extern "C"

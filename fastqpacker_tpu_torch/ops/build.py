@@ -72,6 +72,14 @@ SIGNATURES = {
     },
 }
 
+# Exported functions that launch nothing (each returns a cudaError_t too).
+QUERIES = {
+    "wctx_codec": {
+        # lanes, contexts, width, out (four int32)
+        "fq_wctx_decode_geometry": [_I, _I, _I, _P],
+    },
+}
+
 
 @dataclass
 class BuildInfo:
@@ -129,7 +137,7 @@ def _compile(name: str) -> BuildInfo:
 
 def _register(name: str, info: BuildInfo) -> None:
     lib = ctypes.CDLL(str(info.path))
-    for fn, argtypes in SIGNATURES[name].items():
+    for fn, argtypes in {**SIGNATURES[name], **QUERIES.get(name, {})}.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

@@ -24,7 +24,9 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +35,7 @@ from . import reference as refops
 from .crc32 import CHUNK as CRC_CHUNK
 from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
-from .rans import rans_compact_plain, rans_decode_plain, rans_encode_plain
+from .rans import RANS_L, rans_compact_plain, rans_decode_plain, rans_encode_plain
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
 
@@ -301,6 +303,19 @@ def _check_table(tab: torch.Tensor, dev) -> tuple[int, int]:
     return tab.shape[0], tab.shape[1]
 
 
+# The kernels take at least one warp of lanes; a narrower stream is padded
+# with empty lanes at the end, which take no word and do not move the rank.
+_WCTX_MIN_LANES = 32
+
+
+def _pad_lanes(x: torch.Tensor, fill: int) -> torch.Tensor:
+    """``x`` (last dimension = lanes < 32) widened to 32 lanes with ``fill``."""
+    out = torch.full((*x.shape[:-1], _WCTX_MIN_LANES), fill, dtype=x.dtype,
+                     device=x.device)
+    out[..., : x.shape[-1]] = x
+    return out
+
+
 def wctx_encode(
     sym: torch.Tensor,
     ctx: torch.Tensor,
@@ -320,6 +335,11 @@ def wctx_encode(
     _check_lanes(lanes)
     if _plain_or_cuda(dev):
         return wctx_encode_plain(sym, ctx, seg, tab)
+    if lanes < _WCTX_MIN_LANES:
+        words, flags, states, status = wctx_encode(
+            _pad_lanes(sym, 0), _pad_lanes(ctx, 0), _pad_lanes(seg, 0), tab)
+        cut = lambda a: a.view(steps, -1)[:, :lanes].reshape(-1)  # noqa: E731
+        return cut(words), cut(flags), states[:lanes].clone(), status
     m = steps * lanes
     words = torch.empty((m,), dtype=torch.int16, device=dev)
     flags = torch.empty((m,), dtype=torch.uint8, device=dev)
@@ -328,6 +348,31 @@ def wctx_encode(
     _launch(WCTX_ENCODE, dev, sym, ctx, seg, tab, contexts, width, steps, lanes,
             words, flags, states, status)
     return words, flags, states, status
+
+
+class WctxDecodeGeometry(NamedTuple):
+    """The decode kernel's launch: ``threads`` per CTA, one lane each, a
+    cluster of ``cluster`` CTAs (one per SM), whether the table sits in each
+    CTA's shared memory (else it is read through the read-only cache), and
+    the dynamic shared bytes of one CTA (word ring, start-mask rows, table)."""
+
+    threads: int
+    cluster: int
+    table_shared: bool
+    shared: int
+
+
+def wctx_decode_geometry(lanes: int, contexts: int, width: int) -> WctxDecodeGeometry:
+    """The geometry ``fq_wctx_decode`` launches for ``lanes`` lanes and a
+    (contexts, width) table, as the kernel's library computes it (built on
+    first use, so a card's machine only). Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    rc = build.load(_LIBRARY[WCTX_DECODE]).fq_wctx_decode_geometry(
+        lanes, contexts, width, ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"no decode geometry for {lanes} lanes and a table of "
+                         f"{contexts} x {width}: cudaError_t {rc}")
+    return WctxDecodeGeometry(out[0], out[1], bool(out[2]), out[3])
 
 
 def wctx_decode(
@@ -341,7 +386,8 @@ def wctx_decode(
     order: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward lockstep context-rANS decode; see
-    :func:`..ops.wctx.wctx_decode_plain`."""
+    :func:`..ops.wctx.wctx_decode_plain`. The kernel picks its cluster
+    geometry (:func:`wctx_decode_geometry`)."""
     if startm.dim() != 2 or startm.shape[0] < 1:
         raise ValueError(f"startm: expected (S, N) with S >= 1, got {tuple(startm.shape)}")
     steps, lanes = startm.shape
@@ -365,6 +411,11 @@ def wctx_decode(
         raise ValueError(
             f"the decode kernel holds at most {WCTX_MAX_DECODE_LANES} lanes, got {lanes}"
         )
+    if lanes < _WCTX_MIN_LANES:
+        out, info = wctx_decode(
+            words, _pad_lanes(states, RANS_L), _pad_lanes(startm, 1),
+            _pad_lanes(seg, 0), tab, present, model, order)
+        return out[:, :lanes].contiguous(), info
     out = torch.empty((steps, lanes), dtype=torch.uint8, device=dev)
     info = torch.empty((2,), dtype=torch.int64, device=dev)
     _launch(WCTX_DECODE, dev, words, words.numel(), states, startm, seg, tab,

@@ -74,7 +74,7 @@ POS_CAP = 4000  # the decoder's position counter stops here (last bucket)
 
 HEADER_FMT = "<BBBxI"
 B_MAX = 64  # hard gate on present-symbol width
-MAX_DECODE_LANES = 8192  # the decode kernel's one block: 1024 threads x 8
+MAX_DECODE_LANES = 8192  # the decode kernel's widest cluster: 16 CTAs x 512 threads
 
 _M32 = 0xFFFFFFFF
 

@@ -229,7 +229,7 @@ def _wctx_case(rng, model, order, lanes, n_rec, hi_len):
                 symm=symm, ctxm=ctxm, present=present, freq_p=freq_p)
 
 
-@pytest.mark.parametrize("lanes", [32, 256, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("lanes", [4, 32, 256, 512, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("model,order", [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)])
 def test_wctx_kernels_match_plain(model, order, lanes, cuda):
     """Encode and decode against their plain versions, every output in
@@ -359,3 +359,91 @@ def test_gpu_mesh_container_matches_cpu(d, cuda):
     cuda_kernels.reset_launches()
     assert tfq.decompress_bytes(comp, device=cuda) == data  # routed by the tag
     assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] == n_wctx
+
+
+@pytest.mark.parametrize("lanes", [256, 2048, 4096, 8192])
+@pytest.mark.parametrize("model,order", [(0, 2), (1, 1)])
+def test_wctx_corrupt_streams_at_every_cluster_size(model, order, lanes, cuda):
+    """A stream that lost words reads zeros past the end of the word ring
+    and raises "trailing wctx words"; an empty context row raises
+    "corrupted wctx stream"; the kernel's outputs equal the plain version's
+    on both, at clusters of 1, 8 and 16 CTAs."""
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    rng = np.random.default_rng(31 + lanes + model)
+    lengths = wi.rand_lengths(rng, 4000, 0, 150)
+    syms = wi.symbols(rng, model, lengths)
+    good = wctx.encode_stream(syms, lengths, model, order, lanes=lanes, device=cuda)
+    assert np.array_equal(wctx.decode_stream(good, lengths, device=cuda), syms)
+    p = wctx.parse_stream(good)
+    nwords = len(p["words"])
+    at = len(good) - 2 * nwords - 4 * p["N"] - 4
+    for lost in (3, 40, nwords // 2):
+        bad = good[:at] + (nwords - lost).to_bytes(4, "little") + good[at + 4 : -2 * lost]
+        with pytest.raises(wctx.WctxError, match="trailing wctx words"):
+            wctx.decode_stream(bad, lengths, device=cuda)
+    sb, S, seg = wctx.stream_layout(lengths, lanes)
+    startm = wctx.start_matrix(lengths, sb, S)
+    for words, freq_p in (
+        (p["words"][: nwords - nwords // 2], p["freq_p"]),
+        (p["words"], _without_a_used_row(p["freq_p"], model)),
+    ):
+        dec = wi.decode_tensors(words, p["states"], startm, seg, freq_p,
+                                p["present"], cuda)
+        out, info = cuda_kernels.wctx_decode(*dec, model, order)
+        pout, pinfo = wctx.wctx_decode_plain(*dec, model, order)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(info, pinfo)
+        # words missing: more consumed than carried; a row emptied: flagged
+        assert int(info[0]) != len(words) or int(info[1]) == 1
+    # the stream API raises as the CPU's does on the same input
+    q = {**p, "freq_p": _without_a_used_row(p["freq_p"], model)}
+    with pytest.raises(wctx.WctxError) as on_cpu:
+        wctx.fetch_decoded(wctx.launch_decode(torch.device("cpu"), q, lengths))
+    with pytest.raises(wctx.WctxError, match=f"^{on_cpu.value}$"):
+        wctx.fetch_decoded(wctx.launch_decode(cuda, q, lengths))
+
+
+def _without_a_used_row(freq_p, model):
+    out = freq_p.copy()
+    out[freq_p.sum(axis=1).argmax() if model else 0] = 0
+    return out
+
+
+WCTX_TIERS = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192]
+
+
+@pytest.mark.parametrize("lanes", WCTX_TIERS)
+@pytest.mark.parametrize("model,order", [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)])
+def test_wctx_decode_geometry_owns_every_lane_once(model, order, lanes, cuda):
+    """The geometry the decode's C entry launches, read from its library,
+    for every lane tier and each model's widest table (4 base codes, 64
+    quality values): one lane per thread, each lane owned once, a cluster of
+    at most 16 CTAs, at most 227 KB of shared memory per CTA; several SMs
+    from 512 lanes up; the table in shared memory except the 3,072-context
+    quality order-1 table, read through the read-only cache."""
+    from fastqpacker_tpu_torch.ops import wctx
+
+    C = wctx.model_geometry(model, order)[0]
+    width = (4 if model == 0 else wctx.B_MAX) + 1
+    g = cuda_kernels.wctx_decode_geometry(lanes, C, width)
+    assert g.threads % 32 == 0 and 32 <= g.threads <= 512
+    assert 1 <= g.cluster <= 16 and g.cluster & (g.cluster - 1) == 0
+    # thread i of CTA r owns lane r * threads + i
+    owner = np.zeros(lanes, np.int64)
+    for r in range(g.cluster):
+        owner[r * g.threads : (r + 1) * g.threads] += 1
+    assert g.cluster * g.threads == lanes and (owner == 1).all()
+    assert g.table_shared == ((model, order) != (1, 1))
+    # the ring holds two steps' worst case ahead, one step in use and the
+    # 16-byte alignment slack; eight start-mask rows of the CTA's lanes
+    table = 2 * C * width if g.table_shared else 0
+    assert g.shared == 2 * 4 * lanes + 8 * g.threads + table <= 227 * 1024
+    assert g.cluster == (1 if lanes <= 256 else 16 if lanes == 8192 else lanes // 256)
+
+
+@pytest.mark.parametrize("lanes", [16, 3000, 16384])
+def test_wctx_decode_geometry_refuses_lanes_outside_the_kernel(lanes, cuda):
+    with pytest.raises(ValueError, match="no decode geometry"):
+        cuda_kernels.wctx_decode_geometry(lanes, 16, 5)

@@ -410,3 +410,28 @@ def test_estimate_tracks_actual_size():
     est = pwctx.estimate_size(hist, N)
     actual = len(pwctx.encode_stream(syms, lengths, 1, 0, lanes=N, device=CPU))
     assert abs(est - actual) / actual < 0.05, (est, actual)
+
+
+@pytest.mark.parametrize("lanes", [2, 8, 16])
+@pytest.mark.parametrize("model,order", wi.MODELS)
+def test_narrow_streams_equal_the_reference_walks(lanes, model, order):
+    """Streams narrower than a warp, which the card's wrappers pad with
+    empty lanes: the plain versions equal the JAX package's reference walks
+    (so the padded kernel launch has a fixed answer to meet)."""
+    rng = np.random.default_rng(lanes + 7 * model)
+    lengths = wi.rand_lengths(rng, 40, 0, 30)
+    syms = wi.symbols(rng, model, lengths)
+    p = _jax_prep(syms, lengths, model, order, lanes)
+    freq, cum = wi.full_tables(p["freq_p"], p["present"])
+    jw, js = jwctx.encode_reference(p["symm"], p["ctxm"], freq, cum, p["seg"])
+    enc = wi.encode_tensors(p["symm"], p["ctxm"], p["seg"], p["freq_p"], p["present"])
+    words, flags, states, status = pwctx.wctx_encode_plain(*enc)
+    f = flags.numpy().astype(bool)
+    assert int(status) == 0
+    assert np.array_equal(words.numpy().view(np.uint16)[f], jw)
+    assert np.array_equal(states.numpy().view(np.uint32), js)
+    dec = wi.decode_tensors(jw, js, p["startm"], p["seg"], p["freq_p"], p["present"])
+    out, info = pwctx.wctx_decode_plain(*dec, model, order)
+    assert info.tolist() == [len(jw), 0]
+    idx = pwctx.from_matrix(out.numpy(), p["sb"])
+    assert np.array_equal(p["present"].astype(np.uint8)[idx], syms)
