@@ -14,8 +14,13 @@ Phases, each fatal on failure:
    ragged last rows, one-symbol and 256-symbol streams, decode(encode(x))
    == x, a stream that lost words raises; timed at the v3 path's quality
    stream (15.1 MB, 16,384 lanes) and sequence stream (3.8 MB, 4,096
-   lanes). CRC32: equal to ``zlib.crc32`` at lengths 0, 1, one chunk +- 1
-   and 15.1 MB. Times come from CUDA events over launches queued behind a
+   lanes), the decode beside its launch geometry (CTAs x threads, lanes
+   per thread, shared bytes, registers); at 16,384 lanes the decode's other
+   cluster geometry, 16 CTAs x 1,024 threads with one lane each, is built
+   from a copy of the package (``scripts/rans_ab.py --set
+   kCtaThreads=1024``, in its own process), held against the plain version
+   and timed beside the default 16 x 256 x 4. CRC32: equal to
+   ``zlib.crc32`` at lengths 0, 1, one chunk +- 1 and 15.1 MB. Times come from CUDA events over launches queued behind a
    sleep kernel, inputs rotated past the L2 cache. Each kernel's bound is
    the larger of its bytes (inputs read once, outputs written once) over
    3.35 TB/s and its operations over 67 TOP/s. ``library_ms`` is the time
@@ -65,10 +70,12 @@ import argparse
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,6 +103,9 @@ BLOCK_RECORDS = 100_000  # the v3 default block size
 READ_LEN = 151
 WCTX_MODELS = [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]  # (model, order)
 WIDE_LANES = 8192  # the widest tier, which less compressible streams pick
+# the order-0 decode's other cluster geometry at 16,384 lanes: 16 CTAs x
+# 1,024 threads, one lane each (the default is 16 x 256, four lanes each)
+RANS_DECODE_VARIANT = "kCtaThreads=1024"
 DEV = torch.device("cuda")
 
 
@@ -354,7 +364,7 @@ def library_compact(words, flags):
     return torch.masked_select(words, flags.bool())
 
 
-def phase_rans(ck, rans, rng) -> dict:
+def phase_rans(ck, rans, rng, registers: dict) -> dict:
     errs = {ck.RANS_ENCODE: 0, ck.RANS_COMPACT: 0, ck.RANS_DECODE: 0}
 
     def fold(case):
@@ -388,7 +398,7 @@ def phase_rans(ck, rans, rng) -> dict:
     else:
         raise RuntimeError("check failed: a stream that lost words decoded")
 
-    out = {}
+    out, extra = {}, {}
     for label, data, lanes in (
         ("qual", walk_deltas(rng, QUAL_STREAM), 16384),
         ("seq", rng.integers(0, 256, SEQ_STREAM).astype(np.uint8), 4096),
@@ -405,6 +415,7 @@ def phase_rans(ck, rans, rng) -> dict:
         # the flag, adds it into the prefix and moves the word (~4); decode
         # masks, reads and unpacks its entry, multiplies, compares, ranks
         # and refills (~12)
+        dec_sets = [(x, *dec_rest) for (x,) in rotations((stream,), 2 * k + m)]
         lib = library_compact(*case["cmp"])
         check(lib.numel() == k and torch.equal(lib, ck.rans_compact(*case["cmp"])[0][:k]),
               f"masked_select == compact kernel at {shape}")
@@ -415,8 +426,7 @@ def phase_rans(ck, rans, rng) -> dict:
             (ck.RANS_COMPACT, ck.rans_compact, rans.rans_compact_plain,
              library_compact,
              rotations(case["cmp"], 3 * m + 2 * k), 3 * m + 2 * k + 8, 4 * m),
-            (ck.RANS_DECODE, ck.rans_decode, rans.rans_decode_plain, None,
-             [(x, *dec_rest) for (x,) in rotations((stream,), 2 * k + m)],
+            (ck.RANS_DECODE, ck.rans_decode, rans.rans_decode_plain, None, dec_sets,
              2 * k + 4 * lanes + 4 * 4096 + m + 8, 12 * m),
         ):
             kms = gpu_ms(fn, sets, 20)
@@ -424,8 +434,60 @@ def phase_rans(ck, rans, rng) -> dict:
             lms = gpu_ms(library, sets, 20) if library else None
             out[(name, label)] = (
                 *report(name, shape, kms, pms, lms, nbytes, ops, errs[name]), steps)
-        del case, sets
-    return {"errs": errs, "times": out}
+        kms, _, bound_ms = out[(ck.RANS_DECODE, label)][:3]
+        geometry = rans_geometry(ck.rans_decode_geometry(lanes), registers)
+        extra[label] = {"lanes": lanes, "step_us": kms * 1e3 / steps, **geometry}
+        print(f"phase=kernels kernel={ck.RANS_DECODE} {shape} "
+              f"step_us={kms * 1e3 / steps:.4f} roofline_share={bound_ms / kms:.4f} "
+              f"geometry={json.dumps(geometry, sort_keys=True)}")
+        del case, sets, dec_sets
+    return {"errs": errs, "times": out, "extra": extra}
+
+
+def rans_geometry(g, registers: dict) -> dict:
+    """One order-0 decode geometry as the reports print it, with the
+    registers of its kernel instance (lanes per thread)."""
+    return {"cluster": g.cluster, "ctas": g.cluster, "threads_per_cta": g.threads,
+            "lanes_per_thread": g.lanes_per_thread, "shared_bytes": g.shared,
+            "registers": registers.get(g.lanes_per_thread)}
+
+
+def phase_rans_variant(qual: dict, qual_ms: float) -> dict:
+    """The order-0 decode at its other cluster geometry on the quality
+    stream: ``scripts/rans_ab.py --set RANS_DECODE_VARIANT`` on a copy of
+    the package under its ``_build`` directory (git-ignored), in its own
+    process, on the same seeded stream shape. It holds the variant against
+    the plain version and times it as phase kernels does."""
+    repo = Path(__file__).resolve().parent
+    root = repo / "fastqpacker_tpu_torch/_build" / ("variant_" + RANS_DECODE_VARIANT.replace("=", "_"))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(repo / "fastqpacker_tpu_torch", root / "fastqpacker_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    try:
+        run = subprocess.run(
+            [sys.executable, str(repo / "scripts/rans_ab.py"), "--root", str(root),
+             "--set", RANS_DECODE_VARIANT, "--stream", "qual"],
+            capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(run.returncode == 0, f"rans_ab.py --set {RANS_DECODE_VARIANT}: "
+          f"rc={run.returncode} {run.stderr[-2000:]}")
+    (row,) = json.loads(run.stdout.strip().splitlines()[-1])["cases"]
+    g = row["geometry"]
+    key = f"{g['cluster']}x{g['threads']}x{g['lanes_per_thread']}"
+    check(key == "16x1024x1", f"the variant's geometry is 16 x 1,024 x 1, got {key}")
+    default = f"{qual['cluster']}x{qual['threads_per_cta']}x{qual['lanes_per_thread']}"
+    by_geometry = {
+        default: {"ms": qual_ms, "step_us": qual["step_us"]},
+        key: {"ms": row["decode_ms"], "step_us": row["step_us"], "steps": row["steps"],
+              "registers": row["registers"], "shared_bytes": g["shared"],
+              "set": RANS_DECODE_VARIANT},
+    }
+    print(f"phase=kernels kernel=fq_rans_decode stream=qual lanes={row['lanes']} "
+          f"steps={row['steps']} geometry={key} ms={row['decode_ms']:.6f} "
+          f"step_us={row['step_us']:.4f} registers={row['registers']} "
+          f"against={default} ms={qual_ms:.6f}")
+    return by_geometry
 
 
 def phase_crc(ck, crc32, rng) -> dict:
@@ -790,8 +852,19 @@ def ptxas_report(log: str) -> list[dict]:
     return rows
 
 
-def wctx_entry_label(entry: str) -> str:
-    """``wctx_decode_kernel<kQual, kTabShared>`` from its mangled name."""
+def rans_decode_registers(log: str) -> dict:
+    """Registers of each ``rans_decode_kernel<K>`` instance, by K."""
+    return {int(mm.group(1)): row["registers"] for row in ptxas_report(log)
+            if (mm := re.search(r"rans_decode_kernelILi(\d+)E", row["entry"]))
+            and "registers" in row}
+
+
+def entry_label(entry: str) -> str:
+    """A kernel's label from its mangled name: ``wctx_decode_kernel<kQual,
+    kTabShared>``, ``wctx_encode_kernel<kShared>``,
+    ``rans_decode_kernel<K>``."""
+    if (mm := re.search(r"rans_decode_kernelILi(\d+)E", entry)):
+        return f"fq_rans_decode<lanes_per_thread={mm.group(1)}>"
     if (mm := re.search(r"wctx_decode_kernelILb(\d)ELb(\d)E", entry)):
         return f"fq_wctx_decode<qual={mm.group(1)},table_shared={mm.group(2)}>"
     if (mm := re.search(r"wctx_encode_kernelILb(\d)E", entry)):
@@ -986,12 +1059,14 @@ def main() -> int:
         print(f"phase=build source={name}.cu nvcc_seconds={info.seconds:.2f} "
               f"library={info.path.name}")
         for row in ptxas_report(info.log):
-            print(f"phase=build {name}: {wctx_entry_label(row.pop('entry'))} "
+            print(f"phase=build {name}: {entry_label(row.pop('entry'))} "
                   f"{json.dumps(row, sort_keys=True)}")
 
     rng = np.random.default_rng(args.seed)
     kern = phase_kernels(ck, devops, refops, rng)
-    kern_rans = phase_rans(ck, rans, rng)
+    kern_rans = phase_rans(ck, rans, rng, rans_decode_registers(build.builds["rans_codec"].log))
+    kern_rans["extra"]["qual"]["by_geometry"] = phase_rans_variant(
+        kern_rans["extra"]["qual"], kern_rans["times"][(ck.RANS_DECODE, "qual")][0])
     kern_crc = phase_crc(ck, crc32, rng)
     kern_wctx = phase_wctx(ck, wctx, rng)
 
@@ -1031,8 +1106,14 @@ def main() -> int:
     ]
     for name, direction in ((ck.RANS_ENCODE, "compress"), (ck.RANS_COMPACT, "compress"),
                             (ck.RANS_DECODE, "decompress")):
+        more = {}
+        if name == ck.RANS_DECODE:  # the quality stream's; the sequence's beside
+            seq = kern_rans["times"][(name, "seq")]
+            more = {**kern_rans["extra"]["qual"],
+                    "seq_stream": {**dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), seq)),
+                                   "steps": seq[5], **kern_rans["extra"]["seq"]}}
         rows.append((name, v3_launches[direction][name], kern_rans["errs"][name],
-                     kern_rans["times"][(name, "qual")], {}))
+                     kern_rans["times"][(name, "qual")], more))
     rows.append((ck.CRC32, v3_launches["compress"][ck.CRC32], kern_crc["errs"][ck.CRC32],
                  kern_crc["times"][(ck.CRC32, "qual")],
                  {"launches_decompress": v3_launches["decompress"][ck.CRC32]}))

@@ -23,13 +23,21 @@
 // lanes between two steps. So their time is steps x (latency of one update),
 // not bytes over bandwidth. The design keeps each update short: the tables
 // sit in shared memory, the division is the hardware's, the state stays in
-// registers, loads and stores are coalesced across lanes. The TPU
+// registers, loads and stores are coalesced across lanes. The decode also
+// takes every load from device memory off its chain (the words are staged
+// in shared memory ahead of the step) and spreads its lanes over a thread
+// block cluster of up to 16 CTAs, one per SM, which exchange per-warp
+// refill counts by asynchronous remote stores. The TPU
 // formulation (256 compare passes for the table, float32 long division,
 // flip/roll row reversal, a routing network for the compaction, roll-ladder
 // scans and a monotone shift network for the word fetch) is not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <tuple>
 
 namespace {
 
@@ -181,38 +189,194 @@ rans_scatter_kernel(const uint16_t* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
-// Decode: one block; thread i owns the K contiguous lanes [i*K, (i+1)*K).
-// Per step every lane resolves its symbol from the slot table and updates
-// its state; the lanes that fell below 1<<16 take consecutive words in lane
-// order, so each needs the exclusive prefix of the need flags over all the
-// lanes: a block scan of the per-thread counts between two steps.
+// Decode: a thread block cluster of G CTAs (G = 1 up to kCtaThreads lanes);
+// thread i of CTA r owns the K contiguous lanes [(r * T + i) * K, + K). Per
+// step every lane resolves its symbol from the slot table and updates its
+// state; the lanes that fell below 1 << 16 take consecutive words in lane
+// order, at the exclusive prefix of the refill flags over all lanes of the
+// cluster.
+//
+// Within a warp the prefix comes from ballots of the bits of each thread's
+// refill count. Across warps, each warp stores its count into a slot of
+// every CTA's shared memory: a plain store when G = 1; otherwise an
+// asynchronous remote store (st.async) that completes on the receiver's
+// mbarrier, so no cluster barrier runs in the loop. Two slots and two
+// mbarriers are used in turn: a warp writes step t + 2's count only after
+// its wait of step t + 1, which needs every warp's t + 1 count, sent after
+// that warp read step t's. Two warp reductions over the counts give each
+// warp its offset and the step's total. The words are staged in a ring of
+// kRingPerLane words per lane in each CTA's shared memory, which cp.async
+// keeps two steps' worst case ahead of the words consumed; a step waits
+// only for the oldest copy group it needs, then meets the other warps of
+// its CTA at one barrier, which also publishes the counts when G = 1.
 // ---------------------------------------------------------------------------
 
-constexpr int kDecodeMaxThreads = 1024;
+constexpr int kCtaThreads = 256;  // threads per CTA (one CTA of fewer below)
+constexpr int kMaxCluster = 16;
+constexpr int kMaxWarpSlots = kMaxCluster * (kCtaThreads / 32);
+constexpr int kMaxLanes = 16384;
+constexpr int kMaxK = kMaxLanes / (kMaxCluster * kCtaThreads);  // lanes per thread
+static_assert(kMaxK >= 1 && kMaxK <= 16 && (kMaxK & (kMaxK - 1)) == 0,
+              "K lanes per thread: a power of two up to 16");
+constexpr int kRingPerLane = 4;  // ring words per lane: 2 steps' worst case
+                                 // ahead, one step in use, alignment slack
+constexpr int kMinRing = 32;     // ring words below 8 lanes: a step's words,
+                                 // two ahead and a 16-byte chunk
+constexpr int kMaxPending = 3;  // copy groups a step may leave in flight
+constexpr int kTableBytes = kSlots * 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this CTA's shared memory) in the shared memory of
+// CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Store `v` into another CTA's shared memory and count its 4 bytes on that
+// CTA's mbarrier (an asynchronous store: no fence, no cluster barrier).
+__device__ __forceinline__ void st_async_u32(unsigned remote, int v, unsigned remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n"
+      ::"r"(remote), "r"(v), "r"(remote_bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
 
 template <int K>
-__global__ void __launch_bounds__(kDecodeMaxThreads)
+__global__ void __launch_bounds__(kCtaThreads)
 rans_decode_kernel(const uint16_t* __restrict__ words, long long total_words,
                    const uint32_t* __restrict__ states,
                    const uint32_t* __restrict__ slot_tab,  // (4096,)
                    int steps, int lanes, uint8_t* __restrict__ out,
                    long long* __restrict__ consumed) {
-  __shared__ uint32_t tab[kSlots];  // (freq-1) | cum << 12 | sym << 24
-  __shared__ int sums[2][32];
-  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) tab[i] = slot_tab[i];
+  extern __shared__ __align__(16) unsigned char smem_d[];
+  // (freq-1) | cum << 12 | sym << 24, then the word ring
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem_d);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_d + kTableBytes);
+  // the refill counts of every warp of the cluster, per step (two slots
+  // used in turn), and their arrival
+  __shared__ __align__(16) int wcnt[2][kMaxWarpSlots];
+  __shared__ __align__(8) uint64_t cbar[2];
+  __shared__ uint16_t tailw[8];
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lane0 = threadIdx.x * K;
-  const bool live = lane0 < lanes;  // lanes is a multiple of K or below 32
+  const int G = gridDim.x;  // the grid is one cluster
+  const int rank = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int lane0 = (rank * nthreads + tid) * K;
+  const bool live = lane0 < lanes;  // lanes is a multiple of K, or below 32
+  const long long rmask = (kRingPerLane * lanes > kMinRing ? kRingPerLane * lanes : kMinRing) - 1;
+  const long long full_end = total_words & ~7ll;  // words staged in chunks
+  const long long ahead = 2ll * lanes;
+  long long filled = 0;  // words requested so far
+
+  auto request_words = [&](long long upto) {
+    const long long q1 = ((upto < full_end ? upto : full_end) + 7) >> 3;
+    for (long long q = (filled >> 3) + tid; q < q1; q += nthreads)
+      cp_async16(ring + ((q << 3) & rmask), words + (q << 3));
+    if ((q1 << 3) > filled) filled = q1 << 3;
+  };
+
+  // prologue: the table, the first words, the word tail
+  for (int i = tid; i < kSlots / 4; i += nthreads) cp_async16(tab + 4 * i, slot_tab + 4 * i);
+  // slots past the cluster's warps stay 0: the count reads take four at a time
+  for (int i = tid; i < kMaxWarpSlots; i += nthreads) {
+    wcnt[0][i] = 0;
+    wcnt[1][i] = 0;
+  }
+  if (tid < 8) {
+    const long long p = full_end + tid;
+    tailw[tid] = p < total_words ? words[p] : 0;
+  }
+  if (tid == 0 && G > 1) {
+    mbar_init(&cbar[0], 1);
+    mbar_init(&cbar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  request_words(ahead);
+  cp_async_commit();
+  // cov[p]: the words requested by the copy groups up to the (p + 1)-th
+  // newest; groups before the first step's are complete
+  long long cov[kMaxPending + 1];
+#pragma unroll
+  for (int p = 0; p <= kMaxPending; ++p) cov[p] = filled;
+
   uint32_t x[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) x[j] = live ? states[lane0 + j] : kRansL;
+  cp_async_wait<0>();
   __syncthreads();
+  if (G > 1) cluster_barrier();  // every CTA's mbarriers are set
+  const int me = rank * nwarps + warp;  // this warp in the cluster
+  const int cluster_warps = G * nwarps;
+  const unsigned below_mask = (1u << lane) - 1u;
 
   long long base = 0;
   for (int t = 0; t < steps; ++t) {
+    // Stage ahead, one group per step: the words up to base(t) + 2 *
+    // lanes. The group of step t - 1 covers base(t - 1) + 2 * lanes >=
+    // base(t) + lanes, a step's most, so a step never waits for its own
+    // group. A ring of 4 * lanes words overwrites only words below
+    // base(t - 1), which every thread has read before the barrier of step
+    // t - 1.
+    request_words(base + ahead);
+    cp_async_commit();
+#pragma unroll
+    for (int p = kMaxPending; p > 0; --p) cov[p] = cov[p - 1];
+    cov[0] = filled;
+
     uint32_t need = 0;
     uint32_t pk[(K + 3) / 4] = {0};
 #pragma unroll
@@ -227,58 +391,182 @@ rans_decode_kernel(const uint16_t* __restrict__ words, long long total_words,
     }
     if (live) {
       uint8_t* p = out + (long long)t * lanes + lane0;
-      if constexpr (K == 16) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      } else if constexpr (K == 8) {
-        *reinterpret_cast<uint2*>(p) = make_uint2(pk[0], pk[1]);
-      } else if constexpr (K == 4) {
-        *reinterpret_cast<uint32_t*>(p) = pk[0];
-      } else {
+      if constexpr (K >= 4) {
 #pragma unroll
-        for (int j = 0; j < K; ++j) p[j] = (uint8_t)(pk[0] >> (8 * j));
+        for (int q = 0; q < K / 4; ++q) reinterpret_cast<uint32_t*>(p)[q] = pk[q];
+      } else if constexpr (K == 2) {
+        *reinterpret_cast<uint16_t*>(p) = (uint16_t)pk[0];
+      } else {
+        *p = (uint8_t)pk[0];
       }
     }
-    // block scan of the per-thread need counts; the partial sums are double
-    // buffered so one barrier per step is enough
+
+    // refill ranks within the warp: ballots of the bits of each thread's
+    // count (0..K)
     const int cnt = __popc(need);
-    const int incl = warp_inclusive(cnt, lane);
-    int* s = sums[t & 1];
-    if (lane == 31) s[warp] = incl;
-    __syncthreads();
-    const int ws = lane < nwarps ? s[lane] : 0;
-    const int wincl = warp_inclusive(ws, lane);
-    const int step_total = __shfl_sync(kFullMask, wincl, 31);
-    const int warp_off = __shfl_sync(kFullMask, wincl - ws, warp);
-    long long pos = base + warp_off + incl - cnt;
+    int in_warp = 0, warp_total = 0;
+#pragma unroll
+    for (int b = 0; (1 << b) <= K; ++b) {
+      const unsigned m = __ballot_sync(kFullMask, (cnt >> b) & 1);
+      in_warp += __popc(m & below_mask) << b;
+      warp_total += __popc(m) << b;
+    }
+    const int slot2 = t & 1;
+    if (G > 1) {
+      if (lane < G)
+        st_async_u32(cluster_addr(&wcnt[slot2][me], lane), warp_total,
+                     cluster_addr(&cbar[slot2], lane));
+      if (tid == 0) mbar_arrive_expect_tx(&cbar[slot2], 4u * cluster_warps);
+    } else if (lane == 0) {
+      wcnt[slot2][warp] = warp_total;
+    }
+    // Wait for the newest copy group older than this step's that holds
+    // this step's words (up to base + lanes); the groups after it stay in
+    // flight.
+    const long long need_end = base + lanes < full_end ? base + lanes : full_end;
+    int pending = 1;
+#pragma unroll
+    for (int p = 2; p <= kMaxPending; ++p) pending = cov[p] >= need_end ? p : pending;
+    switch (pending) {
+      case 1: cp_async_wait<1>(); break;
+      case 2: cp_async_wait<2>(); break;
+      default: cp_async_wait<3>(); break;
+    }
+    __syncthreads();  // the staged words (and, when G = 1, the counts)
+    if (G > 1) mbar_wait(&cbar[slot2], (t >> 1) & 1);
+    int below = 0, all = 0;
+    for (int i = 4 * lane; i < cluster_warps; i += 128) {
+      const int4 v = *reinterpret_cast<const int4*>(&wcnt[slot2][i]);
+      all += v.x + v.y + v.z + v.w;
+      below += (i < me ? v.x : 0) + (i + 1 < me ? v.y : 0) + (i + 2 < me ? v.z : 0) +
+               (i + 3 < me ? v.w : 0);
+    }
+    below = __reduce_add_sync(kFullMask, below);
+    all = __reduce_add_sync(kFullMask, all);
+    // a corrupt stream can ask for more words than it carries: read zeros
+    // instead, and let the consumed count tell the wrapper
+    long long pos = base + below + in_warp;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       if (need & (1u << j)) {
-        // a corrupt stream can ask for more words than it carries: read
-        // zeros instead, and let the consumed count tell the wrapper
-        const uint32_t w = pos < total_words ? (uint32_t)words[pos] : 0u;
+        const uint32_t w = pos < full_end ? (uint32_t)ring[pos & rmask]
+                           : pos < total_words ? (uint32_t)tailw[pos - full_end]
+                                               : 0u;
         x[j] = (x[j] << 16) | w;
         ++pos;
       }
     }
-    base += step_total;
+    base += all;
   }
-  if (threadIdx.x == 0) *consumed = base;
+  cp_async_wait<0>();
+  // no CTA leaves while another may still store into its shared memory
+  if (G > 1) cluster_barrier();
+  if (rank == 0 && tid == 0) *consumed = base;
+}
+
+// Readies a decode instance for `cfg` on the current device. Once per device
+// and instance, under one lock: its dynamic shared memory cap is raised to
+// the most any launch takes (the table and the ring of kMaxLanes lanes) and
+// clusters past 8 CTAs are allowed; neither is ever set to another value, so
+// launches from other threads never see a cap below their own. Once per
+// geometry, cudaOccupancyMaxActiveClusters checks that the card can schedule
+// the cluster, so a geometry it cannot is refused with an error, never run.
+cudaError_t ready_launch(const void* kernel, const cudaLaunchConfig_t& cfg) {
+  static std::mutex mu;
+  static std::set<std::tuple<int, const void*>> raised;
+  static std::set<std::tuple<int, const void*, unsigned, unsigned, size_t>> ok;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!raised.count(std::make_tuple(dev, kernel))) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kTableBytes + 2 * kRingPerLane * kMaxLanes);
+    if (rc != cudaSuccess) return rc;
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return rc;
+    raised.insert(std::make_tuple(dev, kernel));
+  }
+  if (cfg.gridDim.x == 1) return cudaSuccess;
+  const auto key = std::make_tuple(dev, kernel, cfg.gridDim.x, cfg.blockDim.x,
+                                   cfg.dynamicSmemBytes);
+  if (ok.count(key)) return cudaSuccess;
+  int clusters = 0;
+  rc = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (rc != cudaSuccess) return rc;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  ok.insert(key);
+  return cudaSuccess;
+}
+
+inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+struct DecodeGeometry {
+  int threads;  // per CTA
+  int cluster;  // CTAs, one cluster
+  int k;        // lanes per thread
+  int shared;   // dynamic shared bytes per CTA: slot table and word ring
+};
+
+// The decode's launch for `lanes` lanes: one CTA of max(lanes, 32) threads
+// up to kCtaThreads lanes; past that min(kMaxCluster, lanes / kCtaThreads)
+// CTAs of kCtaThreads threads, K = lanes / (CTAs * kCtaThreads) lanes each.
+// False for a lane count the kernel does not take.
+bool decode_geometry(int lanes, DecodeGeometry* g) {
+  if (!pow2(lanes) || lanes > kMaxLanes) return false;
+  if (lanes <= kCtaThreads) {
+    g->cluster = 1;
+    g->threads = lanes < 32 ? 32 : lanes;
+  } else {
+    g->cluster = lanes / kCtaThreads < kMaxCluster ? lanes / kCtaThreads : kMaxCluster;
+    g->threads = kCtaThreads;
+  }
+  g->k = lanes < 32 ? 1 : lanes / (g->cluster * g->threads);
+  const int ring = kRingPerLane * lanes > kMinRing ? kRingPerLane * lanes : kMinRing;
+  g->shared = kTableBytes + 2 * ring;
+  return true;
 }
 
 template <int K>
 int launch_decode(const void* words, long long total_words, const void* states,
-                  const void* slot_tab, int steps, int lanes, void* out,
-                  void* consumed, cudaStream_t stream) {
-  int threads = lanes / K;
-  if (threads < 32) threads = 32;
-  rans_decode_kernel<K><<<1, threads, 0, stream>>>(
-      (const uint16_t*)words, total_words, (const uint32_t*)states,
-      (const uint32_t*)slot_tab, steps, lanes, (uint8_t*)out,
-      (long long*)consumed);
+                  const void* slot_tab, int steps, int lanes,
+                  const DecodeGeometry& g, void* out, void* consumed,
+                  cudaStream_t stream) {
+  auto kernel = rans_decode_kernel<K>;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)g.cluster);
+  cfg.blockDim = dim3((unsigned)g.threads);
+  cfg.dynamicSmemBytes = (size_t)g.shared;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.cluster > 1 ? 1 : 0;
+  cudaError_t rc = ready_launch((const void*)kernel, cfg);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaLaunchKernelEx(&cfg, kernel, (const uint16_t*)words, total_words,
+                          (const uint32_t*)states, (const uint32_t*)slot_tab,
+                          steps, lanes, (uint8_t*)out, (long long*)consumed);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 
-inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+// launch_decode<g.k>, instantiated for K = 1, 2, 4, ... kMaxK only.
+template <int K>
+int launch_k(const void* words, long long total_words, const void* states,
+             const void* slot_tab, int steps, int lanes, const DecodeGeometry& g,
+             void* out, void* consumed, cudaStream_t stream) {
+  if constexpr (K < kMaxK) {
+    if (g.k > K)
+      return launch_k<2 * K>(words, total_words, states, slot_tab, steps, lanes, g,
+                             out, consumed, stream);
+  }
+  return launch_decode<K>(words, total_words, states, slot_tab, steps, lanes, g,
+                          out, consumed, stream);
+}
 
 }  // namespace
 
@@ -324,32 +612,31 @@ int fq_rans_compact(const void* words, const void* flags, long long m,
 }
 
 // words: total_words u16; states: lanes u32; slot_tab: 4096 u32; out:
-// steps*lanes bytes; consumed: one int64. lanes: a power of two up to 16384.
+// steps*lanes bytes; consumed: one int64. lanes: a power of two up to 16384;
+// the launch geometry is fq_rans_decode_geometry's.
 int fq_rans_decode(const void* words, long long total_words, const void* states,
                    const void* slot_tab, int steps, int lanes, void* out,
                    void* consumed, void* stream) {
-  if (!pow2(lanes) || lanes > 16 * kDecodeMaxThreads || steps <= 0 ||
-      total_words < 0)
+  DecodeGeometry g;
+  if (!decode_geometry(lanes, &g) || steps <= 0 || total_words < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int k = lanes <= kDecodeMaxThreads ? 1 : lanes / kDecodeMaxThreads;
-  switch (k) {
-    case 1:
-      return launch_decode<1>(words, total_words, states, slot_tab, steps,
-                              lanes, out, consumed, s);
-    case 2:
-      return launch_decode<2>(words, total_words, states, slot_tab, steps,
-                              lanes, out, consumed, s);
-    case 4:
-      return launch_decode<4>(words, total_words, states, slot_tab, steps,
-                              lanes, out, consumed, s);
-    case 8:
-      return launch_decode<8>(words, total_words, states, slot_tab, steps,
-                              lanes, out, consumed, s);
-    default:
-      return launch_decode<16>(words, total_words, states, slot_tab, steps,
-                               lanes, out, consumed, s);
-  }
+  return launch_k<1>(words, total_words, states, slot_tab, steps, lanes, g, out,
+                     consumed, s);
+}
+
+// The decode's geometry for `lanes` lanes into out (four int32): threads per
+// CTA, CTAs in the cluster, lanes per thread, dynamic shared bytes per CTA.
+// Returns cudaErrorInvalidValue for a lane count the kernel does not take.
+int fq_rans_decode_geometry(int lanes, void* out) {
+  DecodeGeometry g;
+  if (!decode_geometry(lanes, &g)) return (int)cudaErrorInvalidValue;
+  int* o = (int*)out;
+  o[0] = g.threads;
+  o[1] = g.cluster;
+  o[2] = g.k;
+  o[3] = g.shared;
+  return 0;
 }
 
 }  // extern "C"

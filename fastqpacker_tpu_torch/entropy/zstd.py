@@ -166,6 +166,16 @@ def _check(lib, code: int) -> int:
     return code
 
 
+def declares_content_size(frame) -> bool:
+    """True when ``frame`` starts with a zstd frame header that declares
+    the frame's content size."""
+    lib = _load()
+    keep, src, nbytes = _src_view(frame)
+    got = lib.ZSTD_getFrameContentSize(src, nbytes)
+    del keep
+    return got not in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR)
+
+
 def _src_view(data):
     """(object-to-keep-alive, pointer-arg, nbytes) for bytes-like input
     without copying: bytes pass as a borrowed pointer, writable buffers

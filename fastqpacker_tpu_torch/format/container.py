@@ -55,7 +55,7 @@ TAG_QCTX = 3  # order-1/2 context-modeled quality rANS (ops/qualctx.py)
 TAG_SCTX = 4  # order-k context-modeled sequence rANS (ops/seqctx.py)
 TAG_SLDM = 5  # unpacked base codes + long-distance-matching zstd (ops/sldm.py)
 TAG_WCTX = 6  # wide-interleaved context-modeled rANS (the device-mesh
-# entropy coder's format); not decoded by this package yet
+# entropy coder's format; ops/wctx.py)
 
 VERSION_1 = 1
 VERSION_2 = 2

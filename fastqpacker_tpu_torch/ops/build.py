@@ -74,6 +74,10 @@ SIGNATURES = {
 
 # Exported functions that launch nothing (each returns a cudaError_t too).
 QUERIES = {
+    "rans_codec": {
+        # lanes, out (four int32)
+        "fq_rans_decode_geometry": [_I, _P],
+    },
     "wctx_codec": {
         # lanes, contexts, width, out (four int32)
         "fq_wctx_decode_geometry": [_I, _I, _I, _P],

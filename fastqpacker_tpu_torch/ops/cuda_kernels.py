@@ -35,6 +35,7 @@ from . import reference as refops
 from .crc32 import CHUNK as CRC_CHUNK
 from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
+from .rans import MAX_LANES as RANS_MAX_LANES
 from .rans import RANS_L, rans_compact_plain, rans_decode_plain, rans_encode_plain
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
@@ -272,7 +273,8 @@ def rans_decode(
     lanes: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward lockstep rANS decode; see
-    :func:`..ops.rans.rans_decode_plain`."""
+    :func:`..ops.rans.rans_decode_plain`. The kernel picks its cluster
+    geometry (:func:`rans_decode_geometry`)."""
     dev = states.device
     _check("words", words, torch.int16, (words.numel(),), dev)
     _check("states", states, torch.int32, (lanes,), dev)
@@ -282,13 +284,37 @@ def rans_decode(
         raise ValueError(f"steps must be positive, got {steps}")
     if _plain_or_cuda(dev):
         return rans_decode_plain(words, states, slot_tab, steps, lanes)
-    if lanes > 16384:
-        raise ValueError(f"the decode kernel holds at most 16384 lanes, got {lanes}")
+    if lanes > RANS_MAX_LANES:
+        raise ValueError(
+            f"the decode kernel holds at most {RANS_MAX_LANES} lanes, got {lanes}")
     out = torch.empty((steps * lanes,), dtype=torch.uint8, device=dev)
     consumed = torch.empty((1,), dtype=torch.int64, device=dev)
     _launch(RANS_DECODE, dev, words, words.numel(), states, slot_tab, steps,
             lanes, out, consumed)
     return out, consumed
+
+
+class RansDecodeGeometry(NamedTuple):
+    """The order-0 decode kernel's launch: ``threads`` per CTA, a cluster of
+    ``cluster`` CTAs (one per SM), ``lanes_per_thread`` lanes each, and the
+    dynamic shared bytes of one CTA (slot table and word ring)."""
+
+    threads: int
+    cluster: int
+    lanes_per_thread: int
+    shared: int
+
+
+def rans_decode_geometry(lanes: int) -> RansDecodeGeometry:
+    """The geometry ``fq_rans_decode`` launches for ``lanes`` lanes, as the
+    kernel's library computes it (built on first use, so a card's machine
+    only). Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    rc = build.load(_LIBRARY[RANS_DECODE]).fq_rans_decode_geometry(
+        lanes, ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"no decode geometry for {lanes} lanes: cudaError_t {rc}")
+    return RansDecodeGeometry(*out)
 
 
 # ---------------------------------------------------------------------------

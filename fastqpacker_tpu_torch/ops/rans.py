@@ -42,7 +42,7 @@ PROB_BITS = 12
 PROB_SCALE = 1 << PROB_BITS  # 4096
 RANS_L = 1 << 16  # state lower bound
 HEADER_FMT = "<IB3x"
-MAX_LANES = 16384  # the decode kernel's one block holds 1024 threads x 16
+MAX_LANES = 16384  # the decode kernel's cluster holds 16 CTAs x 256 threads x 4
 
 _M32 = 0xFFFFFFFF
 

@@ -21,15 +21,60 @@ no 65,536 bp tracking cap and no overflow fail-fast.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 
+from ..entropy.zstd import ZstdError, declares_content_size
 from ..format import container
 from ..ops import reference as refops
 from ..parser.fastq import RecordBlock
 from ..utils import varlen
+
+
+# What the JAX package's default decoder (its C++ runtime) says when a zstd
+# frame of a block payload fails to decode, whatever libzstd names the
+# failure (a checksum, corrupt data, a size).
+PAYLOAD_ZSTD_ERROR = "corrupted zstd frame in block payload"
+
+# v3 stream tags whose body is one zstd frame
+_V3_ZSTD_TAGS = (container.TAG_ZSTD, container.TAG_TOK, container.TAG_SLDM)
+
+
+def block_frames(header: container.BlockHeader, payload, version: int) -> list:
+    """The zstd frames of one block payload: every stream of v1/v2; in v3
+    the three untagged streams and the tagged streams that are one zstd
+    frame after their tag byte."""
+    sizes = header.stream_sizes(min(version, container.VERSION_2))
+    frames, off = [], 0
+    for i, size in enumerate(sizes):
+        s = payload[off : off + size]
+        off += size
+        if version < container.VERSION_3_NATIVE or i > 2:
+            frames.append(s)
+        elif s[:1] and s[0] in _V3_ZSTD_TAGS:
+            frames.append(s[1:])
+    return frames
+
+
+@contextlib.contextmanager
+def payload_zstd_errors(header: container.BlockHeader, payload, version: int):
+    """Raise a :class:`ZstdError` from decoding this block payload as
+    ``ZstdError(PAYLOAD_ZSTD_ERROR)`` when every zstd frame of the block
+    declares its content size: the JAX package's runtime decodes only such
+    blocks, and a block it cannot size goes to its Python decoder, which
+    passes libzstd's name on, as this one does then. The codec itself and
+    an explicit ``decompress_mesh`` keep libzstd's name, as the JAX
+    package's do."""
+    try:
+        yield
+    except ZstdError:
+        frames = block_frames(header, payload, version)
+        if all(declares_content_size(f) for f in frames if len(f)):
+            raise ZstdError(PAYLOAD_ZSTD_ERROR) from None
+        raise
 
 
 @dataclass

@@ -266,7 +266,8 @@ def decompress_device(
             if view is not None:
                 r = io.BytesIO(view)
                 if _first_block_wctx(view):
-                    meshpipe.decompress_mesh(r, w, mesh=[dev], fh=fh)
+                    meshpipe.decompress_mesh(r, w, mesh=[dev], fh=fh,
+                                             map_zstd_errors=True)
                     return
         native.decompress_native(
             r, w, fh, qual_offset, api._resolve_workers(opts.workers), dev
@@ -277,9 +278,10 @@ def decompress_device(
     decoder = _padded_decoder(_Staging(dev), max(int(fh.block_size), 1))
 
     def decode_one(hdr, payload) -> bytes:
-        ds = blockcodec.decode_streams(
-            hdr, payload, fh.version, zstd_entropy.get_codec()
-        )
+        with blockcodec.payload_zstd_errors(hdr, payload, fh.version):
+            ds = blockcodec.decode_streams(
+                hdr, payload, fh.version, zstd_entropy.get_codec()
+            )
         return blockcodec.streams_to_fastq(ds, qual_offset, decoder)
 
     tasks = ((decode_one, hdr, payload) for hdr, payload in _read_blocks(r, fh.version))

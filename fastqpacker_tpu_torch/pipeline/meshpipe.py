@@ -19,6 +19,7 @@ transform and the block CRC32 run on the first device of the mesh.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import struct
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +35,7 @@ from ..ops import reference as refops
 from ..parallel import mesh as pmesh
 from ..parser.fastq import FastqStreamParser, RecordBlock
 from . import api
+from . import blocks as blockcodec
 from . import native
 
 
@@ -478,7 +480,9 @@ def compress_mesh_bytes(data: bytes, opts=None, mesh=None) -> bytes:
     return out.getvalue()
 
 
-def decompress_mesh(r: BinaryIO, w: BinaryIO, mesh=None, fh=None) -> None:
+def decompress_mesh(
+    r: BinaryIO, w: BinaryIO, mesh=None, fh=None, map_zstd_errors: bool = False
+) -> None:
     """Decompress an FQZ v3 container with the entropy stage batched over
     the devices of ``mesh``: groups of D consecutive blocks whose seq/qual
     streams are all TAG_RANS with a shared frequency table, or all
@@ -489,6 +493,11 @@ def decompress_mesh(r: BinaryIO, w: BinaryIO, mesh=None, fh=None) -> None:
     containers — falls back to the ordinary per-block decoder. The block
     CRC32 checks cover the batched output, so a wrong batch decode fails
     exactly like corrupt data.
+
+    A zstd frame of a block payload that fails keeps libzstd's name, as in
+    the JAX package's ``decompress_mesh``; ``map_zstd_errors`` (the route
+    of the default decoder, ``device.decompress_device``) raises it as that
+    decoder does (``blocks.payload_zstd_errors``).
     """
     # ``fh``: the caller (device.decompress_device's TAG_WCTX routing)
     # already consumed the file header from ``r``.
@@ -513,6 +522,13 @@ def decompress_mesh(r: BinaryIO, w: BinaryIO, mesh=None, fh=None) -> None:
         return
     codec = zstd_entropy.get_codec()
 
+    def zstd_errors(hdr, payload):
+        if not map_zstd_errors:
+            return contextlib.nullcontext()
+        return blockcodec.payload_zstd_errors(
+            hdr, payload, container.VERSION_3_NATIVE
+        )
+
     def read_group():
         group = []
         while len(group) < d:
@@ -536,7 +552,8 @@ def decompress_mesh(r: BinaryIO, w: BinaryIO, mesh=None, fh=None) -> None:
         for hdr, payload in group:
             sizes = hdr.stream_sizes(container.VERSION_2)
             off = sum(sizes[:5])
-            lb = codec.decompress(payload[off : off + sizes[5]])
+            with zstd_errors(hdr, payload):
+                lb = codec.decompress(payload[off : off + sizes[5]])
             if len(lb) % 4:
                 raise container.FormatError(
                     "truncated sequence length data"
@@ -596,11 +613,11 @@ def decompress_mesh(r: BinaryIO, w: BinaryIO, mesh=None, fh=None) -> None:
             # other/mixed codec tags in this group: per-block path
         with devops.worker_stream(dev):
             for (hdr, payload), p in zip(group, pre):
-                w.write(
-                    native.decode_block_payload(
+                with zstd_errors(hdr, payload):
+                    text = native.decode_block_payload(
                         hdr, payload, codec, qual_offset, dev,
                         predecoded=p or None,
                     )
-                )
+                w.write(text)
         if len(group) < d:
             return

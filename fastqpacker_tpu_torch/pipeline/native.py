@@ -25,6 +25,7 @@ Blocks are coded on a pool of worker threads, each on its own CUDA stream
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import BinaryIO, Optional
 
@@ -761,7 +762,11 @@ def decompress_native(
     def decode_one(job) -> bytes:
         hdr, payload = job
         codec = zstd_entropy.get_codec()
-        with devops.worker_stream(dev):
+        # the JAX package's runtime does not take lossless containers, so
+        # their zstd failures keep libzstd's name there
+        errors = (contextlib.nullcontext() if lossless else
+                  blockcodec.payload_zstd_errors(hdr, payload, fh.version))
+        with devops.worker_stream(dev), errors:
             return decode_block_payload(
                 hdr, payload, codec, qual_offset, dev, seq_dict,
                 lossless=lossless,

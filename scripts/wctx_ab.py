@@ -114,7 +114,7 @@ def main() -> int:
 def set_constants(src: Path, assignments: list[str]) -> None:
     """Rewrite ``constexpr int NAME = <int>;`` in ``src`` for each
     ``NAME=VALUE``, outside this repository only."""
-    if src.resolve() == (REPO / "fastqpacker_tpu_torch/csrc/wctx_codec.cu").resolve():
+    if src.resolve() == (REPO / "fastqpacker_tpu_torch/csrc" / src.name).resolve():
         raise SystemExit(f"--set edits the checkout's source: give a copy, not {REPO}")
     text = src.read_text()
     for item in assignments:

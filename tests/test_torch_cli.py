@@ -107,6 +107,82 @@ def test_corrupt_container_exit_code(tmp_path, capsys):
     )
 
 
+# A byte flipped mid-file lands in a zstd frame of a block payload. The JAX
+# CLI's default decoder (its C++ runtime) names that failure with one
+# string; its ``-d --mesh`` decoder passes libzstd's name on. The port's
+# CLI follows each.
+ZSTD_PAYLOAD = "error: corrupted zstd frame in block payload\n"
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize(
+    "flags", [[], ["--format", "native"], ["--mesh"]], ids=["v2", "native", "mesh"]
+)
+def test_flipped_byte_errors_match_jax_cli(flags, tmp_path, capsys):
+    src = tmp_path / "in.fq"
+    src.write_bytes(_fastq(900, seed=5))
+    comp = tmp_path / "c.fqz"
+    argv = ["--backend", "cpu", "-b", "250", *flags, "-i", str(src), "-o", str(comp)]
+    assert port_cli.main(argv) == 0
+    bad = bytearray(comp.read_bytes())
+    bad[len(bad) // 2] ^= 0xFF
+    comp.write_bytes(bytes(bad))
+    for dflags in (["-d"], ["-d", "--mesh"]) if "--mesh" in flags else (["-d"],):
+        args = ["--backend", "cpu", *dflags, "-i", str(comp), "-o", str(tmp_path / "o.fq")]
+        j = subprocess.run(
+            [sys.executable, "-m", "fastqpacker_tpu.cli.fqpack", *args],
+            capture_output=True, env={**ENV, "XLA_FLAGS": ""}, cwd=REPO, timeout=110,
+        )
+        assert port_cli.main(["-w", "1", *args]) == j.returncode == 1
+        got = capsys.readouterr().err
+        assert got == j.stderr.decode()
+        if dflags == ["-d"]:
+            assert got == ZSTD_PAYLOAD
+        else:
+            assert got.startswith("error: ") and got != ZSTD_PAYLOAD
+
+
+@pytest.mark.parametrize("fmt", ["v2", "v3", "v3_lossless"])
+@pytest.mark.parametrize("seed", range(4))
+def test_mutated_container_errors_match_jax(fmt, seed):
+    """Bit flips, truncations and random bytes: the port's
+    ``decompress_bytes`` on the CPU fails (or not) as the JAX package's
+    default ``decompress_bytes`` (its C++ runtime; lossless v3 containers go
+    to its Python decoder, which keeps libzstd's names) does, type and
+    string."""
+    import fastqpacker_tpu as jfq
+    import fastqpacker_tpu_torch as tfq
+    from fastqpacker_tpu.runtime import bindings
+
+    assert bindings.available() and bindings.mt_available()
+    data = _fastq(400, seed=10 + seed)
+    opts = tfq.Options(block_size=100, version=2 if fmt == "v2" else 3,
+                       lossless=fmt == "v3_lossless")
+    comp = tfq.compress_bytes(data, opts, device="cpu")
+    rng = np.random.default_rng(100 * len(fmt) + seed)
+
+    def outcome(decompress, b):
+        try:
+            return decompress(b) == data
+        except Exception as e:
+            return type(e).__name__, str(e)
+
+    zstd_failures = 0
+    for k in range(12):
+        b = bytearray(comp)
+        at = int(rng.integers(0, len(b)))
+        if k % 3 == 0:
+            b[at] ^= 1 << int(rng.integers(0, 8))
+        elif k % 3 == 1:
+            del b[at:]
+        else:
+            b[at] = int(rng.integers(0, 256))
+        want = outcome(jfq.decompress_bytes, bytes(b))
+        assert outcome(lambda x: tfq.decompress_bytes(x, device="cpu"), bytes(b)) == want
+        zstd_failures += isinstance(want, tuple) and want[0] == "ZstdError"
+    assert zstd_failures > 0
+
+
 def test_cuda_backend_without_a_card_fails(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     src = tmp_path / "in.fq"

@@ -120,7 +120,7 @@ def _rans_inputs(rng, n, lanes, alphabet):
     return data, steps, pad, freq, fc
 
 
-@pytest.mark.parametrize("lanes", [4, 32, 256, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("lanes", [1, 4, 32, 256, 512, 1024, 2048, 4096, 8192, 16384])
 @pytest.mark.parametrize("alphabet", [1, 40, 256])
 def test_rans_kernels_match_plain(lanes, alphabet, cuda):
     """Encode, compact and decode against their plain versions, with a
@@ -162,6 +162,117 @@ def test_rans_decode_never_reads_past_a_short_word_buffer(cuda):
     bad = good[:off] + (total - 100).to_bytes(4, "little") + good[off + 4 : -200]
     with pytest.raises(port_rans.RansError, match="corrupted rANS stream data"):
         port_rans.decode_stream(bad, device=cuda)
+
+
+def _rans_stream(rng, n, lanes, cuda):
+    """A stream of ``n`` walk-like deltas encoded on ``lanes`` lanes by the
+    kernels: (data, steps, states, slot table, words) on the card."""
+    data, steps, pad, freq, fc = _rans_inputs(rng, n, lanes, 40)
+    d, t = torch.from_numpy(data).to(cuda), torch.from_numpy(fc).to(cuda)
+    words, flags, states = cuda_kernels.rans_encode(d, steps, lanes, pad, t)
+    flat, total = cuda_kernels.rans_compact(words, flags)
+    tab = torch.from_numpy(port_rans.pack_slot_table(freq).view(np.int32)).to(cuda)
+    return data, steps, states, tab, flat[: int(total)].clone()
+
+
+def test_rans_decode_from_two_threads_at_two_shared_sizes(cuda):
+    """v3 decode workers launch from a pool of threads, one CUDA stream
+    each: the 4,096-lane tier (16 CTAs, 48 KiB of dynamic shared memory)
+    and the 256-lane tier (one CTA, 18 KiB) run the same kernel instance at
+    once, in a loop, and every launch matches the plain version."""
+    rng = np.random.default_rng(6)
+    cases = []
+    for lanes in (4096, 256):
+        _, steps, states, tab, stream = _rans_stream(rng, 20 * lanes + 7, lanes, cuda)
+        g = cuda_kernels.rans_decode_geometry(lanes)
+        assert g.lanes_per_thread == 1
+        pout, _ = port_rans.rans_decode_plain(stream, states, tab, steps, lanes)
+        cases.append(((stream, states, tab, steps, lanes), pout, stream.numel()))
+    torch.cuda.synchronize()
+    rounds = 300
+    errors, done = [], [0, 0]
+
+    def work(i):
+        args, want, words = cases[i]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(rounds):
+                    out, consumed = cuda_kernels.rans_decode(*args)
+                    assert torch.equal(out, want) and int(consumed) == words
+                    done[i] += 1
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors[0]
+    assert done == [rounds, rounds]
+
+
+@pytest.mark.parametrize("lanes", [256, 2048, 4096, 16384])
+def test_rans_corrupt_streams_at_every_cluster_size(lanes, cuda):
+    """A stream that lost words reads zeros past the end of the word ring:
+    the kernel's symbols and words consumed equal the plain version's, and
+    the stream API raises "corrupted rANS stream data", at clusters of 1, 8
+    and 16 CTAs."""
+    rng = np.random.default_rng(77 + lanes)
+    data = rng.integers(0, 30, 12 * lanes + 5).astype(np.uint8)
+    good = port_rans.encode_stream(data, lanes=lanes, device=cuda)
+    assert port_rans.decode_stream(good, device=cuda) == data.tobytes()
+    off = 8 + 512 + 4 * lanes
+    total = int.from_bytes(good[off : off + 4], "little")
+    for lost in (1, 9, total // 2):
+        bad = good[:off] + (total - lost).to_bytes(4, "little") + good[off + 4 : -2 * lost]
+        with pytest.raises(port_rans.RansError, match="corrupted rANS stream data"):
+            port_rans.decode_stream(bad, device=cuda)
+    _, steps, states, tab, stream = _rans_stream(rng, len(data), lanes, cuda)
+    short = stream[: stream.numel() // 2].clone()
+    out, consumed = cuda_kernels.rans_decode(short, states, tab, steps, lanes)
+    pout, pconsumed = port_rans.rans_decode_plain(short, states, tab, steps, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and int(consumed) == int(pconsumed) != short.numel()
+
+
+RANS_TIERS = [1 << i for i in range(15)]
+
+
+@pytest.mark.parametrize("lanes", RANS_TIERS)
+def test_rans_decode_geometry_owns_every_lane_once(lanes, cuda):
+    """The geometry the decode's C entry launches, read from its library,
+    for every lane count it takes: K contiguous lanes per thread, each lane
+    owned once, a cluster of at most 16 CTAs, the slot table and a word
+    ring of four words per lane (at least 32) in at most 227 KB of shared
+    memory per CTA; one CTA up to 256 lanes, several SMs past that."""
+    g = cuda_kernels.rans_decode_geometry(lanes)
+    assert g.threads % 32 == 0 and 32 <= g.threads <= 1024
+    assert 1 <= g.cluster <= 16 and g.cluster & (g.cluster - 1) == 0
+    if lanes < 32:  # one warp, the first `lanes` threads live
+        assert (g.threads, g.cluster, g.lanes_per_thread) == (32, 1, 1)
+    else:  # thread i of CTA r owns lanes (r * threads + i) * K ... + K - 1
+        owner = np.zeros(lanes, np.int64)
+        for r in range(g.cluster):
+            for i in range(g.threads):
+                lane0 = (r * g.threads + i) * g.lanes_per_thread
+                owner[lane0 : lane0 + g.lanes_per_thread] += 1
+        assert (owner == 1).all()
+    assert g.shared == 4 * 4096 + 2 * max(4 * lanes, 32) <= 227 * 1024
+    assert g.cluster == (1 if lanes <= 256 else min(16, lanes // 256))
+    assert g.threads == (max(lanes, 32) if lanes <= 256 else 256)
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 3000, 32768])
+def test_rans_decode_geometry_refuses_lanes_outside_the_kernel(lanes, cuda):
+    with pytest.raises(ValueError, match="no decode geometry"):
+        cuda_kernels.rans_decode_geometry(lanes)
 
 
 @pytest.mark.parametrize(

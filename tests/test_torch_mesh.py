@@ -236,6 +236,42 @@ def test_corrupt_mesh_container_fails_typed():
     assert hits >= 3
 
 
+@pytest.mark.parametrize("slot", [2, 5])
+def test_corrupt_zstd_frame_strings_follow_each_jax_decoder(slot):
+    """A TAG_WCTX container whose headers (2) or lengths (5) frame fails its
+    checksum: ``decompress_mesh`` keeps libzstd's name, as the JAX package's
+    ``decompress_mesh`` does; with ``map_zstd_errors`` (the default decoder's
+    route on the card) and in the default decoder on the CPU the string is
+    the JAX package's default decoder's (its C++ runtime)."""
+    from fastqpacker_tpu.runtime import bindings
+
+    assert bindings.available() and bindings.decompress_mt_v3_ex_available()
+    data = _markov(2 * BLOCK)
+    mesh = pmesh.make_mesh(1, device="cpu")
+    comp = pmeshpipe.compress_mesh_bytes(data, tfq.Options(block_size=BLOCK), mesh)
+    r = io.BytesIO(comp)
+    C.read_file_header(r)
+    sizes = C.read_block_header(r, 3).stream_sizes(C.VERSION_2)
+    base = r.tell()
+    assert comp[base + sizes[0]] == C.TAG_WCTX
+    bad = bytearray(comp)
+    bad[base + sum(sizes[: slot + 1]) - 1] ^= 0x10  # the frame's checksum
+    bad = bytes(bad)
+    with pytest.raises(Exception) as mesh_want:
+        jmeshpipe.decompress_mesh(io.BytesIO(bad), io.BytesIO(), jmesh.make_mesh(1))
+    with pytest.raises(Exception) as default_want:
+        jfq.decompress_bytes(bad)
+    assert str(default_want.value) == "corrupted zstd frame in block payload"
+    assert str(mesh_want.value) == "Restored data doesn't match checksum"
+    for kwargs, want in (({}, mesh_want), ({"map_zstd_errors": True}, default_want)):
+        with pytest.raises(ZstdError) as got:
+            pmeshpipe.decompress_mesh(io.BytesIO(bad), io.BytesIO(), mesh, **kwargs)
+        assert type(want.value).__name__ == "ZstdError"
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ZstdError, match=f"^{default_want.value}$"):
+        tfq.decompress_bytes(bad, device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # stream lists
 # ---------------------------------------------------------------------------
