@@ -14,13 +14,16 @@ Phases, each fatal on failure:
    ragged last rows, one-symbol and 256-symbol streams, decode(encode(x))
    == x, a stream that lost words raises; timed at the v3 path's quality
    stream (15.1 MB, 16,384 lanes) and sequence stream (3.8 MB, 4,096
-   lanes), the decode beside its launch geometry (CTAs x threads, lanes
-   per thread, shared bytes, registers); at 16,384 lanes the decode's other
+   lanes), the encode beside its per-step time (one warp per CTA), the
+   decode beside its launch geometry (CTAs x threads, lanes per thread,
+   shared bytes, registers); at 16,384 lanes the decode's other
    cluster geometry, 16 CTAs x 1,024 threads with one lane each, is built
    from a copy of the package (``scripts/rans_ab.py --set
    kCtaThreads=1024``, in its own process), held against the plain version
    and timed beside the default 16 x 256 x 4. CRC32: equal to
-   ``zlib.crc32`` at lengths 0, 1, one chunk +- 1 and 15.1 MB. Times come from CUDA events over launches queued behind a
+   ``zlib.crc32`` and its plain version at lengths 0, 1, around a chunk, a
+   warp's and a CTA's span, several spans and both streams, one launch per
+   CRC, a misaligned view refused; timed at both streams. Times come from CUDA events over launches queued behind a
    sleep kernel, inputs rotated past the L2 cache. Each kernel's bound is
    the larger of its bytes (inputs read once, outputs written once) over
    3.35 TB/s and its operations over 67 TOP/s. ``library_ms`` is the time
@@ -434,6 +437,11 @@ def phase_rans(ck, rans, rng, registers: dict) -> dict:
             lms = gpu_ms(library, sets, 20) if library else None
             out[(name, label)] = (
                 *report(name, shape, kms, pms, lms, nbytes, ops, errs[name]), steps)
+        ems = out[(ck.RANS_ENCODE, label)][0]
+        print(f"phase=kernels kernel={ck.RANS_ENCODE} {shape} "
+              f"step_us={ems * 1e3 / steps:.4f} ctas={-(-lanes // 32)} threads_per_cta=32")
+        extra[("encode", label)] = {"lanes": lanes, "step_us": ems * 1e3 / steps,
+                                    "ctas": -(-lanes // 32), "threads_per_cta": 32}
         kms, _, bound_ms = out[(ck.RANS_DECODE, label)][:3]
         geometry = rans_geometry(ck.rans_decode_geometry(lanes), registers)
         extra[label] = {"lanes": lanes, "step_us": kms * 1e3 / steps, **geometry}
@@ -492,11 +500,15 @@ def phase_rans_variant(qual: dict, qual_ms: float) -> dict:
 
 def phase_crc(ck, crc32, rng) -> dict:
     chunk = crc32.CHUNK
+    span = crc32.CTA_CHUNKS * chunk
     check(crc32.crc32_device(b"", device=DEV) == 0, "CRC32 of nothing is 0")
     err = 0
     before = ck.launches[ck.CRC32]
-    for n in (1, chunk - 1, chunk, chunk + 1, crc32.MIN_DEVICE_BYTES, SEQ_STREAM,
-              QUAL_STREAM):
+    # chunk, warp (32 chunks) and CTA span edges, several spans, the streams
+    lengths = (1, chunk - 1, chunk, chunk + 1, 3 * chunk + 17, 32 * chunk, span - 1,
+               span, span + 1, 2 * span + 32 * chunk + 3, crc32.MIN_DEVICE_BYTES,
+               SEQ_STREAM, QUAL_STREAM)
+    for n in lengths:
         data = rng.integers(0, 256, n).astype(np.uint8)
         t = torch.from_numpy(data).to(DEV)
         got = ck.crc32_chunks(t)
@@ -506,8 +518,16 @@ def phase_crc(ck, crc32, rng) -> dict:
         check(crc32.crc32_device(data, device=DEV) == want, f"crc32_device == zlib at n={n}")
         print(f"phase=kernels crc32 n={n} equals_zlib=true")
     check(err == 0, "CRC32 kernel == plain")
-    # the size rule: below MIN_DEVICE_BYTES crc32_device stays on the host
-    check(ck.launches[ck.CRC32] - before == 7 + 3, "CRC32 launches above the size rule")
+    # one launch per CRC; below MIN_DEVICE_BYTES crc32_device stays on the host
+    above = sum(n >= crc32.MIN_DEVICE_BYTES for n in lengths)
+    check(ck.launches[ck.CRC32] - before == len(lengths) + above,
+          "one CRC32 launch per CRC, none below the size rule")
+    try:
+        ck.crc32_chunks(torch.zeros(4096, dtype=torch.uint8, device=DEV)[3:])
+    except ValueError:
+        print("phase=kernels crc32 misaligned_view refused=true")
+    else:
+        raise RuntimeError("check failed: a misaligned CRC32 view was taken")
     out = {}
     for label, n in (("qual", QUAL_STREAM), ("seq", SEQ_STREAM)):
         data = rng.integers(0, 256, n).astype(np.uint8)
@@ -517,8 +537,8 @@ def phase_crc(ck, crc32, rng) -> dict:
         pms = gpu_ms(crc32.crc32_chunks_plain, sets[:1], 1)
         out[(ck.CRC32, label)] = (
             # per byte: xor, mask, table read and xor, shift
-            *report(ck.CRC32, f"stream={label} n={n} chunk={chunk}", kms, pms,
-                    None, n + 4, 4 * n, err),
+            *report(ck.CRC32, f"stream={label} n={n} chunk={chunk} span={span}", kms,
+                    pms, None, n + 4, 4 * n, err),
             None,
         )
     return {"errs": {ck.CRC32: err}, "times": out}
@@ -861,14 +881,18 @@ def rans_decode_registers(log: str) -> dict:
 
 def entry_label(entry: str) -> str:
     """A kernel's label from its mangled name: ``wctx_decode_kernel<kQual,
-    kTabShared>``, ``wctx_encode_kernel<kShared>``,
-    ``rans_decode_kernel<K>``."""
+    kTabShared>``, ``wctx_encode_kernel<kShared>``, ``rans_decode_kernel<K>``,
+    and the encode's and the CRC's one instance each."""
     if (mm := re.search(r"rans_decode_kernelILi(\d+)E", entry)):
         return f"fq_rans_decode<lanes_per_thread={mm.group(1)}>"
     if (mm := re.search(r"wctx_decode_kernelILb(\d)ELb(\d)E", entry)):
         return f"fq_wctx_decode<qual={mm.group(1)},table_shared={mm.group(2)}>"
     if (mm := re.search(r"wctx_encode_kernelILb(\d)E", entry)):
         return f"fq_wctx_encode<table_shared={mm.group(1)}>"
+    for kernel, name in (("rans_encode_kernel", "fq_rans_encode"),
+                         ("crc32_kernel", "fq_crc32_chunks")):
+        if kernel in entry:
+            return name
     return entry
 
 
@@ -1107,6 +1131,11 @@ def main() -> int:
     for name, direction in ((ck.RANS_ENCODE, "compress"), (ck.RANS_COMPACT, "compress"),
                             (ck.RANS_DECODE, "decompress")):
         more = {}
+        if name == ck.RANS_ENCODE:  # the quality stream's; the sequence's beside
+            seq = kern_rans["times"][(name, "seq")]
+            more = {**kern_rans["extra"][("encode", "qual")],
+                    "seq_stream": {**dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), seq)),
+                                   "steps": seq[5], **kern_rans["extra"][("encode", "seq")]}}
         if name == ck.RANS_DECODE:  # the quality stream's; the sequence's beside
             seq = kern_rans["times"][(name, "seq")]
             more = {**kern_rans["extra"]["qual"],
@@ -1114,9 +1143,12 @@ def main() -> int:
                                    "steps": seq[5], **kern_rans["extra"]["seq"]}}
         rows.append((name, v3_launches[direction][name], kern_rans["errs"][name],
                      kern_rans["times"][(name, "qual")], more))
+    crc_seq = kern_crc["times"][(ck.CRC32, "seq")]
     rows.append((ck.CRC32, v3_launches["compress"][ck.CRC32], kern_crc["errs"][ck.CRC32],
                  kern_crc["times"][(ck.CRC32, "qual")],
-                 {"launches_decompress": v3_launches["decompress"][ck.CRC32]}))
+                 {"launches_decompress": v3_launches["decompress"][ck.CRC32],
+                  "seq_stream": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                         crc_seq))}))
     # context rANS: the count from the mesh run; the times of the model and
     # order that run's quality streams were coded with, the others beside
     qual = mesh_run["qual"][:2]

@@ -56,11 +56,52 @@ __device__ __forceinline__ int warp_inclusive(int v, int lane) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// Encode: one thread per lane, rows walked backwards.
+// Encode: one warp per CTA, one thread per lane, rows walked backwards.
+//
+// Per step a lane's chain is the renormalisation test, the division of its
+// state by the symbol's frequency and the recombination; everything else is
+// taken off it. The symbol rows of the CTA's 32 lanes are staged into shared
+// memory ahead of the walk (tiles of kEncodeTile steps, double buffered,
+// 16-byte cp.async); the frequency, the cumulative count and a reciprocal
+// of each symbol sit in one shared table, so x / f is a multiply-high, an
+// add and two shifts (Granlund and Montgomery's round-up method, exact for
+// every 32-bit dividend and every divisor 1-4096); words and flags are
+// staged in shared memory per tile and written out as 16-byte stores. A
+// stream narrower than a warp takes the same walk with plain loads and
+// stores.
 // ---------------------------------------------------------------------------
 
-constexpr int kEncodeThreads = 128;
+constexpr int kEncodeThreads = 32;
+constexpr int kEncodeTile = 64;  // steps per staged tile
+
+struct EncodeSym {
+  uint32_t mul;   // m = floor(2^32 (2^l - f) / f) + 1, l = ceil(log2 f)
+  uint32_t fcls;  // f | c << 13 | l << 25
+};
+
+// q = floor(x / f) for every x < 2^32 (Granlund and Montgomery 1994, thm 4.2;
+// Hacker's Delight 10-8): t = mulhi(m, x), q = (t + ((x - t) >> min(l, 1))) >>
+// max(l - 1, 0). ops/rans.py:reciprocal_divmod is the same arithmetic.
+__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t mul, uint32_t l) {
+  const uint32_t t = __umulhi(mul, x);
+  return (t + ((x - t) >> (l > 0 ? 1u : 0u))) >> (l > 1 ? l - 1 : 0u);
+}
 
 __global__ void __launch_bounds__(kEncodeThreads)
 rans_encode_kernel(const uint8_t* __restrict__ data, long long n, int steps,
@@ -68,29 +109,89 @@ rans_encode_kernel(const uint8_t* __restrict__ data, long long n, int steps,
                    const uint32_t* __restrict__ freq_cum,  // (2, 256)
                    uint16_t* __restrict__ words, uint8_t* __restrict__ flags,
                    uint32_t* __restrict__ states) {
-  __shared__ uint32_t tab[256];  // freq | cum << 16
-  for (int i = threadIdx.x; i < 256; i += kEncodeThreads)
-    tab[i] = freq_cum[i] | (freq_cum[256 + i] << 16);
-  __syncthreads();
-  const int lane = blockIdx.x * kEncodeThreads + threadIdx.x;
-  if (lane >= lanes) return;
+  __shared__ EncodeSym tab[256];
+  __shared__ __align__(16) uint8_t sym[2][kEncodeTile][kEncodeThreads];
+  __shared__ __align__(16) uint16_t out_w[kEncodeTile][kEncodeThreads];
+  __shared__ __align__(16) uint8_t out_f[kEncodeTile][kEncodeThreads];
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * kEncodeThreads;
+  const int lane = lane0 + tid;
+  const int width = lanes < kEncodeThreads ? lanes : kEncodeThreads;
+  const bool wide = width == kEncodeThreads;
+  for (int i = tid; i < 256; i += kEncodeThreads) {
+    const uint32_t f = freq_cum[i], c = freq_cum[256 + i];
+    const uint32_t l = f > 1 ? 32 - __clz(f - 1) : 0;
+    const uint32_t mul =
+        f ? (uint32_t)((((1ull << l) - f) << 32) / f + 1) : 0u;
+    tab[i] = {mul, f | (c << 13) | (l << 25)};
+  }
+  // tile k holds the rows [max(0, hi - T), hi), hi = steps - k * T; cells at
+  // or past n code the pad symbol
+  auto issue = [&](int k) {
+    const int hi = steps - k * kEncodeTile;
+    if (hi <= 0) return;
+    const int lo = hi > kEncodeTile ? hi - kEncodeTile : 0;
+    for (int i = tid; i < 2 * (hi - lo); i += kEncodeThreads) {
+      const int r = i >> 1, part = i & 1;
+      const long long cell = (long long)(lo + r) * lanes + lane0 + 16 * part;
+      uint8_t* dst = &sym[k & 1][r][16 * part];
+      if (wide && cell + 16 <= n) {
+        cp_async16(dst, data + cell);
+      } else {
+        for (int j = 0; j < 16; ++j)
+          if (16 * part + j < width)
+            dst[j] = cell + j < n ? data[cell + j] : (uint8_t)pad_sym;
+      }
+    }
+  };
+  issue(0);
+  cp_async_commit();
 
   uint32_t x = kRansL;
+  for (int k = 0; steps - k * kEncodeTile > 0; ++k) {
+    issue(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile k has landed
+    __syncwarp();
+    const int hi = steps - k * kEncodeTile;
+    const int lo = hi > kEncodeTile ? hi - kEncodeTile : 0;
+    if (tid < width) {
 #pragma unroll 4
-  for (int t = steps - 1; t >= 0; --t) {
-    const long long idx = (long long)t * lanes + lane;
-    // cells past the stream's end code the pad symbol
-    const uint32_t sym = idx < n ? (uint32_t)data[idx] : (uint32_t)pad_sym;
-    const uint32_t e = tab[sym];
-    const uint32_t f = e & 0xFFFFu;
-    const uint32_t c = e >> 16;
-    const bool emit = (x >> 20) >= f;  // x >= f << 20
-    words[idx] = (uint16_t)x;  // read back only where the flag is set
-    flags[idx] = emit ? 1 : 0;
-    if (emit) x >>= 16;
-    x = ((x / f) << kProbBits) + (x % f) + c;
+      for (int t = hi - 1; t >= lo; --t) {
+        const EncodeSym e = tab[sym[k & 1][t - lo][tid]];
+        const uint32_t f = e.fcls & 0x1FFFu;
+        const uint32_t c = (e.fcls >> 13) & 0xFFFu;
+        const bool emit = (x >> 20) >= f;  // x >= f << 20
+        out_w[t - lo][tid] = (uint16_t)x;  // read back only where the flag is set
+        out_f[t - lo][tid] = emit ? 1 : 0;
+        if (emit) x >>= 16;
+        const uint32_t q = div_by(x, e.mul, e.fcls >> 25);
+        x = (q << kProbBits) + (x - q * f) + c;
+      }
+    }
+    __syncwarp();  // the tile's outputs are staged; tile k is read
+    if (wide) {  // rows of 64 bytes of words and 32 of flags, 16 bytes a store
+      for (int i = tid; i < 6 * (hi - lo); i += kEncodeThreads) {
+        const int r = i / 6, part = i % 6;
+        const long long cell = (long long)(lo + r) * lanes + lane0;
+        if (part < 4) {
+          *reinterpret_cast<uint4*>(words + cell + 8 * part) =
+              *reinterpret_cast<const uint4*>(&out_w[r][8 * part]);
+        } else {
+          *reinterpret_cast<uint4*>(flags + cell + 16 * (part - 4)) =
+              *reinterpret_cast<const uint4*>(&out_f[r][16 * (part - 4)]);
+        }
+      }
+    } else if (tid < width) {
+      for (int r = 0; r < hi - lo; ++r) {
+        const long long cell = (long long)(lo + r) * lanes + lane;
+        words[cell] = out_w[r][tid];
+        flags[cell] = out_f[r][tid];
+      }
+    }
+    __syncwarp();  // the outputs are read before the next tile's walk
   }
-  states[lane] = x;
+  if (tid < width) states[lane] = x;
 }
 
 // ---------------------------------------------------------------------------
@@ -225,20 +326,6 @@ constexpr int kMinRing = 32;     // ring words below 8 lanes: a step's words,
 constexpr int kMaxPending = 3;  // copy groups a step may leave in flight
 constexpr int kTableBytes = kSlots * 4;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");

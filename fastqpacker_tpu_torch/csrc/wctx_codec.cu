@@ -509,18 +509,37 @@ wctx_decode_kernel(const uint16_t* __restrict__ words, long long total_words,
   }
 }
 
-// Checks a cluster geometry once per device, kernel and shared size with
-// cudaOccupancyMaxActiveClusters, so a geometry the card cannot schedule is
-// refused with an error, never run.
-cudaError_t check_cluster(const void* kernel, const cudaLaunchConfig_t& cfg) {
+// Readies a kernel instance for `cfg` on the current device. Once per device
+// and instance, under one lock: its dynamic shared memory cap is raised to
+// `max_shared`, the most any launch of that instance takes, and a cluster
+// kernel may take clusters past 8 CTAs; neither is ever set to another value,
+// so a launch from another thread never sees a cap below its own (decode
+// workers launch the sequence and quality streams, whose sizes differ, from
+// several threads at once). Once per cluster geometry,
+// cudaOccupancyMaxActiveClusters checks that the card can schedule it, so a
+// geometry it cannot is refused with an error, never run.
+cudaError_t ready_launch(const void* kernel, const cudaLaunchConfig_t& cfg,
+                         int max_shared) {
   static std::mutex mu;
+  static std::set<std::tuple<int, const void*>> raised;
   static std::set<std::tuple<int, const void*, unsigned, unsigned, size_t>> ok;
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!raised.count(std::make_tuple(dev, kernel))) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              max_shared);
+    if (rc != cudaSuccess) return rc;
+    if (cfg.numAttrs > 0) {  // a cluster kernel
+      rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (rc != cudaSuccess) return rc;
+    }
+    raised.insert(std::make_tuple(dev, kernel));
+  }
+  if (cfg.numAttrs == 0) return cudaSuccess;
   const auto key = std::make_tuple(dev, kernel, cfg.gridDim.x, cfg.blockDim.x,
                                    cfg.dynamicSmemBytes);
-  std::lock_guard<std::mutex> lock(mu);
   if (ok.count(key)) return cudaSuccess;
   int clusters = 0;
   rc = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
@@ -573,13 +592,6 @@ int launch_decode(const void* words, long long total_words, const void* states,
   auto kernel = wctx_decode_kernel<kQual, kTabShared>;
   const int threads = g.threads, cluster = g.cluster;
   const size_t shared = (size_t)g.shared;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-  if (rc != cudaSuccess) return (int)rc;
-  if (cluster > 8) {
-    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (rc != cudaSuccess) return (int)rc;
-  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)cluster;
@@ -592,7 +604,7 @@ int launch_decode(const void* words, long long total_words, const void* states,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  rc = check_cluster((const void*)kernel, cfg);
+  cudaError_t rc = ready_launch((const void*)kernel, cfg, kMaxDynamicShared);
   if (rc != cudaSuccess) return (int)rc;
   rc = cudaLaunchKernelEx(
       &cfg, kernel, (const uint16_t*)words, total_words, (const uint32_t*)states,
@@ -627,8 +639,14 @@ int fq_wctx_encode(const void* sym, const void* ctx, const void* seg,
   const bool in_shared = bytes <= (size_t)kMaxSharedTable;
   const size_t shared = tiles + (in_shared ? bytes : 0);
   auto kernel = in_shared ? wctx_encode_kernel<true> : wctx_encode_kernel<false>;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kEncodeThreads);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = s;
+  // the cap of each instance: the tiles, and the largest table it holds
+  const cudaError_t rc = ready_launch(
+      (const void*)kernel, cfg, (int)(tiles + (in_shared ? kMaxSharedTable : 0)));
   if (rc != cudaSuccess) return (int)rc;
   kernel<<<grid, kEncodeThreads, shared, s>>>(
       (const uint8_t*)sym, (const uint16_t*)ctx, (const int*)seg,

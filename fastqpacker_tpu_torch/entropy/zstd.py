@@ -166,14 +166,16 @@ def _check(lib, code: int) -> int:
     return code
 
 
-def declares_content_size(frame) -> bool:
-    """True when ``frame`` starts with a zstd frame header that declares
-    the frame's content size."""
+def frame_content_size(frame) -> int | None:
+    """The content size that the zstd frame header at the start of
+    ``frame`` declares, or None when it declares none (or is no header)."""
     lib = _load()
-    keep, src, nbytes = _src_view(frame)
+    # the header is at most 18 bytes (ZSTD_FRAMEHEADERSIZE_MAX): the rest of
+    # the frame is never copied
+    keep, src, nbytes = _src_view(frame[:18])
     got = lib.ZSTD_getFrameContentSize(src, nbytes)
     del keep
-    return got not in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR)
+    return None if got in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR) else got
 
 
 def _src_view(data):

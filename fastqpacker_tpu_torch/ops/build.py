@@ -58,8 +58,8 @@ SIGNATURES = {
         "fq_rans_decode": [_P, _L, _P, _P, _I, _I, _P, _P, _P],
     },
     "crc32": {
-        # data, n, chunk, out, stream
-        "fq_crc32_chunks": [_P, _L, _I, _P, _P],
+        # data, n, partials, ticket, out, stream
+        "fq_crc32_chunks": [_P, _L, _P, _P, _P, _P],
     },
     "wctx_codec": {
         # sym, ctx, seg, tab, contexts, width, steps, lanes, words, flags,
@@ -74,6 +74,10 @@ SIGNATURES = {
 
 # Exported functions that launch nothing (each returns a cudaError_t too).
 QUERIES = {
+    "crc32": {
+        # bytes per span (one partial each)
+        "fq_crc32_span_bytes": [],
+    },
     "rans_codec": {
         # lanes, out (four int32)
         "fq_rans_decode_geometry": [_I, _P],

@@ -2,12 +2,16 @@
 
 The port of ``fastqpacker_tpu/ops/crc32.py``. A CRC is serial per byte
 stream, so the stream is cut into contiguous chunks of :data:`CHUNK` bytes,
-every chunk's CRC is computed independently, and the chunk CRCs are joined
-with the GF(2) identity ``crc(A||B) = shift(crc(A), len(B)) ^ crc(B)``,
-where ``shift`` multiplies by ``x^(8*len(B))`` modulo the CRC polynomial
-(the math of zlib's ``crc32_combine``). The stream's CRC is then the XOR
-over chunks of ``shift(crc_i, bytes after chunk i)``, which is a parallel
-reduction, done on the device.
+the last one filled up with zero bytes, and every chunk's raw CRC (state 0,
+no final XOR) is computed independently. Raw CRCs are linear:
+``raw(A||B) = shift(raw(A), len(B)) ^ raw(B)``, where ``shift`` multiplies
+by ``x^(8*len(B))`` modulo the CRC polynomial (the math of zlib's
+``crc32_combine``). Every chunk is whole, so the chunks combine in a binary
+tree whose level l shifts by the constant ``CHUNK * 2^l`` bytes. Two
+constants of the stream's length finish it: the zeros that filled the last
+chunk are shifted out again by ``x^(-8t)`` (``x`` is invertible modulo the
+polynomial), and ``shift(0xFFFFFFFF, n) ^ 0xFFFFFFFF`` turns the raw CRC
+into zlib's (initial state and final XOR).
 
 The Hopper kernel is ``csrc/crc32.cu`` (wrapper
 :func:`..ops.cuda_kernels.crc32_chunks`); :func:`crc32_chunks_plain` is its
@@ -28,15 +32,19 @@ import torch
 from .device import resolve_device, to_device
 
 POLY = 0xEDB88320
-# Bytes per chunk (per kernel thread); a multiple of 16. The kernel's time
-# is one thread's serial walk over its chunk plus its GF(2) shift, so a
-# short chunk is faster as long as the chunks still fill the card.
+# Bytes per chunk (per kernel thread): csrc/crc32.cu's kChunk, a multiple
+# of 16. The result does not depend on it.
 CHUNK = 256
+# Chunks per CTA span (csrc/crc32.cu's kThreads): a warp combines 32 chunks,
+# a CTA 128, and the last CTA the spans.
+CTA_CHUNKS = 128
 MIN_DEVICE_BYTES = 16384
 
 _M32 = 0xFFFFFFFF
 _X0 = 0x80000000  # x^0 in the reflected representation
 _X8 = 0x00800000  # x^8
+# x^-1 mod P(x): x * (P(x) - 1) / x = P(x) - 1 = 1 in GF(2)[x] / P(x)
+_XINV = ((POLY << 1) | 1) & _M32
 
 
 # ---------------------------------------------------------------------------
@@ -56,15 +64,28 @@ def _multmodp(a: int, b: int) -> int:
     return p
 
 
+def _pow_modp(a: int, e: int) -> int:
+    """a(x)^e mod P(x)."""
+    p = _X0
+    while e:
+        if e & 1:
+            p = _multmodp(a, p)
+        a = _multmodp(a, a)
+        e >>= 1
+    return p
+
+
 def _x8n_modp(nbytes: int) -> int:
     """x^(8 * nbytes) mod P(x)."""
-    p, q = _X0, _X8
-    while nbytes:
-        if nbytes & 1:
-            p = _multmodp(q, p)
-        q = _multmodp(q, q)
-        nbytes >>= 1
-    return p
+    return _pow_modp(_X8, nbytes)
+
+
+def finish_constants(n: int, padded: int) -> tuple[int, int]:
+    """The two constants that turn the raw CRC of ``n`` bytes followed by
+    ``padded - n`` zero bytes into ``zlib.crc32`` of the ``n`` bytes:
+    ``crc = multmodp(unshift, raw) ^ xor``."""
+    unshift = _pow_modp(_XINV, 8 * (padded - n))
+    return unshift, _multmodp(_x8n_modp(n), _M32) ^ _M32
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
@@ -95,46 +116,33 @@ def _multmodp_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def _x8n_modp_t(nbytes: torch.Tensor) -> torch.Tensor:
-    """Elementwise :func:`_x8n_modp`; ``nbytes`` int64 >= 0."""
-    p = torch.full_like(nbytes, _X0)
-    q = torch.full_like(nbytes, _X8)
-    n = nbytes.clone()
-    for _ in range(max(int(nbytes.max().item()).bit_length(), 0)):
-        p = torch.where((n & 1) != 0, _multmodp_t(q, p), p)
-        q = _multmodp_t(q, q)
-        n = n >> 1
-    return p
-
-
 def crc32_chunks_plain(data: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     """CRC32 of ``data`` ((n,) uint8, n >= 1) -> (1,) int32 holding the u32
-    bit pattern: table-driven CRC of each ``chunk``-byte piece, each shifted
-    past the bytes after it, XOR-reduced."""
+    bit pattern: the raw CRC of each ``chunk``-byte piece (the last filled
+    with zeros), combined in a binary tree of constant shifts counted from
+    the stream's end, then :func:`finish_constants`."""
     dev = data.device
     n = data.numel()
     nchunks = -(-n // chunk)
     padded = torch.zeros(nchunks * chunk, dtype=torch.int64, device=dev)
     padded[:n] = data
     rows = padded.view(nchunks, chunk)
-    start = torch.arange(nchunks, dtype=torch.int64, device=dev) * chunk
-    lens = torch.clamp(n - start, max=chunk)
     table = _byte_table(dev)
-    crc = torch.full((nchunks,), _M32, dtype=torch.int64, device=dev)
-    full = n // chunk  # rows below this index are whole chunks
+    raw = torch.zeros(nchunks, dtype=torch.int64, device=dev)
     for t in range(chunk):
-        step = table[(crc ^ rows[:, t]) & 0xFF] ^ (crc >> 8)
-        if full == nchunks:
-            crc = step
-        else:
-            crc = torch.where(t < lens, step, crc)
-    crc = crc ^ _M32
-    after = n - start - lens
-    part = torch.where(after > 0, _multmodp_t(_x8n_modp_t(after), crc), crc)
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
-    for i in range(32):  # XOR-reduce bit by bit (a sum's parity)
-        total |= ((part >> i) & 1).sum().reshape(1) % 2 << i
-    return (((total & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+        raw = table[(raw ^ rows[:, t]) & 0xFF] ^ (raw >> 8)
+    # leaf e is the e-th chunk from the end; leaves past the start are zero
+    # (leading zeros leave a raw CRC as it is)
+    leaves = 1 << (nchunks - 1).bit_length()
+    v = torch.zeros(leaves, dtype=torch.int64, device=dev)
+    v[:nchunks] = raw.flip(0)
+    q = _x8n_modp(chunk)  # level l shifts by chunk * 2^l bytes
+    while v.numel() > 1:
+        v = v[0::2] ^ _multmodp_t(torch.full_like(v[1::2], q), v[1::2])
+        q = _multmodp(q, q)
+    unshift, xor = finish_constants(n, nchunks * chunk)
+    crc = _multmodp(unshift, int(v[0].item())) ^ xor
+    return torch.tensor([(crc ^ 0x80000000) - 0x80000000], dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,6 @@ import torch
 
 from . import build
 from . import reference as refops
-from .crc32 import CHUNK as CRC_CHUNK
 from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import MAX_LANES as RANS_MAX_LANES
@@ -454,9 +453,26 @@ def wctx_decode(
 # ---------------------------------------------------------------------------
 
 
+# One ticket counter per (device, CUDA stream): the kernel's last CTA is
+# the one that takes the last ticket, and every launch leaves its counter at
+# 0, so launches on one stream (which run in order) share it and launches on
+# other streams never do.
+_crc_tickets: dict[tuple[int, int], torch.Tensor] = {}
+_crc_tickets_lock = threading.Lock()
+
+
+def _crc_ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    with _crc_tickets_lock:
+        t = _crc_tickets.get(key)
+        if t is None:  # zeroed once, on the stream that will use it
+            t = _crc_tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        return t
+
+
 def crc32_chunks(data: torch.Tensor) -> torch.Tensor:
     """CRC32 of an (n,) uint8 tensor, n >= 1 -> (1,) int32 holding the u32
-    bit pattern; see :func:`..ops.crc32.crc32_chunks_plain`."""
+    bit pattern; see :func:`..ops.crc32.crc32_chunks_plain`. One launch."""
     n = data.numel()
     dev = data.device
     _check("data", data, torch.uint8, (n,), dev)
@@ -464,6 +480,10 @@ def crc32_chunks(data: torch.Tensor) -> torch.Tensor:
         raise ValueError("empty input (its CRC32 is 0 by definition)")
     if _plain_or_cuda(dev):
         return crc32_chunks_plain(data)
-    out = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _launch(CRC32, dev, data, n, CRC_CHUNK, out)
+    span = build.load(_LIBRARY[CRC32]).fq_crc32_span_bytes()
+    partials = torch.empty((-(-n // span),), dtype=torch.int32, device=dev)
+    out = torch.empty((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        ticket = _crc_ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
+    _launch(CRC32, dev, data, n, partials, ticket, out)
     return out

@@ -116,6 +116,28 @@ def pack_slot_table(freq: np.ndarray) -> np.ndarray:
     )
 
 
+def reciprocals(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The encode kernel's per-symbol reciprocal of frequencies 1-4096
+    (Granlund and Montgomery's round-up method): ``l = ceil(log2 f)`` and
+    ``m = floor(2^32 (2^l - f) / f) + 1``, as uint64 arrays."""
+    f = np.asarray(freq, np.uint64)
+    l = np.zeros_like(f)
+    for k in range(1, PROB_BITS + 1):
+        l[f > (1 << (k - 1))] = k
+    m = (((np.uint64(1) << l) - f) << np.uint64(32)) // f + np.uint64(1)
+    return m, l
+
+
+def reciprocal_div(x: np.ndarray, m: np.ndarray, l: np.ndarray) -> np.ndarray:
+    """``x // f`` for uint32 ``x`` as the encode kernel computes it from
+    :func:`reciprocals`: ``t = mulhi(m, x)``, ``q = (t + ((x - t) >> min(l,
+    1))) >> max(l - 1, 0)``. Exact for every x < 2^32 (Granlund and
+    Montgomery 1994, theorem 4.2)."""
+    x = np.asarray(x, np.uint64)
+    t = (m * x) >> np.uint64(32)
+    return (t + ((x - t) >> np.minimum(l, 1))) >> (np.maximum(l, 1) - np.uint64(1))
+
+
 def _pick_lanes(n: int) -> int:
     # wider interleave = fewer sequential steps on the device. Lane-state
     # wire overhead is 4 B/lane, so the wide tiers only engage when that is

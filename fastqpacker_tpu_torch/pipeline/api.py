@@ -10,12 +10,14 @@ input order. The pipelines themselves are in :mod:`.device` (v1/v2) and
 
 from __future__ import annotations
 
+import io
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from ..format import container
 from ..ops import reference as refops
+from . import blocks
 
 DEFAULT_BLOCK_SIZE = 100000  # compress.go:71
 
@@ -93,6 +95,40 @@ class DecompressOptions:
 def _resolve_workers(workers: int) -> int:
     """Explicit count wins; default is NumCPU (compress.go:132-134)."""
     return workers if workers > 0 else (os.cpu_count() or 1)
+
+
+def _sink_fd(w) -> int:
+    """OS fd of ``w`` when writing to the fd IS writing to ``w`` (plain
+    FileIO or a buffered wrapper directly over one, flushed first), else
+    -1 (a copy of the JAX package's ``api._sink_fd``)."""
+    raw = w
+    if isinstance(w, (io.BufferedWriter, io.BufferedRandom)):
+        raw = getattr(w, "raw", None)
+    if not isinstance(raw, io.FileIO) or not raw.writable():
+        return -1
+    try:
+        fd = w.fileno()
+        w.flush()
+    except (AttributeError, OSError, ValueError, io.UnsupportedOperation):
+        return -1
+    return fd
+
+
+# Without an output fd the JAX package's whole-file decoder buffers its
+# whole result, so it takes only container bodies up to this size then.
+_MT_BUFFER_CAP_DECODE = 256 << 20
+
+
+def runtime_decodes(body, w, version: int) -> bool:
+    """Whether the JAX package's default decoder hands this addressable
+    container ``body`` (after the file header and any dictionary section)
+    to its whole-file runtime: a file sink or a body of at most 256 MiB,
+    and a first pass over the block headers that finds nothing to hand
+    back (:func:`.blocks.runtime_walk`, which raises the faults that pass
+    meets, before any block is decoded)."""
+    if _sink_fd(w) < 0 and len(body) > _MT_BUFFER_CAP_DECODE:
+        return False
+    return blocks.runtime_walk(body, version)
 
 
 def ordered_map_write(w, jobs, fn, workers: int) -> None:

@@ -22,12 +22,13 @@ no 65,536 bp tracking cap and no overflow fail-fast.
 from __future__ import annotations
 
 import contextlib
+import struct
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 
-from ..entropy.zstd import ZstdError, declares_content_size
+from ..entropy.zstd import ZstdError, frame_content_size
 from ..format import container
 from ..ops import reference as refops
 from ..parser.fastq import RecordBlock
@@ -59,22 +60,123 @@ def block_frames(header: container.BlockHeader, payload, version: int) -> list:
     return frames
 
 
+def frames_sized(header: container.BlockHeader, payload, version: int) -> bool:
+    """True when every zstd frame of this block payload declares a content
+    size of at most 2^34 bytes: the JAX package's runtime decodes such a
+    v1/v2 block itself and hands any other to its Python decoder."""
+    for f in block_frames(header, payload, version):
+        if len(f) and ((z := frame_content_size(f)) is None or z > _MAX_STREAM_RAW):
+            return False
+    return True
+
+
 @contextlib.contextmanager
-def payload_zstd_errors(header: container.BlockHeader, payload, version: int):
-    """Raise a :class:`ZstdError` from decoding this block payload as
-    ``ZstdError(PAYLOAD_ZSTD_ERROR)`` when every zstd frame of the block
-    declares its content size: the JAX package's runtime decodes only such
-    blocks, and a block it cannot size goes to its Python decoder, which
-    passes libzstd's name on, as this one does then. The codec itself and
-    an explicit ``decompress_mesh`` keep libzstd's name, as the JAX
-    package's do."""
+def payload_zstd_errors(mapped: bool):
+    """Raise a :class:`ZstdError` from decoding a block payload as
+    ``ZstdError(PAYLOAD_ZSTD_ERROR)`` when ``mapped``, the JAX package's
+    runtime's string; else keep libzstd's name, as its Python decoder and
+    its ``decompress_mesh`` do. The caller decides ``mapped`` as the JAX
+    package does: per file for v3 (:func:`runtime_walk`), per block for
+    v1/v2 (:func:`frames_sized`)."""
     try:
         yield
     except ZstdError:
-        frames = block_frames(header, payload, version)
-        if all(declares_content_size(f) for f in frames if len(f)):
+        if mapped:
             raise ZstdError(PAYLOAD_ZSTD_ERROR) from None
         raise
+
+
+# The JAX package's whole-file decoder (its C++ runtime) first walks every
+# block header of an addressable container body. Its limits:
+_MAX_STREAM_RAW = 1 << 34  # a stream's declared decoded size
+_QCTX_CHUNKS = 4  # ops/qualctx.py NUM_CHUNKS
+# the tags it decodes in each tagged v3 slot (seq, qual, headers)
+_RUNTIME_V3_TAGS = (
+    (container.TAG_ZSTD, container.TAG_RANS, container.TAG_SCTX,
+     container.TAG_SLDM, container.TAG_WCTX),
+    (container.TAG_ZSTD, container.TAG_RANS, container.TAG_QCTX,
+     container.TAG_WCTX),
+    (container.TAG_ZSTD, container.TAG_TOK),
+)
+
+
+def _fault(msg: str):
+    raise container.FormatError(msg)
+
+
+def _v3_raw_size(slot: int, tag: int, s, nrec: int):
+    """The decoded size the runtime's walk gives one v3 stream (``s``
+    after its tag), None where it hands the file back; raises the faults
+    the walk names."""
+    if tag == container.TAG_QCTX:
+        if len(s) < 12 or s[4] != _QCTX_CHUNKS or s[5] > 1:
+            _fault("corrupted qctx quality data")
+        return struct.unpack_from("<I", s, 0)[0]
+    if tag == container.TAG_SCTX:
+        if len(s) < 12:
+            _fault("corrupted sctx sequence data")
+        return struct.unpack_from("<I", s, 0)[0] // 4 + nrec
+    if tag == container.TAG_WCTX:
+        if len(s) < 8:
+            _fault("corrupted wctx stream")
+        total = struct.unpack_from("<I", s, 4)[0]
+        return total + total // 4 + nrec if slot == 0 else 2 * total
+    if tag == container.TAG_RANS:
+        if len(s) < 8:
+            _fault("truncated or corrupted rANS stream")
+        return struct.unpack_from("<I", s, 0)[0]
+    z = frame_content_size(s)  # zstd, TOK, SLDM: one zstd frame
+    if z is not None and tag == container.TAG_SLDM:
+        z += z // 4 + nrec
+    return z
+
+
+def runtime_walk(body, version: int) -> bool:
+    """The first pass of the JAX package's whole-file decoder over a
+    container ``body`` (its bytes after the file header and any dictionary
+    section): ``fq_decompress_mt`` (v1/v2) and ``fq_decompress_mt_v3_ex``
+    (v3) of ``fastqpacker_tpu/runtime/fqruntime.cpp``. It walks every block
+    header before any block is decoded and raises what it meets there in
+    that order: a truncated block, a stream header too short for its codec.
+    False where the runtime hands the file to its per-block Python decoder
+    (a zstd frame that declares no content size, a v3 tag it does not take,
+    sizes past its limits); True where it decodes the file itself."""
+    n = len(body)
+    nfields = {container.VERSION_1: 8, container.VERSION_2: 9}.get(version, 10)
+    hsize = 4 * nfields
+    pos, total_bound = 0, 0
+    while pos < n:
+        if n - pos < hsize:
+            _fault("truncated block header")
+        f = struct.unpack_from(f"<{nfields}I", body, pos)
+        comp = ([f[1], f[2], f[3], 0, f[4], f[5]] if version == container.VERSION_1
+                else list(f[1:7]))
+        pos += hsize
+        if sum(comp) > n - pos:
+            _fault("truncated block payload")
+        nrec, raw, tok, off = f[0], [0] * 6, False, pos
+        pos += sum(comp)
+        for i, size in enumerate(comp):
+            s = body[off : off + size]
+            off += size
+            if not size:
+                continue
+            if version < container.VERSION_3_NATIVE:
+                z = frame_content_size(s)
+            else:
+                tag = s[0] if i <= 2 else container.TAG_ZSTD
+                if i <= 2:
+                    if tag not in _RUNTIME_V3_TAGS[i]:
+                        return False
+                    s = s[1:]
+                tok |= tag == container.TAG_TOK
+                z = _v3_raw_size(i, tag, s, nrec)
+            if z is None or z > _MAX_STREAM_RAW:
+                return False
+            raw[i] = z
+        per_record = 4 if version == container.VERSION_1 else 2
+        total_bound += (8 * raw[2] if tok else raw[2]) + raw[3] + 2 * raw[1] + per_record * nrec
+    return total_bound <= 64 * n + (1 << 30)
 
 
 @dataclass

@@ -258,7 +258,9 @@ def decompress_device(
         # pipeline/meshpipe.py, on the CPU to the per-block decoder. The
         # route follows the device the caller gave (there is no transfer
         # probe); both give the same bytes. Dict/lossless containers and
-        # non-addressable sources keep the per-block path.
+        # non-addressable sources keep the per-block path. Both name a
+        # failing zstd frame as the JAX package's default decoder does for
+        # the whole file (api.runtime_decodes).
         if dev.type == "cuda" and not (
             fh.flags & (container.FLAG_SEQ_DICT | container.FLAG_LOSSLESS)
         ):
@@ -266,8 +268,9 @@ def decompress_device(
             if view is not None:
                 r = io.BytesIO(view)
                 if _first_block_wctx(view):
+                    mapped = api.runtime_decodes(view, w, fh.version)
                     meshpipe.decompress_mesh(r, w, mesh=[dev], fh=fh,
-                                             map_zstd_errors=True)
+                                             map_zstd_errors=mapped)
                     return
         native.decompress_native(
             r, w, fh, qual_offset, api._resolve_workers(opts.workers), dev
@@ -275,10 +278,17 @@ def decompress_device(
         return
     if fh.version not in (container.VERSION_1, container.VERSION_2):
         raise container.FormatError(f"unsupported file version: {fh.version}")
+    view = source_view(r)
+    if view is not None:
+        r = io.BytesIO(view)
+        # v1/v2 name a failing frame per block either way; the JAX
+        # runtime's first pass raises its faults before any block decodes
+        api.runtime_decodes(view, w, fh.version)
     decoder = _padded_decoder(_Staging(dev), max(int(fh.block_size), 1))
 
     def decode_one(hdr, payload) -> bytes:
-        with blockcodec.payload_zstd_errors(hdr, payload, fh.version):
+        mapped = blockcodec.frames_sized(hdr, payload, fh.version)
+        with blockcodec.payload_zstd_errors(mapped):
             ds = blockcodec.decode_streams(
                 hdr, payload, fh.version, zstd_entropy.get_codec()
             )

@@ -19,7 +19,6 @@ transform and the block CRC32 run on the first device of the mesh.
 
 from __future__ import annotations
 
-import contextlib
 import io
 import struct
 from concurrent.futures import ThreadPoolExecutor
@@ -496,8 +495,9 @@ def decompress_mesh(
 
     A zstd frame of a block payload that fails keeps libzstd's name, as in
     the JAX package's ``decompress_mesh``; ``map_zstd_errors`` (the route
-    of the default decoder, ``device.decompress_device``) raises it as that
-    decoder does (``blocks.payload_zstd_errors``).
+    of the default decoder, ``device.decompress_device``, which decides it
+    for the whole file) raises it as that decoder does
+    (``blocks.payload_zstd_errors``).
     """
     # ``fh``: the caller (device.decompress_device's TAG_WCTX routing)
     # already consumed the file header from ``r``.
@@ -522,12 +522,8 @@ def decompress_mesh(
         return
     codec = zstd_entropy.get_codec()
 
-    def zstd_errors(hdr, payload):
-        if not map_zstd_errors:
-            return contextlib.nullcontext()
-        return blockcodec.payload_zstd_errors(
-            hdr, payload, container.VERSION_3_NATIVE
-        )
+    def zstd_errors():
+        return blockcodec.payload_zstd_errors(map_zstd_errors)
 
     def read_group():
         group = []
@@ -552,7 +548,7 @@ def decompress_mesh(
         for hdr, payload in group:
             sizes = hdr.stream_sizes(container.VERSION_2)
             off = sum(sizes[:5])
-            with zstd_errors(hdr, payload):
+            with zstd_errors():
                 lb = codec.decompress(payload[off : off + sizes[5]])
             if len(lb) % 4:
                 raise container.FormatError(
@@ -613,7 +609,7 @@ def decompress_mesh(
             # other/mixed codec tags in this group: per-block path
         with devops.worker_stream(dev):
             for (hdr, payload), p in zip(group, pre):
-                with zstd_errors(hdr, payload):
+                with zstd_errors():
                     text = native.decode_block_payload(
                         hdr, payload, codec, qual_offset, dev,
                         predecoded=p or None,

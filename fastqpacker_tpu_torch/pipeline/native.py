@@ -25,7 +25,7 @@ Blocks are coded on a pool of worker threads, each on its own CUDA stream
 
 from __future__ import annotations
 
-import contextlib
+import io
 from functools import partial
 from typing import BinaryIO, Optional
 
@@ -40,6 +40,7 @@ from ..ops import qualctx, rans, seqctx, sldm, tokenize, wctx
 from ..ops import reference as refops
 from ..parser.fastq import FastqStreamParser, RecordBlock
 from ..utils import varlen
+from ..utils.inmem import source_view
 from . import api
 from . import blocks as blockcodec
 
@@ -748,6 +749,17 @@ def decompress_native(
         except ValueError as e:
             raise container.FormatError(str(e)) from None
 
+    lossless = bool(fh.flags & container.FLAG_LOSSLESS)
+    # A failing zstd frame is named as the JAX package's default decoder
+    # names it, decided once for the file: its runtime takes an addressable,
+    # non-lossless body whose first pass finds nothing to hand back, and
+    # names the failure PAYLOAD_ZSTD_ERROR; its Python decoder, which has
+    # the rest, keeps libzstd's name.
+    mapped = False
+    if not lossless and (view := source_view(r)) is not None:
+        r = io.BytesIO(view)
+        mapped = api.runtime_decodes(view, w, fh.version)
+
     def read_jobs():
         while True:
             hdr = container.read_block_header(r, container.VERSION_3_NATIVE)
@@ -757,16 +769,10 @@ def decompress_native(
             payload = r.read(payload_size)
             yield hdr, payload
 
-    lossless = bool(fh.flags & container.FLAG_LOSSLESS)
-
     def decode_one(job) -> bytes:
         hdr, payload = job
         codec = zstd_entropy.get_codec()
-        # the JAX package's runtime does not take lossless containers, so
-        # their zstd failures keep libzstd's name there
-        errors = (contextlib.nullcontext() if lossless else
-                  blockcodec.payload_zstd_errors(hdr, payload, fh.version))
-        with devops.worker_stream(dev), errors:
+        with devops.worker_stream(dev), blockcodec.payload_zstd_errors(mapped):
             return decode_block_payload(
                 hdr, payload, codec, qual_offset, dev, seq_dict,
                 lossless=lossless,

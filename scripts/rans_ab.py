@@ -1,39 +1,52 @@
 #!/usr/bin/env python3
-"""Time the order-0 rANS decode kernel of one checkout of the port on one GPU.
+"""Time the order-0 rANS kernels or the CRC32 kernel of one checkout of the port on one GPU.
 
 Imports ``fastqpacker_tpu_torch`` from ``--root`` (a checkout of the repo,
 for example the parent commit unpacked with ``git archive`` into a
-git-ignored directory), builds its ``csrc/rans_codec.cu``, and times
-``fq_rans_decode`` at the FQZ v3 path's shapes: a block's quality stream
-(15.1 MB of walk-like deltas, 16,384 lanes) and its packed sequence stream
-(3.8 MB, 4,096 lanes). The streams come from ``--seed`` and are encoded by
-the checkout's own kernels, so two checkouts decode the same words; each run
-holds the decode against the plain version and checks decode(encode(x)) ==
-x. The inputs and the timing are ``chip_smoke.py``'s phase kernels (CUDA
+git-ignored directory), builds the source of ``--kernel`` and times it at
+the FQZ v3 path's shapes: a block's quality stream (15.1 MB of walk-like
+deltas, 16,384 lanes) and its packed sequence stream (3.8 MB, 4,096 lanes).
+
+- ``--kernel decode`` (the default): ``fq_rans_decode`` of
+  ``csrc/rans_codec.cu``. The streams come from ``--seed`` and are encoded
+  by the checkout's own kernels, so two checkouts decode the same words;
+  each run holds the kernels against the plain versions and checks
+  decode(encode(x)) == x.
+- ``--kernel encode``: ``fq_rans_encode`` on the same streams, held against
+  the plain version; each row carries the per-step time and a SHA-256 of
+  the kernel's words (where flagged), flags and states, so two checkouts'
+  outputs can be compared byte for byte.
+- ``--kernel crc32``: ``fq_crc32_chunks`` of ``csrc/crc32.cu`` on seeded
+  random bytes of the two streams' lengths, held against ``zlib.crc32``.
+
+The inputs and the timing are ``chip_smoke.py``'s phase kernels (CUDA
 events over launches queued behind a sleep kernel, inputs rotated past the
 L2 cache).
 
 Compare two designs inside one call, in turns: parent, change, change,
 parent. ``--set NAME=VALUE`` first rewrites ``constexpr int NAME = ...;`` in
-the checkout's ``csrc/rans_codec.cu``, so a copy of the tree times a variant
-of the decode's geometry: ``kCtaThreads=1024`` gives 16 CTAs x 1,024 threads
+the checkout's kernel source, so a copy of the tree times a variant of one
+constant: for the decode ``kCtaThreads=1024`` gives 16 CTAs x 1,024 threads
 with one lane each at 16,384 lanes, and adding ``kMaxCluster=1`` one CTA of
-1,024 threads with 16 lanes each (the staged word ring without a cluster).
-It refuses to edit this repository's own source. ``--stream`` picks the streams
-(both by default). Prints one JSON line per run, with the launch geometry
-and the decode's registers where the checkout reports them.
+1,024 threads with 16 lanes each (the staged word ring without a cluster);
+for the CRC ``kChunk`` or ``kThreads``. It refuses to edit this repository's
+own source. ``--stream`` picks the streams (both by default). Prints one JSON
+line per run, with the decode's launch geometry and registers where the
+checkout reports them.
 
-Usage: python3 scripts/rans_ab.py --root DIR [--set NAME=VALUE] [--stream qual|seq]
-       [--label NAME] [--seed 0] [--iters 20]
+Usage: python3 scripts/rans_ab.py --root DIR [--kernel decode|encode|crc32]
+       [--set NAME=VALUE] [--stream qual|seq] [--label NAME] [--seed 0] [--iters 20]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +59,7 @@ STREAMS = {"qual": 16384, "seq": 4096}  # lanes of each stream
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
+    ap.add_argument("--kernel", choices=["decode", "encode", "crc32"], default="decode")
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE")
     ap.add_argument("--stream", action="append", choices=sorted(STREAMS))
     ap.add_argument("--label", default=None)
@@ -53,8 +67,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     root = Path(args.root).resolve()
+    source = "crc32" if args.kernel == "crc32" else "rans_codec"
     if args.set:
-        set_constants(root / "fastqpacker_tpu_torch/csrc/rans_codec.cu", args.set)
+        set_constants(root / f"fastqpacker_tpu_torch/csrc/{source}.cu", args.set)
     sys.path.insert(0, str(root))
     import torch
 
@@ -73,8 +88,8 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
 
-    build.load("rans_codec")
-    registers = cs.rans_decode_registers(build.builds["rans_codec"].log)
+    build.load(source)
+    registers = cs.rans_decode_registers(build.builds["rans_codec"].log) if source == "rans_codec" else {}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -84,11 +99,36 @@ def main() -> int:
         if args.stream and label not in args.stream:
             continue
         rng = np.random.default_rng(args.seed + i)
+        if args.kernel == "crc32":
+            n = cs.QUAL_STREAM if label == "qual" else cs.SEQ_STREAM
+            data = rng.integers(0, 256, n).astype(np.uint8)
+            t = torch.from_numpy(data).to("cuda")
+            got = int(ck.crc32_chunks(t).item()) & 0xFFFFFFFF
+            if got != zlib.crc32(data.tobytes()):
+                raise RuntimeError(f"CRC32 kernel != zlib at n={n}")
+            ms = cs.gpu_ms(ck.crc32_chunks, cs.rotations((t,), n), args.iters)
+            rows.append({"stream": label, "bytes": n, "crc32_ms": ms})
+            del t
+            continue
         data = (cs.walk_deltas(rng, cs.QUAL_STREAM) if label == "qual"
                 else rng.integers(0, 256, cs.SEQ_STREAM).astype(np.uint8))
         case = cs.rans_case(ck, rans, data, lanes)  # kernels == plain, round trip
-        stream, *rest = case["dec"]
         steps, k = case["steps"], case["total"]
+        if args.kernel == "encode":
+            d, *rest = case["enc"]
+            words, flags, states = ck.rans_encode(d, *rest)
+            digest = hashlib.sha256()
+            for a in (words[flags.bool()], flags, states):
+                digest.update(a.cpu().numpy().tobytes())
+            sets = [(x, *rest) for (x,) in cs.rotations((d,), len(data) + 3 * steps * lanes)]
+            ms = cs.gpu_ms(ck.rans_encode, sets, args.iters)
+            rows.append({"stream": label, "lanes": lanes, "steps": steps,
+                         "encode_ms": ms, "step_us": ms * 1e3 / steps,
+                         "outputs_sha256": digest.hexdigest()})
+            del case, sets, d, words, flags, states
+            torch.cuda.empty_cache()
+            continue
+        stream, *rest = case["dec"]
         sets = [(x, *rest) for (x,) in cs.rotations((stream,), 2 * k + steps * lanes)]
         ms = cs.gpu_ms(ck.rans_decode, sets, args.iters)
         g = geometry(lanes) if geometry else None
@@ -98,8 +138,8 @@ def main() -> int:
                      "registers": registers.get(g.lanes_per_thread) if g else None})
         del case, sets, stream
         torch.cuda.empty_cache()
-    print(json.dumps({"label": args.label or str(root), "set": args.set, "card": smi,
-                      "cases": rows}))
+    print(json.dumps({"label": args.label or str(root), "kernel": args.kernel,
+                      "set": args.set, "card": smi, "cases": rows}))
     return 0
 
 

@@ -1,7 +1,9 @@
 """The port's fqpack CLI against the JAX package's CLI."""
 
+import dataclasses
 import io
 import os
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from fastqpacker_tpu.cli import fqpack as jax_cli
+import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.format import container as C
 
@@ -140,6 +143,110 @@ def test_flipped_byte_errors_match_jax_cli(flags, tmp_path, capsys):
             assert got == ZSTD_PAYLOAD
         else:
             assert got.startswith("error: ") and got != ZSTD_PAYLOAD
+
+
+def _unsized_frame(raw: bytes) -> bytes:
+    """A zstd frame of ``raw`` whose header declares no content size (raw
+    blocks of at most 64 KiB, a 1 MiB window), as a streaming encoder
+    writes it."""
+    out = bytearray(struct.pack("<IBB", 0xFD2FB528, 0x00, 10 << 3))
+    chunks = [raw[i : i + 65536] for i in range(0, len(raw), 65536)] or [b""]
+    for k, c in enumerate(chunks):
+        out += struct.pack("<I", (len(c) << 3) | (k == len(chunks) - 1))[:3] + c
+    return bytes(out)
+
+
+_SIZE_FIELDS = ("seq_data_size", "qual_data_size", "header_data_size",
+                "plus_data_size", "npositions_size", "seq_lengths_size")
+
+
+def _edit_blocks(comp: bytes, version: int, edit) -> bytes:
+    """``comp`` with ``edit(i, streams)`` applied to the stream list of
+    each block i (v2 slots), the block headers' sizes rewritten."""
+    r = io.BytesIO(comp)
+    C.read_file_header(r)
+    out = bytearray(comp[: r.tell()])
+    i = 0
+    while (hdr := C.read_block_header(r, version)) is not None:
+        sizes = hdr.stream_sizes(C.VERSION_2)
+        payload = r.read(sum(sizes))
+        streams = [payload[sum(sizes[:k]) : sum(sizes[: k + 1])] for k in range(6)]
+        edit(i, streams)
+        hdr = dataclasses.replace(
+            hdr, **{f: len(x) for f, x in zip(_SIZE_FIELDS, streams)})
+        out += hdr.to_bytes(version) + b"".join(streams)
+        i += 1
+    assert i == 3
+    return bytes(out)
+
+
+def _corrupt_frame(streams, slot=2):
+    """The last byte of a frame (its checksum) flipped: libzstd says
+    "Restored data doesn't match checksum"."""
+    streams[slot] = streams[slot][:-1] + bytes([streams[slot][-1] ^ 0x10])
+
+
+def _queue_c_container(case: str, version: int) -> bytes:
+    """Three 300-record blocks with the faults of one case:
+    ``pipe``: one corrupt frame (block 1), read from a pipe;
+    ``unsized``: block 0's lengths frame declares no content size, block 2
+    has a corrupt frame (the JAX runtime hands the whole file to its Python
+    decoder);
+    ``two_faults``: a corrupt frame in block 0 and the last block cut short
+    (the JAX runtime's first pass meets the cut before any block decodes)."""
+    from fastqpacker_tpu_torch.entropy import zstd as port_zstd
+
+    comp = tfq.compress_bytes(_fastq(900, seed=5), tfq.Options(block_size=300, version=version),
+                              device="cpu")
+
+    def edit(i, streams):
+        if case == "unsized" and i == 0:
+            streams[5] = _unsized_frame(port_zstd.get_codec().decompress(streams[5]))
+        if (case, i) in (("pipe", 1), ("unsized", 2), ("two_faults", 0)):
+            _corrupt_frame(streams)
+
+    out = _edit_blocks(comp, version, edit)
+    return out[:-50] if case == "two_faults" else out
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize(
+    "case,version,dflags",
+    [("pipe", 3, ["-d"]), ("pipe", 3, ["-d", "--mesh"]),
+     ("unsized", 3, ["-d"]), ("unsized", 3, ["-d", "--mesh"]),
+     ("two_faults", 3, ["-d"]), ("two_faults", 3, ["-d", "--mesh"]),
+     ("two_faults", 2, ["-d"])],
+)
+def test_zstd_fault_strings_follow_the_jax_cli_per_file(case, version, dflags, tmp_path):
+    """The corrupt-zstd string is the JAX CLI's for the whole file: its
+    default decoder names a failing frame "corrupted zstd frame in block
+    payload" only where its runtime takes the file (an addressable source
+    whose first pass over the block headers finds no frame without a
+    declared size), and reports the faults in the order that pass and its
+    decoders meet them. Both CLIs in their own processes, one worker for
+    the port."""
+    comp = tmp_path / "c.fqz"
+    comp.write_bytes(_queue_c_container(case, version))
+    out = tmp_path / "o.fq"
+    if case == "pipe":  # stdin from a pipe: the source cannot be addressed
+        args, stdin = ["-o", str(out)], comp.read_bytes()
+    else:
+        args, stdin = ["-i", str(comp), "-o", str(out)], None
+    got = {}
+    for module, extra in (("fastqpacker_tpu.cli.fqpack", []),
+                          ("fastqpacker_tpu_torch.cli.fqpack", ["-w", "1"])):
+        p = subprocess.run(
+            [sys.executable, "-m", module, "--backend", "cpu", *extra, *dflags, *args],
+            input=stdin, capture_output=True, env={**ENV, "XLA_FLAGS": ""}, cwd=REPO,
+            timeout=140,
+        )
+        got[module] = (p.returncode, p.stderr.decode())
+    jax_rc, jax_err = got["fastqpacker_tpu.cli.fqpack"]
+    assert got["fastqpacker_tpu_torch.cli.fqpack"] == (jax_rc, jax_err) and jax_rc == 1
+    if case == "two_faults" and dflags == ["-d"]:
+        assert jax_err == "error: truncated block payload\n"
+    else:
+        assert jax_err == "error: Restored data doesn't match checksum\n"
 
 
 @pytest.mark.parametrize("fmt", ["v2", "v3", "v3_lossless"])

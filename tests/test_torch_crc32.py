@@ -1,8 +1,8 @@
 """The port's chunk-parallel CRC32 against zlib and the JAX package's.
 
 ``fastqpacker_tpu_torch.ops.crc32`` on ``device="cpu"`` runs the plain
-PyTorch version of the kernel (per-chunk table CRC, GF(2) shift of every
-chunk past the bytes after it, XOR reduction). It must equal ``zlib.crc32``
+PyTorch version of the kernel (per-chunk raw table CRC, a binary tree of
+constant GF(2) shifts, the finish constants). It must equal ``zlib.crc32``
 at every length, ``fastqpacker_tpu.ops.crc32.crc32_device`` (the XLA lane
 program + host combine), and the two packages' combines must agree. Exact.
 """
@@ -19,6 +19,10 @@ from fastqpacker_tpu_torch.ops import cuda_kernels
 
 C = tcrc.CHUNK
 M = tcrc.MIN_DEVICE_BYTES
+W = 32 * C  # a warp's chunks
+S = tcrc.CTA_CHUNKS * C  # a CTA's span
+# lengths at chunk, warp and span edges, and past several spans
+EDGES = [3 * C + 17, W - 1, W, W + 1, S - 1, S, S + 1, 2 * S + W + 3, 9 * S - 5]
 
 
 def _bytes(n, seed=0):
@@ -31,7 +35,7 @@ def _kernel_crc(data: np.ndarray) -> int:
 
 @pytest.mark.parametrize(
     "n", [1, 2, 15, 16, 17, C - 1, C, C + 1, 2 * C, 3 * C + 5, M - 1, M, M + 1,
-          5000, 100_003, 250_007, (1 << 20) + 3]
+          5000, 100_003, 250_007, (1 << 20) + 3, *EDGES]
 )
 def test_chunk_program_equals_zlib(n):
     """The device program itself (no size rule), below one chunk, at
@@ -47,7 +51,7 @@ def test_crc32_device_equals_zlib(n):
     assert tcrc.crc32_device(data.tobytes(), device="cpu") == zlib.crc32(data.tobytes())
 
 
-@pytest.mark.parametrize("n", [M, 40_001])
+@pytest.mark.parametrize("n", [M, 40_001, *[e for e in EDGES if e >= M]])
 def test_equals_jax_crc32_device(n):
     data = _bytes(n, seed=3)
     assert tcrc.crc32_device(data, device="cpu") == jcrc.crc32_device(data)
@@ -84,9 +88,12 @@ def test_tensor_gf2_arithmetic_matches_the_integer_version():
     assert [int(v) for v in got] == [
         tcrc._multmodp(int(x), int(y)) for x, y in zip(a, b)
     ]
-    n = np.array([0, 1, 2, 1023, 1024, 15_100_000, (1 << 40) + 9], np.int64)
-    got = tcrc._x8n_modp_t(torch.from_numpy(n)).numpy()
-    assert [int(v) for v in got] == [tcrc._x8n_modp(int(v)) for v in n]
+    # x^-1 inverts x: the finish takes out exactly the zeros that filled
+    # the last chunk, however many
+    for t in (0, 1, 7, C - 1, 4096, 15_100_000, (1 << 40) + 9):
+        unshift, _ = tcrc.finish_constants(10, 10 + t)
+        for v in (1, 0x80000000, 0xDEADBEEF):
+            assert tcrc._multmodp(unshift, tcrc._multmodp(tcrc._x8n_modp(t), v)) == v
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

@@ -175,6 +175,37 @@ def _rans_stream(rng, n, lanes, cuda):
     return data, steps, states, tab, flat[: int(total)].clone()
 
 
+def _from_two_threads(call, cuda, rounds=300):
+    """``call(0)`` and ``call(1)`` (each one launch that checks its own
+    result) in a loop of ``rounds`` from two threads at once, one CUDA
+    stream each, with the interpreter switching threads as often as it can:
+    pipeline workers launch so."""
+    errors, done = [], [0, 0]
+
+    def work(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(rounds):
+                    call(i)
+                    done[i] += 1
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors[0]
+    assert done == [rounds, rounds]
+
+
 def test_rans_decode_from_two_threads_at_two_shared_sizes(cuda):
     """v3 decode workers launch from a pool of threads, one CUDA stream
     each: the 4,096-lane tier (16 CTAs, 48 KiB of dynamic shared memory)
@@ -189,33 +220,13 @@ def test_rans_decode_from_two_threads_at_two_shared_sizes(cuda):
         pout, _ = port_rans.rans_decode_plain(stream, states, tab, steps, lanes)
         cases.append(((stream, states, tab, steps, lanes), pout, stream.numel()))
     torch.cuda.synchronize()
-    rounds = 300
-    errors, done = [], [0, 0]
 
-    def work(i):
+    def call(i):
         args, want, words = cases[i]
-        try:
-            with torch.cuda.stream(torch.cuda.Stream(cuda)):
-                for _ in range(rounds):
-                    out, consumed = cuda_kernels.rans_decode(*args)
-                    assert torch.equal(out, want) and int(consumed) == words
-                    done[i] += 1
-        except BaseException as e:  # noqa: BLE001 - reported below
-            errors.append(e)
+        out, consumed = cuda_kernels.rans_decode(*args)
+        assert torch.equal(out, want) and int(consumed) == words
 
-    old = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        workers = [threading.Thread(target=work, args=(i,)) for i in range(2)]
-        for t in workers:
-            t.start()
-        for t in workers:
-            t.join(timeout=120)
-        assert not any(t.is_alive() for t in workers)
-    finally:
-        sys.setswitchinterval(old)
-    assert not errors, errors[0]
-    assert done == [rounds, rounds]
+    _from_two_threads(call, cuda)
 
 
 @pytest.mark.parametrize("lanes", [256, 2048, 4096, 16384])
@@ -275,8 +286,15 @@ def test_rans_decode_geometry_refuses_lanes_outside_the_kernel(lanes, cuda):
         cuda_kernels.rans_decode_geometry(lanes)
 
 
+CRC_CHUNK = port_crc32.CHUNK
+CRC_SPAN = port_crc32.CTA_CHUNKS * CRC_CHUNK
+
+
 @pytest.mark.parametrize(
-    "n", [1, 255, 256, 257, 1024, 16383, 16384, 16385, 1_000_003, 15_100_000]
+    "n", [1, 255, 256, 257, 1024, 16383, 16384, 16385, 1_000_003, 15_100_000,
+          3 * CRC_CHUNK + 17, 32 * CRC_CHUNK - 1, 32 * CRC_CHUNK, CRC_SPAN - 1,
+          CRC_SPAN, CRC_SPAN + 1, 2 * CRC_SPAN + 32 * CRC_CHUNK + 3, 3_800_000,
+          ((1 << 8) + 1) * CRC_SPAN + 7]
 )
 def test_crc32_kernel_matches_zlib_and_plain(n, cuda):
     data = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
@@ -287,6 +305,183 @@ def test_crc32_kernel_matches_zlib_and_plain(n, cuda):
     if n <= 1_000_003:
         assert torch.equal(got, port_crc32.crc32_chunks_plain(t))
     assert port_crc32.crc32_device(data, device=cuda) == zlib.crc32(data.tobytes())
+
+
+def test_crc32_kernel_geometry_and_one_launch_per_crc(cuda):
+    """The span the wrapper sizes its partials by is the kernel's, and each
+    CRC is one launch of it (no zeroed output before it)."""
+    from fastqpacker_tpu_torch.ops import build
+
+    assert build.load("crc32").fq_crc32_span_bytes() == CRC_SPAN
+    data = torch.from_numpy(np.random.default_rng(8).integers(0, 256, 5 * CRC_SPAN + 9)
+                            .astype(np.uint8)).to(cuda)
+    want = zlib.crc32(data.cpu().numpy().tobytes())
+    cuda_kernels.crc32_chunks(data)  # the stream's ticket counter exists
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        outs = [cuda_kernels.crc32_chunks(data) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert [int(o.item()) & 0xFFFFFFFF for o in outs] == [want] * 3
+    assert cuda_kernels.launches.as_dict()[cuda_kernels.CRC32] == 3
+    kernels = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if kernels:  # where the profiler sees the card: nothing but the kernel ran
+        assert kernels == ["crc32_kernel"] or all("crc32_kernel" in k for k in kernels)
+
+
+def test_crc32_wrapper_refuses_a_misaligned_view(cuda):
+    """The kernel reads 16-byte pieces from the stream's start: a view that
+    does not start on 16 bytes is refused, never read wrongly."""
+    data = torch.from_numpy(np.random.default_rng(9).integers(0, 256, 40_000)
+                            .astype(np.uint8)).to(cuda)
+    for off in (1, 3, 8):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            cuda_kernels.crc32_chunks(data[off:])
+    ok = data[16:]
+    assert int(cuda_kernels.crc32_chunks(ok).item()) & 0xFFFFFFFF == zlib.crc32(
+        data.cpu().numpy()[16:].tobytes())
+
+
+def test_crc32_from_two_threads(cuda):
+    """Two streams compute CRCs at once, each with its own ticket counter:
+    every result is right, at one span and at many."""
+    rng = np.random.default_rng(10)
+    cases = []
+    for n in (CRC_SPAN - 3, 40 * CRC_SPAN + 5):
+        d = rng.integers(0, 256, n).astype(np.uint8)
+        cases.append((torch.from_numpy(d).to(cuda), zlib.crc32(d.tobytes())))
+    torch.cuda.synchronize()
+
+    def call(i):
+        data, want = cases[i]
+        assert int(cuda_kernels.crc32_chunks(data).item()) & 0xFFFFFFFF == want
+
+    _from_two_threads(call, cuda, rounds=200)
+
+
+@pytest.mark.parametrize("first", [1, 1025, 2049, 3073])
+def test_rans_encode_reciprocal_at_every_frequency(first, cuda):
+    """The encode divides by each symbol's frequency through a reciprocal:
+    one table per frequency f (symbol 0 at f, the rest spread over the other
+    255 symbols), a stream mostly of symbol 0, so the states run through the
+    reachable range at that f; the kernel's words, flags and states equal
+    the plain version's for every f in 1-4096 (four cases of 1,024)."""
+    lanes, steps = 32, 40
+    rng = np.random.default_rng(first)
+    for f in range(first, first + 1024):
+        freq = np.zeros(256, np.int64)
+        freq[0] = f
+        rest = 4096 - f
+        if rest:
+            k = min(255, rest)
+            freq[1 : 1 + k] = rest // k
+            freq[1 : 1 + rest % k] += 1
+        cum = np.concatenate([[0], np.cumsum(freq)[:-1]])
+        present = np.flatnonzero(freq)
+        data = np.where(rng.random(steps * lanes) < 0.9, 0,
+                        rng.choice(present, steps * lanes)).astype(np.uint8)
+        fc = torch.from_numpy(np.stack([freq, cum]).astype(np.int32)).to(cuda)
+        d = torch.from_numpy(data).to(cuda)
+        got = cuda_kernels.rans_encode(d, steps, lanes, 0, fc)
+        want = port_rans.rans_encode_plain(d, steps, lanes, 0, fc)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f
+
+
+def test_wctx_decode_from_two_threads_at_two_shared_sizes(cuda):
+    """The sequence model at order 2 on 4,096 lanes (a cluster of 16 CTAs,
+    a 32 KiB word ring each) and on 256 lanes (one CTA, 2 KiB) run the same
+    decode instance from two threads at once, 300 rounds each; every launch
+    matches the plain version. The shared-memory cap is set once per
+    instance, so no launch finds it lowered by the other thread."""
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    cases = []
+    for lanes in (4096, 256):
+        rng = np.random.default_rng(lanes)
+        c = _wctx_case(rng, 0, 2, lanes, 2 * lanes, 40)
+        enc = wi.encode_tensors(c["symm"], c["ctxm"], c["seg"], c["freq_p"],
+                                c["present"], cuda)
+        words, flags, states, _ = cuda_kernels.wctx_encode(*enc)
+        flat, total = cuda_kernels.rans_compact(words, flags)
+        dec = (flat[: int(total)].clone(), states,
+               *wi.decode_tensors(np.zeros(0, np.uint16), np.zeros(0, np.uint32),
+                                  c["startm"], c["seg"], c["freq_p"], c["present"],
+                                  cuda)[2:])
+        want = wctx.wctx_decode_plain(*dec, 0, 2)
+        cases.append((dec, want, cuda_kernels.wctx_decode_geometry(
+            lanes, int(c["freq_p"].shape[0]), len(c["present"]) + 1).shared))
+    assert cases[0][2] != cases[1][2]
+    torch.cuda.synchronize()
+
+    def call(i):
+        dec, (pout, pinfo), _ = cases[i]
+        out, info = cuda_kernels.wctx_decode(*dec, 0, 2)
+        assert torch.equal(out, pout) and torch.equal(info, pinfo)
+
+    _from_two_threads(call, cuda)
+
+
+def test_wctx_encode_from_two_threads_at_two_shared_sizes(cuda):
+    """The encode's table in shared memory: 16 contexts at order 2 (12 KiB
+    of dynamic shared memory with the tiles) and 4,096 at order 6 (52 KiB,
+    past the 48 KiB default) from two threads at once, 300 rounds each;
+    every launch matches the plain version."""
+    import torch_wctx_inputs as wi
+    from fastqpacker_tpu_torch.ops import wctx
+
+    cases = []
+    for order in (2, 6):
+        rng = np.random.default_rng(order)
+        c = _wctx_case(rng, 0, order, 256, 400, 60)
+        enc = wi.encode_tensors(c["symm"], c["ctxm"], c["seg"], c["freq_p"],
+                                c["present"], cuda)
+        cases.append((enc, wctx.wctx_encode_plain(*enc)))
+    torch.cuda.synchronize()
+
+    def call(i):
+        enc, want = cases[i]
+        for a, b in zip(cuda_kernels.wctx_encode(*enc), want):
+            assert torch.equal(a, b)
+
+    _from_two_threads(call, cuda)
+
+
+class _Pipe(io.RawIOBase):
+    """A reader that cannot be addressed (no buffer, no file): the bytes
+    come as from a pipe."""
+
+    def __init__(self, data):
+        self._r = io.BytesIO(data)
+
+    def readable(self):
+        return True
+
+    def readinto(self, b):
+        got = self._r.read(min(len(b), 65536))
+        b[: len(got)] = got
+        return len(got)
+
+
+def test_piped_wctx_container_decodes_through_several_workers(cuda):
+    """A TAG_WCTX container from a pipe takes the per-block decoder, whose
+    workers decode the sequence and quality streams (two shared sizes of
+    the decode) from several threads at once on the card."""
+    from fastqpacker_tpu_torch.pipeline import device as pdevice
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(9000 * one / (1 << 20), read_len=100, seed=13,
+                       qual_model="phredwalk", seq_model="markov")
+    comp = meshpipe.compress_mesh_bytes(data, tfq.Options(block_size=1800), [cuda])
+    for _ in range(3):
+        cuda_kernels.reset_launches()
+        out = io.BytesIO()
+        pdevice.decompress_device(io.BufferedReader(_Pipe(comp)), out,
+                                  tfq.DecompressOptions(workers=6), device=cuda)
+        assert out.getvalue() == data
+        assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] > 5
 
 
 def test_gpu_v3_compress_matches_cpu(cuda):

@@ -210,6 +210,67 @@ def test_plain_versions_equal_the_xla_programs(seed, steps, lanes, n):
     assert out.numpy()[:n].tobytes() == data.tobytes()
 
 
+@pytest.mark.parametrize("lanes", [256, 4096, 16384])
+def test_plain_encode_equals_the_xla_program_at_each_lane_tier(lanes):
+    """The encode at the lane tiers the v3 path picks, with a ragged last
+    row (cells past n code the pad symbol): words where emitted, flags and
+    states against ``_encode_kernel``."""
+    steps, S = 5, 8
+    n = (steps - 1) * lanes + lanes // 3 + 1
+    data, pad, freq, cum = _toy(lanes, steps, lanes, n)
+    padded = np.full((S, lanes), pad, np.uint8)
+    padded.reshape(-1)[:n] = data
+    freq_cum = np.stack([freq.astype(np.uint32), cum.astype(np.uint32)])
+    emits, emask, jstates = jrans._encode_kernel(
+        jnp.asarray(padded), jnp.int32(steps), jnp.asarray(freq_cum), S, lanes
+    )
+    words, flags, states = cuda_kernels.rans_encode(
+        torch.from_numpy(data), steps, lanes, pad,
+        torch.from_numpy(freq_cum.astype(np.int32)),
+    )
+    m = steps * lanes
+    emitted = flags.numpy() > 0
+    assert np.array_equal(emitted, np.asarray(emask).reshape(-1)[:m])
+    assert np.array_equal(
+        words.numpy().view(np.uint16)[emitted], np.asarray(emits).reshape(-1)[:m][emitted]
+    )
+    assert np.array_equal(states.numpy().view(np.uint32), np.asarray(jstates))
+
+
+def _reachable(f):
+    """Dividends of the encode's division at frequency f: after the
+    renormalisation, x lies in [min(2^16, 16 f), f 2^20)."""
+    return np.minimum(np.uint64(1 << 16), f << np.uint64(4)), f << np.uint64(20)
+
+
+@pytest.mark.parametrize("where", ["k_f_minus_1", "k_f", "range_ends", "random"])
+def test_reciprocal_division_is_exact_for_every_frequency(where):
+    """The encode kernel divides the state by a frequency with a per-symbol
+    reciprocal (``ops/rans.py:reciprocals``): for every f in 1-4096 the
+    quotient and remainder equal ``//`` and ``%`` at multiples of f, one
+    below them, the ends of the reachable range and the 32-bit end."""
+    f = np.arange(1, 4097, dtype=np.uint64)
+    m, l = trans.reciprocals(f)
+    assert (m < np.uint64(1 << 32)).all() and (l <= 12).all()
+    lo, hi = _reachable(f)
+    if where == "random":
+        rng = np.random.default_rng(3)
+        xs = [lo + (rng.integers(0, 1 << 62, f.size).astype(np.uint64) % (hi - lo))
+              for _ in range(64)]
+    elif where == "range_ends":
+        xs = [lo, lo + np.uint64(1), hi - np.uint64(2), hi - np.uint64(1),
+              np.full_like(f, (1 << 32) - 1)]
+    else:
+        ks = [1, 2, 3, 17, 4095, 1 << 16, (1 << 20) - 1, 1 << 20]
+        d = 1 if where == "k_f_minus_1" else 0
+        xs = [np.minimum(np.uint64(k) * f - np.uint64(d), np.uint64((1 << 32) - 1))
+              for k in ks]
+    for x in xs:
+        q = trans.reciprocal_div(x, m, l)
+        assert np.array_equal(q, x // f)
+        assert np.array_equal(x - q * f, x % f)
+
+
 def test_u32_state_arithmetic_matches_numpy_uint32():
     """The plain versions compute the 32-bit state in int64 and mask:
     ``f*(x>>12)+slot-c`` and ``(x<<16)|w`` against numpy ``uint32`` at
