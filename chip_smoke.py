@@ -9,7 +9,13 @@ Phases, each fatal on failure:
    and the ``-Xptxas -v`` report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at edge shapes; outputs must be byte-equal
-   (tolerance 0). Dense codec: R = 37,500 and 100,000 records, L = 160.
+   (tolerance 0). Dense codec: byte-equal at ragged tiles and odd lengths
+   (R = 1, 15, 16, 17, 33; L = 1, 8, 31, 151), on both sides of the
+   long-row threshold, at L = 1,040 and 65,544, with a packed matrix wider
+   than ceil(L/4), outputs contiguous at exact widths; timed at 37,500 x
+   160, 100,000 x 160, 100,000 x 151 and 37,500 x 320 beside a plain
+   ``copy_`` of the same bytes (``copy_ms``), and at 100,000 x 151 one
+   wrapper call must run one CUDA kernel (``torch.profiler``).
    Order-0 rANS (encode, compact, decode): 256, 4,096 and 16,384 lanes with
    ragged last rows, one-symbol and 256-symbol streams, decode(encode(x))
    == x, a stream that lost words raises; timed at the v3 path's quality
@@ -109,6 +115,12 @@ WIDE_LANES = 8192  # the widest tier, which less compressible streams pick
 # the order-0 decode's other cluster geometry at 16,384 lanes: 16 CTAs x
 # 1,024 threads, one lane each (the default is 16 x 256, four lanes each)
 RANS_DECODE_VARIANT = "kCtaThreads=1024"
+# the dense kernels' timed shapes (records, row length, read lengths): the
+# v2 block at its 32-byte bucket, a v3 / mesh block at 160 and at its true
+# length, and the v2 bucket of 50-300 bp reads
+DENSE_SHAPES = [(37_500, 160, 151), (100_000, 160, 151), (100_000, 151, 151),
+                (37_500, 320, (50, 300))]
+DENSE_PROFILED = (100_000, 151)  # the v3 / mesh shape: one kernel per call
 DEV = torch.device("cuda")
 
 
@@ -132,11 +144,14 @@ def nvidia_smi() -> str:
 def dense_inputs(rng, r, l, alphabet=b"ACGT", n_rate=0.001, full_len=None,
                  offset=33):
     """Padded (seq, qual, lengths) as the pipeline stages them: SEQ_PAD 0
-    and QUAL_PAD 0xFF past each length."""
+    and QUAL_PAD 0xFF past each length. ``full_len``: every read that long,
+    a (lo, hi) range of lengths, or None for 0-L with empty rows."""
     if full_len is None:
         lengths = rng.integers(0, l + 1, size=r).astype(np.int32)
         lengths[: max(1, r // 8)] = 0  # empty rows
         lengths[-1] = l
+    elif isinstance(full_len, tuple):
+        lengths = rng.integers(full_len[0], full_len[1] + 1, size=r).astype(np.int32)
     else:
         lengths = np.full(r, full_len, dtype=np.int32)
     ab = np.frombuffer(alphabet, np.uint8)
@@ -216,7 +231,11 @@ def max_err(a, b) -> int:
 
 
 def kernel_case(ck, devops, rng, r, l, offset, alphabet, full_len=None,
-                n_rate=0.001, tail_n=False):
+                n_rate=0.001, tail_n=False, exact=True):
+    """Encode and decode of one seeded block, each held against its plain
+    version; with ``exact``, every output must be contiguous at its exact
+    width (the dense kernels of this checkout; an older checkout's wrapper
+    returned sliced views)."""
     seq, qual, lengths = dense_inputs(rng, r, l, alphabet, n_rate, full_len,
                                       offset)
     if tail_n:  # Ns past the 65,536-position tracking cap
@@ -227,11 +246,23 @@ def kernel_case(ck, devops, rng, r, l, offset, alphabet, full_len=None,
     ref = devops.encode_arrays_plain(s, q, n, offset)
     enc_err = max(max_err(a, b) for a, b in zip(got, ref))
     check(enc_err == 0, f"encode kernel == plain at R={r} L={l} off={offset}")
+    widths = ((r, -(-l // 4)), (r, -(-l // 8)), (r,), (r, l))
+    check(not exact or all(x.is_contiguous() and tuple(x.shape) == w
+                           for x, w in zip(got, widths)),
+          f"encode outputs contiguous at exact widths, R={r} L={l}")
     seq_k, qual_k = ck.decode_arrays(ref.packed, ref.qual_delta, n, offset)
     seq_p, qual_p = devops.decode_arrays_plain(ref.packed, ref.qual_delta, n,
                                                offset)
-    dec_err = max(max_err(seq_k, seq_p), max_err(qual_k, qual_p))
+    # a packed matrix wider than ceil(L/4): its row pitch goes to the kernel
+    wide = torch.cat([ref.packed, torch.randint(0, 256, (r, 5), dtype=torch.uint8,
+                                                device=dev)], dim=1)
+    seq_w, qual_w = ck.decode_arrays(wide, ref.qual_delta, n, offset)
+    dec_err = max(max_err(seq_k, seq_p), max_err(qual_k, qual_p),
+                  max_err(seq_w, seq_p), max_err(qual_w, qual_p))
     check(dec_err == 0, f"decode kernel == plain at R={r} L={l} off={offset}")
+    check(not exact or all(x.is_contiguous() and tuple(x.shape) == (r, l)
+                           for x in (seq_k, qual_k)),
+          f"decode outputs contiguous at exact widths, R={r} L={l}")
     # decode restores the input within each length (N aside)
     mask = torch.arange(l, device=dev)[None, :] < n[:, None].long()
     check(bool((qual_k[mask] == q[mask]).all()), f"qual round trip R={r} L={l}")
@@ -239,7 +270,28 @@ def kernel_case(ck, devops, rng, r, l, offset, alphabet, full_len=None,
     return (s, q, n), ref, enc_err, dec_err
 
 
+def copy_ms(nbytes: int, iters: int) -> float:
+    """Device ms of one ``copy_`` that moves ``nbytes`` in all (half read,
+    half written): what this card reaches for a pure stream of that size.
+    It computes nothing of the codec; a yardstick of the memory alone."""
+    half = torch.empty(nbytes // 2, dtype=torch.uint8, device=DEV)
+    sets = rotations((half, half), nbytes)
+    return gpu_ms(lambda src, dst: dst.copy_(src), sets, iters)
+
+
+def device_ops(fn) -> list[str]:
+    """Names of the device operations (kernels, copies, fills) that one
+    call of ``fn`` runs, from ``torch.profiler``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
+            for _ in range(e.count)]
+
+
 def phase_kernels(ck, devops, refops, rng) -> dict:
+    t_len = ck.dense_geometry(READ_LEN).max_tile_len
     edge = [
         (4, 8, 33, b"ACGTNacgt.RY"),
         (16, 31, 64, b"ACGTNacgt.RY"),
@@ -248,12 +300,18 @@ def phase_kernels(ck, devops, refops, rng) -> dict:
         (3, 1, 33, b"ACGTNacgt.RY"),
         (33, 1040, 33, b"acgtACGTN"),
     ]
+    # ragged tiles and odd lengths, then both sides of the long-row threshold
+    edge += [(r, l, 33 + 31 * ((r + l) % 2), b"ACGTNacgt.RY")
+             for r in (1, 15, 16, 17, 33) for l in (1, 8, 31, 151)]
+    edge += [(r, l, 33, b"ACGTNacgt.RY") for r in (17, 33)
+             for l in (t_len - 1, t_len, t_len + 1)]
     errs = {ck.ENCODE: 0, ck.DECODE: 0}
     for r, l, off, ab in edge:
         _, _, e, d = kernel_case(ck, devops, rng, r, l, off, ab)
         errs[ck.ENCODE] = max(errs[ck.ENCODE], e)
         errs[ck.DECODE] = max(errs[ck.DECODE], d)
-        print(f"phase=kernels edge R={r} L={l} offset={off} byte_equal=true")
+        print(f"phase=kernels edge R={r} L={l} offset={off} "
+              f"route={ck.dense_geometry(l).route} byte_equal=true")
     inputs, ref, e, d = kernel_case(ck, devops, rng, 3, 65544, 33, b"ACGT",
                                     full_len=65544, n_rate=0, tail_n=True)
     errs[ck.ENCODE] = max(errs[ck.ENCODE], e)
@@ -270,15 +328,28 @@ def phase_kernels(ck, devops, refops, rng) -> dict:
     check(bool((wide.n_counts == 8).all()), "every tail N counted without the cap")
     print("phase=kernels edge R=3 L=65544 offset=33 no_cap=true byte_equal=true")
 
-    out = {}
-    for r in (37_500, 100_000):
-        l = 160
+    out, shapes, per_call = {}, {}, {}
+    for r, l, lens in DENSE_SHAPES:
         for off in (33, 64):
             inputs, ref, e, d = kernel_case(ck, devops, rng, r, l, off, b"ACGT",
-                                            full_len=151)
+                                            full_len=lens)
             errs[ck.ENCODE] = max(errs[ck.ENCODE], e)
             errs[ck.DECODE] = max(errs[ck.DECODE], d)
         s, q, n = inputs
+        key = f"{r}x{l}"
+        if (r, l) == DENSE_PROFILED:
+            # one CUDA kernel per wrapper call: no zero-fill, pad or slice copy
+            # (outputs made contiguous, as a copy to the host would)
+            for name, call in (
+                (ck.ENCODE, lambda: [x.contiguous() for x in ck.encode_arrays(s, q, n, off)]),
+                (ck.DECODE, lambda: [x.contiguous() for x in ck.decode_arrays(
+                    ref.packed, ref.qual_delta, n, off)]),
+            ):
+                ops = device_ops(call)
+                print(f"phase=kernels kernel={name} R={r} L={l} device_ops_per_call="
+                      f"{len(ops)} names={json.dumps(ops)}")
+                check(len(ops) == 1, f"{name}: one CUDA kernel per call at R={r} L={l}")
+                per_call[name] = len(ops)
         enc_sets = rotations((s, q, n), encode_bytes(r, l))
         dec_sets = rotations((ref.packed, ref.qual_delta, n), decode_bytes(r, l))
         # operations per base: encode classifies, packs 2 bits, masks, counts
@@ -291,10 +362,22 @@ def phase_kernels(ck, devops, refops, rng) -> dict:
         ):
             kms = gpu_ms(lambda *a: fn(*a, off), sets, 200)
             pms = gpu_ms(lambda *a: plain(*a, off), sets, 20)
-            out[(name, r)] = report(name, f"R={r} L={l}", kms, pms, None,
-                                    nbytes, ops, errs[name])
+            cms = copy_ms(nbytes, 200)
+            out[(name, key)] = report(name, f"R={r} L={l}", kms, pms, None,
+                                      nbytes, ops, errs[name])
+            geo = ck.dense_geometry(l, encode=name == ck.ENCODE)
+            print(f"phase=kernels kernel={name} R={r} L={l} copy_ms={cms:.6f} "
+                  f"copy_share={cms / kms:.4f} route={geo.route} "
+                  f"rows_per_tile={geo.rows} warps_per_cta={geo.warps} "
+                  f"shared_bytes={geo.shared}")
+            shapes[(name, key)] = {
+                "ms": kms, "plain_ms": pms, "bound_ms": out[(name, key)][2],
+                "share": out[(name, key)][2] / kms, "copy_ms": cms, "bytes": nbytes,
+                "route": geo.route, "rows_per_tile": geo.rows, "warps_per_cta": geo.warps,
+                "shared_bytes": geo.shared,
+            }
         del enc_sets, dec_sets
-    return {"errs": errs, "times": out}
+    return {"errs": errs, "times": out, "shapes": shapes, "per_call": per_call}
 
 
 def report(name: str, shape: str, kms: float, pms: float, lms: float | None,
@@ -882,15 +965,21 @@ def rans_decode_registers(log: str) -> dict:
 def entry_label(entry: str) -> str:
     """A kernel's label from its mangled name: ``wctx_decode_kernel<kQual,
     kTabShared>``, ``wctx_encode_kernel<kShared>``, ``rans_decode_kernel<K>``,
-    and the encode's and the CRC's one instance each."""
+    the order-0 encode's and the CRC's one instance each, and the dense
+    codec's tile and row kernels."""
     if (mm := re.search(r"rans_decode_kernelILi(\d+)E", entry)):
         return f"fq_rans_decode<lanes_per_thread={mm.group(1)}>"
     if (mm := re.search(r"wctx_decode_kernelILb(\d)ELb(\d)E", entry)):
         return f"fq_wctx_decode<qual={mm.group(1)},table_shared={mm.group(2)}>"
     if (mm := re.search(r"wctx_encode_kernelILb(\d)E", entry)):
         return f"fq_wctx_encode<table_shared={mm.group(1)}>"
+    if (mm := re.search(r"dense_decode_tilesILb(\d)E", entry)):
+        return f"fq_dense_decode<tiles,short_rows={mm.group(1)}>"
     for kernel, name in (("rans_encode_kernel", "fq_rans_encode"),
-                         ("crc32_kernel", "fq_crc32_chunks")):
+                         ("crc32_kernel", "fq_crc32_chunks"),
+                         ("dense_encode_tiles", "fq_dense_encode<tiles>"),
+                         ("dense_encode_rows", "fq_dense_encode<rows>"),
+                         ("dense_decode_rows", "fq_dense_decode<rows>")):
         if kernel in entry:
             return name
     return entry
@@ -1120,13 +1209,21 @@ def main() -> int:
 
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
+    dense_shapes = {
+        name: {key: row for (n, key), row in kern["shapes"].items() if n == name}
+        for name in (ck.ENCODE, ck.DECODE)
+    }
     rows = [
         (ck.ENCODE, main_launches["encode"], kern["errs"][ck.ENCODE],
-         (*kern["times"][(ck.ENCODE, 37_500)], None),
-         {"launches_v3": v3_launches["compress"][ck.ENCODE]}),
+         (*kern["times"][(ck.ENCODE, "37500x160")], None),
+         {"launches_v3": v3_launches["compress"][ck.ENCODE],
+          "device_ops_per_call_100000x151": kern["per_call"][ck.ENCODE],
+          "by_shape": dense_shapes[ck.ENCODE]}),
         (ck.DECODE, main_launches["decode"], kern["errs"][ck.DECODE],
-         (*kern["times"][(ck.DECODE, 37_500)], None),
-         {"launches_v3": v3_launches["decompress"][ck.DECODE]}),
+         (*kern["times"][(ck.DECODE, "37500x160")], None),
+         {"launches_v3": v3_launches["decompress"][ck.DECODE],
+          "device_ops_per_call_100000x151": kern["per_call"][ck.DECODE],
+          "by_shape": dense_shapes[ck.DECODE]}),
     ]
     for name, direction in ((ck.RANS_ENCODE, "compress"), (ck.RANS_COMPACT, "compress"),
                             (ck.RANS_DECODE, "decompress")):

@@ -42,10 +42,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "dense_codec": {
         # seq, qual, lengths, packed, nmask, n_counts, qual_delta,
-        # rows, width, qual_offset, npos_cap, stream
+        # rows, length, qual_offset, npos_cap, stream
         "fq_dense_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # packed, qual_delta, seq, qual, rows, width, qual_offset, stream
-        "fq_dense_decode": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # packed, qual_delta, seq, qual, rows, length, packed pitch,
+        # qual_offset, stream
+        "fq_dense_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "rans_codec": {
         # data, n, steps, lanes, pad_sym, freq_cum, words, flags, states,
@@ -74,6 +75,10 @@ SIGNATURES = {
 
 # Exported functions that launch nothing (each returns a cudaError_t too).
 QUERIES = {
+    "dense_codec": {
+        # length, packed pitch, encode (1) or decode (0), out (five int32)
+        "fq_dense_geometry": [_I, _I, _I, _P],
+    },
     "crc32": {
         # bytes per span (one partial each)
         "fq_crc32_span_bytes": [],

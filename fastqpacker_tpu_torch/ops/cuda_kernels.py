@@ -103,17 +103,6 @@ def _check_offset(qual_offset: int) -> None:
         raise ValueError(f"qual_offset must be a byte, got {qual_offset}")
 
 
-def _fit_cols(x: torch.Tensor, width: int) -> torch.Tensor:
-    """``x`` with exactly ``width`` columns: zero-padded or cut, contiguous
-    and 16-byte aligned (a fresh allocation whenever it changes)."""
-    if x.shape[1] == width:
-        return x
-    out = torch.zeros((x.shape[0], width), dtype=x.dtype, device=x.device)
-    k = min(width, x.shape[1])
-    out[:, :k] = x[:, :k]
-    return out
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
     """Launch ``name`` on ``device``'s current stream with ``args``
     (tensors pass as pointers, integers as they are) and count it."""
@@ -146,7 +135,8 @@ def encode_arrays(
     npos_cap: int = refops.MAX_SEQUENCE_LENGTH,
 ) -> DenseEncoded:
     """Dense block encode of (R, L) uint8 seq/qual and (R,) int32 lengths;
-    N positions are tracked below ``min(length, npos_cap)``."""
+    N positions are tracked below ``min(length, npos_cap)``. Any L; every
+    output is contiguous at its exact width, from one launch."""
     r, l = seq.shape
     dev = seq.device
     _check("seq", seq, torch.uint8, (r, l), dev)
@@ -157,18 +147,14 @@ def encode_arrays(
         raise ValueError(f"npos_cap must be a positive int32, got {npos_cap}")
     if _plain_or_cuda(dev):
         return encode_arrays_plain(seq, qual, lengths, qual_offset, npos_cap)
-    w = -(-l // 16) * 16
-    seq_w, qual_w = _fit_cols(seq, w), _fit_cols(qual, w)
-    packed = torch.empty((r, w // 4), dtype=torch.uint8, device=dev)
-    nmask = torch.empty((r, w // 8), dtype=torch.uint8, device=dev)
+    packed = torch.empty((r, -(-l // 4)), dtype=torch.uint8, device=dev)
+    nmask = torch.empty((r, -(-l // 8)), dtype=torch.uint8, device=dev)
     n_counts = torch.empty((r,), dtype=torch.int32, device=dev)
-    delta = torch.empty((r, w), dtype=torch.uint8, device=dev)
+    delta = torch.empty((r, l), dtype=torch.uint8, device=dev)
     if r:
-        _launch(ENCODE, dev, seq_w, qual_w, lengths, packed, nmask, n_counts,
-                delta, r, w, qual_offset, npos_cap)
-    return DenseEncoded(
-        packed[:, : -(-l // 4)], nmask[:, : -(-l // 8)], n_counts, delta[:, :l]
-    )
+        _launch(ENCODE, dev, seq, qual, lengths, packed, nmask, n_counts,
+                delta, r, l, qual_offset, npos_cap)
+    return DenseEncoded(packed, nmask, n_counts, delta)
 
 
 def decode_arrays(
@@ -177,11 +163,12 @@ def decode_arrays(
     lengths: torch.Tensor,
     qual_offset: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense block decode: (R, >= ceil(L/4)) packed and (R, L) deltas ->
-    (R, L) ASCII bases and qualities."""
+    """Dense block decode: (R, >= ceil(L/4)) packed (its row pitch passes
+    to the kernel) and (R, L) deltas -> contiguous (R, L) ASCII bases and
+    qualities, from one launch."""
     r, l = qual_delta.shape
     dev = qual_delta.device
-    if packed.shape[0] != r or packed.shape[1] < -(-l // 4):
+    if packed.dim() != 2 or packed.shape[0] != r or packed.shape[1] < -(-l // 4):
         raise ValueError(
             f"packed: expected ({r}, >= {-(-l // 4)}), got {tuple(packed.shape)}"
         )
@@ -191,13 +178,40 @@ def decode_arrays(
     _check_offset(qual_offset)
     if _plain_or_cuda(dev):
         return decode_arrays_plain(packed, qual_delta, lengths, qual_offset)
-    w = -(-l // 16) * 16
-    packed_w, delta_w = _fit_cols(packed, w // 4), _fit_cols(qual_delta, w)
-    seq = torch.empty((r, w), dtype=torch.uint8, device=dev)
-    qual = torch.empty((r, w), dtype=torch.uint8, device=dev)
+    seq = torch.empty((r, l), dtype=torch.uint8, device=dev)
+    qual = torch.empty((r, l), dtype=torch.uint8, device=dev)
     if r:
-        _launch(DECODE, dev, packed_w, delta_w, seq, qual, r, w, qual_offset)
-    return seq[:, :l], qual[:, :l]
+        _launch(DECODE, dev, packed, qual_delta, seq, qual, r, l,
+                packed.shape[1], qual_offset)
+    return seq, qual
+
+
+class DenseGeometry(NamedTuple):
+    """The dense kernels' launch at one row length: ``route`` "tile" (tiles
+    of ``rows`` whole rows, one warp each, ``warps`` warps and ``shared``
+    dynamic shared bytes a CTA) or "row" (one CTA per row, for rows longer
+    than ``max_tile_len``)."""
+
+    route: str
+    rows: int
+    warps: int
+    shared: int
+    max_tile_len: int
+
+
+def dense_geometry(length: int, pitch: int | None = None, encode: bool = True) -> DenseGeometry:
+    """The launch ``fq_dense_encode`` (or, with ``encode=False``,
+    ``fq_dense_decode`` at packed row pitch ``pitch``, default ceil(L/4))
+    makes at row length ``length``, as the kernels' library computes it
+    (built on first use, so a card's machine only). Launches nothing."""
+    pitch = -(-length // 4) if pitch is None else pitch
+    out = (ctypes.c_int * 5)()
+    rc = build.load(_LIBRARY[ENCODE]).fq_dense_geometry(
+        length, pitch, int(encode), ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"no dense geometry for length {length}, pitch {pitch}: "
+                         f"cudaError_t {rc}")
+    return DenseGeometry("row" if out[0] else "tile", *out[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -109,6 +109,131 @@ def test_launch_counter_under_concurrent_launches(cuda):
     assert cuda_kernels.launches[cuda_kernels.ENCODE] == threads * per_thread
 
 
+# ragged tiles (R not a multiple of 16) and odd lengths, at exact widths
+DENSE_EDGE = [(r, l) for r in (1, 15, 16, 17, 33) for l in (1, 8, 31, 151)]
+
+
+def _dense_equal_plain(cuda, r, l, offset, seed, npos_cap=None):
+    """Both dense kernels against their plain versions on one seeded
+    block: every output byte-equal, contiguous at its exact width; the
+    decode also from a packed matrix wider than ceil(L/4)."""
+    rng = np.random.default_rng(seed)
+    s, q, n = (torch.from_numpy(x).to(cuda) for x in _block(rng, r, l))
+    kw = {} if npos_cap is None else {"npos_cap": npos_cap}
+    got = cuda_kernels.encode_arrays(s, q, n, offset, **kw)
+    want = port_device.encode_arrays_plain(s, q, n, offset, **kw)
+    widths = ((r, -(-l // 4)), (r, -(-l // 8)), (r,), (r, l))
+    for a, b, w in zip(got, want, widths):
+        assert a.is_contiguous() and tuple(a.shape) == w
+        assert torch.equal(a, b)
+    seq_p, qual_p = port_device.decode_arrays_plain(want.packed, want.qual_delta, n, offset)
+    wide = torch.cat([want.packed, torch.full((r, 7), 0xA5, dtype=torch.uint8,
+                                              device=cuda)], dim=1)
+    for packed in (want.packed, wide):
+        seq, qual = cuda_kernels.decode_arrays(packed, want.qual_delta, n, offset)
+        assert seq.is_contiguous() and qual.is_contiguous()
+        assert tuple(seq.shape) == tuple(qual.shape) == (r, l)
+        assert torch.equal(seq, seq_p) and torch.equal(qual, qual_p)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("r,l", DENSE_EDGE + [(33, 321), (1000, 151), (100_000, 151)])
+@pytest.mark.parametrize("offset", [33, 64])
+def test_dense_kernels_match_plain_at_exact_widths(r, l, offset, cuda):
+    _dense_equal_plain(cuda, r, l, offset, seed=r * 7 + l + offset)
+
+
+@pytest.mark.parametrize("side", [-1, 0, 1, 977])
+def test_dense_kernels_on_both_sides_of_the_long_row_threshold(side, cuda):
+    """Rows up to the threshold go through the tile kernels, longer rows
+    through the row kernels; both equal the plain versions, with the N
+    tracking cap and without it."""
+    t = cuda_kernels.dense_geometry(151).max_tile_len
+    l = t + side
+    for encode in (True, False):
+        g = cuda_kernels.dense_geometry(l, encode=encode)
+        assert g.route == ("tile" if l <= t else "row")
+    for r in (17, 33):
+        _dense_equal_plain(cuda, r, l, 33, seed=r + l)
+        _dense_equal_plain(cuda, r, l, 64, seed=r + l + 1, npos_cap=100)
+
+
+def test_dense_one_kernel_per_wrapper_call(cuda):
+    """At the v3 / mesh block shape (100,000 x 151) one wrapper call, its
+    outputs made contiguous as a copy to the host makes them, runs one CUDA
+    kernel: no zero-fill, pad or slice copy around it."""
+    rng = np.random.default_rng(151)
+    s, q, n = (torch.from_numpy(x).to(cuda) for x in _block(rng, 100_000, 151))
+    enc = cuda_kernels.encode_arrays(s, q, n, 33)
+    torch.cuda.synchronize()
+    for call in (
+        lambda: [x.contiguous() for x in cuda_kernels.encode_arrays(s, q, n, 33)],
+        lambda: [x.contiguous() for x in cuda_kernels.decode_arrays(
+            enc.packed, enc.qual_delta, n, 33)],
+    ):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
+               for _ in range(e.count)]
+        assert len(ops) == 1, ops
+
+
+def test_dense_kernels_from_two_threads_at_two_shared_sizes(cuda):
+    """Pipeline workers launch from several threads: tiles of two sizes
+    (L = 151 and L = 1,000, two dynamic shared-memory sizes) run at once,
+    in a loop, and every launch matches the plain version."""
+    rng = np.random.default_rng(12)
+    cases = []
+    for r, l in ((5000, 151), (600, 1000)):
+        s, q, n = (torch.from_numpy(x).to(cuda) for x in _block(rng, r, l))
+        want = port_device.encode_arrays_plain(s, q, n, 33)
+        cases.append(((s, q, n), want,
+                      port_device.decode_arrays_plain(want.packed, want.qual_delta, n, 33)))
+    g = [cuda_kernels.dense_geometry(l) for l in (151, 1000)]
+    assert g[0].route == g[1].route == "tile" and g[0].shared != g[1].shared
+    torch.cuda.synchronize()
+
+    def call(i):
+        (s, q, n), want, (seq_p, qual_p) = cases[i]
+        got = cuda_kernels.encode_arrays(s, q, n, 33)
+        seq, qual = cuda_kernels.decode_arrays(want.packed, want.qual_delta, n, 33)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(seq, seq_p) and torch.equal(qual, qual_p)
+
+    _from_two_threads(call, cuda, rounds=100)
+
+
+def test_gpu_v3_and_mesh_match_cpu_at_odd_and_long_reads(cuda):
+    """The v3 path on reads of 50-300 bp and of 1,100-1,500 bp (both dense
+    routes) and the mesh path on reads of 60-151 bp: the card's containers
+    equal the CPU's, and the card decodes them."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    data = (synth_fastq(0.6, read_len=300, min_len=50, seed=21)
+            + synth_fastq(0.4, read_len=1500, min_len=1100, seed=22))
+    opts = tfq.Options(version=3, block_size=1500, workers=1)
+    cuda_kernels.reset_launches()
+    comp = tfq.compress_bytes(data, opts, device=cuda)
+    blocks = cuda_kernels.launches[cuda_kernels.ENCODE]
+    assert blocks >= 2
+    assert comp == tfq.compress_bytes(data, opts, device="cpu")
+    cuda_kernels.reset_launches()
+    assert tfq.decompress_bytes(comp, device=cuda) == data
+    assert cuda_kernels.launches[cuda_kernels.DECODE] == blocks
+
+    one = len(synth_fastq(0, read_len=151))
+    data = synth_fastq(4000 * one / (1 << 20), read_len=151, min_len=60, seed=23,
+                       qual_model="phredwalk", seq_model="markov")
+    mopts = tfq.Options(block_size=2000)
+    comp = meshpipe.compress_mesh_bytes(data, mopts, [cuda])
+    assert comp == meshpipe.compress_mesh_bytes(data, mopts, pmesh.make_mesh(1, device="cpu"))
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(comp), out, [cuda])
+    assert out.getvalue() == data
+
+
 def _rans_inputs(rng, n, lanes, alphabet):
     data = rng.integers(0, alphabet, n).astype(np.uint8)
     steps = -(-n // lanes)

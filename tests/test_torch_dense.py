@@ -223,3 +223,59 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         cuda_kernels.encode_arrays(seq, seq[:3], torch.zeros(4, dtype=torch.int32), 33)
     with pytest.raises(ValueError, match="packed"):
         cuda_kernels.decode_arrays(seq[:, :7], seq, torch.zeros(4, dtype=torch.int32), 33)
+
+
+# ragged tiles and odd lengths: R and L not multiples of 16
+EXACT_SHAPES = [(r, l) for r in (1, 15, 17, 33) for l in (1, 31, 151, 321)]
+
+
+@pytest.mark.parametrize("r,l", EXACT_SHAPES)
+def test_exact_widths_match_jax(r, l):
+    """The wrapper at R and L that are not multiples of 16: its outputs
+    are contiguous at their exact widths and equal the JAX package's
+    (XLA programs, and the Pallas kernels in interpret mode); the decode
+    restores the block from them."""
+    rng = np.random.default_rng(r * 131 + l)
+    seq, qual, lengths = random_block(rng, r, l)
+    s, q, n = (torch.from_numpy(x) for x in (seq, qual, lengths))
+    enc = cuda_kernels.encode_arrays(s, q, n, 33)
+    widths = ((r, -(-l // 4)), (r, -(-l // 8)), (r,), (r, l))
+    for x, w in zip(enc, widths):
+        assert x.is_contiguous() and tuple(x.shape) == w
+    got = port_ref.EncodedArrays(*(x.numpy() for x in enc))
+    _assert_encode_equal(got, jax_device.encode_block_arrays(seq, qual, lengths, 33), lengths)
+    _assert_encode_equal(
+        got,
+        jax_pallas.encode_block_arrays(seq.copy(), qual.copy(), lengths, 33, interpret=True),
+        lengths,
+    )
+    dec_seq, dec_qual = cuda_kernels.decode_arrays(enc.packed, enc.qual_delta, n, 33)
+    assert dec_seq.is_contiguous() and dec_qual.is_contiguous()
+    assert tuple(dec_seq.shape) == tuple(dec_qual.shape) == (r, l)
+    want_seq, want_qual = jax_device.decode_block_arrays(
+        got.packed, got.qual_delta, lengths, 33)
+    mask = _in_lengths(lengths, l)
+    np.testing.assert_array_equal(dec_seq.numpy()[mask], np.asarray(want_seq)[mask])
+    np.testing.assert_array_equal(dec_qual.numpy()[mask], np.asarray(want_qual)[mask])
+    np.testing.assert_array_equal(dec_qual.numpy()[mask], qual[mask])
+
+
+@pytest.mark.parametrize("extra", [1, 3, 16])
+def test_decode_takes_a_packed_matrix_wider_than_needed(extra):
+    """``decode_arrays`` reads ceil(L/4) columns of a wider packed matrix
+    (its row pitch); the columns past them change nothing."""
+    rng = np.random.default_rng(extra)
+    r, l = 17, 151
+    seq, qual, lengths = random_block(rng, r, l)
+    enc = jax_ref.encode_block_arrays(seq, qual, lengths, 33)
+    junk = rng.integers(0, 256, size=(r, extra)).astype(np.uint8)
+    wide = np.concatenate([enc.packed, junk], axis=1)
+    n = torch.from_numpy(lengths)
+    got_seq, got_qual = cuda_kernels.decode_arrays(
+        torch.from_numpy(wide), torch.from_numpy(enc.qual_delta), n, 33)
+    assert tuple(got_seq.shape) == (r, l) and got_seq.is_contiguous()
+    want_seq, want_qual = jax_device.decode_block_arrays(enc.packed, enc.qual_delta, lengths, 33)
+    mask = _in_lengths(lengths, l)
+    np.testing.assert_array_equal(got_seq.numpy()[mask], np.asarray(want_seq)[mask])
+    np.testing.assert_array_equal(got_qual.numpy()[mask], np.asarray(want_qual)[mask])
+    np.testing.assert_array_equal(got_qual.numpy()[mask], qual[mask])
