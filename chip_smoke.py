@@ -22,7 +22,12 @@ Phases, each fatal on failure:
    stream (15.1 MB, 16,384 lanes) and sequence stream (3.8 MB, 4,096
    lanes), the encode beside its per-step time (one warp per CTA), the
    decode beside its launch geometry (CTAs x threads, lanes per thread,
-   shared bytes, registers); at 16,384 lanes the decode's other
+   shared bytes, registers); the compaction byte-equal to its plain version
+   and to ``torch.masked_select`` at 1 cell, a tile - 1, a tile, a tile + 1
+   and 20 M cells (several waves of CTAs), at flag densities 0, 0.001,
+   0.11, 0.5, 1 and with flag bytes of 2 and 255, and one wrapper call at
+   15.1 M cells must run its three CUDA kernels and nothing else
+   (``torch.profiler``); at 16,384 lanes the decode's other
    cluster geometry, 16 CTAs x 1,024 threads with one lane each, is built
    from a copy of the package (``scripts/rans_ab.py --set
    kCtaThreads=1024``, in its own process), held against the plain version
@@ -57,7 +62,10 @@ Phases, each fatal on failure:
    launch and per step, beside their launch geometry (cluster size, threads
    per CTA, table placement, the ``-Xptxas -v`` registers, shared memory and
    spills); a stream that lost words raises. No single PyTorch call
-   computes either function (``library_ms`` null);
+   computes either function (``library_ms`` null). The compaction is timed
+   on the encode's own words and flags at the mesh path's two streams
+   (sequence order 2 on 4,096 lanes, quality order 1 on 2,048), beside its
+   bound and ``torch.masked_select``;
 7. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
    ``make_mesh(1)``): ``--mesh-blocks`` blocks of 100,000 records of the
    context-model corpus (order-1 Markov bases, per-record quality walks in
@@ -121,6 +129,21 @@ RANS_DECODE_VARIANT = "kCtaThreads=1024"
 DENSE_SHAPES = [(37_500, 160, 151), (100_000, 160, 151), (100_000, 151, 151),
                 (37_500, 320, (50, 300))]
 DENSE_PROFILED = (100_000, 151)  # the v3 / mesh shape: one kernel per call
+# the compaction's edge inputs: flag bytes and their probabilities (the
+# densities, and bytes of 2 and 255, which count as kept), and a size that
+# spans several waves of CTAs
+COMPACT_FLAGS = {
+    "none": {0: 1.0}, "0.001": {0: 0.999, 1: 0.001}, "0.11": {0: 0.89, 1: 0.11},
+    "0.5": {0: 0.5, 1: 0.5}, "all": {1: 1.0},
+    "bytes_2_255": {0: 0.4, 1: 0.2, 2: 0.2, 255: 0.2},
+}
+COMPACT_WAVES = 20_000_003
+# the compaction's kernels (csrc/rans_codec.cu): tile counts, one CTA's scan
+# of the counts, scan and scatter within each tile
+COMPACT_KERNELS = ("rans_tile_counts_kernel", "rans_scan_tiles_kernel", "rans_scatter_kernel")
+# the mesh path's two streams, whose words the compaction is timed on:
+# (model, order) -> (label, the lanes the mesh path picks)
+MESH_COMPACT = {(0, 2): ("mesh_seq", 4096), (1, 1): ("mesh_qual", 2048)}
 DEV = torch.device("cuda")
 
 
@@ -279,15 +302,21 @@ def copy_ms(nbytes: int, iters: int) -> float:
     return gpu_ms(lambda src, dst: dst.copy_(src), sets, iters)
 
 
-def device_ops(fn) -> list[str]:
+def device_ops(fn, sessions: int = 3) -> list[str]:
     """Names of the device operations (kernels, copies, fills) that one
-    call of ``fn`` runs, from ``torch.profiler``."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    call of ``fn`` runs, from ``torch.profiler``: the fullest of
+    ``sessions`` profiled calls (in a long process a session can miss some
+    or all of its kernels; it never adds any)."""
+    fullest: list[str] = []
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
-            for _ in range(e.count)]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
+               for _ in range(e.count)]
+        fullest = max(fullest, ops, key=len)
+    return fullest
 
 
 def phase_kernels(ck, devops, refops, rng) -> dict:
@@ -450,8 +479,34 @@ def library_compact(words, flags):
     return torch.masked_select(words, flags.bool())
 
 
+def compact_edges(ck, rans, rng) -> int:
+    """The compaction at one cell, around one tile and over several waves
+    of CTAs, at each flag density: byte-equal to its plain version and to
+    ``torch.masked_select``. Returns the largest difference (0)."""
+    tile = ck.COMPACT_TILE
+    err = 0
+    for m in (1, tile - 1, tile, tile + 1, COMPACT_WAVES):
+        for label, fb in COMPACT_FLAGS.items():
+            words = torch.from_numpy(
+                rng.integers(-(1 << 15), 1 << 15, m).astype(np.int16)).to(DEV)
+            flags = torch.from_numpy(rng.choice(np.array(list(fb), np.uint8), m,
+                                                p=list(fb.values()))).to(DEV)
+            flat, total = ck.rans_compact(words, flags)
+            pflat, ptotal = rans.rans_compact_plain(words, flags)
+            lib = library_compact(words, flags)
+            k = int(total)
+            what = f"m={m} flags={label}"
+            check(k == int(ptotal) == lib.numel(), f"compact total == plain == masked_select at {what}")
+            err = max(err, max_err(flat[:k], pflat[:k]), max_err(flat[:k], lib))
+            check(err == 0, f"compact kernel == plain == masked_select at {what}")
+        print(f"phase=kernels compact m={m} tile={tile} flags={json.dumps(list(COMPACT_FLAGS))} "
+              f"byte_equal_plain=true byte_equal_masked_select=true")
+    torch.cuda.synchronize()
+    return err
+
+
 def phase_rans(ck, rans, rng, registers: dict) -> dict:
-    errs = {ck.RANS_ENCODE: 0, ck.RANS_COMPACT: 0, ck.RANS_DECODE: 0}
+    errs = {ck.RANS_ENCODE: 0, ck.RANS_COMPACT: compact_edges(ck, rans, rng), ck.RANS_DECODE: 0}
 
     def fold(case):
         for name, e in zip(errs, case["errs"]):
@@ -505,6 +560,14 @@ def phase_rans(ck, rans, rng, registers: dict) -> dict:
         lib = library_compact(*case["cmp"])
         check(lib.numel() == k and torch.equal(lib, ck.rans_compact(*case["cmp"])[0][:k]),
               f"masked_select == compact kernel at {shape}")
+        extra[("compact", label)] = {"cells": m, "words": k, "lanes": lanes}
+        if label == "qual":  # its three kernels per call, no fill or copy
+            ops = device_ops(lambda: ck.rans_compact(*case["cmp"]))
+            print(f"phase=kernels kernel={ck.RANS_COMPACT} cells={m} device_ops_per_call="
+                  f"{len(ops)} names={json.dumps(ops)}")
+            check(len(ops) == 3 and all(any(k in op for op in ops) for k in COMPACT_KERNELS),
+                  f"{ck.RANS_COMPACT}: its three CUDA kernels per call at {m} cells")
+            extra[("compact", label)]["device_ops_per_call"] = len(ops)
         for name, fn, plain, library, sets, nbytes, ops in (
             (ck.RANS_ENCODE, ck.rans_encode, rans.rans_encode_plain, None,
              [(x, *enc_rest) for (x,) in rotations((d,), n + 3 * m)],
@@ -844,11 +907,31 @@ def wctx_case(ck, wctx, prep: dict, model: int, order: int) -> dict:
     check(np.array_equal(prep["present"].astype(np.uint8)[idx], prep["syms"]),
           f"wctx decode(encode(x)) == x at {what}")
     torch.cuda.synchronize()
-    return {"dec": dec, "errs": (enc_err, dec_err), "words": k}
+    return {"dec": dec, "errs": (enc_err, dec_err), "words": k, "cmp": (words, flags)}
 
 
-def phase_wctx(ck, wctx, rng) -> dict:
+def mesh_compact(ck, rans, case: dict, shape: str) -> tuple:
+    """The compaction of one mesh stream's encode output (its words and
+    flags as the wctx encode wrote them): byte-equal to the plain version
+    and ``torch.masked_select``, then timed beside them."""
+    words, flags = case["cmp"]
+    m, k = words.numel(), case["words"]
+    flat, total = ck.rans_compact(words, flags)
+    pflat, ptotal = rans.rans_compact_plain(words, flags)
+    lib = library_compact(words, flags)
+    check(int(total) == int(ptotal) == lib.numel() == k, f"compact total at {shape}")
+    err = max(max_err(flat[:k], pflat[:k]), max_err(flat[:k], lib))
+    check(err == 0, f"compact kernel == plain == masked_select at {shape}")
+    sets = rotations((words, flags), 3 * m + 2 * k)
+    kms = gpu_ms(ck.rans_compact, sets, 20)
+    pms = gpu_ms(rans.rans_compact_plain, sets[:1], 1)
+    lms = gpu_ms(library_compact, sets, 20)
+    return report(ck.RANS_COMPACT, shape, kms, pms, lms, 3 * m + 2 * k + 8, 4 * m, err)
+
+
+def phase_wctx(ck, wctx, rans, rng) -> dict:
     errs = {ck.WCTX_ENCODE: 0, ck.WCTX_DECODE: 0}
+    compact = {}
 
     def fold(case):
         for name, e in zip(errs, case["errs"]):
@@ -932,9 +1015,15 @@ def phase_wctx(ck, wctx, rng) -> dict:
                   f"geometry={json.dumps(launch, sort_keys=True)}")
             key = (name, model, order) if lanes is None else (name, model, order, lanes)
             out[key] = (*report(name, shape, kms, pms, None, nbytes, ops, errs[name]), extra)
+        if lanes is None and (model, order) in MESH_COMPACT:
+            label, want_lanes = MESH_COMPACT[(model, order)]
+            check(N == want_lanes, f"the mesh path's {label} stream on {want_lanes} lanes, got {N}")
+            cshape = f"stream={label} model={model} order={order} lanes={N} steps={S} cells={m} words={k}"
+            compact[label] = ((*mesh_compact(ck, rans, case, cshape), S),
+                              {"cells": m, "words": k, "lanes": N})
         del case, prep, sets, dec_sets
         torch.cuda.empty_cache()
-    return {"errs": errs, "times": out}
+    return {"errs": errs, "times": out, "compact": compact}
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -965,8 +1054,8 @@ def rans_decode_registers(log: str) -> dict:
 def entry_label(entry: str) -> str:
     """A kernel's label from its mangled name: ``wctx_decode_kernel<kQual,
     kTabShared>``, ``wctx_encode_kernel<kShared>``, ``rans_decode_kernel<K>``,
-    the order-0 encode's and the CRC's one instance each, and the dense
-    codec's tile and row kernels."""
+    the order-0 encode's and the CRC's one instance each, the compaction's
+    three kernels, and the dense codec's tile and row kernels."""
     if (mm := re.search(r"rans_decode_kernelILi(\d+)E", entry)):
         return f"fq_rans_decode<lanes_per_thread={mm.group(1)}>"
     if (mm := re.search(r"wctx_decode_kernelILb(\d)ELb(\d)E", entry)):
@@ -976,6 +1065,9 @@ def entry_label(entry: str) -> str:
     if (mm := re.search(r"dense_decode_tilesILb(\d)E", entry)):
         return f"fq_dense_decode<tiles,short_rows={mm.group(1)}>"
     for kernel, name in (("rans_encode_kernel", "fq_rans_encode"),
+                         ("rans_tile_counts_kernel", "fq_rans_compact<tile_counts>"),
+                         ("rans_scan_tiles_kernel", "fq_rans_compact<scan_tiles>"),
+                         ("rans_scatter_kernel", "fq_rans_compact<scatter>"),
                          ("crc32_kernel", "fq_crc32_chunks"),
                          ("dense_encode_tiles", "fq_dense_encode<tiles>"),
                          ("dense_encode_rows", "fq_dense_encode<rows>"),
@@ -1181,7 +1273,7 @@ def main() -> int:
     kern_rans["extra"]["qual"]["by_geometry"] = phase_rans_variant(
         kern_rans["extra"]["qual"], kern_rans["times"][(ck.RANS_DECODE, "qual")][0])
     kern_crc = phase_crc(ck, crc32, rng)
-    kern_wctx = phase_wctx(ck, wctx, rng)
+    kern_wctx = phase_wctx(ck, wctx, rans, rng)
 
     ft.compress_bytes(synth_fastq(1, seed=args.seed + 1), device=DEV)  # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -1225,6 +1317,7 @@ def main() -> int:
           "device_ops_per_call_100000x151": kern["per_call"][ck.DECODE],
           "by_shape": dense_shapes[ck.DECODE]}),
     ]
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, direction in ((ck.RANS_ENCODE, "compress"), (ck.RANS_COMPACT, "compress"),
                             (ck.RANS_DECODE, "decompress")):
         more = {}
@@ -1238,6 +1331,20 @@ def main() -> int:
             more = {**kern_rans["extra"]["qual"],
                     "seq_stream": {**dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), seq)),
                                    "steps": seq[5], **kern_rans["extra"]["seq"]}}
+        if name == ck.RANS_COMPACT:  # the quality stream's; every shape beside
+            qual_extra = kern_rans["extra"][("compact", "qual")]
+            by_shape = {
+                f"v3_{label}": {**dict(zip(fields, kern_rans["times"][(name, label)])),
+                                "steps": kern_rans["times"][(name, label)][5],
+                                **kern_rans["extra"][("compact", label)]}
+                for label in ("qual", "seq")
+            }
+            for label in ("mesh_seq", "mesh_qual"):
+                times, shape_extra = kern_wctx["compact"][label]
+                by_shape[label] = {**dict(zip(fields, times)), "steps": times[5], **shape_extra}
+            more = {"cells": qual_extra["cells"], "words": qual_extra["words"],
+                    "device_ops_per_call_15.1M": qual_extra["device_ops_per_call"],
+                    "by_shape": by_shape}
         rows.append((name, v3_launches[direction][name], kern_rans["errs"][name],
                      kern_rans["times"][(name, "qual")], more))
     crc_seq = kern_crc["times"][(ck.CRC32, "seq")]
@@ -1250,7 +1357,6 @@ def main() -> int:
     # order that run's quality streams were coded with, the others beside
     qual = mesh_run["qual"][:2]
     wt = kern_wctx["times"]
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, direction in ((ck.WCTX_ENCODE, "compress"), (ck.WCTX_DECODE, "decompress")):
         by_model = {
             f"model{m}_order{o}": {**dict(zip(fields, wt[(name, m, o)])), **wt[(name, m, o)][5]}

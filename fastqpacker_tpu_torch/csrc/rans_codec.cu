@@ -195,9 +195,12 @@ rans_encode_kernel(const uint8_t* __restrict__ data, long long n, int steps,
 }
 
 // ---------------------------------------------------------------------------
-// Compact: rank = exclusive prefix of the flags in flat (step, lane) order,
-// then out[rank] = word. Three passes: per-tile counts, one block's scan of
-// the tile counts, per-tile scan + scatter.
+// Compact: a cell is kept where its flag byte is not 0; rank = exclusive
+// prefix of the kept cells in flat (step, lane) order, then out[rank] =
+// word. Three passes: per-tile counts, one block's scan of the tile counts,
+// per-tile scan + scatter. (A single pass with decoupled look-back was
+// measured against it and did not beat it at the v3 quality and the mesh
+// shapes: scripts/compact_variants.py, PERF.md.)
 // ---------------------------------------------------------------------------
 
 constexpr int kScanThreads = 256;
@@ -205,19 +208,23 @@ constexpr int kItems = 16;  // cells per thread
 constexpr int kTile = kScanThreads * kItems;
 constexpr int kTileScanThreads = 1024;
 
-// Bit k of the result is cell base+k's flag; cells at or past m read as 0.
+// Bit k (k < 4) of the result: byte k of w is not 0.
+__device__ __forceinline__ uint32_t nonzero_bits(uint32_t w) {
+  // the high bit of each byte, set where the byte is not 0 (no carry
+  // crosses a byte), then bits 7, 15, 23, 31 gathered into bits 21-24
+  const uint32_t hi = (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+  return (((hi >> 7) * 0x00204081u) >> 21) & 0xFu;
+}
+
+// Bit k of the result: cell base+k is kept, its flag byte is not 0 (the
+// rule of flags.bool()); cells at or past m are not.
 __device__ __forceinline__ uint32_t load_flags(const uint8_t* __restrict__ flags,
                                                long long base, long long m) {
   uint32_t mask = 0;
   if (base + kItems <= m) {
     const uint4 v = *reinterpret_cast<const uint4*>(flags + base);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t b = w[k] & 0x01010101u;
-      mask |= ((b & 1u) | ((b >> 7) & 2u) | ((b >> 14) & 4u) |
-               ((b >> 21) & 8u)) << (4 * k);
-    }
+    mask = nonzero_bits(v.x) | nonzero_bits(v.y) << 4 | nonzero_bits(v.z) << 8 |
+           nonzero_bits(v.w) << 12;
   } else {
     for (int k = 0; k < kItems; ++k)
       if (base + k < m && flags[base + k]) mask |= 1u << k;

@@ -218,7 +218,7 @@ def dense_geometry(length: int, pitch: int | None = None, encode: bool = True) -
 # order-0 rANS
 # ---------------------------------------------------------------------------
 
-_SCAN_TILE = 4096  # cells per block of the compaction (csrc/rans_codec.cu)
+COMPACT_TILE = 4096  # cells per CTA of the compaction (csrc/rans_codec.cu kTile)
 
 
 def _check_lanes(lanes: int) -> None:
@@ -258,8 +258,8 @@ def rans_encode(
 def rans_compact(
     words: torch.Tensor, flags: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flagged words in flat order; see
-    :func:`..ops.rans.rans_compact_plain`."""
+    """Flagged words in flat order (a cell is kept where its flag byte is
+    not 0); see :func:`..ops.rans.rans_compact_plain`."""
     m = words.numel()
     dev = words.device
     _check("words", words, torch.int16, (m,), dev)
@@ -268,7 +268,7 @@ def rans_compact(
         raise ValueError("nothing to compact")
     if _plain_or_cuda(dev):
         return rans_compact_plain(words, flags)
-    tiles = -(-m // _SCAN_TILE)
+    tiles = -(-m // COMPACT_TILE)
     tile_counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
     tile_offsets = torch.empty((tiles,), dtype=torch.int64, device=dev)
     out = torch.empty((m,), dtype=torch.int16, device=dev)

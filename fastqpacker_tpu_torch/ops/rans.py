@@ -219,14 +219,14 @@ def rans_encode_plain(
 def rans_compact_plain(
     words: torch.Tensor, flags: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flatten the flagged words to global (step, lane) order: rank =
-    exclusive prefix of the flags, ``out[rank] = word``. Returns ``(out
-    int16 (m,), total int64 (1,))``; cells of ``out`` at or past ``total``
-    are unspecified."""
-    keep = flags.to(torch.int64)
+    """Flatten the flagged words to global (step, lane) order: a cell is
+    kept where its flag byte is not 0, rank = exclusive prefix of the kept
+    cells, ``out[rank] = word``. Returns ``(out int16 (m,), total int64
+    (1,))``; cells of ``out`` at or past ``total`` are unspecified."""
+    mask = flags.bool()
+    keep = mask.to(torch.int64)
     rank = torch.cumsum(keep, dim=0) - keep
     out = torch.zeros_like(words)
-    mask = flags.bool()
     out[rank[mask]] = words[mask]
     return out, keep.sum().reshape(1)
 

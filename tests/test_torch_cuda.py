@@ -8,9 +8,12 @@ False. On a machine with a card: ``python -m pytest tests/test_torch_cuda.py
 """
 
 import io
+import json
+import subprocess
 import sys
 import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ from fastqpacker_tpu_torch.ops import rans as port_rans
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
 
 SHAPES = [(8, 152), (16, 31), (4, 8), (300, 64), (3, 1), (3, 65544), (37500, 160)]
 ALPHABET = b"ACGTNacgt.RY"
@@ -482,6 +487,112 @@ def test_crc32_from_two_threads(cuda):
         assert int(cuda_kernels.crc32_chunks(data).item()) & 0xFFFFFFFF == want
 
     _from_two_threads(call, cuda, rounds=200)
+
+
+# flag bytes and their probabilities: the densities of the CPU tests, and
+# bytes of 2 and 255, which count as kept
+COMPACT_FLAGS = {
+    "none": {0: 1.0}, "0.001": {0: 0.999, 1: 0.001}, "0.11": {0: 0.89, 1: 0.11},
+    "0.5": {0: 0.5, 1: 0.5}, "all": {1: 1.0},
+    "bytes_2_255": {0: 0.4, 1: 0.2, 2: 0.2, 255: 0.2},
+}
+COMPACT_WAVES = 20_000_003  # cells: several waves of CTAs on 132 SMs
+
+
+def _compact_case(rng, m, flag_bytes, cuda):
+    """Seeded (m,) int16 words and uint8 flags on the card, and the kept
+    words as ``torch.masked_select`` gives them."""
+    words = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, m).astype(np.int16)).to(cuda)
+    flags = torch.from_numpy(rng.choice(np.array(list(flag_bytes), np.uint8), m,
+                                        p=list(flag_bytes.values()))).to(cuda)
+    return words, flags, torch.masked_select(words, flags.bool())
+
+
+def _compact_equal(words, flags, want):
+    flat, total = cuda_kernels.rans_compact(words, flags)
+    k = int(total)
+    assert k == want.numel()
+    assert torch.equal(flat[:k], want)
+
+
+@pytest.mark.parametrize("size", ["1", "tile-1", "tile", "tile+1", "waves"])
+@pytest.mark.parametrize("density", list(COMPACT_FLAGS))
+def test_rans_compact_kernel_matches_plain_and_masked_select(size, density, cuda):
+    """The compaction at one cell, around one tile and over several waves
+    of CTAs, at each flag density and with flag bytes of 2 and 255: the
+    kept words and the total equal the plain version's and
+    ``torch.masked_select``'s."""
+    tile = cuda_kernels.COMPACT_TILE
+    m = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "waves": COMPACT_WAVES}[size]
+    rng = np.random.default_rng(m + len(density))
+    words, flags, want = _compact_case(rng, m, COMPACT_FLAGS[density], cuda)
+    flat, total = cuda_kernels.rans_compact(words, flags)
+    pflat, ptotal = port_rans.rans_compact_plain(words, flags)
+    k = int(total)
+    assert k == int(ptotal) == want.numel()
+    assert torch.equal(flat[:k], pflat[:k]) and torch.equal(flat[:k], want)
+
+
+def test_rans_compact_back_to_back_sizes_on_one_stream(cuda):
+    """Launches of other sizes queued on one stream with no wait between
+    them (each with its own scratch, freed and taken again on the stream):
+    every result is right."""
+    tile = cuda_kernels.COMPACT_TILE
+    rng = np.random.default_rng(11)
+    cases = [_compact_case(rng, m, {0: 0.7, 1: 0.2, 255: 0.1}, cuda)
+             for m in (3 * tile + 5, 1, COMPACT_WAVES, tile + 1, 7 * tile, 2 * tile - 1, 5)]
+    torch.cuda.synchronize()
+    results = [cuda_kernels.rans_compact(w, f) for w, f, _ in cases * 3]
+    for (_, _, want), (flat, total) in zip(cases * 3, results):
+        assert int(total) == want.numel()
+        assert torch.equal(flat[: want.numel()], want)
+
+
+# the compaction's kernels, in launch order (csrc/rans_codec.cu)
+COMPACT_KERNELS = ("rans_tile_counts_kernel", "rans_scan_tiles_kernel", "rans_scatter_kernel")
+
+
+_PROFILE_COMPACT = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from fastqpacker_tpu_torch.ops import cuda_kernels
+rng = np.random.default_rng(13)
+m = 922 * 16384
+words = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, m).astype(np.int16)).cuda()
+flags = torch.from_numpy((rng.random(m) < 0.11).astype(np.uint8)).cuda()
+cuda_kernels.rans_compact(words, flags)
+torch.cuda.synchronize()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    cuda_kernels.rans_compact(words, flags)
+    torch.cuda.synchronize()
+print(json.dumps([e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
+                  for _ in range(e.count)]))
+"""
+
+
+def test_rans_compact_runs_its_three_kernels_and_nothing_else(cuda):
+    """One wrapper call at the v3 quality stream's size runs the
+    compaction's three kernels (counts, scan of the counts, scatter), one
+    launch each, and no fill or copy. Profiled in a process of its own: in
+    a long process the profiler can miss a session's kernels."""
+    run = subprocess.run([sys.executable, "-c", _PROFILE_COMPACT, str(REPO)],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    ops = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(ops) == 3 and all(any(name in k for k in ops) for name in COMPACT_KERNELS), ops
+
+
+def test_rans_compact_from_two_threads(cuda):
+    """Two streams compact at once, each with its own scratch: every
+    result is right, at many tiles and at a few."""
+    tile = cuda_kernels.COMPACT_TILE
+    rng = np.random.default_rng(14)
+    cases = [_compact_case(rng, m, COMPACT_FLAGS["bytes_2_255"], cuda)
+             for m in (40 * tile + 3, 3 * tile - 1)]
+    torch.cuda.synchronize()
+    _from_two_threads(lambda i: _compact_equal(*cases[i]), cuda)
 
 
 @pytest.mark.parametrize("first", [1, 1025, 2049, 3073])

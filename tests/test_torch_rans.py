@@ -210,6 +210,62 @@ def test_plain_versions_equal_the_xla_programs(seed, steps, lanes, n):
     assert out.numpy()[:n].tobytes() == data.tobytes()
 
 
+COMPACT_SHAPES = [(1, 1), (3, 7), (37, 256), (9, 4096)]
+
+
+def _compact_inputs(seed, steps, lanes, flag_bytes):
+    """Seeded (steps, lanes) u16 words and u8 flags drawn from ``flag_bytes``
+    with their probabilities (a dict byte -> probability)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 16, (steps, lanes)).astype(np.uint16)
+    values = np.array(list(flag_bytes), np.uint8)
+    flags = rng.choice(values, (steps, lanes), p=list(flag_bytes.values()))
+    return words, flags
+
+
+@pytest.mark.parametrize("steps,lanes", COMPACT_SHAPES)
+@pytest.mark.parametrize("density", [0, 0.001, 0.11, 0.5, 1])
+def test_plain_compact_equals_compact_global(density, steps, lanes):
+    """``rans_compact`` on CPU tensors (the plain version) against the XLA
+    program ``_compact_global`` on the same words and mask: the kept words
+    in flat order and their total, both exact."""
+    words, flags = _compact_inputs(
+        int(density * 1000) + steps, steps, lanes, {0: 1 - density, 1: density})
+    jflat, jtotal = jrans._compact_global(
+        jnp.asarray(words), jnp.asarray(flags.astype(bool)), steps, lanes)
+    flat, total = cuda_kernels.rans_compact(
+        torch.from_numpy(words.view(np.int16).reshape(-1)),
+        torch.from_numpy(flags.reshape(-1)))
+    k = int(total)
+    assert k == int(jtotal) == int(flags.sum())
+    assert np.array_equal(flat.numpy().view(np.uint16)[:k], np.asarray(jflat)[:k])
+    assert np.array_equal(flat.numpy().view(np.uint16)[:k], words[flags > 0])
+
+
+@pytest.mark.parametrize("steps,lanes", COMPACT_SHAPES + [(1, 8)])
+def test_plain_compact_keeps_every_nonzero_flag_byte(steps, lanes):
+    """A flag byte is kept when it is not 0 (the rule of ``flags.bool()``
+    and of the JAX program's bool mask), so bytes of 2 and 255 count as
+    kept: the plain version equals ``torch.masked_select`` and
+    ``_compact_global`` on ``flags != 0``."""
+    if (steps, lanes) == (1, 8):
+        words = np.arange(1000, 1008, dtype=np.uint16).reshape(1, 8)
+        flags = np.array([[0, 2, 1, 0, 255, 1, 0, 1]], np.uint8)
+    else:
+        words, flags = _compact_inputs(
+            steps * lanes, steps, lanes, {0: 0.4, 1: 0.2, 2: 0.2, 255: 0.2})
+    w = torch.from_numpy(words.view(np.int16).reshape(-1))
+    f = torch.from_numpy(flags.reshape(-1))
+    flat, total = cuda_kernels.rans_compact(w, f)
+    want = torch.masked_select(w, f.bool())
+    assert int(total) == want.numel()
+    assert torch.equal(flat[: want.numel()], want)
+    jflat, jtotal = jrans._compact_global(
+        jnp.asarray(words), jnp.asarray(flags != 0), steps, lanes)
+    assert int(jtotal) == want.numel()
+    assert np.array_equal(np.asarray(jflat)[: int(jtotal)], want.numpy().view(np.uint16))
+
+
 @pytest.mark.parametrize("lanes", [256, 4096, 16384])
 def test_plain_encode_equals_the_xla_program_at_each_lane_tier(lanes):
     """The encode at the lane tiers the v3 path picks, with a ragged last
