@@ -73,7 +73,23 @@ Phases, each fatal on failure:
    the tags are counted per block (``TAG_WCTX`` on every quality stream),
    the launch counts follow the tags, and the card's container equals the
    CPU's on a two-block prefix; then the one card listed four times at a
-   block size of 5,000 against the CPU's container for d = 4.
+   block size of 5,000 against the CPU's container for d = 4;
+8. the CLI surfaces (``phase=surfaces``) on the v2, v3 and mesh containers
+   of phases 4, 5 and 7, at their full size: ``info`` (its block and tag
+   counts against the container's), ``check`` on the card (OK and the
+   input's size; one dense decode per block, one rANS decode per
+   ``TAG_RANS`` stream and CRC32 on v3, two wctx decodes per block on mesh;
+   MB/s) and ``check`` of a copy with one flipped payload byte (fails),
+   ``cat`` of a range that straddles a block boundary and of the last
+   record (the bytes of the input's slice; the decode kernels launch for
+   the covering blocks only; the host's index time); ``compress_paired`` /
+   ``decompress_paired`` on the card of R1 (even records) and R2 (odd
+   records) of the v2 and v3 corpora, the container held against
+   ``compress_bytes`` with ``FLAG_PAIRED_END``, one dense encode and decode
+   per block and on v3 one rANS encode and compaction per ``TAG_RANS``
+   stream; and ``fqscramble`` (host only) on 2 MiB against
+   ``gopcg.scramble_text``. Each kernel's row of the JSON line gains
+   ``launches_surfaces``, its count in each of those runs.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -775,7 +791,7 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
         f"gpu_compress_s={t_gpu1:.4f} cpu_compress_s={t_cpu1:.4f} "
         f"byte_identical_to_cpu=true"
     )
-    return {"compress": c_counts, "decompress": d_counts}
+    return {"compress": c_counts, "decompress": d_counts, "comp": comp}
 
 
 def count_blocks(container_bytes: bytes, ft) -> int:
@@ -826,8 +842,248 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
         f"decode_launches={dec_launches} cpu_compress_s={t_cpu:.4f} "
         f"byte_identical_to_cpu=true round_trip=true"
     )
-    return {"encode": enc_launches, "decode": dec_launches}
+    return {"encode": enc_launches, "decode": dec_launches, "comp": comp}
 
+
+
+# ---------------------------------------------------------------------------
+# the CLI surfaces: info, check, cat -r, --pair, fqscramble
+# ---------------------------------------------------------------------------
+
+# info's names of the v3 codec tags, where they differ from TAG_NAMES
+INFO_TAG_NAMES = {"tok": "tok+zstd"}
+SCRAMBLE_BYTES = 2 << 20  # the fqscramble input (host only)
+
+
+def info_counts(text: str) -> tuple[int, int, dict]:
+    """Blocks, records and, per tagged slot, its streams by codec, as
+    ``fqpack info`` prints them."""
+    blocks = int(re.search(r"^  blocks:\s+(\d+)$", text, re.M).group(1))
+    records = int(re.search(r"^  records:\s+(\d+)$", text, re.M).group(1))
+    tags = {}
+    for slot, codecs in re.findall(r"^    stream (\w+)\s+[\d,]+ bytes(?:  \[(.*)\])?$", text, re.M):
+        for part in filter(None, codecs.split(", ")):
+            name, _, n = part.partition(" x")
+            tags.setdefault(slot, {})[name] = int(n or 1)
+    return blocks, records, tags
+
+
+def record_ends(data: bytes) -> np.ndarray:
+    """End offset (exclusive) of each record of ``data``."""
+    return np.flatnonzero(np.frombuffer(data, np.uint8) == 10)[3::4] + 1
+
+
+def record_slice(data: bytes, ends: np.ndarray, start: int, stop: int) -> bytes:
+    return data[(int(ends[start - 1]) if start else 0) : int(ends[stop - 1])]
+
+
+def block_streams(tags_by_block: list, covering: range, codec: str) -> int:
+    """Streams coded ``codec`` (seq and qual slots) in the blocks ``covering``."""
+    return sum((s == codec) + (q == codec) for s, q in (tags_by_block[i] for i in covering))
+
+
+def tags_by_block(comp: bytes, ft) -> list:
+    """(seq codec, qual codec) per block of a v3 container."""
+    c = ft.container
+    r = io.BytesIO(comp)
+    c.read_file_header(r)
+    rows = []
+    while (hdr := c.read_block_header(r, c.VERSION_3_NATIVE)) is not None:
+        sizes = hdr.stream_sizes(c.VERSION_2)
+        payload = r.read(sum(sizes))
+        rows.append((TAG_NAMES[payload[0]], TAG_NAMES[payload[sizes[0]]]))
+    return rows
+
+
+def split_mates(data: bytes, ends: np.ndarray) -> tuple[bytes, bytes, bytes]:
+    """R1 (even records) and R2 (odd records) of ``data``, and the text
+    that interleaving them gives back (``data`` less a last odd record)."""
+    n = len(ends) // 2 * 2
+    mv = memoryview(data)
+    starts = np.concatenate(([0], ends[:-1]))
+    r1 = b"".join(mv[a:b] for a, b in zip(starts[0:n:2].tolist(), ends[0:n:2].tolist()))
+    r2 = b"".join(mv[a:b] for a, b in zip(starts[1:n:2].tolist(), ends[1:n:2].tolist()))
+    return r1, r2, data[: int(ends[n - 1])]
+
+
+def surface_container(ft, ck, inspect, ranges, label, kind, data, comp, workdir) -> dict:
+    """``info``, ``check`` (and ``check`` of a copy with one flipped payload
+    byte) and ``cat`` of two ranges of one container on the card, each with
+    the counters reset just before and read just after."""
+    path = workdir / f"{label}.fqz"
+    path.write_bytes(comp)
+    block = ft.container.read_file_header(io.BytesIO(comp)).block_size
+    ends = record_ends(data)
+    n = len(ends)
+    out = io.StringIO()
+    check(inspect.info(str(path), out=out) == 0, f"info {label}")
+    blocks, records, info_tags = info_counts(out.getvalue())
+    check(records == n, f"info {label}: records")
+    if kind == "v2":
+        check(blocks == count_blocks(comp, ft), f"info {label}: blocks")
+        by_block = None
+    else:
+        n_blocks, tags = stream_tags(comp, ft)
+        want = {slot: {INFO_TAG_NAMES.get(k, k): v for k, v in t.items()}
+                for slot, t in tags.items()}
+        check(blocks == n_blocks and info_tags == want, f"info {label}: blocks and tags")
+        by_block = tags_by_block(comp, ft)
+    runs = {}
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    rc = inspect.check(str(path), out=out, device=DEV)
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t0
+    counts = ck.launches.as_dict()
+    check(rc == 0 and out.getvalue() == f"OK: decoded {len(data):,} bytes of FASTQ\n",
+          f"check {label}: OK and the input's size")
+    check(counts[ck.DECODE] == blocks, f"check {label}: one dense decode per block")
+    if kind == "v3":
+        check(counts[ck.RANS_DECODE] == block_streams(by_block, range(blocks), "rans") > 0
+              and counts[ck.CRC32] > 0,
+              f"check {label}: one rANS decode per TAG_RANS stream, CRC32 launched")
+    if kind == "mesh":
+        check(counts[ck.WCTX_DECODE] == 2 * blocks
+              == block_streams(by_block, range(blocks), "wctx"),
+              f"check {label}: two wctx decodes per block")
+    runs[f"check_{kind}"] = counts
+
+    bad = bytearray(comp)
+    r = io.BytesIO(comp)
+    ft.container.read_file_header(r)
+    hdr = ft.container.read_block_header(r, comp[4])
+    bad[r.tell() + sum(hdr.stream_sizes(min(comp[4], 2))) // 2] ^= 0xFF
+    bad_path = workdir / f"{label}_flipped.fqz"
+    bad_path.write_bytes(bytes(bad))
+    out = io.StringIO()
+    rc = inspect.check(str(bad_path), out=out, device=DEV)
+    check(rc == 1 and out.getvalue().startswith("check FAILED: "),
+          f"check {label}: a flipped payload byte fails")
+    failed = out.getvalue().strip()
+    bad_path.unlink()
+
+    t0 = time.perf_counter()
+    idx = ranges.index_path(str(path))
+    t_index = time.perf_counter() - t0
+    check(idx.total_records == n and len(idx.entries) == blocks, f"cat {label}: index")
+    cat_rows = []
+    for name, start, stop in (("straddle", block - 5, block + 5), ("last", n - 1, n)):
+        covering = range(start // block, (stop - 1) // block + 1)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        got = ranges.read_record_range(str(path), start, stop, index=idx, device=DEV)
+        torch.cuda.synchronize()
+        t_cat = time.perf_counter() - t0
+        counts = ck.launches.as_dict()
+        check(got == record_slice(data, ends, start, stop), f"cat {label} {name}: bytes")
+        check(counts[ck.DECODE] == len(covering),
+              f"cat {label} {name}: one dense decode per covering block")
+        if kind == "v3":
+            check(counts[ck.RANS_DECODE] == block_streams(by_block, covering, "rans"),
+                  f"cat {label} {name}: rANS decodes of the covering blocks only")
+        if kind == "mesh":
+            check(counts[ck.WCTX_DECODE] == block_streams(by_block, covering, "wctx"),
+                  f"cat {label} {name}: wctx decodes of the covering blocks only")
+        text = int(ends[min(covering.stop * block, n) - 1]) - (
+            int(ends[covering.start * block - 1]) if covering.start else 0)
+        runs[f"cat_{kind}_{name}"] = counts
+        cat_rows.append(f"{name}=[{start},{stop}) blocks={len(covering)} s={t_cat:.4f} "
+                        f"decoded_MBps={text / 1e6 / t_cat:.2f} output_bytes={len(got)}")
+    path.unlink()
+    print(f"phase=surfaces container={label} info_blocks={blocks} info_records={records} "
+          f"info_tags={json.dumps(info_tags, sort_keys=True)} check_s={t_check:.4f} "
+          f"check_MBps={len(data) / 1e6 / t_check:.2f} flipped={failed!r} "
+          f"cat_index_host_s={t_index:.6f} cat {' '.join(cat_rows)} "
+          f"launches={json.dumps(runs, sort_keys=True)}")
+    return runs
+
+
+def surface_pair(ft, ck, api, kind, data, comp) -> dict:
+    """``compress_paired`` / ``decompress_paired`` on the card of R1 (even
+    records) and R2 (odd records) of ``data``, whose interleaving is
+    ``data`` again, held against ``compress_bytes`` with FLAG_PAIRED_END."""
+    c = ft.container
+    version = c.VERSION_3_NATIVE if kind == "v3" else c.CURRENT_VERSION
+    ends = record_ends(data)
+    r1, r2, inter = split_mates(data, ends)
+    opts = ft.Options(version=version)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = io.BytesIO()
+    api.compress_paired(io.BytesIO(r1), io.BytesIO(r2), out, opts, device=DEV)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    c_counts = ck.launches.as_dict()
+    paired = out.getvalue()
+    want = ft.compress_bytes(inter, ft.Options(version=version, flags=c.FLAG_PAIRED_END),
+                             device=DEV)
+    check(paired == want, f"pair {kind}: the container of compress_bytes with FLAG_PAIRED_END")
+    if inter == data:  # ... which is the round trip's container with the flag set
+        check(paired == comp[:9] + bytes([comp[9] | c.FLAG_PAIRED_END]) + comp[10:],
+              f"pair {kind}: the round trip's container with the flag")
+    blocks = count_blocks(paired, ft)
+    check(c_counts[ck.ENCODE] == blocks, f"pair {kind}: one dense encode per block")
+    if kind == "v3":
+        n_rans = block_streams(tags_by_block(paired, ft), range(blocks), "rans")
+        check(c_counts[ck.RANS_ENCODE] == c_counts[ck.RANS_COMPACT] == n_rans > 0,
+              f"pair {kind}: one rANS encode and compaction per TAG_RANS stream")
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    w1, w2 = io.BytesIO(), io.BytesIO()
+    api.decompress_paired(io.BytesIO(paired), w1, w2, device=DEV)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    d_counts = ck.launches.as_dict()
+    check(w1.getvalue() == r1 and w2.getvalue() == r2, f"pair {kind}: R1 and R2 back")
+    check(d_counts[ck.DECODE] == blocks, f"pair {kind}: one dense decode per block")
+    if kind == "v3":
+        check(d_counts[ck.RANS_DECODE] == n_rans, f"pair {kind}: one rANS decode per stream")
+    mb = len(inter) / 1e6
+    print(f"phase=surfaces pair={kind} records={len(ends) // 2 * 2} input_bytes={len(inter)} "
+          f"container_bytes={len(paired)} blocks={blocks} compress_s={t_c:.4f} "
+          f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
+          f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} round_trip=true")
+    return {f"pair_{kind}_compress": c_counts, f"pair_{kind}_decompress": d_counts}
+
+
+def phase_surfaces(ft, ck, containers: dict) -> dict:
+    """The CLI surfaces on the containers the earlier phases made, at their
+    full size: ``info``, ``check`` and ``cat`` of each, ``--pair`` on the v2
+    and v3 corpora, and ``fqscramble`` (host) on a few MiB."""
+    from fastqpacker_tpu_torch.cli import fqscramble
+    from fastqpacker_tpu_torch.cli import inspect
+    from fastqpacker_tpu_torch.pipeline import api, ranges
+    from fastqpacker_tpu_torch.utils import gopcg
+
+    workdir = Path(__file__).resolve().parent / "fastqpacker_tpu_torch" / "_build" / "surfaces"
+    workdir.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for kind, (label, data, comp) in containers.items():
+        runs.update(surface_container(ft, ck, inspect, ranges, label, kind, data, comp,
+                                      workdir))
+    for kind in ("v2", "v3"):
+        _, data, comp = containers[kind]
+        runs.update(surface_pair(ft, ck, api, kind, data, comp))
+    shutil.rmtree(workdir)
+
+    data = containers["v2"][1]
+    part = data[: data.rfind(b"\n@", 0, SCRAMBLE_BYTES) + 1]
+    t0 = time.perf_counter()
+    out = io.BytesIO()
+    fqscramble.scramble_stream_pcg(io.BytesIO(part), out, seed=7)
+    t_s = time.perf_counter() - t0
+    check(out.getvalue() == gopcg.scramble_text(part, 7) and len(out.getvalue()) == len(part),
+          "fqscramble equals gopcg.scramble_text")
+    print(f"phase=surfaces fqscramble input_bytes={len(part)} seed=7 host_s={t_s:.4f} "
+          f"host_MBps={len(part) / 1e6 / t_s:.3f}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1186,6 +1442,7 @@ def phase_mesh(ft, ck, args) -> dict:
         f"max_memory_allocated={peak} round_trip=true"
     )
     qual0 = streams[0][1]
+    kept = {"data": data, "comp": comp}
     del data, comp
 
     # the card's container against the CPU's (the plain versions are Python
@@ -1225,7 +1482,7 @@ def phase_mesh(ft, ck, args) -> dict:
     print(f"phase=e2e run=mesh_d4_one_card_four_times records=24000 block_size=5000 "
           f"blocks={blocks4} tags={json.dumps(tags4, sort_keys=True)} "
           f"wctx_encode_launches={enc4} byte_identical_to_cpu_d4=true round_trip=true")
-    return {"compress": c_counts, "decompress": d_counts, "qual": qual0}
+    return {"compress": c_counts, "decompress": d_counts, "qual": qual0, **kept}
 
 
 def main() -> int:
@@ -1277,10 +1534,10 @@ def main() -> int:
 
     ft.compress_bytes(synth_fastq(1, seed=args.seed + 1), device=DEV)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    data = synth_fastq(args.mb, seed=args.seed)
-    main_launches = round_trip(ft, ck, data, f"iid151_{args.mb:g}MiB")
+    v2_data = synth_fastq(args.mb, seed=args.seed)
+    v2_label = f"iid151_{args.mb:g}MiB"
+    main_launches = round_trip(ft, ck, v2_data, v2_label)
     print(f"phase=e2e max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    del data
     varlen = synth_fastq(args.varlen_mb, read_len=300, min_len=50,
                          seed=args.seed + 2)
     round_trip(ft, ck, varlen, f"varlen50_300_{args.varlen_mb:g}MiB")
@@ -1292,12 +1549,20 @@ def main() -> int:
     check(ft.decompress_bytes(ft.compress_bytes(warm, v3, device=DEV), device=DEV)
           == warm, "v3 warm-up round trip")
     torch.cuda.reset_peak_memory_stats()
-    data = synth_fastq(args.mb, seed=args.seed + 4, qual_model="walk")
-    v3_launches = round_trip_v3(ft, ck, data, f"walk151_v3_{args.mb:g}MiB")
+    v3_data = synth_fastq(args.mb, seed=args.seed + 4, qual_model="walk")
+    v3_label = f"walk151_v3_{args.mb:g}MiB"
+    v3_launches = round_trip_v3(ft, ck, v3_data, v3_label)
     print(f"phase=e2e v3_max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    del data
 
     mesh_run = phase_mesh(ft, ck, args)
+
+    surfaces = phase_surfaces(ft, ck, {
+        "v2": (v2_label, v2_data, main_launches.pop("comp")),
+        "v3": (v3_label, v3_data, v3_launches.pop("comp")),
+        "mesh": (f"markov151_mesh_{args.mesh_blocks}x{BLOCK_RECORDS}",
+                 mesh_run.pop("data"), mesh_run.pop("comp")),
+    })
+    del v2_data, v3_data
 
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
@@ -1375,6 +1640,7 @@ def main() -> int:
     kernels = []
     for name, launches, err, (kms, pms, bound_ms, bound_by, lms, steps), extra in rows:
         check(launches > 0, f"{name} launched on a main path")
+        extra["launches_surfaces"] = {run: counts[name] for run, counts in surfaces.items()}
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name,

@@ -9,9 +9,13 @@ only (main.go:123-174). ``--format native`` writes the FQZ v3 container
 ``--lossless`` imply it. ``--mesh`` writes v3 with the seq/qual entropy
 stage on the devices (context coder ``TAG_WCTX`` or order-0 rANS, one block
 per device per round: every card with ``--backend cuda``, one CPU entry with
-``--backend cpu``); ``-d --mesh`` decodes such rounds as groups. ``--backend
-cuda`` (the default) runs the device programs on the card and fails without
-one; ``--backend cpu`` runs their plain PyTorch versions.
+``--backend cpu``); ``-d --mesh`` decodes such rounds as groups. ``--pair``
+interleaves an R2 mate file on compress and splits it back on decompress.
+Subcommands: ``info FILE`` (header and stream accounting), ``check FILE``
+(decode every block, write nothing) and ``cat FILE -r START:STOP`` (decode
+only the blocks that cover a record range). ``--backend cuda`` (the
+default) runs the device programs on the card and fails without one;
+``--backend cpu`` runs their plain PyTorch versions.
 
 Run as ``python -m fastqpacker_tpu_torch.cli.fqpack``.
 """
@@ -19,6 +23,7 @@ Run as ``python -m fastqpacker_tpu_torch.cli.fqpack``.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import BinaryIO, Callable
 
@@ -74,19 +79,40 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(TAG_WCTX / TAG_RANS seq/qual streams, one block "
                         "per device per round; implies --format native). "
                         "Decode needs no special flag.")
-    # surfaces of the JAX package's CLI that this package does not have yet
-    p.add_argument("--pair", dest="pair", default="", help=f"{NOT_PORTED}")
+    p.add_argument("--pair", dest="pair", default="",
+                   help="paired-end mate file: on compress, the R2 input "
+                        "(records interleave R1,R2,...; sets FlagPairedEnd); "
+                        "on decompress, the R2 output (-o/-c gets R1)")
+    p.add_argument("-r", "--records", dest="records", default="",
+                   help="record range START:STOP for the cat subcommand "
+                        "(0-based, half-open; either side may be empty)")
     p.add_argument("positional", nargs="*", default=[])
     return p
 
 
-def _unported(args) -> str | None:
-    """The first requested surface this package does not have yet."""
-    if args.positional and args.positional[0] in ("info", "check", "cat"):
-        return args.positional[0]
-    if args.pair:
-        return "--pair"
-    return None
+def _parse_record_range(spec: str) -> tuple[int, int | None]:
+    if not spec:
+        return 0, None
+    head, sep, tail = spec.partition(":")
+    try:
+        start = int(head) if head else 0
+        stop = int(tail) if tail else None
+        if not sep and head:  # bare N means the single record N
+            stop = start + 1
+    except ValueError:
+        raise RuntimeError(f"invalid record range: {spec!r}") from None
+    if start < 0 or (stop is not None and stop < start):
+        raise RuntimeError(f"invalid record range: {spec!r}")
+    return start, stop
+
+
+def cat(target: str, records: str, out: BinaryIO, device=None) -> int:
+    """Random-access decode of a record sub-range (pipeline/ranges.py)."""
+    from ..pipeline import ranges
+
+    start, stop = _parse_record_range(records)
+    out.write(ranges.read_record_range(target, start, stop, device=device))
+    return 0
 
 
 def open_input(path: str, decompress: bool) -> tuple[BinaryIO, Callable[[], None]]:
@@ -115,7 +141,17 @@ def open_output(path: str, to_stdout: bool) -> tuple[BinaryIO, Callable[[], None
     return f, f.close
 
 
+def _version(args) -> int:
+    native = args.wire_format == "native" or args.max_ratio or args.lossless
+    return container.VERSION_3_NATIVE if native else container.CURRENT_VERSION
+
+
 def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
+    if args.pair:
+        if args.mesh:
+            raise RuntimeError("--mesh does not support --pair yet")
+        _execute_paired(args, inp, out)
+        return
     if args.mesh and args.max_ratio:
         raise RuntimeError(
             "--mesh does not support --max-ratio (the mesh path codes "
@@ -132,16 +168,10 @@ def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
             device=args.backend,
         )
         return
-    native = (
-        args.wire_format == "native" or args.max_ratio or args.lossless
-        or args.mesh
-    )
     opts = api.Options(
         block_size=args.block_size,
         workers=args.workers,
-        version=(
-            container.VERSION_3_NATIVE if native else container.CURRENT_VERSION
-        ),
+        version=container.VERSION_3_NATIVE if args.mesh else _version(args),
         order1_qual=args.max_ratio,
         lossless=args.lossless,
     )
@@ -155,7 +185,52 @@ def execute(args, inp: BinaryIO, out: BinaryIO) -> None:
     device.compress_device(inp, out, opts, device=args.backend)
 
 
+def _execute_paired(args, inp: BinaryIO, out: BinaryIO) -> None:
+    """--pair handling: R1 comes from -i/-o as usual, R2 from --pair."""
+    if args.decompress:
+        try:
+            w2 = open(args.pair, "wb", buffering=BUFFER_SIZE)
+        except OSError as e:
+            raise RuntimeError(f"cannot create output: {e}") from e
+        try:
+            api.decompress_paired(
+                inp, out, w2, api.DecompressOptions(workers=args.workers),
+                device=args.backend,
+            )
+        finally:
+            w2.close()
+        return
+    r2, close_r2 = open_input(args.pair, decompress=False)
+    try:
+        api.compress_paired(
+            inp, r2, out,
+            api.Options(
+                block_size=args.block_size,
+                workers=args.workers,
+                version=_version(args),
+                order1_qual=args.max_ratio,
+                lossless=args.lossless,
+            ),
+            device=args.backend,
+        )
+    finally:
+        close_r2()
+
+
 def main(argv: list[str] | None = None) -> int:
+    try:
+        return _main(argv)
+    except BrokenPipeError:
+        # stdout consumer went away (e.g. `fqpack info | head`): exit
+        # silently with the conventional 128+SIGPIPE status.
+        try:
+            sys.stderr.close()
+        except OSError:
+            pass
+        return 141
+
+
+def _main(argv: list[str] | None = None) -> int:
     raw_argv = sys.argv[1:] if argv is None else argv
     if raw_argv and raw_argv[0] == "bench":
         print(f"error: bench is {NOT_PORTED}", file=sys.stderr)
@@ -169,13 +244,30 @@ def main(argv: list[str] | None = None) -> int:
     if args.show_version:
         print(f"fqpack version {__version__}")
         return 0
-    if args.mesh and args.pair:
-        print("error: --mesh does not support --pair yet", file=sys.stderr)
-        return 1
-    missing = _unported(args)
-    if missing:
-        print(f"error: {missing} is {NOT_PORTED}", file=sys.stderr)
-        return 1
+
+    # subcommands: fqpack info|check|cat <file>
+    if args.positional and args.positional[0] in ("info", "check", "cat"):
+        sub = args.positional[0]
+        target = (
+            args.positional[1] if len(args.positional) > 1 else args.input
+        )
+        try:
+            if sub == "cat":
+                out, close_out = open_output(args.output, args.to_stdout)
+                try:
+                    return cat(target, args.records, out, device=args.backend)
+                finally:
+                    close_out()
+            from . import inspect as fqinspect
+
+            if sub == "info":
+                return fqinspect.info(target)
+            return fqinspect.check(target, device=args.backend)
+        except BrokenPipeError:
+            raise
+        except (container.FormatError, ValueError, RuntimeError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
 
     if args.positional:
         if not args.input:
@@ -198,8 +290,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         execute(args, inp, out)
     except BrokenPipeError:
-        # stdout consumer went away: the conventional 128+SIGPIPE status
-        return 141
+        raise
     except (container.FormatError, FastqParseError, ValueError,
             RuntimeError, NotImplementedError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -211,4 +302,12 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _rc = main()
+    # A consumer that closed our stdout mid-stream (`fqpack info | head`)
+    # makes the final flush raise: exit 141 with no interpreter error dump.
+    try:
+        sys.stdout.flush()
+    except (BrokenPipeError, ValueError, OSError):
+        _rc = 141
+        os.dup2(os.open(os.devnull, os.O_WRONLY), 1)
+    sys.exit(_rc)

@@ -32,7 +32,7 @@ from typing import BinaryIO, Optional
 MAGIC = b"FQZ\x00"
 
 # Format flags (container.go:14-17).
-FLAG_PAIRED_END = 1 << 0  # defined but never set by the compressor
+FLAG_PAIRED_END = 1 << 0  # interleaved R1/R2 records (api.compress_paired)
 FLAG_PHRED64 = 1 << 1
 # v3 only: a sequence-dictionary section follows the file header — block 0's
 # unpacked base codes, shared by every TAG_SLDM stream as an LDM prefix so
@@ -97,6 +97,10 @@ class FileHeader:
     def phred64(self) -> bool:
         return bool(self.flags & FLAG_PHRED64)
 
+    @property
+    def paired(self) -> bool:
+        return bool(self.flags & FLAG_PAIRED_END)
+
 
 def read_file_header(r: BinaryIO) -> FileHeader:
     """Read and validate a file header (container.go:48-67)."""
@@ -109,6 +113,16 @@ def read_file_header(r: BinaryIO) -> FileHeader:
     if len(rest) < 6:
         raise FormatError("truncated file header")
     version, block_size, flags = struct.unpack("<BIB", rest)
+    return FileHeader(version=version, block_size=block_size, flags=flags)
+
+
+def parse_file_header(buf: bytes) -> FileHeader:
+    """A file header from the first ``FILE_HEADER_SIZE`` bytes of ``buf``."""
+    if len(buf) < FILE_HEADER_SIZE:
+        raise FormatError("truncated file header")
+    if buf[:4] != MAGIC:
+        raise FormatError("invalid magic bytes: not an FQZ file")
+    version, block_size, flags = struct.unpack("<BIB", buf[4:10])
     return FileHeader(version=version, block_size=block_size, flags=flags)
 
 

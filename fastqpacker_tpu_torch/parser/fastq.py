@@ -77,6 +77,17 @@ class RecordBlock:
             self.text, self.plus_starts, self.plus_lengths
         )
 
+    def record(self, i: int) -> tuple[bytes, bytes, bytes, bytes]:
+        """(header, sequence, plus, quality) bytes of record i."""
+        ln = int(self.lengths[i])
+        h, p = int(self.header_starts[i]), int(self.plus_starts[i])
+        return (
+            self.text[h : h + int(self.header_lengths[i])].tobytes(),
+            self.seq[i, :ln].tobytes(),
+            self.text[p : p + int(self.plus_lengths[i])].tobytes(),
+            self.qual[i, :ln].tobytes(),
+        )
+
 
 def _line_bounds(data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Start/end (exclusive, CR-stripped) offsets of complete lines."""

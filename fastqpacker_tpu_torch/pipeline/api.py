@@ -5,7 +5,8 @@ The port's copy of the option surface of ``fastqpacker_tpu/pipeline/api.py``
 quality encoding is detected from a fixed leading window and recorded as
 a file-wide flag, then blocks are encoded independently and written in
 input order. The pipelines themselves are in :mod:`.device` (v1/v2) and
-:mod:`.native` (v3).
+:mod:`.native` (v3); :func:`compress_paired` / :func:`decompress_paired`
+run them on R1/R2 mate files.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from __future__ import annotations
 import io
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import BinaryIO, Optional
 
 from ..format import container
 from ..ops import reference as refops
@@ -150,3 +152,72 @@ def ordered_map_write(w, jobs, fn, workers: int) -> None:
                 w.write(pending.pop(0).result())
         for fut in pending:
             w.write(fut.result())
+
+
+class _ChainedReader:
+    """Replays already-consumed head bytes, then continues on the stream."""
+
+    def __init__(self, head: bytes, rest: BinaryIO):
+        self._head = head
+        self._rest = rest
+
+    def read(self, n: int = -1) -> bytes:
+        if self._head:
+            if n < 0 or n >= len(self._head):
+                data, self._head = self._head, b""
+                if n < 0 or n > len(data):
+                    rem = self._rest.read(-1 if n < 0 else n - len(data))
+                    return data + rem
+                return data
+            data, self._head = self._head[:n], self._head[n:]
+            return data
+        return self._rest.read(n)
+
+
+def compress_paired(
+    r1: BinaryIO,
+    r2: BinaryIO,
+    w: BinaryIO,
+    opts: Optional[Options] = None,
+    device=None,
+) -> None:
+    """Compress R1/R2 mate files as one record-interleaved container
+    (R1[0], R2[0], R1[1], ...) with FLAG_PAIRED_END set, with the device
+    programs on ``device`` (default: the CUDA card). The interleaving
+    reader is not addressable, so the input streams."""
+    from ..utils import pairing
+    from . import device as pdevice
+
+    opts = opts or Options()
+    opts = replace(opts, flags=opts.flags | container.FLAG_PAIRED_END)
+    pdevice.compress_device(
+        pairing.InterleavedPairReader(r1, r2), w, opts, device=device
+    )
+
+
+def decompress_paired(
+    r: BinaryIO,
+    w1: BinaryIO,
+    w2: BinaryIO,
+    opts: Optional[DecompressOptions] = None,
+    device=None,
+) -> None:
+    """Split a paired-end container back into R1/R2 mate outputs, with the
+    device programs on ``device`` (default: the CUDA card). The container
+    is read through a reader that is not addressable, so its blocks take
+    the per-block routes (a failing zstd frame keeps libzstd's name where
+    the JAX package's per-block decoders keep it)."""
+    from ..ops.device import resolve_device
+    from ..utils import pairing
+    from . import device as pdevice
+
+    dev = resolve_device(device)
+    head = r.read(container.FILE_HEADER_SIZE)
+    fh = container.parse_file_header(head)
+    if not fh.paired:
+        raise container.FormatError(
+            "container is not paired-end (FlagPairedEnd not set)"
+        )
+    dw = pairing.DeinterleavingWriter(w1, w2)
+    pdevice.decompress_device(_ChainedReader(head, r), dw, opts, device=dev)
+    dw.close()

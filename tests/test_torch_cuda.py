@@ -989,3 +989,123 @@ def test_wctx_decode_geometry_owns_every_lane_once(model, order, lanes, cuda):
 def test_wctx_decode_geometry_refuses_lanes_outside_the_kernel(lanes, cuda):
     with pytest.raises(ValueError, match="no decode geometry"):
         cuda_kernels.wctx_decode_geometry(lanes, 16, 5)
+
+
+# ---------------------------------------------------------------------------
+# the CLI surfaces: check, cat (ranges), --pair
+# ---------------------------------------------------------------------------
+
+
+def _tags_per_block(comp: bytes) -> list[tuple[int, int]]:
+    """(seq tag, qual tag) of each block of a v3 container."""
+    r = io.BytesIO(comp)
+    fh = tfq.container.read_file_header(r)
+    rows = []
+    while (hdr := tfq.container.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(2)
+        payload = r.read(sum(sizes))
+        rows.append((payload[0], payload[sizes[0]]))
+    return rows
+
+
+def _check(path, device):
+    from fastqpacker_tpu_torch.cli import inspect as port_inspect
+
+    out = io.StringIO()
+    return port_inspect.check(str(path), out=out, device=device), out.getvalue()
+
+
+def test_check_and_cat_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """``check`` and ``cat`` on v2 and v3: the card's output equals the
+    CPU's, and the decode kernels launch for the covering blocks only (v2:
+    one dense decode per block; v3: one rANS decode per TAG_RANS stream,
+    CRC32 launched)."""
+    from fastqpacker_tpu_torch.pipeline import ranges
+
+    data = synth_fastq(6, seed=21, qual_model="walk")
+    for version, block in ((2, 5_000), (3, 5_000)):
+        path = tmp_path / f"v{version}.fqz"
+        comp = tfq.compress_bytes(data, tfq.Options(version=version, block_size=block),
+                                  device="cpu")
+        path.write_bytes(comp)
+        blocks = len(ranges.index_path(str(path)).entries)
+        assert blocks >= 3
+        cuda_kernels.reset_launches()
+        got = _check(path, cuda)
+        counts = cuda_kernels.launches.as_dict()
+        assert got == _check(path, "cpu") == (0, f"OK: decoded {len(data):,} bytes of FASTQ\n")
+        assert counts[cuda_kernels.DECODE] == blocks
+        if version == 3:
+            n_rans = sum((s == 0) + (q == 0) for s, q in _tags_per_block(comp))
+            assert counts[cuda_kernels.RANS_DECODE] == n_rans >= blocks
+            assert counts[cuda_kernels.CRC32] > 0
+        n = data.count(b"\n") // 4
+        for start, stop, covered in ((block - 3, block + 2, 2), (n - 1, n, 1), (5, 6, 1)):
+            cuda_kernels.reset_launches()
+            got = ranges.read_record_range(str(path), start, stop, device=cuda)
+            assert cuda_kernels.launches[cuda_kernels.DECODE] == covered
+            assert got == ranges.read_record_range(str(path), start, stop, device="cpu")
+        bad = bytearray(comp)
+        bad[len(bad) // 2] ^= 0xFF
+        path.write_bytes(bytes(bad))
+        rc, line = _check(path, cuda)
+        assert (rc, line) == _check(path, "cpu") and rc == 1
+        assert line.startswith("check FAILED: ")
+
+
+def test_mesh_container_cat_launches_for_the_covering_blocks_only(cuda, tmp_path):
+    """``cat`` of a ``--mesh`` container on the card: one ``fq_wctx_decode``
+    per TAG_WCTX stream of the covering blocks, nothing for the others; the
+    bytes equal the CPU's; ``check`` decodes every stream on the card."""
+    from fastqpacker_tpu_torch.pipeline import meshpipe, ranges
+
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(5400 * one / (1 << 20), read_len=100, seed=17,
+                       qual_model="phredwalk", seq_model="markov")
+    comp = meshpipe.compress_mesh_bytes(data, tfq.Options(block_size=1800), [cuda])
+    path = tmp_path / "m.fqz"
+    path.write_bytes(comp)
+    wctx = [(s == 6) + (q == 6) for s, q in _tags_per_block(comp)]
+    assert len(wctx) == 3 and all(wctx)
+    for start, stop, covering in ((1795, 1805, (0, 1)), (3700, 3701, (2,))):
+        cuda_kernels.reset_launches()
+        got = ranges.read_record_range(str(path), start, stop, device=cuda)
+        assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] == sum(wctx[i] for i in covering)
+        assert cuda_kernels.launches[cuda_kernels.DECODE] == len(covering)
+        assert got == ranges.read_record_range(str(path), start, stop, device="cpu")
+    cuda_kernels.reset_launches()
+    assert _check(path, cuda) == (0, f"OK: decoded {len(data):,} bytes of FASTQ\n")
+    assert cuda_kernels.launches[cuda_kernels.WCTX_DECODE] == sum(wctx)
+
+
+@pytest.mark.parametrize("version", [2, 3])
+def test_paired_on_the_card_equals_the_cpu(version, cuda):
+    """``compress_paired`` / ``decompress_paired`` on the card: the same
+    container as the CPU's, the two mate files back, one dense encode and
+    one dense decode per block."""
+    from fastqpacker_tpu_torch.pipeline import api
+
+    data = synth_fastq(4, seed=23, qual_model="walk")
+    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)[3::4] + 1
+    recs = np.split(np.frombuffer(data, np.uint8), nl[:-1])
+    recs = recs[: len(recs) // 2 * 2]
+    r1 = b"".join(r.tobytes() for r in recs[0::2])
+    r2 = b"".join(r.tobytes() for r in recs[1::2])
+    opts = tfq.Options(version=version, block_size=5_000)
+    comps = {}
+    for dev in (cuda, "cpu"):
+        cuda_kernels.reset_launches()
+        out = io.BytesIO()
+        api.compress_paired(io.BytesIO(r1), io.BytesIO(r2), out, opts, device=dev)
+        comps[str(dev)] = (out.getvalue(), cuda_kernels.launches.as_dict())
+    comp, counts = comps[str(cuda)]
+    assert comp == comps["cpu"][0]
+    blocks = len(_tags_per_block(comp))
+    assert counts[cuda_kernels.ENCODE] == blocks
+    if version == 3:
+        assert counts[cuda_kernels.RANS_ENCODE] == counts[cuda_kernels.RANS_COMPACT] >= blocks
+    cuda_kernels.reset_launches()
+    w1, w2 = io.BytesIO(), io.BytesIO()
+    api.decompress_paired(io.BytesIO(comp), w1, w2, device=cuda)
+    assert (w1.getvalue(), w2.getvalue()) == (r1, r2)
+    assert cuda_kernels.launches[cuda_kernels.DECODE] == blocks
