@@ -89,7 +89,26 @@ Phases, each fatal on failure:
    per block and on v3 one rANS encode and compaction per ``TAG_RANS``
    stream; and ``fqscramble`` (host only) on 2 MiB against
    ``gopcg.scramble_text``. Each kernel's row of the JSON line gains
-   ``launches_surfaces``, its count in each of those runs.
+   ``launches_surfaces``, its count in each of those runs;
+9. several cards and several hosts (``phase=parallel``), on the corpora of
+   phases 4, 5 and 7, on four shard devices: the first four cards, or the one
+   card listed four times (then ``multi_card=not_measured``).
+   ``encode_blocks_parallel`` / ``decode_sharded`` on four shards of 37,500 x
+   151 rows of the v2 corpus: arrays and offsets equal to the CPU's (plain
+   versions on four CPU entries), the round trip exact, one dense encode and
+   decode per shard; ``entropy_encode_sharded`` / ``entropy_decode_sharded``
+   on the four quality-delta rows at 256 lanes and at the tier
+   ``rans._pick_lanes`` gives: totals, offsets, a shard's words decoding as a
+   standalone stream, the round trip. The ``--mesh`` corpus as one round of
+   four blocks through the four shard devices with a worker thread per entry
+   and on the calling thread: equal containers, both round trips, wall
+   seconds each. Two processes in a gloo group on ``127.0.0.1``
+   (``compress_multihost`` then ``decompress_multihost`` of the v2 and the v3
+   corpus; each prints its seconds and launches): the file equal to
+   ``simulate_multihost(..., 2)`` on the card, its decode equal to the input,
+   MB/s per direction; each host's section of a 4 MiB slice equal to the
+   CPU's; four simulated hosts on one card decode to the input. Each kernel's
+   row of the JSON line gains ``launches_parallel``.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -100,6 +119,7 @@ Usage: python3 chip_smoke.py [--mb 96] [--varlen-mb 16] [--mesh-blocks 4] [--see
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import re
@@ -318,12 +338,14 @@ def copy_ms(nbytes: int, iters: int) -> float:
     return gpu_ms(lambda src, dst: dst.copy_(src), sets, iters)
 
 
-def device_ops(fn, sessions: int = 3) -> list[str]:
+def device_ops(fn, sessions: int = 8) -> list[str]:
     """Names of the device operations (kernels, copies, fills) that one
-    call of ``fn`` runs, from ``torch.profiler``: the fullest of
-    ``sessions`` profiled calls (in a long process a session can miss some
-    or all of its kernels; it never adds any)."""
+    call of ``fn`` runs, from ``torch.profiler``: the fullest of up to
+    ``sessions`` profiled calls, stopping once two sessions have seen the
+    same non-empty list (in a long process a session can miss some or all
+    of its kernels, even three in a row; it never adds any)."""
     fullest: list[str] = []
+    seen = 0
     for _ in range(sessions):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -331,7 +353,12 @@ def device_ops(fn, sessions: int = 3) -> list[str]:
             torch.cuda.synchronize()
         ops = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
                for _ in range(e.count)]
-        fullest = max(fullest, ops, key=len)
+        if ops and len(ops) == len(fullest):
+            seen += 1
+        elif len(ops) > len(fullest):
+            fullest, seen = ops, 1
+        if seen >= 2:
+            break
     return fullest
 
 
@@ -1485,6 +1512,326 @@ def phase_mesh(ft, ck, args) -> dict:
     return {"compress": c_counts, "decompress": d_counts, "qual": qual0, **kept}
 
 
+# ---------------------------------------------------------------------------
+# several cards in one process, several hosts
+# ---------------------------------------------------------------------------
+
+SHARD_RECORDS = 37_500  # one v2 block of the iid151 corpus per shard
+SHARD_COUNT = 4
+HOSTS = 2
+IDENTITY_SLICE = 4 << 20  # bytes of input whose sections the CPU recomputes
+
+_HOST_WORKER = r"""
+import json, sys, time
+rank, nproc, port, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+import fastqpacker_tpu_torch as ft
+from fastqpacker_tpu_torch.ops import build, cuda_kernels as ck
+from fastqpacker_tpu_torch.parallel import multihost as mh
+from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+mh.init_distributed(f"127.0.0.1:{port}", nproc, rank, timeout=300)
+dev = mh.process_device()
+build.load_all()
+ft.decompress_bytes(ft.compress_bytes(synth_fastq(1, seed=rank), device=dev), device=dev)
+for job in json.loads(sys.argv[5]):
+    opts = ft.Options(version=job["version"])
+    dist.barrier()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mh.compress_multihost(job["input"], job["output"], opts, device=dev)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    compress_launches = ck.launches.as_dict()
+    dist.barrier()  # every section is on disk
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    mh.decompress_multihost(job["output"], job["output"] + ".fq", device=dev)
+    torch.cuda.synchronize()
+    decompress_s = time.perf_counter() - t0
+    print(json.dumps({"rank": rank, "device": str(dev), "run": job["label"],
+                      "compress_s": compress_s, "decompress_s": decompress_s,
+                      "compress_launches": compress_launches,
+                      "decompress_launches": ck.launches.as_dict()}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_mesh(count: int) -> list:
+    """Four shard devices: the first four cards, or the one card four times."""
+    if count >= SHARD_COUNT:
+        return [torch.device("cuda", i) for i in range(SHARD_COUNT)]
+    return [torch.device("cuda", 0)] * SHARD_COUNT
+
+
+def parallel_arrays(ft, ck, pmesh, data: bytes, mesh) -> dict:
+    """``encode_blocks_parallel`` / ``decode_sharded`` on four shards of
+    37,500 x 151 rows, and the sharded order-0 rANS on their quality-delta
+    rows, against the CPU (plain versions on four CPU entries)."""
+    from fastqpacker_tpu_torch.ops import rans
+    from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser
+
+    blk = next(FastqStreamParser(io.BytesIO(data), block_size=SHARD_COUNT * SHARD_RECORDS).blocks())
+    check(blk.n == SHARD_COUNT * SHARD_RECORDS and blk.max_len == READ_LEN, "shard rows")
+    seq, qual, lengths = blk.seq, blk.qual, blk.lengths.astype(np.int32)
+    cpu = pmesh.make_mesh(SHARD_COUNT, device="cpu")
+    encs, offsets = pmesh.encode_blocks_parallel(seq, qual, lengths, 33, mesh)  # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    encs, offsets = pmesh.encode_blocks_parallel(seq, qual, lengths, 33, mesh)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    shard_lengths = pmesh.shard_rows(lengths, mesh)
+    t0 = time.perf_counter()
+    s, q = pmesh.decode_sharded([e.packed for e in encs], [e.qual_delta for e in encs],
+                                shard_lengths, qual_offset=33, mesh=mesh)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = ck.launches.as_dict()
+    launches = {"arrays_dense": counts}
+    check(counts[ck.ENCODE] == SHARD_COUNT and counts[ck.DECODE] == SHARD_COUNT,
+          "parallel: one dense encode and one decode per shard")
+    check(all(e.packed.device == dev for e, dev in zip(encs, mesh)), "shards on their devices")
+    got = pmesh.gather_encoded(encs)
+    want_encs, want_offsets = pmesh.encode_blocks_parallel(seq, qual, lengths, 33, cpu)
+    want = pmesh.gather_encoded(want_encs)
+    check(all(np.array_equal(getattr(got, f), getattr(want, f))
+              for f in ("packed", "nmask_bits", "n_counts", "qual_delta")),
+          "parallel: sharded dense encode byte-equal to the CPU")
+    check(np.array_equal(offsets, want_offsets) and offsets.dtype == np.int64,
+          "parallel: offsets equal to the CPU's")
+    l64 = lengths.astype(np.int64).reshape(SHARD_COUNT, SHARD_RECORDS)
+    per = ((l64 + 3) // 4).sum(axis=1) + l64.sum(axis=1) + 4 * SHARD_RECORDS
+    check(np.array_equal(offsets, np.cumsum(per) - per), "parallel: offsets are the prefix")
+    base = np.where(np.isin(seq, np.frombuffer(b"ACGT", np.uint8)), seq, ord("A"))
+    check(np.array_equal(pmesh.gather_rows(s), base) and np.array_equal(pmesh.gather_rows(q), qual),
+          "parallel: decode_sharded round trip")
+    mb = (seq.nbytes + qual.nbytes) / 1e6
+    print(f"phase=parallel arrays devices={[str(d) for d in mesh]} shards={SHARD_COUNT}x"
+          f"{SHARD_RECORDS}x{READ_LEN} encode_s={t_enc:.6f} decode_s={t_dec:.6f} "
+          f"encode_MBps={mb / t_enc:.2f} decode_MBps={mb / t_dec:.2f} "
+          f"offsets={offsets.tolist()} launches={json.dumps(counts, sort_keys=True)} "
+          f"byte_equal_to_cpu=true round_trip=true")
+
+    streams = np.stack([e.qual_delta.cpu().numpy().reshape(-1) for e in encs])
+    m = streams.shape[1]
+    for lanes in sorted({256, rans._pick_lanes(m)}):
+        freq_cum, pad_sym = pmesh.entropy_table(streams, lanes=lanes)
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        enc = pmesh.entropy_encode_sharded(streams, freq_cum, mesh=mesh, pad_sym=pad_sym,
+                                           m_per_shard=m, lanes=lanes)
+        t_e = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = pmesh.entropy_decode_sharded(enc.words, enc.states, freq_cum, mesh=mesh,
+                                           m_per_shard=m, lanes=lanes)
+        back = pmesh.gather_rows(out).reshape(SHARD_COUNT, m)
+        t_d = time.perf_counter() - t0
+        counts = launches[f"arrays_rans_{lanes}_lanes"] = ck.launches.as_dict()
+        check(np.array_equal(back, streams), f"parallel: sharded rANS round trip at {lanes} lanes")
+        check(counts[ck.RANS_ENCODE] == counts[ck.RANS_COMPACT] == counts[ck.RANS_DECODE]
+              == SHARD_COUNT, f"parallel: one rANS encode, compaction, decode per shard")
+        check(np.array_equal(enc.offsets, np.cumsum(enc.totals) - enc.totals),
+              "parallel: word offsets are the prefix of the totals")
+        # each shard's words and states are those of a standalone stream of
+        # that row with the group's table
+        for k in (0, SHARD_COUNT - 1):
+            payload = rans.assemble_payload(
+                m, lanes, freq_cum[0].astype(np.uint16),
+                enc.states[k].cpu().numpy().view(np.uint32),
+                enc.words[k][: int(enc.totals[k])].cpu().numpy().view(np.uint16))
+            check(rans.decode_stream(payload, device=mesh[k]) == streams[k].tobytes(),
+                  "parallel: a shard's words decode as a standalone stream")
+        mb = streams.nbytes / 1e6
+        print(f"phase=parallel entropy lanes={lanes} m_per_shard={m} totals={enc.totals.tolist()} "
+              f"offsets={enc.offsets.tolist()} encode_s={t_e:.6f} decode_s={t_d:.6f} "
+              f"encode_MBps={mb / t_e:.2f} decode_MBps={mb / t_d:.2f} "
+              f"launches={json.dumps(counts, sort_keys=True)} round_trip=true")
+    return launches
+
+
+@contextlib.contextmanager
+def single_thread(pmesh):
+    """``for_each_device`` on the calling thread (the dispatch without the
+    per-device worker threads), for a comparison in one run."""
+    orig = pmesh.for_each_device
+    pmesh.for_each_device = lambda m, f, items, threads=None: orig(m, f, items, False)
+    try:
+        yield
+    finally:
+        pmesh.for_each_device = orig
+
+
+def parallel_threads(ft, ck, pmesh, data: bytes, mesh) -> dict:
+    """The ``--mesh`` round of four 100,000-record blocks through the one
+    card listed four times (or four cards), with a worker thread per entry
+    and on the calling thread: the same container and wall seconds."""
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    v3 = ft.Options(version=ft.container.VERSION_3_NATIVE)
+    runs, launches = {}, {}
+    for how in ("threads", "one_thread"):
+        ctx = single_thread(pmesh) if how == "one_thread" else contextlib.nullcontext()
+        with ctx:
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            comp = meshpipe.compress_mesh_bytes(data, v3, mesh)
+            torch.cuda.synchronize()
+            t_c = time.perf_counter() - t0
+            c_counts = ck.launches.as_dict()
+            out = io.BytesIO()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            meshpipe.decompress_mesh(io.BytesIO(comp), out, mesh)
+            torch.cuda.synchronize()
+            t_d = time.perf_counter() - t0
+            d_counts = ck.launches.as_dict()
+        check(out.getvalue() == data, f"parallel: mesh d=4 round trip ({how})")
+        runs[how] = comp
+        launches[f"mesh_round_{how}"] = {k: c_counts[k] + d_counts[k] for k in c_counts}
+        mb = len(data) / 1e6
+        print(f"phase=parallel mesh_round dispatch={how} devices={[str(d) for d in mesh]} "
+              f"input_bytes={len(data)} container_bytes={len(comp)} compress_s={t_c:.4f} "
+              f"decompress_s={t_d:.4f} compress_MBps={mb / t_c:.2f} "
+              f"decompress_MBps={mb / t_d:.2f} wctx_encode_launches={c_counts[ck.WCTX_ENCODE]} "
+              f"wctx_decode_launches={d_counts[ck.WCTX_DECODE]} round_trip=true")
+    check(runs["threads"] == runs["one_thread"],
+          "parallel: the threaded mesh container equals the one-thread container")
+    print("phase=parallel mesh_round containers_equal=true")
+    return launches
+
+
+def parallel_hosts(ft, ck, corpora: dict, workdir: Path) -> dict:
+    """Two processes in a gloo group on one machine (both on the card when
+    there is one), ``compress_multihost`` then ``decompress_multihost`` of
+    each corpus; the simulation, the CPU, and more hosts than cards."""
+    from fastqpacker_tpu_torch.parallel import multihost as mh
+
+    jobs, inputs = [], {}
+    for label, (version, data) in corpora.items():
+        src = workdir / f"{label}.fq"
+        src.write_bytes(data)
+        inputs[label] = (src, version, data)
+        jobs.append({"label": label, "version": version, "input": str(src),
+                     "output": str(workdir / f"{label}_{HOSTS}hosts.fqz")})
+    root = Path(__file__).resolve().parent
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HOST_WORKER, str(rank), str(HOSTS), str(port), str(root),
+         json.dumps(jobs)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=root, text=True)
+        for rank in range(HOSTS)]
+    results, failed = [], None
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=420)
+            except subprocess.TimeoutExpired:
+                failed = f"host {rank} timed out"
+                break
+            if p.returncode != 0:
+                failed = f"host {rank} exited {p.returncode}: {err[-3000:]}"
+                break
+            results += [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(failed is None, f"parallel: {failed}")
+    launches = {}
+    for job in jobs:
+        label = job["label"]
+        src, version, data = inputs[label]
+        rows = sorted((r for r in results if r["run"] == label), key=lambda r: r["rank"])
+        check(len(rows) == HOSTS, f"parallel: every host reported {label}")
+        comp = Path(job["output"]).read_bytes()
+        check(Path(job["output"] + ".fq").read_bytes() == data,
+              f"parallel: {label} {HOSTS}-process decompress equals the input")
+        sim = workdir / f"{label}_sim.fqz"
+        mh.simulate_multihost(str(src), str(sim), HOSTS, ft.Options(version=version), device=DEV)
+        check(sim.read_bytes() == comp, f"parallel: {label} {HOSTS}-process file equals the simulation")
+        sim.unlink()
+        for row in rows:
+            check(row["compress_launches"][ck.ENCODE] > 0 and row["decompress_launches"][ck.DECODE] > 0,
+                  f"parallel: host {row['rank']} ran the dense kernels on {label}")
+            if version == 3:
+                check(row["compress_launches"][ck.CRC32] > 0 and row["decompress_launches"][ck.CRC32] > 0,
+                      f"parallel: host {row['rank']} ran CRC32 on {label}")
+        t_c = max(r["compress_s"] for r in rows)
+        t_d = max(r["decompress_s"] for r in rows)
+        mb = len(data) / 1e6
+        launches[f"hosts_{label}"] = {
+            k: sum(r["compress_launches"][k] + r["decompress_launches"][k] for r in rows)
+            for k in rows[0]["compress_launches"]}
+        per_host = [{"rank": r["rank"], "device": r["device"], "compress_s": r["compress_s"],
+                     "decompress_s": r["decompress_s"],
+                     **{f"{d}_launches": {k: n for k, n in r[f"{d}_launches"].items() if n}
+                        for d in ("compress", "decompress")}}
+                    for r in rows]
+        print(f"phase=parallel hosts={HOSTS} run={label} input_bytes={len(data)} "
+              f"container_bytes={len(comp)} compress_s={t_c:.4f} decompress_s={t_d:.4f} "
+              f"compress_MBps={mb / t_c:.2f} decompress_MBps={mb / t_d:.2f} "
+              f"per_host={json.dumps(per_host, sort_keys=True)} "
+              f"equals_simulation=true round_trip=true")
+
+        # the card's sections against the CPU's on a small slice
+        cut = data.rfind(b"\n@", 0, IDENTITY_SLICE) + 1
+        small = workdir / f"{label}_slice.fq"
+        small.write_bytes(data[:cut])
+        opts = ft.Options(version=version, workers=1)
+        for h, (a, b) in enumerate(mh.host_ranges(str(small), HOSTS)):
+            gpu = mh.compress_host_section(str(small), a, b, h, opts, 33, DEV)
+            cpu = mh.compress_host_section(str(small), a, b, h, opts, 33, "cpu")
+            check(gpu.payload == cpu.payload, f"parallel: {label} host {h} section equals the CPU's")
+        print(f"phase=parallel run={label} slice_bytes={cut} sections_equal_to_cpu=true")
+        small.unlink()
+
+    # more hosts than cards: four simulated hosts on the card
+    src, version, data = inputs["iid151_v2"]
+    four = workdir / "four_hosts.fqz"
+    t0 = time.perf_counter()
+    mh.simulate_multihost(str(src), str(four), 4, ft.Options(version=version), device=DEV)
+    back = workdir / "four_hosts.fq"
+    mh.simulate_multihost_decompress(str(four), str(back), 4, device=DEV)
+    check(back.read_bytes() == data, "parallel: four hosts on one card decode to the input")
+    print(f"phase=parallel hosts=4 run=iid151_v2 one_card=true wall_s={time.perf_counter() - t0:.4f} "
+          f"container_bytes={four.stat().st_size} decode_equals_two_process_decode=true")
+    return launches
+
+
+def phase_parallel(ft, ck, args, count: int, v2_data: bytes, v3_data: bytes,
+                   mesh_data: bytes) -> dict:
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+
+    if count < 2:
+        print(f"phase=parallel multi_card=not_measured count={count}")
+    mesh = parallel_mesh(count)
+    arrays = parallel_arrays(ft, ck, pmesh, v2_data, mesh)
+    threads = parallel_threads(ft, ck, pmesh, mesh_data, mesh)
+    workdir = Path(__file__).resolve().parent / "fastqpacker_tpu_torch" / "_build" / "parallel"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        hosts = parallel_hosts(ft, ck, {"iid151_v2": (2, v2_data), "walk151_v3": (3, v3_data)},
+                               workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {**arrays, **threads, **hosts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=float, default=96)
@@ -1556,13 +1903,15 @@ def main() -> int:
 
     mesh_run = phase_mesh(ft, ck, args)
 
+    mesh_data = mesh_run.pop("data")
     surfaces = phase_surfaces(ft, ck, {
         "v2": (v2_label, v2_data, main_launches.pop("comp")),
         "v3": (v3_label, v3_data, v3_launches.pop("comp")),
         "mesh": (f"markov151_mesh_{args.mesh_blocks}x{BLOCK_RECORDS}",
-                 mesh_run.pop("data"), mesh_run.pop("comp")),
+                 mesh_data, mesh_run.pop("comp")),
     })
-    del v2_data, v3_data
+    parallel = phase_parallel(ft, ck, args, count, v2_data, v3_data, mesh_data)
+    del v2_data, v3_data, mesh_data
 
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
@@ -1641,6 +1990,7 @@ def main() -> int:
     for name, launches, err, (kms, pms, bound_ms, bound_by, lms, steps), extra in rows:
         check(launches > 0, f"{name} launched on a main path")
         extra["launches_surfaces"] = {run: counts[name] for run, counts in surfaces.items()}
+        extra["launches_parallel"] = {run: counts[name] for run, counts in parallel.items()}
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name,

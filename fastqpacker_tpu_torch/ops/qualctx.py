@@ -301,8 +301,10 @@ def _decode_chunk(
     sym_lo: int, state, words: np.ndarray,
     freq: np.ndarray, cum: np.ndarray, slot_sym: np.ndarray,
     model: int = 0,
-) -> None:
-    """Forward-decode records [rec_lo, rec_hi) into out_raw[sym_lo:]."""
+    zero_freq_fails: bool = False,
+) -> int:
+    """Forward-decode records [rec_lo, rec_hi) into out_raw[sym_lo:];
+    returns the number of words read."""
     # Python ints: numpy scalars would turn the slot compares into
     # np.bool_ (whose + is logical OR in numpy 2) and wrap at 32 bits
     xs = [int(v) for v in state]
@@ -325,6 +327,8 @@ def _decode_chunk(
             slot = x & (PROB_SCALE - 1)
             s = int(slot_sym[c, slot])
             f = int(freq[c, s])
+            if f == 0 and zero_freq_fails:
+                raise QctxError("qctx slot of a symbol with no frequency")
             cm = int(cum[c, s])
             x = f * (x >> PROB_BITS) + slot - cm
             if x < RANS_L:
@@ -337,6 +341,7 @@ def _decode_chunk(
             prev2 = prev
             prev = s
             j += 1
+    return wi
 
 
 def _slot_syms(freq: np.ndarray) -> np.ndarray:
@@ -414,8 +419,21 @@ def encode(delta: bytes | np.ndarray, lengths: np.ndarray) -> bytes:
     return encode_prepared(raw, lengths, hist)
 
 
-def decode(payload: bytes, lengths: np.ndarray) -> bytes:
-    """qctx payload + record lengths -> delta qual stream."""
+# The JAX package's whole-file decoder takes a table blob of at most this
+# many bytes, and only from a frame that declares its size.
+RUNTIME_BLOB_MAX = 1 << 23
+
+
+def decode(
+    payload: bytes, lengths: np.ndarray, runtime_checks: bool = False
+) -> bytes:
+    """qctx payload + record lengths -> delta qual stream.
+
+    ``runtime_checks``: also refuse what the JAX package's whole-file
+    decoder refuses and its per-block decoders pass on to the block CRC
+    (``fq_qctx_decode`` in its runtime): a table blob whose frame does not
+    declare a size of at most :data:`RUNTIME_BLOB_MAX`, a slot of a
+    symbol with no frequency, and words left over at the end of a chunk."""
     lengths = np.asarray(lengths, dtype=np.int64)
     buf = memoryview(payload)
     if len(buf) < 12:
@@ -434,6 +452,10 @@ def decode(payload: bytes, lengths: np.ndarray) -> bytes:
 
     from ..entropy import zstd as zstd_entropy
 
+    if runtime_checks:
+        declared = zstd_entropy.frame_content_size(bytes(buf[off : off + blob_size]))
+        if declared is None or declared > RUNTIME_BLOB_MAX:
+            raise QctxError("qctx table blob size not declared or too large")
     try:
         blob = zstd_entropy.get_codec().decompress(
             bytes(buf[off : off + blob_size])
@@ -474,10 +496,12 @@ def decode(payload: bytes, lengths: np.ndarray) -> bytes:
     rb, sb = chunk_bounds(lengths)
     raw = np.zeros(total, dtype=np.uint8)
     for k in range(NUM_CHUNKS):
-        _decode_chunk(
+        used = _decode_chunk(
             raw, lengths, rb[k], rb[k + 1], sb[k], states[k],
-            word_runs[k], freq, cum, slot_sym, model,
+            word_runs[k], freq, cum, slot_sym, model, runtime_checks,
         )
+        if runtime_checks and used != len(word_runs[k]):
+            raise QctxError("trailing qctx words")
     return deintegrate(raw, lengths)
 
 

@@ -1,32 +1,45 @@
-"""One block per device: the entropy stage over a list of devices.
+"""One block per device: the dense and entropy stages over a list of devices.
 
-The port of the stream-level functions of ``fastqpacker_tpu/parallel/mesh.py``.
-There a mesh is a 1-D ``jax.sharding.Mesh`` and a group of D streams is one
-``shard_map`` program; here a mesh is a **list of** ``torch.device`` of
-length D, and a group is one launch per device of the list, each on that
-device's CUDA stream, of the kernels of :mod:`..ops.cuda_kernels`
-(``fq_rans_encode`` + ``fq_rans_compact``, ``fq_rans_decode``,
-``fq_wctx_encode`` + ``fq_rans_compact``, ``fq_wctx_decode``). A device may
-stand in the list more than once. All of it runs in one process; the
-in-program ``all_gather`` of word counts of the JAX programs produces
-offsets that the stream APIs discard, so no collective is needed here.
+The port of ``fastqpacker_tpu/parallel/mesh.py``. There a mesh is a 1-D
+``jax.sharding.Mesh`` and a group of D blocks or streams is one ``shard_map``
+program; here a mesh is a **list of** ``torch.device`` of length D, and a group
+is one worker thread per CUDA entry of the list (:func:`for_each_device`), each
+preparing its entry's host arrays and launching the kernels of
+:mod:`..ops.cuda_kernels` on its own CUDA stream of its device
+(``fq_dense_encode`` / ``fq_dense_decode``, ``fq_rans_encode`` +
+``fq_rans_compact``, ``fq_rans_decode``, ``fq_wctx_encode`` +
+``fq_rans_compact``, ``fq_wctx_decode``). A device may stand in the list more
+than once: it then gets several threads and several streams. All of it runs in
+one process, so the in-program ``all_gather`` of the JAX programs is D scalars
+copied to the host, and their exclusive prefix is taken there (int64 where
+JAX's were int32; the values agree below 2 GiB per group). The multi-process
+exchange is :mod:`.multihost`'s.
 
 What a group shares is on the wire and is kept exactly: one rANS frequency
 table and lane count per group of order-0 streams, one context order and
 lane count per group of context-coded streams. A container written through
 a mesh of D devices therefore depends on D.
+
+Not carried: ``entropy_encode_sharded_raw``, ``wctx_encode_sharded`` and
+``wctx_decode_sharded`` emit the TPU's layouts (uncompacted emits with an emit
+bitmask for host compaction, int8 table planes). Their wire is computed on the
+card by :func:`entropy_encode_streams`, :func:`wctx_encode_streams` and
+:func:`wctx_decode_streams`, which compact on the device.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops import cuda_kernels
 from ..ops import device as devops
 from ..ops import rans, wctx
+from ..ops import reference as refops
 
 ENTROPY_LANES = 256
 
@@ -63,6 +76,66 @@ def _pick_smax(steps: int) -> int:
     return s
 
 
+def for_each_device(mesh, fn: Callable, items, threads: Optional[bool] = None) -> list:
+    """``fn(dev, item)`` for each device of ``mesh`` and its item (``None``
+    items give ``None``), the results in list order.
+
+    With ``threads`` (default: when the list has CUDA entries) each entry
+    runs on a worker thread of its own, with that entry's card as its current
+    device (the kernels' geometry queries read it) and ``fn`` on its own CUDA
+    stream (:func:`..ops.device.worker_stream`), so the cards, or the streams
+    of one card listed several times, prepare, launch and fetch at the same
+    time. Without, the entries run one after another on the calling thread
+    (the default for a CPU mesh: the plain coders only slow each other down
+    under threads). An exception of any entry is raised after all have
+    ended, the first in list order.
+
+    The streams are joined both ways on the card: an entry's stream first
+    waits for the work the caller's current stream had enqueued (its
+    inputs), and the caller's current stream then waits for the work each
+    entry enqueued, so its results can be read there (``.cpu()``) without
+    a host wait for work that is still in flight."""
+    items = list(items)
+    if len(items) != len(mesh):
+        raise ValueError(f"need {len(mesh)} items, got {len(items)}")
+    # a card named without an index is the calling thread's current one
+    cards = [
+        torch.device("cuda", torch.cuda.current_device())
+        if dev.type == "cuda" and dev.index is None else dev
+        for dev in mesh
+    ]
+    inputs_ready = {dev: torch.cuda.current_stream(dev).record_event()
+                    for dev in set(cards) if dev.type == "cuda"}
+
+    def run(dev, item):
+        if item is None:
+            return None, None
+        if dev.type != "cuda":
+            return fn(dev, item), None
+        with torch.cuda.device(dev), devops.worker_stream(dev):
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(inputs_ready[dev])
+            return fn(dev, item), stream.record_event()
+
+    live = sum(item is not None for item in items)
+    if threads is None:
+        threads = any(dev.type == "cuda" for dev in mesh)
+    if not threads or live <= 1:
+        out = [run(dev, item) for dev, item in zip(cards, items)]
+    else:
+        with ThreadPoolExecutor(max_workers=live) as pool:
+            futures = [pool.submit(run, dev, item) for dev, item in zip(cards, items)]
+            errors = [f.exception() for f in futures]
+        for e in errors:
+            if e is not None:
+                raise e
+        out = [f.result() for f in futures]
+    for dev, (_, done) in zip(cards, out):
+        if done is not None:
+            torch.cuda.current_stream(dev).wait_event(done)
+    return [result for result, _ in out]
+
+
 class _Launched:
     """Work enqueued on one device's stream: its handles, and the event
     that says the device has done it."""
@@ -81,6 +154,109 @@ class _Launched:
             self.event.synchronize()
         with devops.worker_stream(self.dev):
             return fn(self.handles, *args)
+
+
+# ---------------------------------------------------------------------------
+# The dense codec, one shard of rows per device
+# ---------------------------------------------------------------------------
+
+
+def shard_rows(a: np.ndarray, mesh) -> list[torch.Tensor]:
+    """Split the rows of a host ``(D*R, ...)`` array into D shards, each
+    copied to its device of ``mesh``. Uneven batches are refused."""
+    d = len(mesh)
+    if a.shape[0] % d != 0:
+        raise ValueError(f"batch rows {a.shape[0]} not divisible by {d} devices")
+    r = a.shape[0] // d
+    return for_each_device(
+        mesh, lambda dev, k: devops.to_device(dev, a[k * r : (k + 1) * r]), range(d))
+
+
+def gather_rows(shards) -> np.ndarray:
+    """The shards of :func:`shard_rows` (or of any sharded output) back in
+    one host array, in device order."""
+    return np.concatenate([t.cpu().numpy() for t in shards])
+
+
+def gather_encoded(encs: list[devops.DenseEncoded]) -> refops.EncodedArrays:
+    """The shards of :func:`encode_sharded` as one set of host arrays."""
+    return refops.EncodedArrays(*(gather_rows(field) for field in zip(*encs)))
+
+
+def _exclusive_prefix(sizes) -> np.ndarray:
+    sizes = np.asarray(sizes, np.int64)
+    return np.cumsum(sizes) - sizes
+
+
+def encode_sharded(
+    seq: list[torch.Tensor],
+    qual: list[torch.Tensor],
+    lengths: list[torch.Tensor],
+    *,
+    qual_offset: int,
+    mesh,
+) -> tuple[list[devops.DenseEncoded], np.ndarray]:
+    """The dense encode of one shard of R records per device, plus each
+    shard's file offset. ``seq`` / ``qual``: (R, L) uint8 and ``lengths``:
+    (R,) int32 per device of ``mesh``, each on its device (:func:`shard_rows`).
+
+    Each shard runs ``fq_dense_encode`` on its device and sums its raw
+    payload size there (packed bytes + quality bytes + 4 bytes per record,
+    ``sum((len+3)//4) + sum(len) + 4*R``); the D sizes come to the host and
+    their exclusive prefix is each shard's offset: where its block lands in
+    the file (the ordered collector, compress.go:365-403). Returns one
+    ``DenseEncoded`` per shard, on its device, and the (D,) int64 offsets."""
+    mesh = _resolve_mesh(mesh)
+    if not len(seq) == len(qual) == len(lengths) == len(mesh):
+        raise ValueError(f"need one shard per device of {len(mesh)}")
+
+    def encode(dev, k):
+        enc = cuda_kernels.encode_arrays(seq[k], qual[k], lengths[k], qual_offset)
+        n = lengths[k].to(torch.int64)
+        size = ((n + 3) // 4).sum() + n.sum() + 4 * n.numel()
+        return enc, int(size.item())
+
+    out = for_each_device(mesh, encode, range(len(mesh)))
+    return [enc for enc, _ in out], _exclusive_prefix([size for _, size in out])
+
+
+def decode_sharded(
+    packed: list[torch.Tensor],
+    qual_delta: list[torch.Tensor],
+    lengths: list[torch.Tensor],
+    *,
+    qual_offset: int,
+    mesh,
+) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """The dense decode of each shard on its device (``fq_dense_decode``):
+    (seq ASCII, qual ASCII) per shard, each on its device."""
+    mesh = _resolve_mesh(mesh)
+    if not len(packed) == len(qual_delta) == len(lengths) == len(mesh):
+        raise ValueError(f"need one shard per device of {len(mesh)}")
+    out = for_each_device(
+        mesh,
+        lambda dev, k: cuda_kernels.decode_arrays(
+            packed[k], qual_delta[k], lengths[k], qual_offset),
+        range(len(mesh)),
+    )
+    return [s for s, _ in out], [q for _, q in out]
+
+
+def encode_blocks_parallel(
+    seq: np.ndarray,
+    qual: np.ndarray,
+    lengths: np.ndarray,
+    qual_offset: int,
+    mesh=None,
+) -> tuple[list[devops.DenseEncoded], np.ndarray]:
+    """Host-facing helper: shard a host ``(D*R, L)`` batch over ``mesh``
+    (default: every card) and run :func:`encode_sharded`."""
+    mesh = _resolve_mesh(mesh)
+    return encode_sharded(
+        shard_rows(seq, mesh), shard_rows(qual, mesh),
+        shard_rows(np.asarray(lengths, np.int32), mesh),
+        qual_offset=qual_offset, mesh=mesh,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -171,21 +347,121 @@ def entropy_encode_streams(
     del batch
     freq = freq_cum[0].astype(np.uint16)
 
-    launched = [
-        _Launched(dev, rans.launch_encode, r, N, pad_sym, freq)
-        if len(r) else None
-        for dev, r in zip(mesh, rows)
-    ]
+    launched = for_each_device(
+        mesh, lambda dev, r: _Launched(dev, rans.launch_encode, r, N, pad_sym, freq),
+        [r if len(r) else None for r in rows],
+    )
 
     def finish() -> list[bytes]:
+        fetched = for_each_device(
+            mesh, lambda dev, job: job.fetch(rans.fetch_encoded), launched)
         return [
-            empty if job is None else rans.assemble_payload(
-                int(n), N, freq, *job.fetch(rans.fetch_encoded)
-            )
-            for job, n in zip(launched, lens)
+            empty if got is None else rans.assemble_payload(int(n), N, freq, *got)
+            for got, n in zip(fetched, lens)
         ]
 
     return finish if async_result else finish()
+
+
+class ShardedStreams(NamedTuple):
+    """What :func:`entropy_encode_sharded` returns."""
+
+    words: list[torch.Tensor]  # per shard (steps*N,) int16 on its device; [:total] valid
+    states: list[torch.Tensor]  # per shard (N,) int32 on its device
+    totals: np.ndarray  # (D,) int64 words per shard
+    offsets: np.ndarray  # (D,) int64 exclusive prefix of ``totals``
+
+
+def _raw_lens(raw_lens, d: int, m: int) -> np.ndarray:
+    lens = np.full(d, m, np.int64) if raw_lens is None else np.asarray(raw_lens, np.int64)
+    if len(lens) != d or (lens < 0).any() or (lens > m).any():
+        raise ValueError(f"need {d} stream lengths in [0, {m}]")
+    return lens
+
+
+def entropy_encode_sharded(
+    streams,
+    freq_cum: np.ndarray,
+    raw_lens: np.ndarray | None = None,
+    *,
+    mesh,
+    pad_sym: int,
+    m_per_shard: int,
+    lanes: int = ENTROPY_LANES,
+) -> ShardedStreams:
+    """Per-shard interleaved-lane rANS encode with a shared table, and each
+    shard's word offset: the entropy stage of the sharded compress step.
+
+    ``streams``: a host (D, M) uint8 array or D (M,) uint8 tensors, one per
+    device of ``mesh``; ``freq_cum``: (2, 256) from :func:`entropy_table`
+    (the pad cells counted). Shard d codes ``ceil(raw_lens[d]/N)`` steps of
+    its row (default M), as a standalone stream of that length would: the
+    cells of those steps past M are ``pad_sym``, the row must be padded with
+    it up to there. It runs ``fq_rans_encode`` and ``fq_rans_compact`` on its
+    device; the D word totals come to the host, and their exclusive prefix
+    is each shard's offset."""
+    mesh = _resolve_mesh(mesh)
+    d, n = len(mesh), lanes
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"lanes must be a power of two, got {n}")
+    lens = _raw_lens(raw_lens, d, m_per_shard)
+    fc = np.ascontiguousarray(freq_cum, np.uint32).astype(np.int32)
+    if not 0 <= pad_sym <= 255:
+        raise ValueError(f"pad_sym must be a byte, got {pad_sym}")
+
+    def encode(dev, k):
+        steps = -(-int(lens[k]) // n)
+        if steps == 0:
+            return (torch.zeros(0, dtype=torch.int16, device=dev),
+                    torch.full((n,), rans.RANS_L, dtype=torch.int32, device=dev), 0)
+        row = streams[k]
+        row = row if isinstance(row, torch.Tensor) else devops.to_device(dev, row)
+        words, flags, states = cuda_kernels.rans_encode(
+            row[: min(m_per_shard, steps * n)].contiguous(), steps, n, pad_sym,
+            devops.to_device(dev, fc))
+        flat, total = cuda_kernels.rans_compact(words, flags)
+        return flat, states, int(total.item())
+
+    out = for_each_device(mesh, encode, range(d))
+    totals = np.array([t for _, _, t in out], np.int64)
+    return ShardedStreams([w for w, _, _ in out], [s for _, s, _ in out], totals,
+                          _exclusive_prefix(totals))
+
+
+def entropy_decode_sharded(
+    words: list[torch.Tensor],
+    states: list[torch.Tensor],
+    freq_cum: np.ndarray,
+    raw_lens: np.ndarray | None = None,
+    *,
+    mesh,
+    m_per_shard: int,
+    lanes: int = ENTROPY_LANES,
+) -> list[torch.Tensor]:
+    """Per-shard rANS decode with the shared table, the inverse of
+    :func:`entropy_encode_sharded`: ``fq_rans_decode`` of
+    ``ceil(raw_lens[d]/N)`` steps (default M) on each shard's device.
+    Returns one (M,) uint8 tensor per shard; cells past a shard's coded
+    steps are 0."""
+    mesh = _resolve_mesh(mesh)
+    d, n = len(mesh), lanes
+    lens = _raw_lens(raw_lens, d, m_per_shard)
+    freq = np.asarray(freq_cum)[0].astype(np.uint16)
+    if int(freq.astype(np.int64).sum()) != rans.PROB_SCALE:
+        raise rans.RansError("invalid rANS frequency table")
+    slot_tab = rans.pack_slot_table(freq).view(np.int32)
+
+    def decode(dev, k):
+        out = torch.zeros(m_per_shard, dtype=torch.uint8, device=dev)
+        steps = -(-int(lens[k]) // n)
+        if steps:
+            sym, _ = cuda_kernels.rans_decode(
+                words[k], states[k], devops.to_device(dev, slot_tab), steps, n)
+            m = min(m_per_shard, steps * n)
+            out[:m] = sym[:m]
+        return out
+
+    return for_each_device(mesh, decode, range(d))
 
 
 def entropy_decode_streams(
@@ -257,16 +533,12 @@ def entropy_decode_streams(
     if any(p is not None and len(p[4]) > w_cap for p in parsed):
         return None  # hostile word count beyond plausible; fall back
 
-    launched = [
-        None if p is None
-        else _Launched(dev, rans.launch_decode, p[4], p[3], freq, p[0], N)
-        for dev, p in zip(mesh, parsed)
-    ]
-    return [
-        b"" if job is None
-        else job.fetch(rans.fetch_decoded, p[0], len(p[4]))
-        for job, p in zip(launched, parsed)
-    ]
+    def decode(dev, p):
+        raw_len, _, _, states, words = p
+        return _Launched(dev, rans.launch_decode, words, states, freq, raw_len, N).fetch(
+            rans.fetch_decoded, raw_len, len(words))
+
+    return [b"" if out is None else out for out in for_each_device(mesh, decode, parsed)]
 
 
 # ---------------------------------------------------------------------------
@@ -333,33 +605,24 @@ def wctx_encode_streams(
         wctx.pick_lanes_for(j[2], len(j[0])) for j in jobs if j
     )
 
-    preps = [
-        _wctx_block_prep(j[0], j[1], j[2], model, order, N) if j else None
-        for j in jobs
-    ]
-    launched = [
-        None if p is None else _Launched(
-            dev, wctx.launch_encode, p["sym_idx"], p["ctxm"], p["seg"],
+    def prep_and_launch(dev, job):
+        p = _wctx_block_prep(job[0], job[1], job[2], model, order, N)
+        launched = _Launched(
+            dev, wctx.launch_encode, p.pop("sym_idx"), p.pop("ctxm"), p["seg"],
             p["freq_p"],
-        )
-        for dev, p in zip(mesh, preps)
-    ]
-    for p in preps:
-        if p is not None:  # the matrices are on their device now
-            del p["sym_idx"], p["ctxm"]
+        )  # the matrices are on their device now
+        return p, launched
+
+    started = for_each_device(mesh, prep_and_launch, jobs)
 
     def finish():
-        out: list[bytes | None] = []
-        for job, p in zip(launched, preps):
-            if p is None:
-                out.append(None)
-                continue
-            words, states = job.fetch(wctx.fetch_encoded)
-            out.append(wctx.assemble_payload(
-                model, order, N, p["n"], p["present"], p["freq_p"],
-                states, words,
-            ))
-        return out
+        def fetch(dev, pl):
+            p, launched = pl
+            words, states = launched.fetch(wctx.fetch_encoded)
+            return wctx.assemble_payload(
+                model, order, N, p["n"], p["present"], p["freq_p"], states, words)
+
+        return for_each_device(mesh, fetch, started)
 
     return finish if async_result else finish()
 
@@ -409,17 +672,11 @@ def wctx_decode_streams(
     if any(p is not None and len(p["words"]) > w_cap for p in parsed):
         return None  # hostile word count: per-stream fallback
 
-    launched = [
-        None if p is None or p["total"] == 0
-        else _Launched(dev, wctx.launch_decode, p, lens)
-        for dev, p, lens in zip(mesh, parsed, lens_l)
-    ]
-    res = []
-    for job, p in zip(launched, parsed):
-        if p is None:
-            res.append(None)
-        elif job is None:
-            res.append(np.zeros(0, np.uint8))
-        else:
-            res.append(job.fetch(wctx.fetch_decoded))
-    return res
+    def decode(dev, job):
+        p, lens = job
+        if p["total"] == 0:
+            return np.zeros(0, np.uint8)
+        return _Launched(dev, wctx.launch_decode, p, lens).fetch(wctx.fetch_decoded)
+
+    return for_each_device(
+        mesh, decode, [None if p is None else (p, lens) for p, lens in zip(parsed, lens_l)])

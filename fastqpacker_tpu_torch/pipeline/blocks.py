@@ -100,30 +100,58 @@ _RUNTIME_V3_TAGS = (
 )
 
 
+# What that decoder says when a tagged v3 stream fails to decode: one string
+# per codec, whatever the fault (``runtime/bindings.py:_mt_raise_decompress``).
+# A zstd frame that fails inside a TAG_TOK stream is PAYLOAD_ZSTD_ERROR there.
+RUNTIME_STREAM_ERRORS = {
+    container.TAG_RANS: "truncated or corrupted rANS stream",
+    container.TAG_TOK: "corrupted tokenized header stream",
+    container.TAG_QCTX: "corrupted qctx quality data",
+    container.TAG_SCTX: "corrupted sctx sequence data",
+    container.TAG_SLDM: "corrupted sldm sequence data",
+    container.TAG_WCTX: "corrupted wctx stream",
+}
+
+
 def _fault(msg: str):
     raise container.FormatError(msg)
 
 
-def _v3_raw_size(slot: int, tag: int, s, nrec: int):
+@contextlib.contextmanager
+def runtime_stream_errors(tag: int, mapped: bool):
+    """Raise a failure to decode a stream tagged ``tag`` as the JAX
+    package's whole-file decoder names it (:data:`RUNTIME_STREAM_ERRORS`)
+    when ``mapped``; else keep the per-block decoder's string. The caller
+    decides ``mapped`` once per file (:func:`runtime_walk`)."""
+    try:
+        yield
+    except (ValueError, ZstdError) as e:
+        if (not mapped or tag not in RUNTIME_STREAM_ERRORS
+                or (isinstance(e, ZstdError) and tag == container.TAG_TOK)):
+            raise
+        raise container.FormatError(RUNTIME_STREAM_ERRORS[tag]) from None
+
+
+def v3_stream_raw_size(slot: int, tag: int, s, nrec: int):
     """The decoded size the runtime's walk gives one v3 stream (``s``
     after its tag), None where it hands the file back; raises the faults
     the walk names."""
     if tag == container.TAG_QCTX:
         if len(s) < 12 or s[4] != _QCTX_CHUNKS or s[5] > 1:
-            _fault("corrupted qctx quality data")
+            _fault(RUNTIME_STREAM_ERRORS[tag])
         return struct.unpack_from("<I", s, 0)[0]
     if tag == container.TAG_SCTX:
         if len(s) < 12:
-            _fault("corrupted sctx sequence data")
+            _fault(RUNTIME_STREAM_ERRORS[tag])
         return struct.unpack_from("<I", s, 0)[0] // 4 + nrec
     if tag == container.TAG_WCTX:
         if len(s) < 8:
-            _fault("corrupted wctx stream")
+            _fault(RUNTIME_STREAM_ERRORS[tag])
         total = struct.unpack_from("<I", s, 4)[0]
         return total + total // 4 + nrec if slot == 0 else 2 * total
     if tag == container.TAG_RANS:
         if len(s) < 8:
-            _fault("truncated or corrupted rANS stream")
+            _fault(RUNTIME_STREAM_ERRORS[tag])
         return struct.unpack_from("<I", s, 0)[0]
     z = frame_content_size(s)  # zstd, TOK, SLDM: one zstd frame
     if z is not None and tag == container.TAG_SLDM:
@@ -170,7 +198,7 @@ def runtime_walk(body, version: int) -> bool:
                         return False
                     s = s[1:]
                 tok |= tag == container.TAG_TOK
-                z = _v3_raw_size(i, tag, s, nrec)
+                z = v3_stream_raw_size(i, tag, s, nrec)
             if z is None or z > _MAX_STREAM_RAW:
                 return False
             raw[i] = z

@@ -164,23 +164,29 @@ def compress_device(
     ).write(w)
     if not peeked:
         return
+    encode_blocks(w, chain(peeked, block_iter), qual_offset, opts, dev)
 
+
+def encode_blocks(
+    w: BinaryIO, blocks, qual_offset: int, opts: api.Options, dev: torch.device
+) -> None:
+    """Encode v1/v2 ``blocks`` (no file header) onto ``w`` in order: the
+    dense encode on ``dev``, stream assembly and zstd on a pool of
+    ``opts.workers`` threads."""
     st = _Staging(dev)
+    r_pad = api.resolve_block_size(opts)
     tasks = (
-        (
-            _finish_block,
-            blk,
-            _dispatch_encode(st, blk, qual_offset, block_size),
-            opts.version,
-        )
-        for blk in chain(peeked, block_iter)
+        (_finish_block, blk, _dispatch_encode(st, blk, qual_offset, r_pad), opts.version)
+        for blk in blocks
     )
     _ordered_write(w, tasks, api._resolve_workers(opts.workers))
 
 
-def _padded_decoder(st: _Staging, r_pad: int) -> blockcodec.DecodeArraysFn:
-    """The numpy-facing dense decode on ``st``'s device, with shape
-    bucketing (R padded to the block size, L to ``LEN_BUCKET``)."""
+def padded_decoder(dev: torch.device, r_pad: int) -> blockcodec.DecodeArraysFn:
+    """The numpy-facing dense decode on ``dev``, on a CUDA stream of its
+    own, with shape bucketing (R padded to the block size ``r_pad``, L to
+    ``LEN_BUCKET``)."""
+    st = _Staging(dev)
 
     def decode(packed, qual_delta, lengths, qual_offset):
         n, l = qual_delta.shape
@@ -259,8 +265,8 @@ def decompress_device(
         # route follows the device the caller gave (there is no transfer
         # probe); both give the same bytes. Dict/lossless containers and
         # non-addressable sources keep the per-block path. Both name a
-        # failing zstd frame as the JAX package's default decoder does for
-        # the whole file (api.runtime_decodes).
+        # failing zstd frame or tagged stream as the JAX package's default
+        # decoder does for the whole file (api.runtime_decodes).
         if dev.type == "cuda" and not (
             fh.flags & (container.FLAG_SEQ_DICT | container.FLAG_LOSSLESS)
         ):
@@ -270,7 +276,7 @@ def decompress_device(
                 if _first_block_wctx(view):
                     mapped = api.runtime_decodes(view, w, fh.version)
                     meshpipe.decompress_mesh(r, w, mesh=[dev], fh=fh,
-                                             map_zstd_errors=mapped)
+                                             runtime_errors=mapped)
                     return
         native.decompress_native(
             r, w, fh, qual_offset, api._resolve_workers(opts.workers), dev
@@ -284,7 +290,7 @@ def decompress_device(
         # v1/v2 name a failing frame per block either way; the JAX
         # runtime's first pass raises its faults before any block decodes
         api.runtime_decodes(view, w, fh.version)
-    decoder = _padded_decoder(_Staging(dev), max(int(fh.block_size), 1))
+    decoder = padded_decoder(dev, max(int(fh.block_size), 1))
 
     def decode_one(hdr, payload) -> bytes:
         mapped = blockcodec.frames_sized(hdr, payload, fh.version)

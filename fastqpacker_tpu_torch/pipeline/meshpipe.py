@@ -480,7 +480,7 @@ def compress_mesh_bytes(data: bytes, opts=None, mesh=None) -> bytes:
 
 
 def decompress_mesh(
-    r: BinaryIO, w: BinaryIO, mesh=None, fh=None, map_zstd_errors: bool = False
+    r: BinaryIO, w: BinaryIO, mesh=None, fh=None, runtime_errors: bool = False
 ) -> None:
     """Decompress an FQZ v3 container with the entropy stage batched over
     the devices of ``mesh``: groups of D consecutive blocks whose seq/qual
@@ -493,11 +493,12 @@ def decompress_mesh(
     CRC32 checks cover the batched output, so a wrong batch decode fails
     exactly like corrupt data.
 
-    A zstd frame of a block payload that fails keeps libzstd's name, as in
-    the JAX package's ``decompress_mesh``; ``map_zstd_errors`` (the route
-    of the default decoder, ``device.decompress_device``, which decides it
-    for the whole file) raises it as that decoder does
-    (``blocks.payload_zstd_errors``).
+    A zstd frame or a tagged stream of a block payload that fails keeps the
+    per-block decoders' string, as in the JAX package's ``decompress_mesh``;
+    ``runtime_errors`` (the route of the default decoder,
+    ``device.decompress_device``, which decides it for the whole file)
+    raises it as that decoder does (``blocks.payload_zstd_errors``,
+    ``blocks.runtime_stream_errors``).
     """
     # ``fh``: the caller (device.decompress_device's TAG_WCTX routing)
     # already consumed the file header from ``r``.
@@ -523,7 +524,7 @@ def decompress_mesh(
     codec = zstd_entropy.get_codec()
 
     def zstd_errors():
-        return blockcodec.payload_zstd_errors(map_zstd_errors)
+        return blockcodec.payload_zstd_errors(runtime_errors)
 
     def read_group():
         group = []
@@ -573,10 +574,11 @@ def decompress_mesh(
                 payloads = [c[1:] for c in chunks] + [empty] * (
                     d - len(group)
                 )
-                try:
-                    decoded = pmesh.entropy_decode_streams(payloads, mesh)
-                except rans.RansError as e:
-                    raise container.FormatError(str(e)) from None
+                with blockcodec.runtime_stream_errors(native.TAG_RANS, runtime_errors):
+                    try:
+                        decoded = pmesh.entropy_decode_streams(payloads, mesh)
+                    except rans.RansError as e:
+                        raise container.FormatError(str(e)) from None
                 if decoded is None:
                     continue  # mixed tables/lanes: per-block path
                 for i in range(len(group)):
@@ -586,33 +588,34 @@ def decompress_mesh(
                 # whole group's TAG_WCTX streams
                 if lens_cache is None:
                     lens_cache = group_lengths(group)
-                try:
-                    flats = pmesh.wctx_decode_streams(
-                        [c[1:] for c in chunks], lens_cache, mesh
-                    )
-                except wctx.WctxError as e:
-                    raise container.FormatError(str(e)) from None
-                if flats is None:
-                    continue  # mixed models/lanes: per-block path
-                for i, flat in enumerate(flats[: len(group)]):
-                    if flat is None:
-                        continue
-                    model = chunks[i][1]
-                    if model == wctx.MODEL_SEQ:
-                        pre[i][slot] = seqctx.pack_stream(
-                            flat, lens_cache[i]
-                        ).tobytes()
-                    else:
-                        pre[i][slot] = native._raw_to_delta(
-                            flat, lens_cache[i]
+                with blockcodec.runtime_stream_errors(native.TAG_WCTX, runtime_errors):
+                    try:
+                        flats = pmesh.wctx_decode_streams(
+                            [c[1:] for c in chunks], lens_cache, mesh
                         )
+                    except wctx.WctxError as e:
+                        raise container.FormatError(str(e)) from None
+                    if flats is None:
+                        continue  # mixed models/lanes: per-block path
+                    for i, flat in enumerate(flats[: len(group)]):
+                        if flat is None:
+                            continue
+                        model = chunks[i][1]
+                        if model == wctx.MODEL_SEQ:
+                            pre[i][slot] = seqctx.pack_stream(
+                                flat, lens_cache[i]
+                            ).tobytes()
+                        else:
+                            pre[i][slot] = native._raw_to_delta(
+                                flat, lens_cache[i]
+                            )
             # other/mixed codec tags in this group: per-block path
         with devops.worker_stream(dev):
             for (hdr, payload), p in zip(group, pre):
                 with zstd_errors():
                     text = native.decode_block_payload(
                         hdr, payload, codec, qual_offset, dev,
-                        predecoded=p or None,
+                        predecoded=p or None, runtime=runtime_errors,
                     )
                 w.write(text)
         if len(group) < d:

@@ -258,7 +258,10 @@ def _decode_tagged(
     count: int = 0,
     lengths=None,
     seq_dict=None,
+    runtime: bool = False,
 ) -> bytes:
+    """Decode one tagged stream; ``runtime``: with the qctx checks of the
+    JAX package's whole-file decoder."""
     if len(chunk) == 0:
         raise container.FormatError("truncated block payload")
     tag, payload = chunk[0], chunk[1:]
@@ -277,7 +280,7 @@ def _decode_tagged(
                 "qctx stream outside the quality slot"
             )
         try:
-            return qualctx.decode(payload, lengths)
+            return qualctx.decode(payload, lengths, runtime_checks=runtime)
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     if tag == TAG_SCTX:
@@ -631,6 +634,16 @@ def compress_native(
     )
 
 
+def _declares_nothing(slot: int, chunk: bytes, nrec: int) -> bool:
+    """Whether the JAX package's whole-file decoder leaves tagged stream
+    ``chunk`` empty, for the block CRC to judge: an empty slot, or a stream
+    header that declares no decoded bytes (bar TAG_TOK)."""
+    return not chunk or (
+        chunk[0] != TAG_TOK
+        and blockcodec.v3_stream_raw_size(slot, chunk[0], chunk[1:], nrec) == 0
+    )
+
+
 def decode_block_payload(
     hdr: container.BlockHeader,
     payload: bytes,
@@ -640,13 +653,17 @@ def decode_block_payload(
     seq_dict: np.ndarray | None = None,
     lossless: bool = False,
     predecoded: dict | None = None,
+    runtime: bool = False,
 ) -> bytes:
     """Decode one v3 block payload (streams after the header) to FASTQ
     text, verifying the block CRC32, with the device programs on
     ``dev``. ``predecoded`` maps stream slots (0=seq, 1=qual) to raw bytes
     already entropy-decoded elsewhere (the batch decoder of
     pipeline/meshpipe.py); the CRC check below still covers them, so a
-    wrong batched decode fails exactly like corrupt data."""
+    wrong batched decode fails exactly like corrupt data. ``runtime``: a
+    tagged stream fails as the JAX package's whole-file decoder says
+    (:func:`.blocks.runtime_stream_errors`), decided for the file by the
+    caller (:func:`.api.runtime_decodes`)."""
     sizes = hdr.stream_sizes(container.VERSION_2)
     if len(payload) < sum(sizes):
         raise container.FormatError("truncated block payload")
@@ -668,20 +685,17 @@ def decode_block_payload(
             parts.append(codec.decompress(chunk))
         elif predecoded is not None and i in predecoded:
             parts.append(predecoded[i])
-        elif i == 0:
-            # the sequence slot may reference the container dictionary
-            parts.append(
-                _decode_tagged(
-                    chunk, codec, dev, hdr.num_records, lengths, seq_dict
-                )
-            )
-        elif i == 1:
-            # quality context codecs need record boundaries
-            parts.append(
-                _decode_tagged(chunk, codec, dev, hdr.num_records, lengths)
-            )
+        elif runtime and _declares_nothing(i, chunk, hdr.num_records):
+            parts.append(b"")
         else:
-            parts.append(_decode_tagged(chunk, codec, dev, hdr.num_records))
+            # the sequence and quality context codecs need record
+            # boundaries; the sequence slot may reference the dictionary
+            with blockcodec.runtime_stream_errors(chunk[0] if chunk else -1, runtime):
+                parts.append(_decode_tagged(
+                    chunk, codec, dev, hdr.num_records,
+                    lengths if i < 2 else None, seq_dict if i == 0 else None,
+                    runtime,
+                ))
     if _crc_streams(parts, dev) != hdr.crc32:
         raise container.FormatError("block CRC32 mismatch: corrupted data")
     npos_full = np.frombuffer(parts[4], np.uint8)
@@ -737,12 +751,16 @@ def decompress_native(
     qual_offset: int,
     workers: int,
     device=None,
+    seq_dict: np.ndarray | None = None,
+    skip_sections: bool = False,
 ) -> None:
     """Decompress the blocks of a v3 container whose file header ``fh``
-    has been read from ``r``, with the device programs on ``device``."""
+    has been read from ``r``, with the device programs on ``device``.
+    ``skip_sections``: the caller has consumed the file's sections already
+    (the multi-host stripe reader starts mid-file) and passes the decoded
+    ``seq_dict`` itself."""
     dev = devops.resolve_device(device)
-    seq_dict = None
-    if fh.flags & container.FLAG_SEQ_DICT:
+    if not skip_sections and fh.flags & container.FLAG_SEQ_DICT:
         raw_len, comp = container.read_seq_dict_section(r)
         try:
             seq_dict = sldm.decompress_dict(comp, raw_len)
@@ -750,11 +768,12 @@ def decompress_native(
             raise container.FormatError(str(e)) from None
 
     lossless = bool(fh.flags & container.FLAG_LOSSLESS)
-    # A failing zstd frame is named as the JAX package's default decoder
-    # names it, decided once for the file: its runtime takes an addressable,
-    # non-lossless body whose first pass finds nothing to hand back, and
-    # names the failure PAYLOAD_ZSTD_ERROR; its Python decoder, which has
-    # the rest, keeps libzstd's name.
+    # A failing zstd frame or tagged stream is named as the JAX package's
+    # default decoder names it, decided once for the file: its runtime takes
+    # an addressable, non-lossless body whose first pass finds nothing to
+    # hand back, and names the failure PAYLOAD_ZSTD_ERROR or its codec's
+    # string; its Python decoder, which has the rest, keeps the per-block
+    # decoders' strings.
     mapped = False
     if not lossless and (view := source_view(r)) is not None:
         r = io.BytesIO(view)
@@ -775,7 +794,7 @@ def decompress_native(
         with devops.worker_stream(dev), blockcodec.payload_zstd_errors(mapped):
             return decode_block_payload(
                 hdr, payload, codec, qual_offset, dev, seq_dict,
-                lossless=lossless,
+                lossless=lossless, runtime=mapped,
             )
 
     api.ordered_map_write(w, read_jobs(), decode_one, workers)

@@ -1109,3 +1109,213 @@ def test_paired_on_the_card_equals_the_cpu(version, cuda):
     api.decompress_paired(io.BytesIO(comp), w1, w2, device=cuda)
     assert (w1.getvalue(), w2.getvalue()) == (r1, r2)
     assert cuda_kernels.launches[cuda_kernels.DECODE] == blocks
+
+
+def _card_mesh(cuda, d=4):
+    """d shard devices: the first d cards, or the one card listed d times."""
+    n = torch.cuda.device_count()
+    if n >= d:
+        return [torch.device("cuda", i) for i in range(d)]
+    return [torch.device("cuda", torch.cuda.current_device())] * d
+
+
+def test_sharded_dense_on_the_card_equals_the_cpu(cuda):
+    """``encode_blocks_parallel`` / ``decode_sharded`` over four shard
+    devices: arrays and offsets equal to four CPU entries', one dense encode
+    and decode per shard, each shard's outputs on its device."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+
+    mesh = _card_mesh(cuda)
+    rng = np.random.default_rng(41)
+    seq, qual, lengths = _block(rng, 4 * 300, 151)
+    cuda_kernels.reset_launches()
+    encs, offsets = pmesh.encode_blocks_parallel(seq, qual, lengths, 33, mesh)
+    s, q = pmesh.decode_sharded([e.packed for e in encs], [e.qual_delta for e in encs],
+                                pmesh.shard_rows(lengths, mesh), qual_offset=33, mesh=mesh)
+    assert cuda_kernels.launches[cuda_kernels.ENCODE] == 4
+    assert cuda_kernels.launches[cuda_kernels.DECODE] == 4
+    assert all(e.packed.device == dev for e, dev in zip(encs, mesh))
+    want, want_offsets = pmesh.encode_blocks_parallel(
+        seq, qual, lengths, 33, pmesh.make_mesh(4, device="cpu"))
+    got, ref = pmesh.gather_encoded(encs), pmesh.gather_encoded(want)
+    for f in ("packed", "nmask_bits", "n_counts", "qual_delta"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert np.array_equal(offsets, want_offsets)
+    ws, wq = pmesh.decode_sharded(
+        [e.packed for e in want], [e.qual_delta for e in want],
+        pmesh.shard_rows(lengths, pmesh.make_mesh(4, device="cpu")), qual_offset=33,
+        mesh=pmesh.make_mesh(4, device="cpu"))
+    assert np.array_equal(pmesh.gather_rows(s), pmesh.gather_rows(ws))
+    assert np.array_equal(pmesh.gather_rows(q), pmesh.gather_rows(wq))
+
+
+@pytest.mark.parametrize("lanes", [256, 4096])
+def test_sharded_entropy_on_the_card_equals_the_cpu(lanes, cuda):
+    """``entropy_encode_sharded`` / ``entropy_decode_sharded`` over four
+    shard devices with ragged stream lengths: words, states, totals and
+    offsets equal to the CPU's, and the round trip."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+
+    mesh, cpu = _card_mesh(cuda), pmesh.make_mesh(4, device="cpu")
+    rng = np.random.default_rng(lanes)
+    m = 3 * lanes + 17
+    streams = rng.integers(0, 40, (4, m)).astype(np.uint8)
+    raw_lens = np.array([m, 0, lanes + 1, m - 5])
+    freq_cum, pad_sym = pmesh.entropy_table(streams, raw_lens=raw_lens, lanes=lanes)
+    for i, n in enumerate(raw_lens):
+        streams[i, n:] = pad_sym
+    kw = dict(pad_sym=pad_sym, m_per_shard=m, lanes=lanes)
+    got = pmesh.entropy_encode_sharded(streams, freq_cum, raw_lens, mesh=mesh, **kw)
+    want = pmesh.entropy_encode_sharded(streams, freq_cum, raw_lens, mesh=cpu, **kw)
+    assert np.array_equal(got.totals, want.totals) and np.array_equal(got.offsets, want.offsets)
+    for k in range(4):
+        t = int(got.totals[k])
+        assert torch.equal(got.words[k][:t].cpu(), want.words[k][:t])
+        assert torch.equal(got.states[k].cpu(), want.states[k])
+    out = pmesh.entropy_decode_sharded(got.words, got.states, freq_cum, raw_lens, mesh=mesh,
+                                       m_per_shard=m, lanes=lanes)
+    for k, n in enumerate(raw_lens):
+        assert np.array_equal(out[k].cpu().numpy()[:n], streams[k, :n])
+
+
+def test_threaded_mesh_round_equals_the_calling_thread(cuda, monkeypatch):
+    """``compress_mesh`` / ``decompress_mesh`` through the one card listed
+    four times: the dispatcher's worker threads give the container of the
+    calling thread and of four CPU entries."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(7200 * one / (1 << 20), read_len=100, seed=12,
+                       qual_model="phredwalk", seq_model="markov")
+    opts = tfq.Options(block_size=1800)
+    mesh = _card_mesh(cuda)
+    threaded = meshpipe.compress_mesh_bytes(data, opts, mesh)
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(threaded), out, mesh)
+    assert out.getvalue() == data
+    orig = pmesh.for_each_device
+    monkeypatch.setattr(pmesh, "for_each_device",
+                        lambda m, f, items, threads=None: orig(m, f, items, False))
+    assert meshpipe.compress_mesh_bytes(data, opts, mesh) == threaded
+    assert threaded == meshpipe.compress_mesh_bytes(data, opts, pmesh.make_mesh(4, device="cpu"))
+
+
+@pytest.mark.parametrize("version", [2, 3])
+def test_multihost_on_the_card_equals_the_cpu(version, cuda, tmp_path):
+    """``simulate_multihost`` / ``simulate_multihost_decompress`` with three
+    hosts on the card: the file equals the CPU's, its decode is the input,
+    and the kernels ran."""
+    from fastqpacker_tpu_torch.parallel import multihost as mh
+
+    data = synth_fastq(3, seed=31, qual_model="walk")
+    src = tmp_path / "in.fq"
+    src.write_bytes(data)
+    opts = tfq.Options(version=version, block_size=4000)
+    cuda_kernels.reset_launches()
+    mh.simulate_multihost(str(src), str(tmp_path / "gpu.fqz"), 3, opts, device=cuda)
+    assert cuda_kernels.launches[cuda_kernels.ENCODE] > 0
+    mh.simulate_multihost(str(src), str(tmp_path / "cpu.fqz"), 3, opts, device="cpu")
+    comp = (tmp_path / "gpu.fqz").read_bytes()
+    assert comp == (tmp_path / "cpu.fqz").read_bytes()
+    cuda_kernels.reset_launches()
+    mh.simulate_multihost_decompress(str(tmp_path / "gpu.fqz"), str(tmp_path / "o.fq"), 3,
+                                     device=cuda)
+    assert (tmp_path / "o.fq").read_bytes() == data
+    assert cuda_kernels.launches[cuda_kernels.DECODE] > 0
+    if version == 3:
+        assert cuda_kernels.launches[cuda_kernels.RANS_DECODE] > 0
+
+
+_GLOO_WORKER = r"""
+import sys
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[6])
+import fastqpacker_tpu_torch as tfq
+from fastqpacker_tpu_torch.parallel import multihost as mh
+
+pid, nproc, port, in_path, out_path = sys.argv[1:6]
+mh.init_distributed(f"127.0.0.1:{port}", int(nproc), int(pid), timeout=120)
+mh.compress_multihost(in_path, out_path, tfq.Options(version=3, block_size=4000))
+dist.barrier()
+mh.decompress_multihost(out_path, out_path + ".fq")
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.timeout(300)
+def test_two_process_gloo_on_the_card_equals_the_simulation(cuda, tmp_path):
+    """Two processes in a gloo group, each on ``cuda:(rank % count)`` (both
+    on the one card of a one-card machine): the file equals the simulation
+    and decodes to the input."""
+    import socket
+
+    from fastqpacker_tpu_torch.parallel import multihost as mh
+
+    data = synth_fastq(3, seed=33, qual_model="walk")
+    src, out = tmp_path / "in.fq", tmp_path / "out.fqz"
+    src.write_bytes(data)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_WORKER, str(rank), "2", str(port),
+                               str(src), str(out), str(REPO)], stderr=subprocess.PIPE)
+             for rank in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err.decode(errors="replace")[-2000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    mh.simulate_multihost(str(src), str(tmp_path / "sim.fqz"), 2,
+                          tfq.Options(version=3, block_size=4000), device=cuda)
+    assert out.read_bytes() == (tmp_path / "sim.fqz").read_bytes()
+    assert (tmp_path / "out.fqz.fq").read_bytes() == data
+
+
+@pytest.mark.parametrize("kind", ["rans", "wctx"])
+def test_corrupt_stream_strings_on_the_card_equal_the_cpu(kind, cuda):
+    """A flipped bit inside a TAG_RANS (v3) or TAG_WCTX (``--mesh``) stream
+    of an addressable container: the card's default decoder (the rANS kernel;
+    the batched TAG_WCTX route) says the CPU's string, the JAX package's
+    whole-file one; read from a stream that cannot be addressed, the
+    per-block string stays."""
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+    from fastqpacker_tpu_torch.pipeline.blocks import RUNTIME_STREAM_ERRORS
+
+    if kind == "rans":
+        data = synth_fastq(1, seed=35, qual_model="walk")
+        comp = tfq.compress_bytes(data, tfq.Options(version=3, workers=1), device="cpu")
+        slot, tag = 1, tfq.container.TAG_RANS
+    else:
+        one = len(synth_fastq(0, read_len=100))
+        data = synth_fastq(3600 * one / (1 << 20), read_len=100, seed=37,
+                           qual_model="phredwalk", seq_model="markov")
+        comp = meshpipe.compress_mesh_bytes(data, tfq.Options(block_size=1800), [cuda])
+        slot, tag = 1, tfq.container.TAG_WCTX
+    r = io.BytesIO(comp)
+    tfq.container.read_file_header(r)
+    sizes = tfq.container.read_block_header(r, 3).stream_sizes(2)
+    start = r.tell() + sum(sizes[:slot])
+    assert comp[start] == tag
+    for k in range(4):
+        bad = bytearray(comp)
+        bad[start + 1 + (2 * k + 1) * (sizes[slot] - 1) // 8] ^= 1 << k
+        bad = bytes(bad)
+        outcomes = []
+        for dev in (cuda, "cpu"):
+            try:
+                tfq.decompress_bytes(bad, device=dev)
+                outcomes.append(("ok", ""))
+            except Exception as e:
+                outcomes.append((type(e).__name__, str(e)))
+        assert outcomes[0] == outcomes[1] and outcomes[0][0] != "ok", k
+        if outcomes[0][1] == RUNTIME_STREAM_ERRORS[tag]:
+            pipe = io.BufferedReader(io.BytesIO(bad))
+            with pytest.raises(Exception) as per_block:
+                tfq.decompress(pipe, io.BytesIO(), device=cuda)
+            assert str(per_block.value) != RUNTIME_STREAM_ERRORS[tag]

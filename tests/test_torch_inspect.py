@@ -34,16 +34,13 @@ ENV = {**os.environ, "FQZ_FORCE_CPU": "1", "JAX_PLATFORMS": "cpu", "PYTHONPATH":
 C = tfq.container
 
 # For a corrupt TAG_WCTX stream the JAX package has strings of its own
-# (ROADMAP.md Queue C, "known, not a port fault"): its whole-file C++
-# decoder says "corrupted wctx stream" for every fault of such a stream,
-# where the per-block decoders (the port's among them) name the fault
-# ("unknown wctx model N", "trailing wctx words", "truncated wctx stream",
-# ...), and its numpy / C++ coders say "truncated wctx words" where its XLA
-# decoder and the port say "trailing wctx words". Those pairs are named
-# here and not held equal: JAX string -> the port's, a prefix or "wctx"
-# anywhere in it.
-KNOWN_WCTX = {"corrupted wctx stream": "wctx",
-              "truncated wctx words": "trailing wctx words"}
+# (ROADMAP.md Queue C, "known, not a port fault"): its numpy / C++ coders
+# say "truncated wctx words" where its XLA decoder and the port say
+# "trailing wctx words". That pair is named here and not held equal: JAX
+# string -> the port's, a prefix or "wctx" anywhere in it. (The whole-file
+# decoder's "corrupted wctx stream" is held equal: the port's default
+# decoder says it too.)
+KNOWN_WCTX = {"truncated wctx words": "trailing wctx words"}
 
 
 @pytest.fixture(scope="module", autouse=True)

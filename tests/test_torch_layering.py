@@ -48,7 +48,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         capture_output=True, text=True, cwd=REPO, timeout=110,
     )
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 37  # every module of the package
+    assert int(p.stdout.strip()) >= 38  # every module of the package
 
 
 def test_the_v3_modules_are_in_the_package():
@@ -112,6 +112,33 @@ def test_the_cli_surface_modules_are_in_the_package():
     assert callable(api.compress_paired) and callable(api.decompress_paired)
 
 
+def test_the_parallel_modules_are_in_the_package():
+    """The several-card and several-host modules (``parallel/mesh.py``'s
+    sharded programs, ``parallel/multihost.py``) exist under the port, so the
+    walk above imported them with JAX and the JAX package blocked, and
+    neither imports either."""
+    import importlib
+
+    for name in ("parallel.mesh", "parallel.multihost"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    from fastqpacker_tpu_torch.parallel import mesh, multihost
+
+    for fn in ("encode_sharded", "decode_sharded", "encode_blocks_parallel",
+               "entropy_encode_sharded", "entropy_decode_sharded", "for_each_device"):
+        assert callable(getattr(mesh, fn))
+    for fn in ("init_distributed", "align_to_record", "host_ranges", "compress_host_section",
+               "exchange_section_sizes", "compress_multihost", "simulate_multihost",
+               "index_blocks", "decompress_host_section", "decompress_multihost",
+               "simulate_multihost_decompress"):
+        assert callable(getattr(multihost, fn))
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     """No ``device=`` means the card; without one the entry points raise
     before any work, and nothing runs on the CPU instead."""
@@ -131,6 +158,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
     from fastqpacker_tpu_torch.ops import rans as port_rans
     from fastqpacker_tpu_torch.ops import wctx as port_wctx
     from fastqpacker_tpu_torch.parallel import mesh as port_mesh
+    from fastqpacker_tpu_torch.parallel import multihost as port_multihost
     from fastqpacker_tpu_torch.pipeline import meshpipe as port_meshpipe
     from fastqpacker_tpu_torch.cli import inspect as port_inspect
     from fastqpacker_tpu_torch.pipeline import api as port_api
@@ -160,6 +188,15 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: port_api.compress_paired(io.BytesIO(data), io.BytesIO(data), io.BytesIO()),
         lambda: port_api.decompress_paired(io.BytesIO(b"FQZ\x00\x02" + bytes(5)),
                                            io.BytesIO(), io.BytesIO()),
+        lambda: port_mesh.encode_blocks_parallel(np.zeros((4, 8), np.uint8),
+                                                 np.zeros((4, 8), np.uint8),
+                                                 np.full(4, 8, np.int32), 33),
+        lambda: port_mesh.entropy_encode_sharded(np.zeros((1, 8), np.uint8), None, mesh=None,
+                                                 pad_sym=0, m_per_shard=8),
+        lambda: port_multihost.init_distributed(),
+        lambda: port_multihost.simulate_multihost("missing.fq", "out.fqz", 2),
+        lambda: port_multihost.simulate_multihost_decompress("missing.fqz", "out.fq", 2),
+        lambda: port_multihost.compress_multihost("missing.fq", "out.fqz"),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

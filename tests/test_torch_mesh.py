@@ -240,7 +240,7 @@ def test_corrupt_mesh_container_fails_typed():
 def test_corrupt_zstd_frame_strings_follow_each_jax_decoder(slot):
     """A TAG_WCTX container whose headers (2) or lengths (5) frame fails its
     checksum: ``decompress_mesh`` keeps libzstd's name, as the JAX package's
-    ``decompress_mesh`` does; with ``map_zstd_errors`` (the default decoder's
+    ``decompress_mesh`` does; with ``runtime_errors`` (the default decoder's
     route on the card) and in the default decoder on the CPU the string is
     the JAX package's default decoder's (its C++ runtime)."""
     from fastqpacker_tpu.runtime import bindings
@@ -263,7 +263,7 @@ def test_corrupt_zstd_frame_strings_follow_each_jax_decoder(slot):
         jfq.decompress_bytes(bad)
     assert str(default_want.value) == "corrupted zstd frame in block payload"
     assert str(mesh_want.value) == "Restored data doesn't match checksum"
-    for kwargs, want in (({}, mesh_want), ({"map_zstd_errors": True}, default_want)):
+    for kwargs, want in (({}, mesh_want), ({"runtime_errors": True}, default_want)):
         with pytest.raises(ZstdError) as got:
             pmeshpipe.decompress_mesh(io.BytesIO(bad), io.BytesIO(), mesh, **kwargs)
         assert type(want.value).__name__ == "ZstdError"

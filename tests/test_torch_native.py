@@ -315,16 +315,40 @@ def test_corrupt_v3_errors_match_jax(where):
 def test_wctx_streams_are_refused_by_name():
     """A stream that only claims ``TAG_WCTX`` (the device context coder
     is ported now: tests/test_torch_wctx.py, test_torch_mesh.py) fails as
-    in the JAX package's per-block decoder, by the parse error's name."""
+    in the JAX package's per-block decoder, by the parse error's name, when
+    the file is read from a stream that cannot be addressed; from an
+    addressable file both default decoders say the whole-file decoder's
+    "corrupted wctx stream"."""
     comp = bytearray(_port(_fastq(300, 11)))
     comp[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V3] = C.TAG_WCTX
     with pytest.raises(Exception) as want:
         _jax_blockwise_decode(bytes(comp))
     with pytest.raises(Exception) as got:
-        tfq.decompress_bytes(bytes(comp), device="cpu")
+        tfq.decompress(_Unaddressable(bytes(comp)), io.BytesIO(), device="cpu")
     assert type(got.value).__name__ == type(want.value).__name__ == "FormatError"
     assert str(got.value) == str(want.value)
     assert str(got.value).startswith("unknown wctx model")
+    with pytest.raises(Exception) as want:
+        jfq.decompress_bytes(bytes(comp))
+    with pytest.raises(Exception) as got:
+        tfq.decompress_bytes(bytes(comp), device="cpu")
+    assert type(got.value).__name__ == type(want.value).__name__ == "FormatError"
+    assert str(got.value) == str(want.value) == "corrupted wctx stream"
+
+
+class _Unaddressable(io.RawIOBase):
+    """A readable stream with no buffer to view (a pipe's stand-in)."""
+
+    def __init__(self, data: bytes):
+        self._src = io.BytesIO(data)
+
+    def readable(self):
+        return True
+
+    def readinto(self, b):
+        data = self._src.read(len(b))
+        b[: len(data)] = data
+        return len(data)
 
 
 def test_lossless_needs_v3():

@@ -194,10 +194,16 @@ def test_v3_is_refused():
     wctx[tfq.container.FILE_HEADER_SIZE + tfq.container.BLOCK_HEADER_SIZE_V3] = (
         tfq.container.TAG_WCTX
     )
-    # the string is that of the JAX package's per-block decoder
+    # from an addressable file the string is that of the JAX package's
+    # default (whole-file) decoder; from a pipe that of its per-block decoder
     # (pipeline/native.py:326-343 through ops/wctx.py:parse_stream)
-    with pytest.raises(tfq.container.FormatError, match="unknown wctx model"):
+    with pytest.raises(jfq.container.FormatError, match="^corrupted wctx stream$"):
+        jfq.decompress_bytes(bytes(wctx))
+    with pytest.raises(tfq.container.FormatError, match="^corrupted wctx stream$"):
         tfq.decompress_bytes(bytes(wctx), device="cpu")
+    pipe = io.BufferedReader(io.BytesIO(bytes(wctx)))  # no view of its buffer
+    with pytest.raises(tfq.container.FormatError, match="unknown wctx model"):
+        tfq.decompress(pipe, io.BytesIO(), device="cpu")
 
 
 def test_streams_from_file_objects_and_workers(tmp_path):
