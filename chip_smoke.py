@@ -108,7 +108,21 @@ Phases, each fatal on failure:
    ``simulate_multihost(..., 2)`` on the card, its decode equal to the input,
    MB/s per direction; each host's section of a 4 MiB slice equal to the
    CPU's; four simulated hosts on one card decode to the input. Each kernel's
-   row of the JSON line gains ``launches_parallel``.
+   row of the JSON line gains ``launches_parallel``;
+10. ``fqpack bench`` on the card (``phase=bench``): the six kernel metrics
+   (``kernel``, ``decode-kernel``, ``mesh-entropy``, ``mesh-entropy-decode``,
+   ``wctx-entropy``, ``wctx-entropy-decode``) at ``--mb 16``, each in its own
+   process through the CLI: exit 0, one JSON line with the JAX bench's metric
+   name and a value > 0, the metric's kernels launched, and its time per
+   launch printed beside phase kernels' time of the same kernel (not a gate);
+   ``--metric kernel --profile DIR`` writes a ``torch.profiler`` trace that
+   names ``fq_dense_encode`` and its device kernel; in process, ``compress``
+   / ``decompress`` (v2, v3) of 32 MiB with a short estimator, ``ratio`` of
+   16 MiB (round trip checked), ``mesh-e2e`` of 16 MiB with one repeat and
+   ``micro``; ``--backend auto`` with the probe cache deleted takes the card
+   and gives ``--backend cuda``'s container, and under ``FQZ_BACKEND=cpu``
+   the CPU and the same container. Each kernel's row of the JSON line gains
+   ``launches_bench``, its count in each of those runs.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -1832,6 +1846,212 @@ def phase_parallel(ft, ck, args, count: int, v2_data: bytes, v3_data: bytes,
     return {**arrays, **threads, **hosts}
 
 
+# ---------------------------------------------------------------------------
+# phase bench: fqpack bench on the card, its profiler, --backend auto
+# ---------------------------------------------------------------------------
+
+BENCH_MB = 16
+# bench metric -> (its JSON metric name, the kernels it must launch, bytes of
+# one launch in its unit: the dense pair counts seq + qual of 65,536 x 152,
+# the entropy metrics their symbols)
+BENCH_KERNEL_METRICS = {
+    "kernel": ("encode_kernel_throughput", ("fq_dense_encode",), 2 * 65536 * 152),
+    "decode-kernel": ("decode_kernel_throughput", ("fq_dense_decode",), 2 * 65536 * 152),
+    "mesh-entropy": ("mesh_entropy_encode_throughput", ("fq_rans_encode", "fq_rans_compact"),
+                     BENCH_MB << 20),
+    "mesh-entropy-decode": ("mesh_entropy_decode_throughput", ("fq_rans_decode",),
+                            BENCH_MB << 20),
+    "wctx-entropy": ("wctx_entropy_encode_throughput", ("fq_wctx_encode",),
+                     (BENCH_MB << 20) // READ_LEN * READ_LEN),
+    "wctx-entropy-decode": ("wctx_entropy_decode_throughput", ("fq_wctx_decode",),
+                            (BENCH_MB << 20) // READ_LEN * READ_LEN),
+}
+BENCH_WALL_MB = 32  # the in-process wall-clock metrics' input
+BENCH_ESTIMATOR = {"window_s": 1.0, "min_s": 0.0, "cap_s": 10.0}  # a short one
+ROOT = Path(__file__).resolve().parent
+
+
+def bench_cli(args: list[str]) -> tuple[dict, dict, str]:
+    """``fqpack bench ARGS`` in its own process: exit 0 and exactly one
+    JSON line on stdout; returns the line, the launch counts the bench
+    logs on stderr, and stderr."""
+    p = subprocess.run(
+        [sys.executable, "-m", "fastqpacker_tpu_torch.cli.fqpack", "bench", *args],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    check(p.returncode == 0, f"fqpack bench {' '.join(args)} exits 0: {p.stderr[-3000:]}")
+    lines = p.stdout.splitlines()
+    check(len(lines) == 1, f"fqpack bench {' '.join(args)} prints one line: {lines}")
+    counts = [ln for ln in p.stderr.splitlines() if ln.startswith("launches ")]
+    check(len(counts) == 1, "the bench logs its launches")
+    return json.loads(lines[0]), json.loads(counts[0].removeprefix("launches ")), p.stderr
+
+
+def bench_kernel_metrics(phase_ms: dict) -> dict:
+    """Each kernel metric of ``fqpack bench`` in its own process at
+    ``--mb 16``: its JSON line, its launches, its time per launch beside the
+    phase-kernels time of the same kernel (a consistency line: the shapes
+    differ; not a gate)."""
+    counts = {}
+    for metric, (name, kernels, nbytes) in BENCH_KERNEL_METRICS.items():
+        t0 = time.perf_counter()
+        line, launches, err = bench_cli(["--mb", str(BENCH_MB), "--metric", metric])
+        check(line["metric"] == name and line["unit"] == "MB/s" and line["value"] > 0,
+              f"bench {metric}: {line}")
+        for kernel in kernels:
+            check(launches[kernel] > 0, f"bench {metric} launched {kernel}")
+        ms, label = phase_ms[metric]
+        print(f"phase=bench metric={metric} json={json.dumps(line)} "
+              f"per_launch_ms={nbytes / (line['value'] * 1e6) * 1e3:.6f} "
+              f"phase_kernels_ms={ms:.6f} ({label}) wall_s={time.perf_counter() - t0:.2f} "
+              f"launches={json.dumps({k: v for k, v in launches.items() if v})}")
+        for row in err.splitlines():
+            if row.startswith("roofline "):
+                print(f"phase=bench metric={metric} {row}")
+        counts[metric] = launches
+    return counts
+
+
+def bench_profile() -> None:
+    """``fqpack bench --metric kernel --profile DIR``: a trace file is
+    written and names the wrapper (``fq_dense_encode``) and its device
+    kernel (``dense_encode_tiles``)."""
+    out = ROOT / "fastqpacker_tpu_torch" / "_build" / "bench_profile"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        line, launches, err = bench_cli(["--mb", str(BENCH_MB), "--metric", "kernel",
+                                         "--profile", str(out)])
+        check(f"profile trace written to {out}" in err, "bench --profile says where")
+        traces = sorted(out.rglob("*.json"))
+        check(len(traces) > 0, "bench --profile wrote a trace file")
+        text = "".join(t.read_text(errors="replace") for t in traces)
+        check("fq_dense_encode" in text, "the trace names fq_dense_encode")
+        check("dense_encode_tiles" in text, "the trace holds the device kernel")
+        print(f"phase=bench profile files={len(traces)} bytes={sum(t.stat().st_size for t in traces)} "
+              f"names_fq_dense_encode=true device_kernel=dense_encode_tiles "
+              f"fq_dense_encode_launches={launches['fq_dense_encode']} json={json.dumps(line)}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def bench_in_process(ck) -> dict:
+    """The wall-clock metrics through the bench's own functions, with a
+    short estimator: compress and decompress (v2, v3) of 32 MiB, ``ratio``
+    of 16 MiB, ``mesh-e2e`` of 16 MiB with one repeat, and ``micro``; each
+    run's launch counts read just after it."""
+    from fastqpacker_tpu_torch import bench as fb
+
+    counts = {}
+    data = fb.synth_fastq(BENCH_WALL_MB)
+
+    def run(label, fn):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        counts[label] = ck.launches.as_dict()
+        return got, time.perf_counter() - t0
+
+    for v3 in (False, True):
+        label = "compress-v3" if v3 else "compress"
+        (mbps, ratio, best), wall = run(label, lambda: fb.bench_compress(
+            data, DEV, 3, v3=v3, **BENCH_ESTIMATOR))
+        check(mbps > 0 and ratio > 1 and counts[label][ck.ENCODE] > 0, f"bench {label}")
+        if v3:
+            check(counts[label][ck.CRC32] > 0, "bench compress-v3 launched CRC32")
+        print(f"phase=bench metric={label} mb={BENCH_WALL_MB} mbps={mbps:.3f} ratio={ratio:.4f} "
+              f"best_s={best:.4f} wall_s={wall:.2f}")
+        label = "decompress-v3" if v3 else "decompress"
+        (mbps, best), wall = run(label, lambda: fb.bench_decompress(
+            data, DEV, 3, v3=v3, **BENCH_ESTIMATOR))
+        check(mbps > 0 and counts[label][ck.DECODE] > 0, f"bench {label}")
+        print(f"phase=bench metric={label} mb={BENCH_WALL_MB} mbps={mbps:.3f} best_s={best:.4f} "
+              f"wall_s={wall:.2f}")
+
+    names = {"ratio": "compression_ratio", "mesh-e2e": "mesh_e2e_compress_throughput",
+             "micro": "parse_throughput"}
+    for metric, mb, fixture in (("ratio", BENCH_MB, fb.synth_fastq(BENCH_MB)),
+                                ("mesh-e2e", BENCH_MB, None), ("micro", BENCH_WALL_MB, data)):
+        out = io.StringIO()
+        args = argparse.Namespace(metric=metric, mb=mb, repeats=1)
+        with contextlib.redirect_stdout(out):
+            _, wall = run(metric, lambda: fb._run_metric(args, fixture, DEV))
+        lines = out.getvalue().splitlines()
+        check(len(lines) == 1, f"bench {metric} prints one line")
+        line = json.loads(lines[0])
+        check(line["metric"] == names[metric] and line["value"] > 0, f"bench {metric}: {line}")
+        print(f"phase=bench metric={metric} mb={mb} json={json.dumps(line)} wall_s={wall:.2f}")
+    check(counts["ratio"][ck.ENCODE] > 0 and counts["ratio"][ck.DECODE] > 0,
+          "bench ratio ran the dense kernels")
+    check(counts["mesh-e2e"][ck.WCTX_ENCODE] > 0, "bench mesh-e2e ran the wctx encode")
+    check(not any(counts["micro"].values()), "bench micro runs on the host")
+    return counts
+
+
+def bench_backend_auto(ck) -> dict:
+    """``fqpack --backend auto`` on a small file, the port's probe cache
+    deleted before each run: it takes the card and says why, with
+    ``--backend cuda``'s container; under ``FQZ_BACKEND=cpu`` it takes the
+    CPU, with the same container."""
+    import os
+
+    from fastqpacker_tpu_torch.cli import fqpack as cli
+    from fastqpacker_tpu_torch.pipeline import auto
+    from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+    work = ROOT / "fastqpacker_tpu_torch" / "_build" / "bench_auto"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    src = work / "in.fq"
+    src.write_bytes(synth_fastq(4, seed=11))
+
+    def run(backend, out, env=None):
+        Path(auto._cache_path()).unlink(missing_ok=True)
+        auto.backend_choice.cache_clear()
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        err = io.StringIO()
+        try:
+            ck.reset_launches()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["--backend", backend, "-i", str(src), "-o", str(work / out)])
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            auto.backend_choice.cache_clear()
+        check(rc == 0, f"--backend {backend} exits 0: {err.getvalue()}")
+        return err.getvalue(), ck.launches.as_dict(), (work / out).read_bytes()
+
+    try:
+        said, counts, comp = run("auto", "auto.fqz")
+        check(said.startswith("backend auto: cuda (") and said.count("\n") == 1,
+              f"--backend auto takes the card: {said!r}")
+        check(counts[ck.ENCODE] > 0, "--backend auto launched the dense encode")
+        _, _, want = run("cuda", "cuda.fqz")
+        check(comp == want, "--backend auto's container equals --backend cuda's")
+        said_cpu, cpu_counts, comp_cpu = run("auto", "cpu.fqz", {"FQZ_BACKEND": "cpu"})
+        check(said_cpu == "backend auto: cpu (FQZ_BACKEND=cpu)\n", f"FQZ_BACKEND=cpu: {said_cpu!r}")
+        check(comp_cpu == want and not any(cpu_counts.values()),
+              "FQZ_BACKEND=cpu: the same container, no kernel launched")
+        print(f"phase=bench backend_auto={said.strip()!r} fqz_backend_cpu={said_cpu.strip()!r} "
+              f"containers_equal=true bytes={len(want)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"backend_auto": counts}
+
+
+def phase_bench(ck, phase_ms: dict) -> dict:
+    t0 = time.perf_counter()
+    counts = bench_kernel_metrics(phase_ms)
+    bench_profile()
+    counts.update(bench_in_process(ck))
+    counts.update(bench_backend_auto(ck))
+    print(f"phase=bench wall_s={time.perf_counter() - t0:.2f}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=float, default=96)
@@ -1912,6 +2132,18 @@ def main() -> int:
     })
     parallel = phase_parallel(ft, ck, args, count, v2_data, v3_data, mesh_data)
     del v2_data, v3_data, mesh_data
+    rt = kern_rans["times"]
+    bench = phase_bench(ck, {
+        "kernel": (kern["times"][(ck.ENCODE, "37500x160")][0], "37500x160"),
+        "decode-kernel": (kern["times"][(ck.DECODE, "37500x160")][0], "37500x160"),
+        "mesh-entropy": (rt[(ck.RANS_ENCODE, "qual")][0] + rt[(ck.RANS_COMPACT, "qual")][0],
+                         "encode + compact, 15.1 MB at 16384 lanes"),
+        "mesh-entropy-decode": (rt[(ck.RANS_DECODE, "qual")][0], "15.1 MB at 16384 lanes"),
+        "wctx-entropy": (kern_wctx["times"][(ck.WCTX_ENCODE, 1, 0)][0],
+                         "qual order 0, 15.1 M symbols at 2048 lanes"),
+        "wctx-entropy-decode": (kern_wctx["times"][(ck.WCTX_DECODE, 1, 0)][0],
+                                "qual order 0, 15.1 M symbols at 2048 lanes"),
+    })
 
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
@@ -1991,6 +2223,7 @@ def main() -> int:
         check(launches > 0, f"{name} launched on a main path")
         extra["launches_surfaces"] = {run: counts[name] for run, counts in surfaces.items()}
         extra["launches_parallel"] = {run: counts[name] for run, counts in parallel.items()}
+        extra["launches_bench"] = {run: counts[name] for run, counts in bench.items()}
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name,

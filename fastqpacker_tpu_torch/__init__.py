@@ -17,9 +17,13 @@ from __future__ import annotations
 import io
 from typing import Optional
 
-from .format import container
-from .pipeline.api import DEFAULT_BLOCK_SIZE, DecompressOptions, Options
-from .pipeline.device import compress_device, decompress_device
+from .utils import malloc_tuning as _malloc_tuning
+
+_malloc_tuning.tune()
+
+from .format import container  # noqa: E402
+from .pipeline.api import DEFAULT_BLOCK_SIZE, DecompressOptions, Options  # noqa: E402
+from .pipeline.device import compress_device, decompress_device  # noqa: E402
 
 __version__ = "0.1.0"
 

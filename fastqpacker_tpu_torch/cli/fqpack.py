@@ -12,10 +12,13 @@ per device per round: every card with ``--backend cuda``, one CPU entry with
 ``--backend cpu``); ``-d --mesh`` decodes such rounds as groups. ``--pair``
 interleaves an R2 mate file on compress and splits it back on decompress.
 Subcommands: ``info FILE`` (header and stream accounting), ``check FILE``
-(decode every block, write nothing) and ``cat FILE -r START:STOP`` (decode
-only the blocks that cover a record range). ``--backend cuda`` (the
-default) runs the device programs on the card and fails without one;
-``--backend cpu`` runs their plain PyTorch versions.
+(decode every block, write nothing), ``cat FILE -r START:STOP`` (decode
+only the blocks that cover a record range) and ``bench [...]`` (the port's
+benchmark, :mod:`..bench`: one metric, one JSON line). ``--backend cuda``
+(the default) runs the device programs on the card and fails without one;
+``--backend cpu`` runs their plain PyTorch versions; ``--backend auto``
+asks the transfer probe (:mod:`..pipeline.auto`) once and prints its
+choice and the reason on stderr (``backend auto: cuda (transfer N MB/s)``).
 
 Run as ``python -m fastqpacker_tpu_torch.cli.fqpack``.
 """
@@ -35,7 +38,6 @@ from ..pipeline import api, device, meshpipe
 from ..utils import gzipio
 
 BUFFER_SIZE = 1 << 20
-NOT_PORTED = "not yet ported in fastqpacker_tpu_torch"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -61,9 +63,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="show version and exit")
     p.add_argument("-h", "--help", action="store_true", dest="show_help",
                    help="show help")
-    p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
+    p.add_argument("--backend", choices=["cuda", "cpu", "auto"], default="cuda",
                    help="device for the kernels (dense transforms, rANS, "
-                        "context rANS, CRC32)")
+                        "context rANS, CRC32); auto: the card when its "
+                        "transfer probe says so, else the CPU (printed)")
     p.add_argument("--format", choices=["zstd", "native"], default="zstd",
                    dest="wire_format",
                    help="container flavor: zstd (fqpack-compatible v2) or "
@@ -139,6 +142,19 @@ def open_output(path: str, to_stdout: bool) -> tuple[BinaryIO, Callable[[], None
     except OSError as e:
         raise RuntimeError(f"cannot create output: {e}") from e
     return f, f.close
+
+
+def resolve_backend(args) -> None:
+    """Resolve ``--backend auto`` to ``cuda`` or ``cpu`` through
+    :func:`..pipeline.auto.device_worthwhile` and say which and why on
+    stderr; an explicit backend stays as it is."""
+    if args.backend != "auto":
+        return
+    from ..pipeline import auto
+
+    worthwhile, reason = auto.backend_choice()
+    args.backend = "cuda" if worthwhile else "cpu"
+    print(f"backend auto: {args.backend} ({reason})", file=sys.stderr)
 
 
 def _version(args) -> int:
@@ -233,8 +249,15 @@ def main(argv: list[str] | None = None) -> int:
 def _main(argv: list[str] | None = None) -> int:
     raw_argv = sys.argv[1:] if argv is None else argv
     if raw_argv and raw_argv[0] == "bench":
-        print(f"error: bench is {NOT_PORTED}", file=sys.stderr)
-        return 1
+        # `fqpack bench [...]` forwards everything to the port's bench,
+        # which owns its own flags (--mb, --metric, ...)
+        from .. import bench
+
+        try:
+            return bench.main(raw_argv[1:])
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     parser = build_argparser()
     args = parser.parse_args(raw_argv)
 
@@ -252,6 +275,8 @@ def _main(argv: list[str] | None = None) -> int:
             args.positional[1] if len(args.positional) > 1 else args.input
         )
         try:
+            if sub != "info":
+                resolve_backend(args)
             if sub == "cat":
                 out, close_out = open_output(args.output, args.to_stdout)
                 try:
@@ -275,6 +300,7 @@ def _main(argv: list[str] | None = None) -> int:
         if len(args.positional) > 1 and not args.output:
             args.output = args.positional[1]
 
+    resolve_backend(args)
     try:
         inp, close_in = open_input(args.input, args.decompress)
     except RuntimeError as e:

@@ -105,13 +105,15 @@ def _check_offset(qual_offset: int) -> None:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     """Launch ``name`` on ``device``'s current stream with ``args``
-    (tensors pass as pointers, integers as they are) and count it."""
+    (tensors pass as pointers, integers as they are) and count it. The
+    launch is a ``record_function`` span named ``name``, so a
+    ``torch.profiler`` trace shows which wrapper launched each kernel."""
     for a in args:
         if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
             raise ValueError(f"{name}: tensor storage is not 16-byte aligned")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     lib = build.load(_LIBRARY[name])
-    with torch.cuda.device(device):
+    with torch.profiler.record_function(name), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*ptrs, stream)
     if rc != 0:

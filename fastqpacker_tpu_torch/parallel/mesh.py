@@ -47,18 +47,21 @@ ENTROPY_LANES = 256
 def make_mesh(n_devices: Optional[int] = None, device=None) -> list[torch.device]:
     """The device list of a mesh. ``device="cuda"`` (the default) takes the
     cards there are, or the first ``n_devices`` of them, and raises when
-    asked for more; ``device="cpu"`` gives ``n_devices`` (default 1) CPU
+    asked for more; a card named with its index (``"cuda:1"``) starts the
+    list at that card. ``device="cpu"`` gives ``n_devices`` (default 1) CPU
     entries, on which the kernels' plain versions run."""
     dev = devops.resolve_device(device)
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"a mesh needs at least one device, got {n_devices}")
     if dev.type == "cpu":
         return [dev] * (n_devices or 1)
-    have = torch.cuda.device_count()
+    first = dev.index or 0
+    have = torch.cuda.device_count() - first
     n = have if n_devices is None else n_devices
-    if n > have:
-        raise ValueError(f"asked for {n} CUDA devices, {have} present")
-    return [torch.device("cuda", i) for i in range(n)]
+    if not 0 < n <= have:
+        where = f" from cuda:{first}" if first else ""
+        raise ValueError(f"asked for {n} CUDA devices{where}, {have} present")
+    return [torch.device("cuda", first + i) for i in range(n)]
 
 
 def _resolve_mesh(mesh) -> list[torch.device]:

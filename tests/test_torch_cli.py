@@ -2,6 +2,7 @@
 
 import dataclasses
 import io
+import json
 import os
 import struct
 import subprocess
@@ -77,15 +78,18 @@ def test_cli_round_trip_matches_jax_cli(tmp_path):
     ],
 )
 def test_unported_surfaces_exit_1(argv, name, tmp_path, capsys):
-    """``bench`` is the one surface of the JAX CLI the port does not have.
-    The others are ported: on the same argv, with the files missing (``-i``
-    names a file, so nothing reads stdin), both CLIs exit 1 with the same
-    output. ``--mesh --pair`` is refused after ``-i`` and ``-o`` are opened,
-    as the JAX CLI does it: ``-o`` exists afterwards in both."""
+    """No surface of the JAX CLI is left unported. ``bench`` forwards to the
+    port's bench (``fastqpacker_tpu_torch/bench.py``): ``bench --cpu --mb 1
+    --metric micro`` exits 0 with one JSON line. The others, on the same
+    argv with the files missing (``-i`` names a file, so nothing reads
+    stdin), exit 1 in both CLIs with the same output. ``--mesh --pair`` is
+    refused after ``-i`` and ``-o`` are opened, as the JAX CLI does it:
+    ``-o`` exists afterwards in both."""
     if name == "bench":
-        assert port_cli.main(argv) == 1
-        assert capsys.readouterr().err == (
-            "error: bench is not yet ported in fastqpacker_tpu_torch\n")
+        assert port_cli.main(["bench", "--cpu", "--mb", "1", "--metric", "micro"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert len(out) == 1
+        assert json.loads(out[0])["metric"] == "parse_throughput"
         return
     src = tmp_path / "in.fq"
     src.write_bytes(_fastq(5, seed=6))

@@ -1319,3 +1319,102 @@ def test_corrupt_stream_strings_on_the_card_equal_the_cpu(kind, cuda):
             with pytest.raises(Exception) as per_block:
                 tfq.decompress(pipe, io.BytesIO(), device=cuda)
             assert str(per_block.value) != RUNTIME_STREAM_ERRORS[tag]
+
+
+# ---------------------------------------------------------------------------
+# fqpack bench and --backend auto on the card
+# ---------------------------------------------------------------------------
+
+BENCH_KERNEL_METRICS = {
+    "kernel": ("encode_kernel_throughput", cuda_kernels.ENCODE),
+    "decode-kernel": ("decode_kernel_throughput", cuda_kernels.DECODE),
+    "mesh-entropy": ("mesh_entropy_encode_throughput", cuda_kernels.RANS_COMPACT),
+    "mesh-entropy-decode": ("mesh_entropy_decode_throughput", cuda_kernels.RANS_DECODE),
+    "wctx-entropy": ("wctx_entropy_encode_throughput", cuda_kernels.WCTX_ENCODE),
+    "wctx-entropy-decode": ("wctx_entropy_decode_throughput", cuda_kernels.WCTX_DECODE),
+}
+
+
+@pytest.mark.parametrize("metric", sorted(BENCH_KERNEL_METRICS))
+def test_bench_kernel_metric_on_the_card(metric, cuda):
+    """``fqpack bench --mb 2 --metric M`` on the card: exit 0, one JSON line
+    with the JAX bench's metric name and a value > 0, and the metric's
+    kernel launched (the launch counts on stderr)."""
+    name, kernel = BENCH_KERNEL_METRICS[metric]
+    p = subprocess.run(
+        [sys.executable, "-m", "fastqpacker_tpu_torch.cli.fqpack", "bench", "--mb", "2",
+         "--metric", metric],
+        capture_output=True, text=True, cwd=REPO, timeout=600,
+    )
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = p.stdout.splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert got["metric"] == name and got["unit"] == "MB/s" and got["value"] > 0
+    launches = json.loads(p.stderr.splitlines()[-1].removeprefix("launches "))
+    assert launches[kernel] > 0
+
+
+def test_bench_wall_clock_and_mesh_e2e_on_the_card(cuda):
+    from fastqpacker_tpu_torch import bench
+
+    short = {"window_s": 0.2, "min_s": 0.0, "cap_s": 2.0}
+    data = bench.synth_fastq(4)
+    for v3 in (False, True):
+        mbps, ratio, _ = bench.bench_compress(data, cuda, 1, v3=v3, **short)
+        _, cpu_ratio, _ = bench.bench_compress(data, "cpu", 1, v3=v3, **short)
+        assert mbps > 0 and ratio == cpu_ratio
+        assert bench.bench_decompress(data, cuda, 1, v3=v3, **short)[0] > 0
+    cuda_kernels.reset_launches()
+    mbps, ratio = bench.bench_mesh_e2e(1, repeats=1, device=cuda)
+    assert mbps > 0 and ratio > 1
+    assert cuda_kernels.launches[cuda_kernels.WCTX_ENCODE] > 0
+
+
+def test_make_mesh_starts_at_the_named_card(cuda):
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+
+    last = torch.cuda.device_count() - 1
+    assert pmesh.make_mesh(1, "cuda:0") == [torch.device("cuda", 0)]
+    assert pmesh.make_mesh(None, f"cuda:{last}") == [torch.device("cuda", last)]
+    with pytest.raises(ValueError):
+        pmesh.make_mesh(2, f"cuda:{last}")
+
+
+def test_transfer_bandwidth_on_the_card(cuda):
+    from fastqpacker_tpu_torch.pipeline import auto
+
+    mbps = auto.transfer_bandwidth_mbps(cuda)
+    assert np.isfinite(mbps) and mbps > 0
+
+
+def test_backend_auto_chooses_the_card(cuda, tmp_path):
+    """``--backend auto`` with an empty probe cache measures the card's
+    transfer rate, takes the card and says so; the container equals
+    ``--backend cuda``'s. Under ``FQZ_BACKEND=cpu`` it takes the CPU, with
+    the same container."""
+    import os
+
+    src = tmp_path / "in.fq"
+    src.write_bytes(synth_fastq(2, seed=41))
+    env = {**os.environ, "TMPDIR": str(tmp_path), "PYTHONPATH": str(REPO)}
+    env.pop("FQZ_BACKEND", None)
+
+    def run(backend, out, **extra):
+        p = subprocess.run(
+            [sys.executable, "-m", "fastqpacker_tpu_torch.cli.fqpack", "--backend", backend,
+             "-i", str(src), "-o", str(out)],
+            capture_output=True, text=True, cwd=REPO, timeout=300, env={**env, **extra},
+        )
+        assert p.returncode == 0, p.stderr
+        return p.stderr
+
+    err = run("auto", tmp_path / "auto.fqz")
+    assert err.startswith("backend auto: cuda (transfer ") and err.endswith(" MB/s)\n")
+    assert run("cuda", tmp_path / "cuda.fqz") == ""
+    assert run("auto", tmp_path / "cached.fqz") == "backend auto: cuda (cached probe)\n"
+    err = run("auto", tmp_path / "cpu.fqz", FQZ_BACKEND="cpu")
+    assert err == "backend auto: cpu (FQZ_BACKEND=cpu)\n"
+    want = (tmp_path / "cuda.fqz").read_bytes()
+    for name in ("auto", "cached", "cpu"):
+        assert (tmp_path / f"{name}.fqz").read_bytes() == want

@@ -48,7 +48,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         capture_output=True, text=True, cwd=REPO, timeout=110,
     )
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 38  # every module of the package
+    assert int(p.stdout.strip()) >= 44  # every module of the package
 
 
 def test_the_v3_modules_are_in_the_package():
@@ -139,6 +139,32 @@ def test_the_parallel_modules_are_in_the_package():
         assert callable(getattr(multihost, fn))
 
 
+def test_the_bench_modules_are_in_the_package():
+    """The benchmark and its helpers (``bench``, ``models``,
+    ``utils/profiling.py``, ``utils/malloc_tuning.py``, ``pipeline/auto.py``)
+    exist under the port with the JAX package's names, so the walk above
+    imported them with JAX and the JAX package blocked, and none of them
+    imports either."""
+    import importlib
+
+    for name in ("bench", "models", "models.flagship", "utils.profiling",
+                 "utils.malloc_tuning", "pipeline.auto"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    from fastqpacker_tpu_torch import bench, models
+    from fastqpacker_tpu_torch.pipeline import auto
+    from fastqpacker_tpu_torch.utils import malloc_tuning, profiling
+
+    assert len(bench.METRICS) == 13 and callable(bench.main)
+    assert callable(models.get_model) and callable(auto.device_worthwhile)
+    assert callable(profiling.trace) and callable(malloc_tuning.warm_heap)
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     """No ``device=`` means the card; without one the entry points raise
     before any work, and nothing runs on the CPU instead."""
@@ -163,6 +189,8 @@ def test_default_device_raises_without_a_card(monkeypatch):
     from fastqpacker_tpu_torch.cli import inspect as port_inspect
     from fastqpacker_tpu_torch.pipeline import api as port_api
     from fastqpacker_tpu_torch.pipeline import ranges as port_ranges
+    from fastqpacker_tpu_torch import bench as port_bench
+    from fastqpacker_tpu_torch.pipeline import auto as port_auto
     import io
     import numpy as np
 
@@ -197,6 +225,9 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: port_multihost.simulate_multihost("missing.fq", "out.fqz", 2),
         lambda: port_multihost.simulate_multihost_decompress("missing.fqz", "out.fq", 2),
         lambda: port_multihost.compress_multihost("missing.fq", "out.fqz"),
+        lambda: port_bench.main(["--mb", "1", "--metric", "micro"]),
+        lambda: port_bench.bench_mesh_e2e(1, repeats=1),
+        lambda: port_auto.transfer_bandwidth_mbps(),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -421,6 +421,21 @@ def test_make_mesh(monkeypatch):
         pmesh.make_mesh(4)
 
 
+def test_make_mesh_starts_at_a_named_card(monkeypatch):
+    """``make_mesh(1, "cuda:1")`` is the card of that index (``fqpack bench
+    --metric mesh-e2e`` runs on the card it is given, not on cuda:0)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert pmesh.make_mesh(1, "cuda:1") == [torch.device("cuda", 1)]
+    assert pmesh.make_mesh(None, "cuda:1") == [torch.device("cuda", 1), torch.device("cuda", 2)]
+    assert pmesh.make_mesh(1, torch.device("cuda", 2)) == [torch.device("cuda", 2)]
+    assert pmesh.make_mesh(2, "cuda:0") == pmesh.make_mesh(2)
+    with pytest.raises(ValueError, match="asked for 3 CUDA devices from cuda:1, 2 present"):
+        pmesh.make_mesh(3, "cuda:1")
+    with pytest.raises(ValueError, match="asked for 0 CUDA devices from cuda:3, 0 present"):
+        pmesh.make_mesh(None, "cuda:3")
+
+
 def test_raw_to_delta_equals_jax():
     from fastqpacker_tpu_torch.pipeline import native as pnative
 
