@@ -66,7 +66,21 @@ Phases, each fatal on failure:
    on the encode's own words and flags at the mesh path's two streams
    (sequence order 2 on 4,096 lanes, quality order 1 on 2,048), beside its
    bound and ``torch.masked_select``;
-7. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
+7. the block stages of the C++ runtime as kernels (``phase=records``,
+   ``csrc/records.cu``): ``fq_records_scan``, ``fq_rows_gather``,
+   ``fq_streams_build`` and ``fq_fastq_assemble`` against their plain
+   versions, byte-equal, on a v2 block (37,500 x 151), a block of 50-300 bp
+   reads and a v3 block (100,000 x 151, u32 N positions): the scan's offsets,
+   quality minima and sums, the gathers from the text and back to back, the
+   six streams, the text rebuilt equal to the input; timed on the v2 block
+   beside their bounds (no PyTorch call computes any of them:
+   ``library_ms`` null); every scan fault and each truncated or flipped
+   stream raising its string on the card as on the CPU. Phases 4 and 5 hold
+   their launches (a scan per window, two gathers and a stream build per
+   block on compress, two gathers and an assembly per block on decompress),
+   and phase e2e prints ``scripts/torch_stage_breakdown.py``'s per-stage ms
+   per block of the v2, v3 and mesh paths;
+8. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
    ``make_mesh(1)``): ``--mesh-blocks`` blocks of 100,000 records of the
    context-model corpus (order-1 Markov bases, per-record quality walks in
    Phred 0-41); round trip, the ordinary ``decompress`` reads the container,
@@ -74,8 +88,8 @@ Phases, each fatal on failure:
    the launch counts follow the tags, and the card's container equals the
    CPU's on a two-block prefix; then the one card listed four times at a
    block size of 5,000 against the CPU's container for d = 4;
-8. the CLI surfaces (``phase=surfaces``) on the v2, v3 and mesh containers
-   of phases 4, 5 and 7, at their full size: ``info`` (its block and tag
+9. the CLI surfaces (``phase=surfaces``) on the v2, v3 and mesh containers
+   of phases 4, 5 and 8, at their full size: ``info`` (its block and tag
    counts against the container's), ``check`` on the card (OK and the
    input's size; one dense decode per block, one rANS decode per
    ``TAG_RANS`` stream and CRC32 on v3, two wctx decodes per block on mesh;
@@ -90,8 +104,8 @@ Phases, each fatal on failure:
    stream; and ``fqscramble`` (host only) on 2 MiB against
    ``gopcg.scramble_text``. Each kernel's row of the JSON line gains
    ``launches_surfaces``, its count in each of those runs;
-9. several cards and several hosts (``phase=parallel``), on the corpora of
-   phases 4, 5 and 7, on four shard devices: the first four cards, or the one
+10. several cards and several hosts (``phase=parallel``), on the corpora of
+   phases 4, 5 and 8, on four shard devices: the first four cards, or the one
    card listed four times (then ``multi_card=not_measured``).
    ``encode_blocks_parallel`` / ``decode_sharded`` on four shards of 37,500 x
    151 rows of the v2 corpus: arrays and offsets equal to the CPU's (plain
@@ -109,7 +123,7 @@ Phases, each fatal on failure:
    MB/s per direction; each host's section of a 4 MiB slice equal to the
    CPU's; four simulated hosts on one card decode to the input. Each kernel's
    row of the JSON line gains ``launches_parallel``;
-10. ``fqpack bench`` on the card (``phase=bench``): the six kernel metrics
+11. ``fqpack bench`` on the card (``phase=bench``): the six kernel metrics
    (``kernel``, ``decode-kernel``, ``mesh-entropy``, ``mesh-entropy-decode``,
    ``wctx-entropy``, ``wctx-entropy-decode``) at ``--mb 16``, each in its own
    process through the CLI: exit 0, one JSON line with the JAX bench's metric
@@ -162,6 +176,12 @@ KERNELS = {
     "fq_crc32_chunks": ("crc32.cu", "fastqpacker_tpu/ops/crc32.py:87"),
     "fq_wctx_encode": ("wctx_codec.cu", "fastqpacker_tpu/ops/wctx.py:511"),
     "fq_wctx_decode": ("wctx_codec.cu", "fastqpacker_tpu/ops/wctx.py:577"),
+    # the C++ runtime's block stages (host functions of the JAX package's
+    # device paths)
+    "fq_records_scan": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:206"),
+    "fq_rows_gather": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:527"),
+    "fq_streams_build": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:980"),
+    "fq_fastq_assemble": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1153"),
 }
 QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
 SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
@@ -804,6 +824,9 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
           f"{label}: CRC32 launched in both directions")
     check(c_counts[ck.ENCODE] == blocks and d_counts[ck.DECODE] == blocks,
           f"{label}: one dense launch per block and direction")
+    check(c_counts[ck.RECORDS_SCAN] >= blocks and c_counts[ck.STREAMS_BUILD] == blocks
+          and d_counts[ck.FASTQ_ASSEMBLE] == blocks,
+          f"{label}: the block stages ran on the card in both directions")
 
     # the card's container against the CPU's, on a prefix that ends at a
     # record boundary; one worker, since the probe memo depends on order
@@ -856,20 +879,31 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
     comp = ft.compress_bytes(data, device=DEV)
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
-    enc_launches = ck.launches[ck.ENCODE]
-    check(ck.launches[ck.DECODE] == 0, "compress launched no decode")
+    c_counts = ck.launches.as_dict()
+    enc_launches = c_counts[ck.ENCODE]
+    check(c_counts[ck.DECODE] == 0, "compress launched no decode")
 
     ck.reset_launches()
     t0 = time.perf_counter()
     out = ft.decompress_bytes(comp, device=DEV)
     torch.cuda.synchronize()
     t_d = time.perf_counter() - t0
-    dec_launches = ck.launches[ck.DECODE]
+    d_counts = ck.launches.as_dict()
+    dec_launches = d_counts[ck.DECODE]
 
     blocks = count_blocks(comp, ft)
     check(out == data, f"{label}: decompressed output equals the input")
     check(enc_launches == blocks > 0, f"{label}: one encode launch per block")
     check(dec_launches == blocks, f"{label}: one decode launch per block")
+    # the block stages: a scan per window (a window that holds too few
+    # records is scanned again, larger), two gathers and a stream build per
+    # block on compress; two gathers and an assembly per block on decompress
+    check(c_counts[ck.RECORDS_SCAN] >= blocks and c_counts[ck.STREAMS_BUILD] == blocks
+          and c_counts[ck.ROWS_GATHER] == 2 * blocks and c_counts[ck.FASTQ_ASSEMBLE] == 0,
+          f"{label}: compress scanned, gathered and built on the card: {c_counts}")
+    check(d_counts[ck.FASTQ_ASSEMBLE] == blocks and d_counts[ck.ROWS_GATHER] == 2 * blocks
+          and d_counts[ck.RECORDS_SCAN] == 0,
+          f"{label}: decompress gathered and assembled on the card: {d_counts}")
     t0 = time.perf_counter()
     cpu = ft.compress_bytes(data, device="cpu")
     t_cpu = time.perf_counter() - t0
@@ -881,10 +915,235 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
         f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} "
         f"decompress_MBps={mb / t_d:.2f} encode_launches={enc_launches} "
         f"decode_launches={dec_launches} cpu_compress_s={t_cpu:.4f} "
+        f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+        f"decompress_launches={json.dumps(d_counts, sort_keys=True)} "
         f"byte_identical_to_cpu=true round_trip=true"
     )
-    return {"encode": enc_launches, "decode": dec_launches, "comp": comp}
+    return {"encode": enc_launches, "decode": dec_launches, "comp": comp,
+            "compress": c_counts, "decompress": d_counts}
 
+
+
+# ---------------------------------------------------------------------------
+# phase records: the C++ runtime's block stages as kernels (csrc/records.cu)
+# ---------------------------------------------------------------------------
+
+# the block stages' timed inputs: label -> (records, read length or range)
+RECORD_SHAPES = {"v2_37500x151": (37_500, 151), "varlen50_300_37500": (37_500, (50, 300)),
+                 "v3_100000x151": (100_000, 151)}
+RECORD_TIMED = "v2_37500x151"  # the shape of the kernels line: a v2 block
+
+
+def scan_bytes(n_text: int, count: int) -> int:
+    # reads the text; writes offsets (64 B), qmin (2 B) per record and info
+    return n_text + 66 * count + 128
+
+
+def records_block(ft, rng, records: int, lens, seed: int) -> bytes:
+    """One block's FASTQ text: synthetic reads of ``lens`` (a length or a
+    (lo, hi) range), ~0.1% N, fixed-width headers."""
+    from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+    if isinstance(lens, tuple):
+        data = synth_fastq(1 + records * 420 // (1 << 20), read_len=lens[1],
+                           min_len=lens[0], seed=seed)
+    else:
+        data = synth_fastq(1 + records * (2 * lens + 80) // (1 << 20), read_len=lens,
+                           seed=seed)
+    ends = np.flatnonzero(np.frombuffer(data, np.uint8) == 0x0A)[3::4]
+    check(len(ends) >= records, f"records_block: {len(ends)} < {records} records")
+    return data[: int(ends[records - 1]) + 1]
+
+
+def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: bool) -> dict:
+    """The four block stages of one block, each kernel held against its
+    plain version on the card (byte-equal), the text rebuilt equal to the
+    input; with ``timed``, each timed beside its bound and plain version."""
+    from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
+
+    text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(DEV)
+    # 1. scan
+    got = ck.records_scan(text, records)
+    ref = recops.records_scan_plain(text, records)
+    count = int(got[2][recops.SCAN_COUNT])
+    check(count == records and int(ref[2][recops.SCAN_COUNT]) == records,
+          f"{label}: scan found {count} records")
+    check(int(got[2][recops.SCAN_CONSUMED]) == len(data), f"{label}: scan consumed the block")
+    errs = {ck.RECORDS_SCAN: max(max_err(got[0][:count], ref[0][:count]),
+                                 max_err(got[1][:count], ref[1][:count]),
+                                 max_err(got[2], ref[2]))}
+    check(errs[ck.RECORDS_SCAN] == 0, f"{label}: scan kernel == plain")
+    offsets, qmin, info = got
+    offsets = offsets[:count]
+    info_h = info.cpu().numpy()
+    width = blockcodec.bucket_len(int(info_h[recops.SCAN_SEQ_MAX]))
+    # 2. gathers (the compress side: from the text at the scan's offsets)
+    gathers = []
+    for col, fill in ((2, 0), (6, 0xFF)):
+        g = ck.rows_gather(text, offsets[:, col], offsets[:, 3], records, width, fill)
+        p = recops.rows_gather_plain(text, offsets[:, col], offsets[:, 3], records, width, fill)
+        gathers.append((g, max_err(g, p)))
+    errs[ck.ROWS_GATHER] = max(e for _, e in gathers)
+    check(errs[ck.ROWS_GATHER] == 0, f"{label}: gather kernel == plain")
+    seq_rows, qual_rows = (g for g, _ in gathers)
+    lengths32 = offsets[:, 3].to(torch.int32)
+    # 3. stream build (v2 layout; v3's u32 npos on the 100,000-record block)
+    wide = records == BLOCK_RECORDS
+    enc = ck.encode_arrays(seq_rows, qual_rows, lengths32, 33,
+                           npos_cap=(1 << 31) - 1 if wide else 1 << 16)
+    sizes = recops.stream_sizes(info_h, wide)
+    buf, binfo = ck.streams_build(text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits,
+                                  enc.n_counts, wide, sizes)
+    pbuf, pinfo = recops.streams_build_plain(text, offsets, enc.packed, enc.qual_delta,
+                                             enc.nmask_bits, enc.n_counts, wide, sizes)
+    errs[ck.STREAMS_BUILD] = max(max_err(buf, pbuf), max_err(binfo, pinfo))
+    check(errs[ck.STREAMS_BUILD] == 0, f"{label}: stream build kernel == plain")
+    check(int(binfo[0]) == sizes[4], f"{label}: npos bytes agree with the scan")
+    # 4. assembly from the streams (the decompress side)
+    parts, at = [], 0
+    for size in sizes:
+        parts.append(buf[at : at + size])
+        at += size
+    seq_s, qual_s, hdr_s, plus_s, npos_s, len_s = parts
+    lens = len_s.clone().view(torch.int32).to(torch.int64)
+    packed = ck.rows_gather(seq_s, None, (lens + 3) >> 2, records, width // 4, 0)
+    deltas = ck.rows_gather(qual_s, None, lens, records, width, 0)
+    check(max_err(packed, recops.rows_gather_plain(seq_s, None, (lens + 3) >> 2, records,
+                                                   width // 4, 0)) == 0
+          and max_err(deltas, recops.rows_gather_plain(qual_s, None, lens, records, width, 0))
+          == 0, f"{label}: back-to-back gather kernel == plain")
+    seq_a, qual_a = ck.decode_arrays(packed, deltas, lens.to(torch.int32), 33)
+    asm_args = (seq_a, qual_a, lens, hdr_s, plus_s, npos_s, wide, sizes[5], sizes[0], sizes[1])
+    out, ainfo = ck.fastq_assemble(*asm_args)
+    pout, pinfo = recops.fastq_assemble_plain(*asm_args)
+    total = int(ainfo[0])
+    errs[ck.FASTQ_ASSEMBLE] = max(max_err(out[:total], pout[:total]), max_err(ainfo, pinfo))
+    check(errs[ck.FASTQ_ASSEMBLE] == 0 and int(ainfo[1]) == 0, f"{label}: assemble kernel == plain")
+    check(bytes(out[:total].cpu().numpy()) == data, f"{label}: assembled text equals the input")
+    print(f"phase=records case={label} records={records} text_bytes={len(data)} width={width} "
+          f"stream_bytes={json.dumps(sizes)} byte_equal=true round_trip=true")
+    row = {"errs": errs, "times": {}}
+    if not timed:
+        return row
+    torch.cuda.synchronize()
+    nb = len(data)
+    seq_total, hdr_plus = int(info_h[recops.SCAN_SEQ_SUM]), sizes[2] + sizes[3] - 4 * records
+    cases = {
+        ck.RECORDS_SCAN: (lambda t: ck.records_scan(t, records),
+                          lambda t: recops.records_scan_plain(t, records),
+                          [(text,)], scan_bytes(nb, records), 4 * nb),
+        ck.ROWS_GATHER: (lambda t, o: ck.rows_gather(t, o[:, 6], o[:, 3], records, width, 0xFF),
+                         lambda t, o: recops.rows_gather_plain(t, o[:, 6], o[:, 3], records,
+                                                               width, 0xFF),
+                         [(text, offsets)], seq_total + 16 * records + records * width,
+                         records * width),
+        ck.STREAMS_BUILD: (lambda *a: ck.streams_build(text, offsets, *a, wide, sizes),
+                           lambda *a: recops.streams_build_plain(text, offsets, *a, wide, sizes),
+                           [(enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts)],
+                           # reads payloads, offsets, packed / delta bytes, N masks;
+                           # writes the streams
+                           hdr_plus + 64 * records + sizes[0] + sizes[1]
+                           + records * (width // 8) + 4 * records + sum(sizes), 2 * sum(sizes)),
+        ck.FASTQ_ASSEMBLE: (lambda *a: ck.fastq_assemble(*a),
+                            lambda *a: recops.fastq_assemble_plain(*a),
+                            [asm_args], 2 * seq_total + 8 * records + sizes[2] + sizes[3]
+                            + sizes[4] + total, 2 * total),
+    }
+    for name, (kfn, pfn, args, nbytes, ops) in cases.items():
+        sets = args * 2
+        kms = gpu_ms(kfn, sets, 50)
+        pms = gpu_ms(pfn, sets, 3)
+        row["times"][name] = report(name, f"block={label}", kms, pms, None, nbytes, ops,
+                                    errs[name])
+    # the decoder's gather: runs back to back from 0, starts by a scan of the lengths
+    kms = gpu_ms(lambda q: ck.rows_gather(q, None, lens, records, width, 0), [(qual_s,)] * 2, 50)
+    pms = gpu_ms(lambda q: recops.rows_gather_plain(q, None, lens, records, width, 0),
+                 [(qual_s,)] * 2, 3)
+    report(ck.ROWS_GATHER, f"block={label} back_to_back=true", kms, pms, None,
+           seq_total + 8 * records + records * width, records * width, errs[ck.ROWS_GATHER])
+    return row
+
+
+def records_faults(ft, ck, recops) -> dict:
+    """Every scan fault and every assembly fault raises its string on the
+    card, as on the CPU."""
+    from fastqpacker_tpu_torch.entropy import zstd
+    from fastqpacker_tpu_torch.parser.fastq import FastqParseError, FastqStreamParser
+    from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
+
+    good = b"@r1 x\nACGTN\n+p\nIIIII\n@r2\nAC\n+\nII\n"
+    bad_texts = [b"@r\nAC\n+\nII\nx\n", b"@r\nAC\n-\nII\n", b"@r\nAC\n+\nI\n",
+                 good + b"@r3\nA\n-x\n", good + b"r3\n"]
+    seen = []
+    for text in bad_texts:
+        msgs = []
+        for dev in (DEV, "cpu"):
+            try:
+                list(FastqStreamParser(io.BytesIO(text), block_size=2, device=dev).blocks())
+                msgs.append(None)
+            except FastqParseError as e:
+                msgs.append(str(e))
+        check(msgs[0] is not None and msgs[0] == msgs[1], f"scan fault {text!r}: {msgs}")
+        seen.append(msgs[0])
+    comp = ft.compress_bytes(good * 8, ft.Options(block_size=16), device="cpu")
+    hdr = ft.container.parse_block_header(comp[ft.container.FILE_HEADER_SIZE:], 2)
+    ds = blockcodec.decode_streams(hdr, comp[ft.container.FILE_HEADER_SIZE + 36:], 2,
+                                   zstd.get_codec())
+    faults = 0
+    for field in ("lengths", "seq", "qual", "headers", "plus", "npos"):
+        orig = getattr(ds, field)
+        for cut in (len(orig) - 1, len(orig) // 2):
+            for flip in (False, True):
+                bad = orig.copy() if flip else orig[:cut]
+                if flip:
+                    bad[min(cut, len(bad) - 1)] ^= 0x5A
+                setattr(ds, field, bad)
+                msgs = []
+                for dev in (DEV, "cpu"):
+                    try:
+                        out = blockcodec.streams_to_fastq(ds, 33, dev)
+                        msgs.append(("ok", len(out)))
+                    except ValueError as e:
+                        msgs.append((type(e).__name__, str(e)))
+                check(msgs[0] == msgs[1], f"stream fault {field} cut={cut} flip={flip}: {msgs}")
+                faults += msgs[0][0] != "ok"
+        setattr(ds, field, orig)
+    print(f"phase=records faults scan={len(seen)} scan_strings={json.dumps(sorted(set(seen)))} "
+          f"stream_faults={faults} equal_to_cpu=true")
+    return {"scan": len(seen), "streams": faults}
+
+
+def phase_records(ft, ck, recops, rng) -> dict:
+    """The four block stages at the main paths' shapes against their plain
+    versions, timed on the v2 block, and their faults."""
+    rows = {}
+    for i, (label, (records, lens)) in enumerate(RECORD_SHAPES.items()):
+        data = records_block(ft, rng, records, lens, seed=100 + i)
+        rows[label] = records_case(ft, ck, recops, data, records, label, label == RECORD_TIMED)
+    faults = records_faults(ft, ck, recops)
+    errs = {name: max(r["errs"][name] for r in rows.values()) for name in rows[RECORD_TIMED]["errs"]}
+    return {"errs": errs, "times": rows[RECORD_TIMED]["times"], "faults": faults}
+
+
+# the per-stage breakdowns phase e2e prints: format -> --mb (v2: a few
+# blocks; v3: two 100,000-record blocks; mesh: one)
+STAGE_RUNS = {"v2": 32, "v3": 54, "mesh": 35}
+
+
+def phase_stages(args) -> None:
+    """Per-stage ms per block of the v2, v3 and mesh paths
+    (``scripts/torch_stage_breakdown.py``, each in its own process)."""
+    script = Path(__file__).resolve().parent / "scripts" / "torch_stage_breakdown.py"
+    for fmt, mb in STAGE_RUNS.items():
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, str(script), "--format", fmt, "--mb", str(mb),
+                            "--seed", str(args.seed)], capture_output=True, text=True)
+        check(p.returncode == 0, f"stage breakdown {fmt}: {p.stderr[-2000:]}")
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        ms = {k: round(v, 4) for k, v in line["ms_per_block"].items()}
+        print(f"phase=e2e stages={fmt} blocks={line['blocks']} block_records="
+              f"{line['block_records']} wall_s={time.perf_counter() - t0:.2f} "
+              f"ms_per_block={json.dumps(ms, sort_keys=True)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1462,6 +1721,9 @@ def phase_mesh(ft, ck, args) -> dict:
           f"{label}: no wctx launch in the wrong direction")
     check(c_counts[ck.ENCODE] == blocks and d_counts[ck.DECODE] == blocks,
           f"{label}: one dense launch per block and direction")
+    check(c_counts[ck.RECORDS_SCAN] >= blocks and c_counts[ck.STREAMS_BUILD] == blocks
+          and d_counts[ck.FASTQ_ASSEMBLE] == blocks,
+          f"{label}: the block stages ran on the card in both directions")
     check(c_counts[ck.CRC32] > 0 and d_counts[ck.CRC32] > 0,
           f"{label}: CRC32 launched in both directions")
 
@@ -1983,7 +2245,8 @@ def bench_in_process(ck) -> dict:
     check(counts["ratio"][ck.ENCODE] > 0 and counts["ratio"][ck.DECODE] > 0,
           "bench ratio ran the dense kernels")
     check(counts["mesh-e2e"][ck.WCTX_ENCODE] > 0, "bench mesh-e2e ran the wctx encode")
-    check(not any(counts["micro"].values()), "bench micro runs on the host")
+    check(counts["micro"][ck.RECORDS_SCAN] > 0 and counts["micro"][ck.STREAMS_BUILD] > 0,
+          "bench micro scans and builds the streams on the card")
     return counts
 
 
@@ -2069,6 +2332,7 @@ def main() -> int:
     from fastqpacker_tpu_torch.ops import cuda_kernels as ck
     from fastqpacker_tpu_torch.ops import device as devops
     from fastqpacker_tpu_torch.ops import rans
+    from fastqpacker_tpu_torch.ops import records as recops
     from fastqpacker_tpu_torch.ops import reference as refops
     from fastqpacker_tpu_torch.ops import wctx
     from fastqpacker_tpu_torch.utils.synth import synth_fastq
@@ -2098,8 +2362,15 @@ def main() -> int:
         kern_rans["extra"]["qual"], kern_rans["times"][(ck.RANS_DECODE, "qual")][0])
     kern_crc = phase_crc(ck, crc32, rng)
     kern_wctx = phase_wctx(ck, wctx, rans, rng)
+    kern_records = phase_records(ft, ck, recops, rng)
 
-    ft.compress_bytes(synth_fastq(1, seed=args.seed + 1), device=DEV)  # warm-up
+    # warm-up: a round trip of the same size (kernel loads, the worker
+    # threads' streams, page-locked buffers of the block sizes), so the
+    # timed runs read the steady state
+    warm = synth_fastq(args.mb, seed=args.seed + 1)
+    check(ft.decompress_bytes(ft.compress_bytes(warm, device=DEV), device=DEV) == warm,
+          "v2 warm-up round trip")
+    del warm
     torch.cuda.reset_peak_memory_stats()
     v2_data = synth_fastq(args.mb, seed=args.seed)
     v2_label = f"iid151_{args.mb:g}MiB"
@@ -2122,6 +2393,7 @@ def main() -> int:
     print(f"phase=e2e v3_max_memory_allocated={torch.cuda.max_memory_allocated()}")
 
     mesh_run = phase_mesh(ft, ck, args)
+    phase_stages(args)
 
     mesh_data = mesh_run.pop("data")
     surfaces = phase_surfaces(ft, ck, {
@@ -2214,6 +2486,19 @@ def main() -> int:
         more = {"model_order": list(qual), **extra, "by_model": by_model}
         rows.append((name, mesh_run[direction][name], kern_wctx["errs"][name],
                      (kms, pms, bound_ms, bound_by, lms, extra["steps"]), more))
+    # the block stages: the counts of the v2 run (the direction that runs
+    # each most), the other runs beside; times at a v2 block (phase records)
+    for name, direction in ((ck.RECORDS_SCAN, "compress"), (ck.ROWS_GATHER, "compress"),
+                            (ck.STREAMS_BUILD, "compress"), (ck.FASTQ_ASSEMBLE, "decompress")):
+        more = {
+            "shape": f"block {RECORD_TIMED}",
+            "launches_v2": {d: main_launches[d][name] for d in ("compress", "decompress")},
+            "launches_v3": {d: v3_launches[d][name] for d in ("compress", "decompress")},
+            "launches_mesh": {d: mesh_run[d][name] for d in ("compress", "decompress")},
+            "faults_checked": kern_records["faults"],
+        }
+        rows.append((name, main_launches[direction][name], kern_records["errs"][name],
+                     (*kern_records["times"][name], None), more))
     for row in rows[:6]:  # the earlier kernels run on the mesh path too
         name = row[0]
         direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"

@@ -22,7 +22,8 @@ JSON line: there is no fallback.
 - ``wctx-entropy``, ``wctx-entropy-decode``: the context-rANS kernels on
   the quality model, order 0, up to 64 MiB;
 - ``mesh-e2e``: ``compress_mesh`` on one card, the context-model corpus;
-- ``micro``: the host stages (parse, stream build, zstd);
+- ``micro``: the block stages (parse: the text's copy to the card and its
+  record scan there; stream build; zstd on the host);
 - ``ratio``: the ``fqz-v3-max`` model's compression ratio, round trip
   checked.
 
@@ -702,32 +703,28 @@ def bench_mesh_e2e(mb: int = 64, repeats: int = 3, device="cuda"):
     return best, ratio
 
 
-def bench_micro(data: bytes):
-    """Host stage microbenchmarks (the reference's BenchmarkReadBatch,
-    BenchmarkCompressBlock and pack/delta benches): the parser, the stream
-    build of the first block (``pipeline/blocks.py`` with the dense
-    encode's plain version on the CPU; no kernel) and zstd, each as MB/s on
-    stderr; the JSON line carries the parser rate."""
-    from functools import partial
-
+def bench_micro(data: bytes, device: torch.device):
+    """Stage microbenchmarks (the reference's BenchmarkReadBatch,
+    BenchmarkCompressBlock and pack/delta benches): the parser (the text's
+    copy to ``device`` and the record scan there, ``fq_records_scan``), the
+    stream build of the first block (row gathers, dense encode and
+    ``fq_streams_build`` on ``device``, the copy back) and zstd on the host,
+    each as MB/s on stderr; the JSON line carries the parser rate."""
     from .entropy import zstd as z
-    from .ops import device as devops
     from .parser.fastq import FastqStreamParser
     from .pipeline import blocks as blockcodec
 
     results = {}
 
     t0 = time.perf_counter()
-    blocks = list(FastqStreamParser(io.BytesIO(data), block_size=100000).blocks())
+    blocks = list(FastqStreamParser(io.BytesIO(data), block_size=100000,
+                                    device=device).blocks())
     results["parse"] = len(data) / 1e6 / (time.perf_counter() - t0)
     blk = blocks[0]
 
     t0 = time.perf_counter()
-    raw = blockcodec.block_to_raw_streams(
-        blk, 33, partial(devops.encode_block_arrays, device="cpu"))
-    results["build_streams"] = (
-        2 * int(blk.lengths.sum()) / 1e6 / (time.perf_counter() - t0)
-    )
+    raw = blockcodec.block_to_raw_streams(blk, 33)
+    results["build_streams"] = 2 * blk.total_bases / 1e6 / (time.perf_counter() - t0)
     codec = z.get_codec()
     streams = raw.ordered(2)
     total = sum(len(s) for s in streams)
@@ -761,7 +758,7 @@ def _result(metric: str, value: float, baseline: float, digits: int = 1,
 
 def _run_metric(args, data, device: torch.device) -> int:
     if args.metric == "micro":
-        mbps = bench_micro(data).get("parse", 0.0)
+        mbps = bench_micro(data, device).get("parse", 0.0)
         result = _result("parse_throughput", mbps, BASELINE_COMPRESS_MBPS)
     elif args.metric == "kernel":
         result = _result("encode_kernel_throughput", bench_kernel(device=device),

@@ -71,6 +71,23 @@ SIGNATURES = {
         "fq_wctx_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
                            _P, _P, _P],
     },
+    "records": {
+        # text, n, max_records, scratch, offsets, qmin, info, stream
+        "fq_records_scan": [_P, _L, _L, _P, _P, _P, _P, _P],
+        # data, data_n, starts (or null), starts stride, lens, lens stride,
+        # r, rows, width, fill, scratch, out, stream
+        "fq_rows_gather": [_P, _L, _P, _L, _P, _L, _L, _L, _L, _I, _P, _P, _P],
+        # text, offsets, n, packed, packed pitch, qual_delta, qual pitch,
+        # nmask, nmask pitch, n_counts, wide, six stream sizes, scratch,
+        # out, info, stream
+        "fq_streams_build": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _P, _I,
+                             _L, _L, _L, _L, _L, _L, _P, _P, _P, _P],
+        # seq_rows, qual_rows, pitch, lengths, r, headers, headers_n, plus,
+        # plus_n, has_plus, npos, npos_n, wide, len_n, seq_n, qual_n,
+        # scratch, out, cap, info, stream
+        "fq_fastq_assemble": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _P, _L,
+                              _I, _L, _L, _L, _P, _P, _L, _P, _P],
+    },
 }
 
 # Exported functions that launch nothing (each returns a cudaError_t too).
@@ -90,6 +107,13 @@ QUERIES = {
     "wctx_codec": {
         # lanes, contexts, width, out (four int32)
         "fq_wctx_decode_geometry": [_I, _I, _I, _P],
+    },
+    "records": {
+        # the scratch bytes of each launcher: its sizes, out (one int64)
+        "fq_records_scan_scratch": [_L, _L, _P],
+        "fq_rows_gather_scratch": [_L, _P],
+        "fq_streams_build_scratch": [_L, _P],
+        "fq_fastq_assemble_scratch": [_L, _L, _L, _L, _I, _P],
     },
 }
 

@@ -11,11 +11,16 @@ programs ``_encode_kernel``, ``_compact_global`` and ``_decode_kernel`` of
 ``fastqpacker_tpu/ops/crc32.py`` and the host combine around it. Context
 rANS (``csrc/wctx_codec.cu``): ``wctx_encode`` and ``wctx_decode`` replace
 the XLA programs ``_encode_kernel`` and ``_decode_kernel`` of
-``fastqpacker_tpu/ops/wctx.py``.
+``fastqpacker_tpu/ops/wctx.py``. Block stages (``csrc/records.cu``):
+``records_scan``, ``rows_gather``, ``streams_build`` and ``fastq_assemble``
+replace the host functions ``fq_scan_records_ex``, ``fq_gather_rows``,
+``fq_build_streams`` and ``fq_decode_block_full`` / ``fq_assemble`` of
+``fastqpacker_tpu/runtime/fqruntime.cpp`` (the JAX package's C++ runtime).
 
 Each wrapper checks its tensors, allocates the outputs on their device and
 launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
-version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`, :mod:`.wctx`); a CUDA
+version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`, :mod:`.wctx`,
+:mod:`.records`); a CUDA
 tensor launches the kernel or raises.
 
 ``launches`` counts kernel launches per kernel, so a run can show that its
@@ -36,6 +41,7 @@ from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import MAX_LANES as RANS_MAX_LANES
 from .rans import RANS_L, rans_compact_plain, rans_decode_plain, rans_encode_plain
+from . import records
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
 
@@ -47,6 +53,10 @@ RANS_DECODE = "fq_rans_decode"
 CRC32 = "fq_crc32_chunks"
 WCTX_ENCODE = "fq_wctx_encode"
 WCTX_DECODE = "fq_wctx_decode"
+RECORDS_SCAN = "fq_records_scan"
+ROWS_GATHER = "fq_rows_gather"
+STREAMS_BUILD = "fq_streams_build"
+FASTQ_ASSEMBLE = "fq_fastq_assemble"
 
 # which library (csrc/<name>.cu) exports each launcher
 _LIBRARY = {
@@ -503,3 +513,162 @@ def crc32_chunks(data: torch.Tensor) -> torch.Tensor:
         ticket = _crc_ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
     _launch(CRC32, dev, data, n, partials, ticket, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# block stages: record scan, row gather, stream build, FASTQ assembly
+# ---------------------------------------------------------------------------
+
+
+def _scratch(dev: torch.device, query: str, *sizes) -> torch.Tensor:
+    """The scratch bytes a records launcher needs, as its library's
+    ``*_scratch`` query gives them."""
+    out = ctypes.c_longlong(0)
+    rc = getattr(build.load("records"), query)(*sizes, ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"{query}{sizes}: cudaError_t {rc}")
+    return torch.empty((max(out.value, 1),), dtype=torch.uint8, device=dev)
+
+
+def _check_1d(name: str, t: torch.Tensor, dtype, dev) -> None:
+    if t.dtype != dtype or t.dim() != 1 or t.device != dev:
+        raise ValueError(f"{name}: expected a 1-D {dtype} tensor on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def records_scan(text: torch.Tensor, max_records: int):
+    """Scan up to ``max_records`` FASTQ records of the (n,) uint8 ``text``
+    -> ``(offsets, qmin, info)``; see
+    :func:`..ops.records.records_scan_plain`. One launch."""
+    n = text.numel()
+    dev = text.device
+    _check("text", text, torch.uint8, (n,), dev)
+    if max_records <= 0:
+        raise ValueError(f"max_records must be positive, got {max_records}")
+    if _plain_or_cuda(dev):
+        return records.records_scan_plain(text, max_records)
+    offsets = torch.empty((max_records, 8), dtype=torch.int64, device=dev)
+    qmin = torch.empty((max_records,), dtype=torch.int16, device=dev)
+    info = torch.empty((records.SCAN_INFO,), dtype=torch.int64, device=dev)
+    scratch = _scratch(dev, "fq_records_scan_scratch", n, max_records)
+    _launch(RECORDS_SCAN, dev, text, n, max_records, scratch, offsets, qmin, info)
+    return offsets, qmin, info
+
+
+def rows_gather(
+    data: torch.Tensor,
+    starts: torch.Tensor | None,
+    lens: torch.Tensor,
+    rows: int,
+    width: int,
+    fill: int,
+) -> torch.Tensor:
+    """Variable-length runs of ``data`` into a padded (rows, width) uint8
+    matrix; ``starts`` and ``lens`` are 1-D int64, strided views allowed
+    (a column of the scan's offsets), ``starts=None`` for runs back to back
+    from 0; see :func:`..ops.records.rows_gather_plain`. One launch."""
+    dev = data.device
+    _check("data", data, torch.uint8, (data.numel(),), dev)
+    _check_1d("lens", lens, torch.int64, dev)
+    r = lens.numel()
+    if starts is not None:
+        _check_1d("starts", starts, torch.int64, dev)
+        if starts.numel() != r:
+            raise ValueError(f"starts: {starts.numel()} rows, lens {r}")
+    if rows < r or width < 0 or not 0 <= fill <= 255:
+        raise ValueError(f"rows_gather: rows {rows} < {r}, width {width} or fill {fill}")
+    if _plain_or_cuda(dev):
+        return records.rows_gather_plain(data, starts, lens, rows, width, fill)
+    out = torch.empty((rows, width), dtype=torch.uint8, device=dev)
+    scratch = _scratch(dev, "fq_rows_gather_scratch", r)
+    # passed as pointers: a stream at any byte offset of a staging buffer,
+    # int64 columns of the scan's offsets (the kernel reads neither in
+    # 16-byte units)
+    _launch(ROWS_GATHER, dev, data.data_ptr(), data.numel(),
+            0 if starts is None else starts.data_ptr(),
+            0 if starts is None else starts.stride(0), lens.data_ptr(), lens.stride(0),
+            r, rows, width, fill, scratch, out)
+    return out
+
+
+def streams_build(
+    text: torch.Tensor,
+    offsets: torch.Tensor,
+    packed: torch.Tensor,
+    qual_delta: torch.Tensor,
+    nmask: torch.Tensor,
+    n_counts: torch.Tensor,
+    wide: bool,
+    sizes: list[int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The six raw v1/v2 streams of ``len(offsets)`` records in one buffer
+    at the byte ``sizes``; see :func:`..ops.records.streams_build_plain`.
+    One launch."""
+    dev = text.device
+    _check("text", text, torch.uint8, (text.numel(),), dev)
+    n = offsets.shape[0]
+    _check("offsets", offsets, torch.int64, (n, 8), dev)
+    rows = packed.shape[0]
+    if n <= 0 or rows < n or len(sizes) != 6:
+        raise ValueError(f"streams_build: {n} records, {rows} rows, sizes {sizes}")
+    for name, t in (("packed", packed), ("qual_delta", qual_delta), ("nmask", nmask)):
+        if (t.dim() != 2 or t.shape[0] != rows or t.stride(1) != 1
+                or t.dtype != torch.uint8 or t.device != dev):
+            raise ValueError(f"{name}: expected ({rows}, *) uint8 rows on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check("n_counts", n_counts, torch.int32, (rows,), dev)
+    if _plain_or_cuda(dev):
+        return records.streams_build_plain(text, offsets, packed, qual_delta, nmask,
+                                           n_counts, wide, sizes)
+    out = torch.empty((max(sum(sizes), 1),), dtype=torch.uint8, device=dev)
+    info = torch.empty((2,), dtype=torch.int64, device=dev)
+    scratch = _scratch(dev, "fq_streams_build_scratch", n)
+    _launch(STREAMS_BUILD, dev, text, offsets, n, packed, packed.stride(0), qual_delta,
+            qual_delta.stride(0), nmask, nmask.stride(0), n_counts, int(wide), *sizes,
+            scratch, out, info)
+    return out[: sum(sizes)], info
+
+
+def fastq_assemble(
+    seq_rows: torch.Tensor,
+    qual_rows: torch.Tensor,
+    lengths: torch.Tensor,
+    headers: torch.Tensor,
+    plus: torch.Tensor | None,
+    npos: torch.Tensor,
+    wide: bool,
+    len_n: int,
+    seq_n: int,
+    qual_n: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's FASTQ text from the dense decode's rows and the header,
+    plus and npos streams; see :func:`..ops.records.fastq_assemble_plain`.
+    One launch."""
+    dev = seq_rows.device
+    r = lengths.numel()
+    _check("lengths", lengths, torch.int64, (r,), dev)
+    if seq_rows.dim() != 2 or seq_rows.shape[0] != r:
+        raise ValueError(f"seq_rows: expected ({r}, L), got {tuple(seq_rows.shape)}")
+    _check("seq_rows", seq_rows, torch.uint8, seq_rows.shape, dev)
+    _check("qual_rows", qual_rows, torch.uint8, seq_rows.shape, dev)
+    for name, t in (("headers", headers), ("plus", plus), ("npos", npos)):
+        if t is not None:
+            _check(name, t, torch.uint8, (t.numel(),), dev)
+    if r == 0:
+        raise ValueError("fastq_assemble: no records")
+    if _plain_or_cuda(dev):
+        return records.fastq_assemble_plain(seq_rows, qual_rows, lengths, headers, plus,
+                                            npos, wide, len_n, seq_n, qual_n)
+    has_plus = plus is not None
+    plus_n = plus.numel() if has_plus else 0
+    cap = records.assemble_capacity(r, headers.numel(), plus_n, qual_n, has_plus)
+    out = torch.empty((max(cap, 1),), dtype=torch.uint8, device=dev)
+    info = torch.empty((2,), dtype=torch.int64, device=dev)
+    scratch = _scratch(dev, "fq_fastq_assemble_scratch", r, headers.numel(), plus_n,
+                       npos.numel(), int(wide))
+    # streams may be views at any byte offset of a staging buffer
+    _launch(FASTQ_ASSEMBLE, dev, seq_rows, qual_rows, seq_rows.shape[1], lengths, r,
+            headers.data_ptr(), headers.numel(), plus.data_ptr() if has_plus else 0,
+            plus_n, int(has_plus), npos.data_ptr(), npos.numel(), int(wide), len_n,
+            seq_n, qual_n, scratch, out, cap, info)
+    return out[:cap], info

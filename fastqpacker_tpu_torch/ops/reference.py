@@ -85,8 +85,14 @@ def check_ambiguous_overflow(
     if bad.any():
         row = int(np.flatnonzero(bad.any(axis=1))[0])
         name = headers[row].decode("latin-1") if headers else f"record {row}"
-        raise ValueError(
-            f'record "{name}": sequence length {int(lengths[row])} has '
-            f"ambiguous bases beyond position {MAX_SEQUENCE_LENGTH}; "
-            f"N-position tracking is limited to {MAX_SEQUENCE_LENGTH} bp"
-        )
+        raise ambiguous_overflow_error(name, int(lengths[row]))
+
+
+def ambiguous_overflow_error(name: str, length: int) -> ValueError:
+    """The reference's error for a record of ``length`` bp with a non-ACGT
+    byte past the u16 N-position cap."""
+    return ValueError(
+        f'record "{name}": sequence length {length} has '
+        f"ambiguous bases beyond position {MAX_SEQUENCE_LENGTH}; "
+        f"N-position tracking is limited to {MAX_SEQUENCE_LENGTH} bp"
+    )

@@ -16,8 +16,9 @@ FASTQ across hosts needs three pieces:
    and ``pwrite``\\ s its own bytes there; nothing goes through host 0.
 
 Each host compresses and decompresses its section on its card: the v1/v2
-blocks through the dense kernels (:func:`..pipeline.device.encode_blocks`,
-:func:`..pipeline.device.padded_decoder`), v3 blocks through
+blocks scanned, coded and assembled by the card's kernels
+(:func:`..pipeline.device.encode_blocks`,
+:func:`..pipeline.blocks.streams_to_fastq`), v3 blocks through
 :func:`..pipeline.native.encode_block_native` and
 :func:`..pipeline.native.decompress_native` (rANS, compaction and CRC32
 kernels). A process's card is ``cuda:(rank % device_count)`` unless the
@@ -225,12 +226,13 @@ def compress_host_section(
     out = io.BytesIO()
 
     with open(path, "rb") as f:
-        blocks_iter = FastqStreamParser(_RangeReader(f, start, end), block_size=block_size).blocks()
+        blocks_iter = FastqStreamParser(_RangeReader(f, start, end), block_size=block_size,
+                                        device=dev).blocks()
         first = next(blocks_iter, None)
         if qual_offset is None:
             qual_offset = refops.PHRED33_OFFSET
-            if first is not None and first.n > 0 and int(first.lengths.sum()) > 0:
-                qual_offset = refops.detect_offset_from_min(int(first.qual.min()))
+            if first is not None and (qmin := first.qual_min(first.n)) < 256:
+                qual_offset = refops.detect_offset_from_min(qmin)
 
         def all_blocks():
             if first is not None:
@@ -246,7 +248,7 @@ def compress_host_section(
             api.ordered_map_write(
                 out, all_blocks(), encode_one, api._resolve_workers(opts.workers))
         else:
-            pdevice.encode_blocks(out, all_blocks(), qual_offset, opts, dev)
+            pdevice.encode_blocks(out, all_blocks(), qual_offset, opts)
 
     return HostSection(host_id=host_id, payload=out.getvalue(), qual_offset=qual_offset)
 
@@ -293,13 +295,13 @@ def _pwrite_section(out_path: str, data: bytes, offset: int) -> None:
         os.close(fd)
 
 
-def _detect_file_qual_offset(in_path: str, opts: api.Options) -> int:
+def _detect_file_qual_offset(in_path: str, opts: api.Options, dev=None) -> int:
     """Phred offset from the FILE's fixed min(100k, file)-record window
     (compress.go:48-52,137-164): the file-wide header flag must come from
     the reference's detection window, never from whatever block happens to
     start a host's byte range."""
     with open(in_path, "rb") as r:
-        parser = FastqStreamParser(r, block_size=api.resolve_block_size(opts))
+        parser = FastqStreamParser(r, block_size=api.resolve_block_size(opts), device=dev)
         _, qual_offset = api.peek_detection(parser.blocks())
         return qual_offset
 
@@ -327,7 +329,7 @@ def compress_multihost(
     h, n = _rank_and_size()
     dev = process_device(device)
     if qual_offset is None:
-        local = _detect_file_qual_offset(in_path, opts) if h == 0 else 0
+        local = _detect_file_qual_offset(in_path, opts, dev) if h == 0 else 0
         qual_offset = _broadcast_from_host0(local) if n > 1 else local
 
     start, end = host_ranges(in_path, n)[h]
@@ -447,8 +449,6 @@ def decompress_host_section(
             )
         else:
             hdr_size = container.block_header_size(fh.version)
-            decoder = pdevice.padded_decoder(dev, max(int(fh.block_size), 1))
-
             def read_blocks():
                 for off, size in my_blocks:
                     f.seek(off)
@@ -458,7 +458,8 @@ def decompress_host_section(
                 hdr = container.parse_block_header(raw[:hdr_size], fh.version)
                 ds = blockcodec.decode_streams(
                     hdr, raw[hdr_size:], fh.version, zstd_entropy.get_codec())
-                return blockcodec.streams_to_fastq(ds, qual_offset, decoder)
+                with devops.worker_stream(dev):
+                    return blockcodec.streams_to_fastq(ds, qual_offset, dev)
 
             api.ordered_map_write(out, read_blocks(), decode_one, workers)
     return out.getvalue()

@@ -36,8 +36,9 @@ def peek_detection(block_iter) -> tuple[list, int]:
     The Go tool always detects from the first min(DefaultBlockSize, file)
     records regardless of ``-b`` (compress.go:48-52,137-154), so with a
     small block size the window spans several blocks. Detection needs only
-    the window's minimum quality byte; the peeked blocks are handed back
-    for normal encoding. Parse errors inside the window surface here,
+    the window's minimum quality byte, which each block's scan brought back
+    per record (``RecordBlock.qual_min``); the peeked blocks are handed
+    back for normal encoding. Parse errors inside the window surface here,
     before any output is written.
     """
     peeked: list = []
@@ -46,8 +47,8 @@ def peek_detection(block_iter) -> tuple[list, int]:
     for blk in block_iter:
         peeked.append(blk)
         take = min(blk.n, DEFAULT_BLOCK_SIZE - seen)
-        if take > 0 and int(blk.lengths[:take].sum()) > 0:
-            qmin = min(qmin, int(blk.qual[:take].min()))
+        if take > 0:
+            qmin = min(qmin, blk.qual_min(take))
         seen += blk.n
         if seen >= DEFAULT_BLOCK_SIZE:
             break

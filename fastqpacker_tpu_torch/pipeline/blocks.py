@@ -1,9 +1,12 @@
 """Block-level encode/decode: dense arrays <-> FQZ wire streams.
 
-The numpy paths of ``fastqpacker_tpu/pipeline/blocks.py``. The irregular
-parts of the format (variable-length stream concatenation, u16 N-position
-lists, length-prefixed header/plus payloads) stay on the host; the dense
-transforms are pluggable (``encode_arrays`` / ``decode_arrays``).
+The port of ``fastqpacker_tpu/pipeline/blocks.py``. A block's stream build
+and its FASTQ assembly run on the block's device: the rows are gathered from
+the scanned text, coded by the dense kernels, and the irregular parts of the
+format (variable-length stream concatenation, N-position lists,
+length-prefixed header/plus payloads) are written by the kernels of
+``csrc/records.cu`` (:mod:`..ops.records`); one copy each way crosses to
+the host. On the CPU the same route runs the kernels' plain versions.
 
 Wire layout per block (reference: internal/compress/compress.go:471-555):
   block header, then zstd streams in order seq, qual, headers, plus (v2+),
@@ -24,15 +27,15 @@ from __future__ import annotations
 import contextlib
 import struct
 from dataclasses import dataclass
-from typing import Callable
 
 import numpy as np
+import torch
 
 from ..entropy.zstd import ZstdError, frame_content_size
 from ..format import container
+from ..ops import records as recops
 from ..ops import reference as refops
 from ..parser.fastq import RecordBlock
-from ..utils import varlen
 
 
 # What the JAX package's default decoder (its C++ runtime) says when a zstd
@@ -234,42 +237,6 @@ class RawStreams:
         ]
 
 
-def _exclusive_cumsum(x: np.ndarray) -> np.ndarray:
-    out = np.zeros(len(x), dtype=np.int64)
-    if len(x) > 1:
-        np.cumsum(x[:-1], out=out[1:])
-    return out
-
-
-def build_npos_stream(
-    nmask_bits: np.ndarray, n_counts: np.ndarray, max_len: int,
-    wide: bool = False,
-) -> bytes:
-    """N-position stream: u16 count + u16 positions per record
-    (compress.go:495-498); u32 both with ``wide`` (v3)."""
-    dtype = "<u4" if wide else "<u2"
-    r = len(n_counts)
-    counts = n_counts.astype(np.int64)
-    total = r + int(counts.sum())
-    out = np.zeros(total, dtype=dtype)
-    if r == 0:
-        return out.tobytes()
-    count_pos = np.arange(r, dtype=np.int64) + _exclusive_cumsum(counts)
-    out[count_pos] = counts.astype(dtype)
-    nz = np.flatnonzero(counts > 0)
-    if len(nz):
-        bits = np.unpackbits(
-            nmask_bits[nz], axis=1, bitorder="little", count=max_len
-        )
-        rows, cols = np.nonzero(bits)
-        per_row = counts[nz]
-        first = _exclusive_cumsum(per_row)
-        rank = np.arange(len(rows), dtype=np.int64) - np.repeat(first, per_row)
-        dst = count_pos[nz][rows] + 1 + rank
-        out[dst] = cols.astype(dtype)
-    return out.tobytes()
-
-
 def parse_npos_stream(
     data: np.ndarray, count: int, wide: bool = False
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -318,82 +285,130 @@ def parse_npos_stream(
 def parse_len16_stream(
     data: np.ndarray, count: int, what: str
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Parse u16-length-prefixed stream -> (starts, lengths).
-
-    Fast path for uniform-length records (vectorized verify), sequential
-    walk otherwise.
-    """
-    nd = len(data)
-    if count == 0:
-        return np.empty(0, np.int64), np.empty(0, np.int64)
-    if nd >= 2 * count and (nd - 2 * count) % count == 0:
-        uniform = (nd - 2 * count) // count
-        if uniform <= 0xFFFF:
-            stride = 2 + uniform
-            offs = np.arange(count, dtype=np.int64) * stride
-            lens = data[offs].astype(np.int64) | (
-                data[offs + 1].astype(np.int64) << 8
-            )
-            if np.all(lens == uniform):
-                return offs + 2, lens
-    return varlen.parse_len16_stream(data, count, what)
-
-
-def packed_lengths(lengths: np.ndarray) -> np.ndarray:
-    return (lengths.astype(np.int64) + 3) >> 2
+    """Parse u16-length-prefixed stream -> (starts, lengths): the chain
+    walk of the reference decoder (compress.go:977-1015) as
+    :func:`..ops.records.chain_starts` resolves it; raises
+    ``ValueError("truncated {what} data")``."""
+    t = torch.from_numpy(np.ascontiguousarray(data, np.uint8).copy())
+    s = recops.chain_starts(t, 1, 2, len(data), count)
+    if int(s[count]) == len(data) + 1:
+        raise ValueError(f"truncated {what} data")
+    return (s[:count] + 2).numpy(), recops.chain_values(t, 1, 2, len(data), s[:count]).numpy()
 
 
 # ---------------------------------------------------------------------------
 # Encode
 # ---------------------------------------------------------------------------
 
-EncodeArraysFn = Callable[..., refops.EncodedArrays]
+LEN_BUCKET = 32  # row widths are padded to a multiple of this
+
+
+def bucket_len(length: int) -> int:
+    return max(LEN_BUCKET, -(-length // LEN_BUCKET) * LEN_BUCKET)
+
+
+def _check_overflow(block: RecordBlock) -> None:
+    """Fail-fast guard against silent N loss on very long reads
+    (compress.go:477-488): a v1/v2 record longer than 65,536 bp with a
+    non-ACGT byte past that position cannot be represented (u16 N
+    positions). The scan found the first such record."""
+    row = block.overflow_row
+    if row is not None:
+        raise refops.ambiguous_overflow_error(f"record {row}", int(block.dev_offsets[row, 3]))
+
+
+class PendingStreams:
+    """One block's raw streams on their way to the host: the buffer the
+    stream build wrote, copied back after the work enqueued before it.
+    :meth:`result` waits for the copy."""
+
+    def __init__(self, block: RecordBlock, sizes: list[int], buf: torch.Tensor,
+                 info: torch.Tensor):
+        self.n = block.n
+        self.bases = block.total_bases
+        self.sizes = sizes
+        cuda = buf.device.type == "cuda"
+        self.buf = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=cuda)
+        self.info = torch.empty(info.shape, dtype=info.dtype, pin_memory=cuda)
+        self.buf.copy_(buf, non_blocking=True)
+        self.info.copy_(info, non_blocking=True)
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def result(self) -> RawStreams:
+        if self.event is not None:
+            self.event.synchronize()
+        npos_bytes, seq_bytes = (int(x) for x in self.info)
+        if (npos_bytes, seq_bytes) != (self.sizes[4], self.sizes[0]):
+            raise RuntimeError(
+                f"stream build disagrees with the scan: npos {npos_bytes} / "
+                f"{self.sizes[4]} bytes, seq {seq_bytes} / {self.sizes[0]}")
+        host = self.buf.numpy()
+        parts, at = [], 0
+        for size in self.sizes:
+            parts.append(host[at : at + size].tobytes())
+            at += size
+        return RawStreams(*parts, num_records=self.n, original_seq_size=self.bases,
+                          original_qual_size=self.bases)
 
 
 def encoded_to_raw_streams(
-    block: RecordBlock, enc: refops.EncodedArrays, wide_npos: bool = False
-) -> RawStreams:
-    """Host stream assembly from one block's dense encode outputs; rows
-    past ``block.n`` (shape-bucket padding) are ignored."""
-    n = block.n
-    lengths = block.lengths.astype(np.int64)
-    qual_delta = enc.qual_delta[:n]
-    return RawStreams(
-        seq=varlen.flatten_rows(enc.packed[:n], packed_lengths(lengths)).tobytes(),
-        qual=varlen.flatten_rows(qual_delta, lengths).tobytes(),
-        headers=block.header_stream(),
-        plus=block.plus_stream(),
-        npos=build_npos_stream(
-            enc.nmask_bits[:n], enc.n_counts[:n], qual_delta.shape[1],
-            wide=wide_npos,
-        ),
-        lengths=lengths.astype("<u4").tobytes(),
-        num_records=n,
-        original_seq_size=int(lengths.sum()),
-        original_qual_size=int(lengths.sum()),
+    block: RecordBlock, enc, wide_npos: bool = False
+) -> PendingStreams:
+    """The stream build of one block from its dense encode outputs ``enc``
+    (:class:`..ops.device.DenseEncoded`, on the block's device; rows past
+    ``block.n`` are bucket padding and ignored): one kernel writes the six
+    streams into one device buffer, which is copied back to the host."""
+    from ..ops import cuda_kernels
+
+    if block.max_field > 0xFFFF:
+        raise ValueError("record field longer than 65535 bytes")
+    sizes = recops.stream_sizes(block.info, wide_npos)
+    buf, info = cuda_kernels.streams_build(
+        block.dev_text, block.dev_offsets, enc.packed, enc.qual_delta,
+        enc.nmask_bits, enc.n_counts, wide_npos, sizes,
     )
+    return PendingStreams(block, sizes, buf, info)
+
+
+def dispatch_raw_streams(
+    block: RecordBlock, qual_offset: int, wide_npos: bool = False,
+    rows: int | None = None,
+) -> PendingStreams:
+    """Enqueue one block's stream build on the current stream of its
+    device: its sequences and qualities gathered into padded (``rows``,
+    bucketed length) matrices from the scanned text, the dense encode, the
+    stream build and the copy back. ``wide_npos`` selects the v3 u32
+    N-position layout and lifts the v1/v2 tracking cap."""
+    from ..ops import cuda_kernels
+
+    if not wide_npos:
+        _check_overflow(block)
+    dev = block.device
+    if dev.type == "cuda":  # the block's tensors are read on this stream
+        stream = torch.cuda.current_stream(dev)
+        block.dev_text.record_stream(stream)
+        block.dev_offsets.record_stream(stream)
+    rows = block.n if rows is None else rows
+    width = bucket_len(block.max_len)
+    lengths = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    lengths[: block.n] = block.dev_offsets[:, 3]
+    enc = cuda_kernels.encode_arrays(
+        block.rows("seq", rows, width), block.rows("qual", rows, width), lengths,
+        qual_offset,
+        npos_cap=refops.NPOS_CAP_WIDE if wide_npos else refops.MAX_SEQUENCE_LENGTH,
+    )
+    return encoded_to_raw_streams(block, enc, wide_npos)
 
 
 def block_to_raw_streams(
-    block: RecordBlock,
-    qual_offset: int,
-    encode_arrays: EncodeArraysFn,
-    wide_npos: bool = False,
+    block: RecordBlock, qual_offset: int, wide_npos: bool = False
 ) -> RawStreams:
-    """Dense transforms (``encode_arrays``, numpy in and out) + host
-    stream assembly for one block. ``wide_npos`` selects the v3 u32
-    N-position layout and lifts the tracking cap."""
-    if wide_npos:
-        enc = encode_arrays(
-            block.seq, block.qual, block.lengths, qual_offset,
-            npos_cap=refops.NPOS_CAP_WIDE,
-        )
-    else:
-        refops.check_ambiguous_overflow(
-            block.seq, block.lengths.astype(np.int64)
-        )
-        enc = encode_arrays(block.seq, block.qual, block.lengths, qual_offset)
-    return encoded_to_raw_streams(block, enc, wide_npos)
+    """One block's uncompressed streams, built on its device (the stream
+    build of :func:`dispatch_raw_streams`, waited for)."""
+    return dispatch_raw_streams(block, qual_offset, wide_npos).result()
 
 
 def compress_raw_streams(
@@ -429,8 +444,6 @@ def compress_raw_streams(
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-
-DecodeArraysFn = Callable[..., tuple[np.ndarray, np.ndarray]]
 
 
 @dataclass
@@ -479,94 +492,65 @@ def decode_streams(
 def streams_to_fastq(
     ds: DecodedStreams,
     qual_offset: int,
-    decode_arrays: DecodeArraysFn,
+    device=None,
     wide_npos: bool = False,
 ) -> bytes:
-    """Reconstruct the block's FASTQ text (compress.go:944-1078); the
-    dense decode is ``decode_arrays`` (numpy in and out)."""
+    """Reconstruct the block's FASTQ text (compress.go:944-1078) on
+    ``device`` (default: the CPU, the kernels' plain versions): the six
+    streams go to the device in one copy, the packed and quality-delta rows
+    are gathered there (:func:`..ops.cuda_kernels.rows_gather`), decoded by
+    the dense kernel and assembled with N restored
+    (:func:`..ops.cuda_kernels.fastq_assemble`); the text comes back in one
+    copy. Faults are raised in the order of the reference's checks:
+    truncated length, sequence, quality and N position data, invalid N
+    positions, truncated header and plus-line payload data."""
+    from ..ops import cuda_kernels
+
+    dev = torch.device("cpu" if device is None else device)
     r = ds.num_records
     if len(ds.lengths) < 4 * r:
         raise container.FormatError("truncated length data")
     lengths = ds.lengths[: 4 * r].view("<u4").astype(np.int64)
-
-    plens = packed_lengths(lengths)
-    if int(plens.sum()) > len(ds.seq):
+    # the host holds the lengths already: checking them here bounds the
+    # device matrices by the streams they come from
+    if int(((lengths + 3) >> 2).sum()) > len(ds.seq):
         raise container.FormatError("truncated sequence data")
     if int(lengths.sum()) > len(ds.qual):
         raise container.FormatError("truncated quality data")
-
-    n_counts, n_rows, n_pos = parse_npos_stream(ds.npos, r, wide=wide_npos)
-
-    max_len = int(lengths.max()) if r else 0
-    packed = varlen.gather_rows(
-        ds.seq, _exclusive_cumsum(plens), plens, pad_to=-(-max_len // 4)
+    if r == 0:
+        return b""
+    width = bucket_len(int(lengths.max()))
+    parts = [ds.lengths[: 4 * r], ds.seq, ds.qual, ds.headers, ds.plus, ds.npos]
+    cuda = dev.type == "cuda"
+    staged = torch.empty(sum(len(p) for p in parts), dtype=torch.uint8, pin_memory=cuda)
+    view, at, bounds = staged.numpy(), 0, []
+    for p in parts:
+        view[at : at + len(p)] = np.frombuffer(p, np.uint8)
+        bounds.append((at, at + len(p)))
+        at += len(p)
+    on_dev = staged.to(dev, non_blocking=True)
+    len_t, seq_t, qual_t, hdr_t, plus_t, npos_t = (on_dev[a:b] for a, b in bounds)
+    lens = len_t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    packed = cuda_kernels.rows_gather(seq_t, None, (lens + 3) >> 2, r, width // 4, 0)
+    deltas = cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0)
+    seq_rows, qual_rows = cuda_kernels.decode_arrays(
+        packed, deltas, lens.to(torch.int32), qual_offset)
+    out, info = cuda_kernels.fastq_assemble(
+        seq_rows, qual_rows, lens, hdr_t, plus_t if len(ds.plus) else None, npos_t,
+        wide_npos, len(ds.lengths), len(ds.seq), len(ds.qual),
     )
-    qual_delta = varlen.gather_rows(
-        ds.qual, _exclusive_cumsum(lengths), lengths, pad_to=max_len
-    )
-
-    seq_ascii, qual_ascii = decode_arrays(
-        packed, qual_delta, lengths.astype(np.int32), qual_offset
-    )
-    if len(n_rows):
-        if np.any(n_pos >= lengths[n_rows]):
-            raise container.FormatError("invalid N position data")
-        seq_ascii[n_rows, n_pos] = ord("N")
-
-    hdr_starts, hdr_lens = parse_len16_stream(ds.headers, r, "header")
-    if len(ds.plus):
-        plus_starts, plus_lens = parse_len16_stream(
-            ds.plus, r, "plus-line payload"
-        )
-    else:
-        # v1 containers carry no plus payload: emit bare '+' (compress.go:995-998)
-        plus_starts = np.zeros(r, dtype=np.int64)
-        plus_lens = np.zeros(r, dtype=np.int64)
-
-    # Assemble '@hdr\nseq\n+plus\nqual\n' per record with one scatter pass
-    # per component.
-    l_hdr = hdr_lens + 2  # '@' + '\n'
-    l_seq = lengths + 1
-    l_plus = plus_lens + 2  # '+' + '\n'
-    rec_sizes = l_hdr + l_seq + l_plus + lengths + 1
-    rec_offs = _exclusive_cumsum(rec_sizes)
-    out = np.empty(int(rec_sizes.sum()), dtype=np.uint8)
-
-    at_pos = rec_offs
-    out[at_pos] = ord("@")
-    varlen.scatter_rows(
-        out,
-        varlen.flatten_rows(
-            varlen.gather_rows(ds.headers, hdr_starts, hdr_lens), hdr_lens
-        ),
-        at_pos + 1,
-        hdr_lens,
-    )
-    out[at_pos + 1 + hdr_lens] = ord("\n")
-
-    at_pos = rec_offs + l_hdr
-    varlen.scatter_rows(
-        out, varlen.flatten_rows(seq_ascii, lengths), at_pos, lengths
-    )
-    out[at_pos + lengths] = ord("\n")
-
-    at_pos = rec_offs + l_hdr + l_seq
-    out[at_pos] = ord("+")
-    if len(ds.plus):
-        varlen.scatter_rows(
-            out,
-            varlen.flatten_rows(
-                varlen.gather_rows(ds.plus, plus_starts, plus_lens), plus_lens
-            ),
-            at_pos + 1,
-            plus_lens,
-        )
-    out[at_pos + 1 + plus_lens] = ord("\n")
-
-    at_pos = rec_offs + l_hdr + l_seq + l_plus
-    varlen.scatter_rows(
-        out, varlen.flatten_rows(qual_ascii, lengths), at_pos, lengths
-    )
-    out[at_pos + lengths] = ord("\n")
-
-    return out.tobytes()
+    out_h = torch.empty(out.shape, dtype=out.dtype, pin_memory=cuda)
+    info_h = torch.empty(info.shape, dtype=info.dtype, pin_memory=cuda)
+    out_h.copy_(out, non_blocking=True)
+    info_h.copy_(info, non_blocking=True)
+    if cuda:
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    total, flags = (int(x) for x in info_h)
+    fault = recops.fault_message(flags)
+    if fault is not None:
+        bit, msg = fault
+        # the header and plus-line walks raise ValueError, the rest FormatError
+        raise (ValueError if bit >= 5 else container.FormatError)(msg)
+    return out_h.numpy()[:total].tobytes()

@@ -2,18 +2,20 @@
 
 The port of ``fastqpacker_tpu/pipeline/device.py``. FQZ v3 routes to
 :mod:`.native` (and, for a container with ``TAG_WCTX`` streams read on the
-card, to :mod:`.meshpipe`); the rest of this module is the v1/v2 path. Compress: the main
-thread parses a block, stages it padded in page-locked host memory, and
-enqueues the host-to-device copy, the dense encode kernel and the copy
-back on one CUDA stream; a thread pool waits for each block's copies and
-does the host stream assembly and zstd. Decompress: the pool does zstd,
-stream parsing, the dense decode on the same stream, N restore and FASTQ
-assembly. An ordered in-flight window writes blocks in input order (the
-reference's seqNum collector, compress.go:365-403).
+card, to :mod:`.meshpipe`); the rest of this module is the v1/v2 path, which
+runs end to end on the card. Compress: the main thread copies each block's
+FASTQ text to the card and scans it there (:mod:`..parser.fastq`), then
+enqueues on one CUDA stream the row gathers, the dense encode, the stream
+build and one copy of the six raw streams back; a thread pool waits for
+each block's copy and runs zstd. Decompress: the pool runs zstd, copies a
+block's six streams to the card in one copy, gathers the rows, decodes and
+assembles the FASTQ text there and copies it back. An ordered in-flight
+window writes blocks in input order (the reference's seqNum collector,
+compress.go:365-403).
 
-Shapes are bucketed: records padded to the block size, read length to the
-next multiple of ``LEN_BUCKET``. With ``device="cpu"`` the same pipeline
-runs the kernels' plain PyTorch versions.
+Records are padded to the block size and read lengths to the next multiple
+of ``blocks.LEN_BUCKET``. With ``device="cpu"`` the same pipeline runs the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -25,61 +27,27 @@ from concurrent.futures import ThreadPoolExecutor
 from itertools import chain
 from typing import BinaryIO, Optional
 
-import numpy as np
 import torch
 
 from ..entropy import zstd as zstd_entropy
 from ..format import container
-from ..ops import cuda_kernels
 from ..ops import device as devops
 from ..ops import reference as refops
-from ..parser.fastq import QUAL_PAD, SEQ_PAD, FastqStreamParser, RecordBlock
+from ..parser.fastq import FastqStreamParser, RecordBlock
 from ..utils.inmem import source_view
 from . import api
 from . import blocks as blockcodec
 from . import meshpipe
 from . import native
 
-LEN_BUCKET = 32
+
+def _dispatch_stream(dev: torch.device):
+    """A CUDA stream of its own for one compress run (None on the CPU)."""
+    return torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
 
-def _bucket_len(l: int) -> int:
-    return max(LEN_BUCKET, -(-l // LEN_BUCKET) * LEN_BUCKET)
-
-
-class _Staging:
-    """One pipeline run's device, its CUDA stream and host staging."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.cuda = dev.type == "cuda"
-        self.stream = torch.cuda.Stream(dev) if self.cuda else None
-
-    def host(self, shape, dtype, fill: int) -> torch.Tensor:
-        """A filled host tensor, page-locked when the device is a card."""
-        return torch.empty(shape, dtype=dtype, pin_memory=self.cuda).fill_(fill)
-
-    def on_stream(self):
-        if self.cuda:
-            return torch.cuda.stream(self.stream)
-        return contextlib.nullcontext()
-
-    def to_device(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.dev, non_blocking=True)
-
-    def to_host(self, t: torch.Tensor) -> torch.Tensor:
-        if not self.cuda:
-            return t
-        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return out.copy_(t, non_blocking=True)
-
-    def fence(self) -> Optional[torch.cuda.Event]:
-        """An event after everything enqueued so far (None on the CPU)."""
-        if not self.cuda:
-            return None
-        event = torch.cuda.Event()
-        event.record(self.stream)
-        return event
+def _on(stream):
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 def _ordered_write(w: BinaryIO, tasks, workers: int) -> None:
@@ -97,36 +65,9 @@ def _ordered_write(w: BinaryIO, tasks, workers: int) -> None:
             w.write(pending.popleft().result())
 
 
-def _dispatch_encode(
-    st: _Staging, blk: RecordBlock, qual_offset: int, r_pad: int
-):
-    """Stage one block padded to ``(r_pad, bucketed length)`` and enqueue
-    its copy in, the encode and the copies out; returns the host outputs
-    and the event that says they have landed."""
-    refops.check_ambiguous_overflow(blk.seq, blk.lengths.astype(np.int64))
-    l_pad = _bucket_len(blk.max_len)
-    seq = st.host((r_pad, l_pad), torch.uint8, SEQ_PAD)
-    qual = st.host((r_pad, l_pad), torch.uint8, QUAL_PAD)
-    lengths = st.host((r_pad,), torch.int32, 0)
-    seq.numpy()[: blk.n, : blk.max_len] = blk.seq
-    qual.numpy()[: blk.n, : blk.max_len] = blk.qual
-    lengths.numpy()[: blk.n] = blk.lengths
-    with st.on_stream():
-        enc = cuda_kernels.encode_arrays(
-            st.to_device(seq), st.to_device(qual), st.to_device(lengths),
-            qual_offset,
-        )
-        return [st.to_host(x[: blk.n]) for x in enc], st.fence()
-
-
-def _finish_block(blk: RecordBlock, staged, version: int) -> bytes:
-    outs, event = staged
-    if event is not None:
-        event.synchronize()
-    enc = refops.EncodedArrays(*(t.numpy() for t in outs))
-    raw = blockcodec.encoded_to_raw_streams(blk, enc)
+def _finish_block(pending: blockcodec.PendingStreams, version: int) -> bytes:
     return blockcodec.compress_raw_streams(
-        raw, zstd_entropy.get_codec(), version
+        pending.result(), zstd_entropy.get_codec(), version
     )
 
 
@@ -151,7 +92,9 @@ def compress_device(
         native.compress_native(r, w, opts, dev)
         return
     block_size = api.resolve_block_size(opts)
-    block_iter = FastqStreamParser(r, block_size=block_size).blocks()
+    stream = _dispatch_stream(dev)
+    block_iter = FastqStreamParser(r, block_size=block_size, device=dev,
+                                   stream=stream).blocks()
 
     # Phred detection from the reference's fixed min(100k, file)-record
     # window regardless of -b (compress.go:48-52,137-154).
@@ -164,52 +107,23 @@ def compress_device(
     ).write(w)
     if not peeked:
         return
-    encode_blocks(w, chain(peeked, block_iter), qual_offset, opts, dev)
+    encode_blocks(w, chain(peeked, block_iter), qual_offset, opts, stream)
 
 
 def encode_blocks(
-    w: BinaryIO, blocks, qual_offset: int, opts: api.Options, dev: torch.device
+    w: BinaryIO, blocks, qual_offset: int, opts: api.Options, stream=None
 ) -> None:
     """Encode v1/v2 ``blocks`` (no file header) onto ``w`` in order: the
-    dense encode on ``dev``, stream assembly and zstd on a pool of
-    ``opts.workers`` threads."""
-    st = _Staging(dev)
+    stream build on each block's device, enqueued on ``stream`` (the
+    current one if None), zstd on a pool of ``opts.workers`` threads."""
     r_pad = api.resolve_block_size(opts)
-    tasks = (
-        (_finish_block, blk, _dispatch_encode(st, blk, qual_offset, r_pad), opts.version)
-        for blk in blocks
-    )
+
+    def dispatch(blk: RecordBlock) -> blockcodec.PendingStreams:
+        with _on(stream):
+            return blockcodec.dispatch_raw_streams(blk, qual_offset, rows=r_pad)
+
+    tasks = ((_finish_block, dispatch(blk), opts.version) for blk in blocks)
     _ordered_write(w, tasks, api._resolve_workers(opts.workers))
-
-
-def padded_decoder(dev: torch.device, r_pad: int) -> blockcodec.DecodeArraysFn:
-    """The numpy-facing dense decode on ``dev``, on a CUDA stream of its
-    own, with shape bucketing (R padded to the block size ``r_pad``, L to
-    ``LEN_BUCKET``)."""
-    st = _Staging(dev)
-
-    def decode(packed, qual_delta, lengths, qual_offset):
-        n, l = qual_delta.shape
-        l_pad = _bucket_len(l)
-        rp = max(r_pad, n)
-        pk = st.host((rp, l_pad // 4), torch.uint8, 0)
-        qd = st.host((rp, l_pad), torch.uint8, 0)
-        ln = st.host((rp,), torch.int32, 0)
-        pk.numpy()[:n, : packed.shape[1]] = packed
-        qd.numpy()[:n, :l] = qual_delta
-        ln.numpy()[:n] = lengths
-        with st.on_stream():
-            seq, qual = cuda_kernels.decode_arrays(
-                st.to_device(pk), st.to_device(qd), st.to_device(ln),
-                qual_offset,
-            )
-            seq_h, qual_h = st.to_host(seq[:n]), st.to_host(qual[:n])
-            event = st.fence()
-        if event is not None:
-            event.synchronize()
-        return seq_h.numpy()[:, :l], qual_h.numpy()[:, :l]
-
-    return decode
 
 
 def _read_blocks(r: BinaryIO, version: int):
@@ -290,7 +204,6 @@ def decompress_device(
         # v1/v2 name a failing frame per block either way; the JAX
         # runtime's first pass raises its faults before any block decodes
         api.runtime_decodes(view, w, fh.version)
-    decoder = padded_decoder(dev, max(int(fh.block_size), 1))
 
     def decode_one(hdr, payload) -> bytes:
         mapped = blockcodec.frames_sized(hdr, payload, fh.version)
@@ -298,7 +211,8 @@ def decompress_device(
             ds = blockcodec.decode_streams(
                 hdr, payload, fh.version, zstd_entropy.get_codec()
             )
-        return blockcodec.streams_to_fastq(ds, qual_offset, decoder)
+        with devops.worker_stream(dev):
+            return blockcodec.streams_to_fastq(ds, qual_offset, dev)
 
     tasks = ((decode_one, hdr, payload) for hdr, payload in _read_blocks(r, fh.version))
     _ordered_write(w, tasks, api._resolve_workers(opts.workers))

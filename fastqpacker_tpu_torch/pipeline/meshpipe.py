@@ -368,7 +368,7 @@ def compress_mesh(
     dev = mesh[0]
     block_size = api.resolve_block_size(opts)
 
-    parser = FastqStreamParser(r, block_size=block_size)
+    parser = FastqStreamParser(r, block_size=block_size, device=dev)
     block_iter = parser.blocks()
     # Phred detection from the reference's fixed min(100k, file)-record
     # window regardless of -b (compress.go:48-52,137-154).
@@ -400,7 +400,7 @@ def compress_mesh(
         and second_block is not None
     ):
         with devops.worker_stream(dev):
-            raw0 = native._raw_streams(first_block, qual_offset, dev)
+            raw0 = native._raw_streams(first_block, qual_offset)
         packed0 = np.frombuffer(raw0.seq, np.uint8)
         if sldm.coverage_probe(packed0) >= sldm.DUP_THRESHOLD:
             lens0 = np.frombuffer(raw0.lengths, "<u4").astype(np.int64)
@@ -436,7 +436,7 @@ def compress_mesh(
             raws = [
                 raw0
                 if (blk is first_block and raw0 is not None)
-                else native._raw_streams(blk, qual_offset, dev)
+                else native._raw_streams(blk, qual_offset)
                 for blk in blks
             ]
             return _plan_round(raws, dev, seq_dict)

@@ -26,7 +26,6 @@ Blocks are coded on a pool of worker threads, each on its own CUDA stream
 from __future__ import annotations
 
 import io
-from functools import partial
 from typing import BinaryIO, Optional
 
 import numpy as np
@@ -451,16 +450,10 @@ def _apply_lossless_extra(
         buf[dst] |= 0x20
 
 
-def _raw_streams(
-    blk: RecordBlock, qual_offset: int, dev: torch.device
-) -> blockcodec.RawStreams:
-    """One block's uncompressed v3 streams, the dense encode on ``dev``."""
-    return blockcodec.block_to_raw_streams(
-        blk,
-        qual_offset,
-        partial(devops.encode_block_arrays, device=dev),
-        wide_npos=True,
-    )
+def _raw_streams(blk: RecordBlock, qual_offset: int) -> blockcodec.RawStreams:
+    """One block's uncompressed v3 streams, built on the device the parser
+    scanned the block on."""
+    return blockcodec.block_to_raw_streams(blk, qual_offset, wide_npos=True)
 
 
 def encode_block_native(
@@ -485,7 +478,7 @@ def encode_block_native(
         else zstd_entropy.get_codec()
     )
     if raw is None:
-        raw = _raw_streams(blk, qual_offset, dev)
+        raw = _raw_streams(blk, qual_offset)
     if lossless:
         lens64 = blk.lengths.astype(np.int64)
         raw.npos = np.concatenate(
@@ -553,7 +546,7 @@ def compress_native(
     opts = opts or api.Options()
     block_size = api.resolve_block_size(opts)
 
-    parser = FastqStreamParser(r, block_size=block_size)
+    parser = FastqStreamParser(r, block_size=block_size, device=dev)
     block_iter = parser.blocks()
     # Phred detection from the reference's fixed min(100k, file)-record
     # window regardless of -b (compress.go:48-52,137-154).
@@ -593,7 +586,7 @@ def compress_native(
         and second_block is not None
     ):
         with devops.worker_stream(dev):
-            raw0 = _raw_streams(first_block, qual_offset, dev)
+            raw0 = _raw_streams(first_block, qual_offset)
         packed0 = np.frombuffer(raw0.seq, np.uint8)
         if sldm.coverage_probe(packed0) >= sldm.DUP_THRESHOLD:
             lens0 = np.frombuffer(raw0.lengths, "<u4").astype(np.int64)
@@ -719,12 +712,7 @@ def decode_block_payload(
         lengths=np.frombuffer(parts[5], np.uint8),
         num_records=hdr.num_records,
     )
-    text = blockcodec.streams_to_fastq(
-        ds,
-        qual_offset,
-        partial(devops.decode_block_arrays, device=dev),
-        wide_npos=True,
-    )
+    text = blockcodec.streams_to_fastq(ds, qual_offset, dev, wide_npos=True)
     if lossless:
         hdr_starts, hdr_lens = blockcodec.parse_len16_stream(
             ds.headers, hdr.num_records, "header"

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from functools import partial
 from typing import BinaryIO, Optional
 
 import numpy as np
@@ -141,9 +140,7 @@ def _decode_entry(
             lossless=bool(fh.flags & container.FLAG_LOSSLESS),
         )
     ds = blockcodec.decode_streams(hdr, payload, fh.version, codec)
-    return blockcodec.streams_to_fastq(
-        ds, qual_offset, partial(devops.decode_block_arrays, device=dev)
-    )
+    return blockcodec.streams_to_fastq(ds, qual_offset, dev)
 
 
 def _trim_records(text: bytes, first: int, count: int) -> bytes:

@@ -8,7 +8,13 @@ copies and kernels with CUDA events. The pipeline overlaps these stages
 across its worker threads; this script shows what each one costs alone,
 so the slowest can be named.
 
-``--format v2`` (default) walks the FQZ v2 stages by hand. ``--format v3``
+``--format v2`` (default) walks the FQZ v2 stages by hand: the text's copy
+to the card and its record scan (``c.h2d_text``, ``c.scan``; ``parse`` is the
+parser's whole time, its synchronisation included), the row gathers, the
+dense encode and the stream build (``c.gather``, ``c.encode_kernel``,
+``c.streams``), the copy back and zstd; on decompress zstd, the streams'
+one copy in, the gathers, the dense decode, the assembly (``d.assemble``)
+and the text's copy back. ``--format v3``
 runs the v3 block encoder and decoder (``pipeline/native.py``) with its
 stages wrapped in timers, on data whose quality streams are coded with
 order-0 rANS: CRC32, zstd candidates, pick estimates, rANS encode and
@@ -41,15 +47,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from fastqpacker_tpu_torch.entropy import zstd as zstd_entropy  # noqa: E402
 from fastqpacker_tpu_torch.ops import cuda_kernels  # noqa: E402
-from fastqpacker_tpu_torch.parser.fastq import (  # noqa: E402
-    QUAL_PAD,
-    SEQ_PAD,
-    FastqStreamParser,
-)
+from fastqpacker_tpu_torch.ops import records as recops  # noqa: E402
+from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser  # noqa: E402
 from fastqpacker_tpu_torch.pipeline import api  # noqa: E402
 from fastqpacker_tpu_torch.pipeline import blocks as blockcodec  # noqa: E402
-from fastqpacker_tpu_torch.pipeline.device import _bucket_len  # noqa: E402
-from fastqpacker_tpu_torch.ops import reference as refops  # noqa: E402
 from fastqpacker_tpu_torch.utils.synth import synth_fastq  # noqa: E402
 
 
@@ -82,8 +83,11 @@ class Clock:
         self._events.clear()
 
 
-def pinned(shape, dtype, fill):
-    return torch.empty(shape, dtype=dtype, pin_memory=True).fill_(fill)
+def warm_parse(dev: torch.device) -> None:
+    """The parser's first use in a process (context, library, buffers),
+    outside the timed parse."""
+    list(FastqStreamParser(io.BytesIO(synth_fastq(1)), block_size=1000, device=dev).blocks())
+    torch.cuda.synchronize()
 
 
 def to_host(t):
@@ -94,7 +98,6 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     """Per-stage ms of the v3 block encoder and decoder, stages timed by
     wrapping the functions ``pipeline/native.py`` calls."""
     from fastqpacker_tpu_torch.ops import crc32, qualctx, rans, seqctx, sldm, tokenize
-    from fastqpacker_tpu_torch.ops import device as devops
     from fastqpacker_tpu_torch.pipeline import native
 
     c = Clock()
@@ -110,10 +113,9 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         setattr(owner, attr, timed)
 
     for owner, attr, label in (
-        (devops, "encode_block_arrays", "dense_encode(incl. copies)"),
-        (devops, "decode_block_arrays", "dense_decode(incl. copies)"),
-        (blockcodec, "encoded_to_raw_streams", "stream_assembly"),
-        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. dense_decode)"),
+        (blockcodec, "dispatch_raw_streams", "raw_streams(incl. gather, dense encode, stream build)"),
+        (blockcodec.PendingStreams, "result", "raw_streams.fetch(wait, d2h)"),
+        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. copies, gather, dense decode)"),
         (crc32, "crc32_device", "crc32(incl. copies)"),
         (native, "_zstd_candidate", "zstd_candidates"),
         (zstd_entropy.ZstdCodec, "decompress", "zstd"),
@@ -137,19 +139,22 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     for owner, attr, label in (
         (cuda_kernels, "encode_arrays", "dense_encode.kernel"),
         (cuda_kernels, "decode_arrays", "dense_decode.kernel"),
+        (cuda_kernels, "rows_gather", "gather.kernel"),
+        (cuda_kernels, "streams_build", "streams.kernel"),
+        (cuda_kernels, "fastq_assemble", "assemble.kernel"),
         (cuda_kernels, "rans_encode", "rans_encode.kernel"),
         (cuda_kernels, "rans_compact", "rans_encode.compact_kernel"),
         (cuda_kernels, "rans_decode", "rans_decode.kernel"),
         (cuda_kernels, "crc32_chunks", "crc32.kernel"),
-        (devops, "to_device", "dense.h2d"),
         (rans, "to_device", "rans.h2d"),
         (crc32, "to_device", "crc32.h2d"),
     ):
         wrap("device", owner, attr, label)
 
     block_size = api.DEFAULT_BLOCK_SIZE
+    warm_parse(dev)
     blocks = c.host("parse", lambda: list(
-        FastqStreamParser(io.BytesIO(data), block_size=block_size).blocks()))
+        FastqStreamParser(io.BytesIO(data), block_size=block_size, device=dev).blocks()))
     _, qual_offset = api.peek_detection(iter(blocks))
     codec = zstd_entropy.get_codec()
     native.encode_block_native(blocks[-1], qual_offset, dev)  # warm-up
@@ -165,12 +170,15 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         c.settle()
     direction[0] = "d."
     v3 = blockcodec.container.VERSION_3_NATIVE
-    for comp in comps:
-        hdr = blockcodec.container.parse_block_header(comp, v3)
-        payload = comp[blockcodec.container.BLOCK_HEADER_SIZE_V3 :]
-        c.host("d.block_total", native.decode_block_payload, hdr, payload,
-               codec, qual_offset, dev)
-        c.settle()
+    for warm in (True, False):  # the first pass warms the decompress side up
+        for comp in comps:
+            hdr = blockcodec.container.parse_block_header(comp, v3)
+            payload = comp[blockcodec.container.BLOCK_HEADER_SIZE_V3 :]
+            c.host("d.block_total", native.decode_block_payload, hdr, payload,
+                   codec, qual_offset, dev)
+            c.settle()
+        if warm:
+            c.ms = {k: v for k, v in c.ms.items() if not k.startswith("d.")}
     return c.ms, len(blocks), block_size
 
 
@@ -196,7 +204,7 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         setattr(owner, attr, timed)
 
     for owner, attr, label in (
-        (native, "_raw_streams", "raw_streams(incl. dense encode, stream assembly)"),
+        (native, "_raw_streams", "raw_streams(incl. gather, dense encode, stream build, copies)"),
         (meshpipe, "_plan_round", "plan(incl. plan.*)"),
         (seqctx, "prepare", "plan.seqctx_prepare"),
         (qualctx, "prepare", "plan.qualctx_prepare"),
@@ -223,10 +231,12 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (seqctx, "pack_stream", "pack_stream"),
         (native, "_raw_to_delta", "raw_to_delta"),
         (native, "decode_block_payload", "block_payload(incl. zstd, crc32, fastq_assembly)"),
-        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. dense decode)"),
+        (blockcodec, "streams_to_fastq", "fastq_assembly(incl. copies, gather, dense decode)"),
     ):
         wrap("host", owner, attr, label)
     for owner, attr, label in (
+        (cuda_kernels, "fastq_assemble", "assemble.kernel"),
+        (cuda_kernels, "streams_build", "streams.kernel"),
         (wctx, "to_device", "wctx.h2d"),
         (cuda_kernels, "wctx_encode", "wctx_encode.kernel"),
         (cuda_kernels, "rans_encode", "rans_encode.kernel"),
@@ -238,12 +248,13 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
 
     mesh = [dev]
     block_size = api.DEFAULT_BLOCK_SIZE
+    warm_parse(dev)
     blocks = c.host("parse", lambda: list(
-        FastqStreamParser(io.BytesIO(data), block_size=block_size).blocks()))
+        FastqStreamParser(io.BytesIO(data), block_size=block_size, device=dev).blocks()))
     _, qual_offset = api.peek_detection(iter(blocks))
 
     def encode(blk):
-        raw = native._raw_streams(blk, qual_offset, dev)
+        raw = native._raw_streams(blk, qual_offset)
         return meshpipe._encode_round([raw], mesh)[0]
 
     encode(blocks[-1])  # warm-up
@@ -260,11 +271,14 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     container.FileHeader(
         version=container.VERSION_3_NATIVE, block_size=block_size, flags=0
     ).write(head)
-    out = io.BytesIO()
-    for comp in comps:
-        c.host("d.block_total", meshpipe.decompress_mesh,
-               io.BytesIO(head.getvalue() + comp), out, mesh)
-        c.settle()
+    for warm in (True, False):  # the first pass warms the decompress side up
+        out = io.BytesIO()
+        for comp in comps:
+            c.host("d.block_total", meshpipe.decompress_mesh,
+                   io.BytesIO(head.getvalue() + comp), out, mesh)
+            c.settle()
+        if warm:
+            c.ms = {k: v for k, v in c.ms.items() if not k.startswith("d.")}
     if out.getvalue() != data:
         raise RuntimeError("mesh breakdown: the round trip differs from the input")
     tags = [[TAGS[comp[container.BLOCK_HEADER_SIZE_V3]],
@@ -332,68 +346,75 @@ def main() -> int:
     r_pad = api.SPEED_BLOCK_SIZE
     codec = zstd_entropy.get_codec()
     c = Clock()
+    warm = synth_fastq(1, seed=args.seed + 1)  # build, allocator, first launches
+    blockcodec.block_to_raw_streams(
+        next(FastqStreamParser(io.BytesIO(warm), block_size=r_pad, device=dev).blocks()), 33)
+    warm_parse(dev)
 
     blocks = c.host("parse", lambda: list(
-        FastqStreamParser(io.BytesIO(data), block_size=r_pad).blocks()))
+        FastqStreamParser(io.BytesIO(data), block_size=r_pad, device=dev).blocks()))
     _, qual_offset = api.peek_detection(iter(blocks))
-    # warm-up: build, allocator, first launch
-    s = torch.zeros((r_pad, 160), dtype=torch.uint8, device=dev)
-    cuda_kernels.encode_arrays(s, s, torch.zeros(r_pad, dtype=torch.int32, device=dev), 33)
-    torch.cuda.synchronize()
 
     comps = []
     for blk in blocks:
-        l_pad = _bucket_len(blk.max_len)
-
-        def stage():
-            seq = pinned((r_pad, l_pad), torch.uint8, SEQ_PAD)
-            qual = pinned((r_pad, l_pad), torch.uint8, QUAL_PAD)
-            lens = pinned((r_pad,), torch.int32, 0)
-            seq.numpy()[: blk.n, : blk.max_len] = blk.seq
-            qual.numpy()[: blk.n, : blk.max_len] = blk.qual
-            lens.numpy()[: blk.n] = blk.lengths
-            return seq, qual, lens
-
-        host_in = c.host("c.stage_pinned", stage)
-        dev_in = c.device("c.h2d", lambda: [t.to(dev, non_blocking=True) for t in host_in])
-        enc = c.device("c.encode_kernel", cuda_kernels.encode_arrays, *dev_in, qual_offset)
-        outs = c.device("c.d2h", lambda: [to_host(x[: blk.n]) for x in enc])
+        # the parser's two device stages again, timed alone
+        host = torch.from_numpy(blk.text.copy())
+        text = c.device("c.h2d_text", lambda: host.to(dev, non_blocking=True))
+        c.device("c.scan", cuda_kernels.records_scan, text, r_pad)
+        width = blockcodec.bucket_len(blk.max_len)
+        rows = c.device("c.gather", lambda: (blk.rows("seq", r_pad, width),
+                                             blk.rows("qual", r_pad, width)))
+        lens = torch.zeros((r_pad,), dtype=torch.int32, device=dev)
+        lens[: blk.n] = blk.dev_offsets[:, 3]
+        enc = c.device("c.encode_kernel", cuda_kernels.encode_arrays, *rows, lens, qual_offset)
+        sizes = recops.stream_sizes(blk.info, False)
+        buf, _ = c.device("c.streams", cuda_kernels.streams_build, blk.dev_text,
+                          blk.dev_offsets, enc.packed, enc.qual_delta, enc.nmask_bits,
+                          enc.n_counts, False, sizes)
+        c.device("c.d2h", to_host, buf)
         c.settle()
-        arrays = refops.EncodedArrays(*(t.numpy() for t in outs))
-        raw = c.host("c.stream_assembly", blockcodec.encoded_to_raw_streams, blk, arrays)
+        raw = c.host("c.build_total(incl. gather, encode, streams, d2h)",
+                     blockcodec.block_to_raw_streams, blk, qual_offset)
         comps.append(c.host("c.zstd", blockcodec.compress_raw_streams, raw, codec, 2))
 
+    # warm-up of the decompress side (its kernels' first launches, buffers)
+    warm_hdr = blockcodec.container.parse_block_header(comps[0], 2)
+    blockcodec.streams_to_fastq(blockcodec.decode_streams(
+        warm_hdr, comps[0][blockcodec.container.BLOCK_HEADER_SIZE_V2 :], 2, codec),
+        qual_offset, dev)
     for comp in comps:
         hdr = c.host("d.block_header", blockcodec.container.parse_block_header, comp, 2)
         payload = comp[blockcodec.container.BLOCK_HEADER_SIZE_V2 :]
         ds = c.host("d.zstd", blockcodec.decode_streams, hdr, payload, 2, codec)
+        r = ds.num_records
+        parts = [ds.lengths, ds.seq, ds.qual, ds.headers, ds.plus, ds.npos]
 
-        def decoder(packed, qual_delta, lengths, off):
-            n, l = qual_delta.shape
-            lp = _bucket_len(l)
+        def stage():
+            staged = torch.empty(sum(len(p) for p in parts), dtype=torch.uint8, pin_memory=True)
+            view, at = staged.numpy(), 0
+            for p in parts:
+                view[at : at + len(p)] = p
+                at += len(p)
+            return staged
 
-            def stage():
-                pk = pinned((r_pad, lp // 4), torch.uint8, 0)
-                qd = pinned((r_pad, lp), torch.uint8, 0)
-                ln = pinned((r_pad,), torch.int32, 0)
-                pk.numpy()[:n, : packed.shape[1]] = packed
-                qd.numpy()[:n, :l] = qual_delta
-                ln.numpy()[:n] = lengths
-                return pk, qd, ln
-
-            t0 = time.perf_counter()
-            host_in = c.host("d.stage_pinned", stage)
-            dev_in = c.device("d.h2d", lambda: [t.to(dev, non_blocking=True) for t in host_in])
-            seq, qual = c.device("d.decode_kernel", cuda_kernels.decode_arrays, *dev_in, off)
-            outs = c.device("d.d2h", lambda: [to_host(x[:n]) for x in (seq, qual)])
-            c.settle()
-            decoder.ms += (time.perf_counter() - t0) * 1e3
-            return outs[0].numpy()[:, :l], outs[1].numpy()[:, :l]
-
-        decoder.ms = 0.0
-        c.host("d.fastq_assembly", blockcodec.streams_to_fastq, ds, qual_offset, decoder)
-        # the assembly stage's own time, without the decoder it calls
-        c.ms["d.fastq_assembly"] -= decoder.ms
+        staged = c.host("d.stage_pinned", stage)
+        on_dev = c.device("d.h2d", lambda: staged.to(dev, non_blocking=True))
+        cut = np.cumsum([0] + [len(p) for p in parts])
+        len_t, seq_t, qual_t, hdr_t, plus_t, npos_t = (
+            on_dev[cut[i] : cut[i + 1]] for i in range(6))
+        lens = len_t.view(torch.int32).to(torch.int64)
+        width = blockcodec.bucket_len(int(ds.lengths.view("<u4").max()))
+        packed, deltas = c.device("d.gather", lambda: (
+            cuda_kernels.rows_gather(seq_t, None, (lens + 3) >> 2, r, width // 4, 0),
+            cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0)))
+        seq, qual = c.device("d.decode_kernel", cuda_kernels.decode_arrays, packed, deltas,
+                             lens.to(torch.int32), qual_offset)
+        out, _ = c.device("d.assemble", cuda_kernels.fastq_assemble, seq, qual, lens, hdr_t,
+                          plus_t, npos_t, False, len(ds.lengths), len(ds.seq), len(ds.qual))
+        c.device("d.d2h", to_host, out)
+        c.settle()
+        c.host("d.fastq_total(incl. stage, h2d, gather, decode, assemble, d2h)",
+               blockcodec.streams_to_fastq, ds, qual_offset, dev)
 
     n = len(blocks)
     result = {

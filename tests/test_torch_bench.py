@@ -30,6 +30,7 @@ from fastqpacker_tpu_torch import bench as pbench
 from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.ops import wctx as pwctx
 from fastqpacker_tpu_torch.utils import profiling as pprofiling
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _runtime_built() -> bool:
@@ -142,7 +143,7 @@ def test_json_line_equals_the_jax_bench(metric, monkeypatch, capsys):
         for fn in ("bench_kernel", "bench_decode_kernel", "bench_mesh_entropy",
                    "bench_mesh_entropy_decode", "bench_wctx_entropy"):
             monkeypatch.setattr(mod, fn, _fixed)
-        monkeypatch.setattr(mod, "bench_micro", lambda data: {"parse": VALUE})
+        monkeypatch.setattr(mod, "bench_micro", lambda data, *device: {"parse": VALUE})
         monkeypatch.setattr(mod, "bench_mesh_e2e", lambda *a, **k: (VALUE, 4.2))
         monkeypatch.setattr(mod, "bench_compress", lambda *a, **k: (VALUE, 4.2, 0.5))
         monkeypatch.setattr(mod, "bench_decompress", lambda *a, **k: (VALUE, 0.5))

@@ -17,6 +17,7 @@ from fastqpacker_tpu.cli import fqpack as jax_cli
 import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.format import container as C
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 ENV = {
@@ -24,6 +25,9 @@ ENV = {
     "FQZ_FORCE_CPU": "1",
     "JAX_PLATFORMS": "cpu",
     "PYTHONPATH": str(REPO),
+    # one intra-op thread in each CLI process: beside the other test
+    # processes, torch's thread pool oversubscribes the cores
+    "OMP_NUM_THREADS": "1",
 }
 
 

@@ -1418,3 +1418,162 @@ def test_backend_auto_chooses_the_card(cuda, tmp_path):
     want = (tmp_path / "cuda.fqz").read_bytes()
     for name in ("auto", "cached", "cpu"):
         assert (tmp_path / f"{name}.fqz").read_bytes() == want
+
+
+# ---------------------------------------------------------------------------
+# the block stages (csrc/records.cu): scan, gather, stream build, assembly
+# ---------------------------------------------------------------------------
+
+
+def _records_text(seed, n, read_len, crlf=False, varlen=False, n_rich=False, plus=False):
+    rng = np.random.default_rng(seed)
+    nl = b"\r\n" if crlf else b"\n"
+    bases = np.frombuffer(b"ACGTNNNNacgtRY." if n_rich else b"ACGTN", np.uint8)
+    recs = []
+    for i in range(n):
+        ln = int(rng.integers(0, read_len + 1)) if varlen else read_len
+        seq = bases[rng.integers(0, len(bases), ln)].tobytes()
+        qual = rng.integers(33, 75, ln).astype(np.uint8).tobytes()
+        hdr = b"r%d" % i if varlen else b"r%07d" % i
+        p = hdr if plus else b""
+        recs.append(b"@" + hdr + nl + seq + nl + b"+" + p + nl + qual + nl)
+    return b"".join(recs)
+
+
+def _normalized(data: bytes) -> bytes:
+    """The text a round trip gives back: CR stripped, bases upper case,
+    every non-ACGT base an N (the wire keeps 2-bit codes and N positions)."""
+    lines = data.replace(b"\r", b"").split(b"\n")
+    for i in range(1, len(lines), 4):
+        b = np.frombuffer(lines[i], np.uint8) & 0xDF
+        lines[i] = np.where(np.isin(b, np.frombuffer(b"ACGT", np.uint8)), b,
+                            ord("N")).astype(np.uint8).tobytes()
+    return b"\n".join(lines)
+
+
+RECORD_TEXTS = {
+    "uniform151": dict(n=3000, read_len=151),
+    "varlen_crlf_plus": dict(n=2000, read_len=300, crlf=True, varlen=True, plus=True),
+    "n_rich_varlen": dict(n=2500, read_len=90, varlen=True, n_rich=True),
+    "one_record": dict(n=1, read_len=7),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECORD_TEXTS))
+@pytest.mark.parametrize("wide", [False, True])
+def test_records_kernels_match_plain(name, wide, cuda):
+    """The four block-stage kernels against their plain versions, byte for
+    byte, and the text rebuilt from the streams equal to the input."""
+    from fastqpacker_tpu_torch.ops import records as recops
+    from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+
+    data = _records_text(len(name), **RECORD_TEXTS[name])
+    text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    for max_records in (1, 3, 5000):
+        got = cuda_kernels.records_scan(text, max_records)
+        want = recops.records_scan_plain(text, max_records)
+        n = int(want[2][recops.SCAN_COUNT])
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0][:n], want[0][:n]) and torch.equal(got[1][:n], want[1][:n])
+    offsets, _, info = got
+    n = int(info[recops.SCAN_COUNT])
+    offsets = offsets[:n]
+    width = pblocks.bucket_len(int(info[recops.SCAN_SEQ_MAX]))
+    rows = []
+    for col, fill in ((2, 0), (6, 0xFF)):
+        g = cuda_kernels.rows_gather(text, offsets[:, col], offsets[:, 3], n + 5, width, fill)
+        assert torch.equal(g, recops.rows_gather_plain(text, offsets[:, col], offsets[:, 3],
+                                                       n + 5, width, fill))
+        rows.append(g)
+    lens32 = torch.zeros(n + 5, dtype=torch.int32, device=cuda)
+    lens32[:n] = offsets[:, 3]
+    enc = cuda_kernels.encode_arrays(*rows, lens32, 33, npos_cap=(1 << 31) - 1 if wide else 1 << 16)
+    sizes = recops.stream_sizes(info.cpu().numpy(), wide)
+    args = (text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts, wide, sizes)
+    buf, binfo = cuda_kernels.streams_build(*args)
+    pbuf, pinfo = recops.streams_build_plain(*args)
+    assert torch.equal(buf, pbuf) and torch.equal(binfo, pinfo)
+    cut = np.cumsum([0] + sizes)
+    seq_s, qual_s, hdr_s, plus_s, npos_s, len_s = (buf[cut[i] : cut[i + 1]] for i in range(6))
+    lens = len_s.clone().view(torch.int32).to(torch.int64)
+    packed = cuda_kernels.rows_gather(seq_s, None, (lens + 3) >> 2, n, width // 4, 0)
+    deltas = cuda_kernels.rows_gather(qual_s, None, lens, n, width, 0)
+    assert torch.equal(packed, recops.rows_gather_plain(seq_s, None, (lens + 3) >> 2, n,
+                                                        width // 4, 0))
+    seq, qual = cuda_kernels.decode_arrays(packed, deltas, lens.to(torch.int32), 33)
+    for plus in (plus_s, None):  # v2, and v1's bare '+'
+        a = (seq, qual, lens, hdr_s, plus, npos_s, wide, sizes[5], sizes[0], sizes[1])
+        out, ainfo = cuda_kernels.fastq_assemble(*a)
+        pout, pinfo = recops.fastq_assemble_plain(*a)
+        total = int(pinfo[0])
+        assert torch.equal(ainfo, pinfo) and torch.equal(out[:total], pout[:total])
+        if plus is not None:
+                assert bytes(out[:total].cpu().numpy()) == _normalized(data)
+
+
+@pytest.mark.parametrize("field", ["seq", "qual", "headers", "plus", "npos", "lengths"])
+def test_records_stream_faults_on_the_card_equal_the_cpu(field, cuda):
+    """A truncated or flipped byte in each decoded stream: the card's
+    assembly gives the CPU's text or the CPU's error, type and string."""
+    from fastqpacker_tpu_torch.entropy import zstd as pzstd
+    from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+
+    data = _records_text(5, 400, 80, varlen=True, n_rich=True, plus=True)
+    comp = tfq.compress_bytes(data, tfq.Options(block_size=1000), device="cpu")
+    C = tfq.container
+    hdr = C.parse_block_header(comp[C.FILE_HEADER_SIZE :], 2)
+    ds = pblocks.decode_streams(hdr, comp[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V2 :], 2,
+                                pzstd.get_codec())
+    orig = getattr(ds, field)
+    for k in range(6):
+        if k < 3:
+            bad = orig[: max(len(orig) - 1 - k * len(orig) // 3, 0)]
+        else:
+            bad = orig.copy()
+            bad[(k - 3) * len(orig) // 3] ^= 0x37
+        setattr(ds, field, bad)
+        outs = []
+        for dev in (cuda, "cpu"):
+            try:
+                outs.append(("ok", pblocks.streams_to_fastq(ds, 33, dev)))
+            except ValueError as e:
+                outs.append((type(e).__name__, str(e)))
+        assert outs[0] == outs[1]
+    setattr(ds, field, orig)
+
+
+def test_records_v2_container_and_text_equal_the_cpu_at_two_blocks(cuda):
+    """The v2 route end to end on the card: a container of two blocks equal
+    to the CPU's, decoded to the input, the block stages launched per block."""
+    data = _records_text(6, 75_000, 151)
+    cuda_kernels.reset_launches()
+    comp = tfq.compress_bytes(data, device=cuda)
+    counts = cuda_kernels.launches.as_dict()
+    assert comp == tfq.compress_bytes(data, device="cpu")
+    assert counts[cuda_kernels.STREAMS_BUILD] == 2 and counts[cuda_kernels.ROWS_GATHER] == 4
+    assert counts[cuda_kernels.RECORDS_SCAN] >= 2
+    cuda_kernels.reset_launches()
+    assert tfq.decompress_bytes(comp, device=cuda) == data
+    assert cuda_kernels.launches[cuda_kernels.FASTQ_ASSEMBLE] == 2
+
+
+def test_records_failing_build_raises_and_never_runs_the_plain_version(cuda, monkeypatch):
+    """No fallback: when the block stages' library does not build, a CUDA
+    tensor raises; nothing runs the plain version in its place."""
+    from fastqpacker_tpu_torch.ops import build
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed to build {name}.cu")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "_libs", {k: v for k, v in build._libs.items() if k != "records"})
+    monkeypatch.setattr(build, "_compile", fail)
+    monkeypatch.setattr(recops, "records_scan_plain", plain)
+    text = torch.from_numpy(np.frombuffer(b"@r\nAC\n+\nII\n", np.uint8).copy()).to(cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed to build records.cu"):
+        cuda_kernels.records_scan(text, 4)
+    with pytest.raises(RuntimeError, match="nvcc failed to build records.cu"):
+        tfq.compress_bytes(b"@r\nAC\n+\nII\n", device=cuda)

@@ -88,7 +88,34 @@ def test_the_mesh_slice_modules_are_in_the_package():
     assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "wctx_codec.cu").is_file()
     assert set(build.SIGNATURES["wctx_codec"]) == {"fq_wctx_encode", "fq_wctx_decode"}
     assert {"fq_wctx_encode", "fq_wctx_decode"} <= set(cuda_kernels.launches.as_dict())
-    assert len(cuda_kernels.launches.as_dict()) == 8
+    # the eight kernels of the three paths and the four block stages
+    assert len(cuda_kernels.launches.as_dict()) == 12
+
+
+def test_the_block_stage_modules_are_in_the_package():
+    """The block stages (record scan, row gather, stream build, FASTQ
+    assembly) and the modules that route through them exist under the port,
+    so the walk above imported them with JAX and the JAX package blocked,
+    none of them imports either, and their source and launchers are
+    registered with the build."""
+    import importlib
+
+    from fastqpacker_tpu_torch.ops import build, cuda_kernels
+
+    for name in ("ops.records", "ops.cuda_kernels", "parser.fastq", "pipeline.api",
+                 "pipeline.blocks", "pipeline.device", "pipeline.native",
+                 "pipeline.meshpipe", "pipeline.ranges", "parallel.multihost", "bench"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "records.cu").is_file()
+    stages = {"fq_records_scan", "fq_rows_gather", "fq_streams_build", "fq_fastq_assemble"}
+    assert set(build.SIGNATURES["records"]) == stages
+    assert stages <= set(cuda_kernels.launches.as_dict())
 
 
 def test_the_cli_surface_modules_are_in_the_package():

@@ -17,6 +17,7 @@ from fastqpacker_tpu_torch import models as pmodels
 from fastqpacker_tpu_torch.pipeline import api as papi
 from fastqpacker_tpu_torch.pipeline import native as pnative
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 NAMES = sorted(jmodels.REGISTRY)
 

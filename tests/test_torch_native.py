@@ -24,6 +24,7 @@ from fastqpacker_tpu.ops import reference as jax_refops
 from fastqpacker_tpu.pipeline import native as jax_native
 from fastqpacker_tpu_torch.pipeline import api as port_api
 from fastqpacker_tpu_torch.pipeline import native as port_native
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "testdata" / "golden"
@@ -389,7 +390,7 @@ def _cli(module, argv):
         [sys.executable, "-m", module, *argv], capture_output=True, text=True,
         cwd=REPO, timeout=240,
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "FQZ_FORCE_CPU": "1",
-             "PYTHONPATH": str(REPO)},
+             "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"},
     )
 
 
@@ -416,21 +417,15 @@ def test_cli_native_equals_jax_cli(flags, tmp_path):
 def test_block_streams_match_jax_wide_npos():
     """One block's uncompressed v3 streams (u32 N positions) and the
     lossless side data."""
-    from functools import partial
-
     from fastqpacker_tpu.parser import fastq as jax_parser
     from fastqpacker_tpu.pipeline import blocks as jax_blocks
-    from fastqpacker_tpu_torch.ops import device as port_device
     from fastqpacker_tpu_torch.parser import fastq as port_parser
     from fastqpacker_tpu_torch.pipeline import blocks as port_blocks
 
     data = _fastq(300, 14, varlen=True, alphabet="NNACGTacgtRY.")
     jax_block = jax_parser.parse_all(data)[0]
-    block = next(port_parser.FastqStreamParser(io.BytesIO(data)).blocks())
-    raw = port_blocks.block_to_raw_streams(
-        block, 33, partial(port_device.encode_block_arrays, device="cpu"),
-        wide_npos=True,
-    )
+    block = next(port_parser.FastqStreamParser(io.BytesIO(data), device="cpu").blocks())
+    raw = port_blocks.block_to_raw_streams(block, 33, wide_npos=True)
     want = jax_blocks.block_to_raw_streams(jax_block, 33, wide_npos=True)
     for name in ("seq", "qual", "headers", "plus", "npos", "lengths"):
         assert getattr(raw, name) == bytes(memoryview(getattr(want, name))), name

@@ -8,7 +8,6 @@ containers must decode, and errors must carry the same type and message.
 """
 
 import io
-from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +17,7 @@ import fastqpacker_tpu as jfq
 import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu.pipeline import auto as jax_auto
 from fastqpacker_tpu.pipeline import device as jax_device_pipe
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = Path(__file__).parent / "testdata" / "golden"
 
@@ -230,16 +230,13 @@ def test_block_streams_match_jax(case):
     from fastqpacker_tpu.parser import fastq as jax_parser
     from fastqpacker_tpu.pipeline import blocks as jax_blocks
     from fastqpacker_tpu_torch.entropy import zstd as port_zstd
-    from fastqpacker_tpu_torch.ops import device as port_device
     from fastqpacker_tpu_torch.parser import fastq as port_parser
     from fastqpacker_tpu_torch.pipeline import blocks as port_blocks
 
     data = _fastq(**CASES[case])
     jax_block = jax_parser.parse_all(data)[0]
-    block = next(port_parser.FastqStreamParser(io.BytesIO(data)).blocks())
-    raw = port_blocks.block_to_raw_streams(
-        block, 33, partial(port_device.encode_block_arrays, device="cpu")
-    )
+    block = next(port_parser.FastqStreamParser(io.BytesIO(data), device="cpu").blocks())
+    raw = port_blocks.block_to_raw_streams(block, 33)
     want = jax_blocks.block_to_raw_streams(jax_block, 33)
     for name in ("seq", "qual", "headers", "plus", "npos", "lengths"):
         assert getattr(raw, name) == bytes(memoryview(getattr(want, name))), name
@@ -248,7 +245,5 @@ def test_block_streams_match_jax(case):
     comp = port_blocks.compress_raw_streams(raw, codec, 2)
     hdr = tfq.container.parse_block_header(comp, 2)
     ds = port_blocks.decode_streams(hdr, comp[36:], 2, codec)
-    text = port_blocks.streams_to_fastq(
-        ds, 33, partial(port_device.decode_block_arrays, device="cpu")
-    )
+    text = port_blocks.streams_to_fastq(ds, 33, "cpu")
     assert text == jfq.decompress_bytes(jfq.compress_bytes(data))

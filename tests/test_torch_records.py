@@ -1,0 +1,449 @@
+"""The block stages of the port (``ops/records.py``: record scan, row gather,
+stream build, FASTQ assembly) against the JAX package's, byte for byte.
+
+The JAX package runs these stages in its C++ runtime
+(``fastqpacker_tpu/runtime/bindings.py``: ``scan_records``, ``gather_rows``,
+``build_raw_streams``, ``decode_block_full``, ``assemble_fastq``) and in
+Python (``parser/fastq.py``'s numpy route, ``pipeline/blocks.py``'s
+``streams_to_fastq``). The port runs the kernels' plain PyTorch versions here
+(``device="cpu"``); the same seeded or generated inputs go to both, and every
+output and error string must be equal (tolerance 0).
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
+import fastqpacker_tpu as jfq
+import fastqpacker_tpu_torch as tfq
+from fastqpacker_tpu.ops import reference as jrefops
+from fastqpacker_tpu.parser import fastq as jparser
+from fastqpacker_tpu.pipeline import blocks as jblocks
+from fastqpacker_tpu.runtime import bindings
+from fastqpacker_tpu_torch.entropy import zstd as pzstd
+from fastqpacker_tpu_torch.ops import cuda_kernels
+from fastqpacker_tpu_torch.ops import records as recops
+from fastqpacker_tpu_torch.parser import fastq as pparser
+from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+
+C = tfq.container
+FIELDS = ("seq", "qual", "headers", "plus", "npos", "lengths")
+SETTINGS = settings(max_examples=30, deadline=None, derandomize=True,
+                    suppress_health_check=[HealthCheck.too_slow])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _runtime():
+    """The JAX package's C++ runtime is the reference of these stages."""
+    assert bindings.available()
+
+
+@st.composite
+def fastq_texts(draw, max_records=10, max_len=40):
+    """FASTQ text: CRLF or LF, empty header and plus payloads, reads of
+    length 0, N-rich and lowercase bases, and a partial trailing record."""
+    nl = draw(st.sampled_from(["\n", "\r\n"]))
+    recs = []
+    for i in range(draw(st.integers(0, max_records))):
+        hdr = draw(st.text("ACGT0123456789:_ .r/", max_size=12))
+        ln = draw(st.integers(0, max_len))
+        seq = draw(st.text("ACGTNNNNacgtRY.", min_size=ln, max_size=ln))
+        qual = "".join(chr(33 + draw(st.integers(0, 60))) for _ in range(ln))
+        plus = draw(st.sampled_from(["", hdr, "x"]))
+        recs.append(f"@{hdr}{nl}{seq}{nl}+{plus}{nl}{qual}{nl}")
+    tail = draw(st.sampled_from(["", "@part", "@part\n", "@part\nAC\n", "@part\nAC\n+",
+                                 "@part\nAC\n+\n", "@part\nAC\n+\nII"]))
+    return ("".join(recs) + tail).encode()
+
+
+def _fastq(n, seed, varlen=True, maxlen=151, alphabet="ACGTN", plus=False):
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        ln = int(rng.integers(0, maxlen + 1)) if varlen else maxlen
+        s = "".join(alphabet[b] for b in rng.integers(0, len(alphabet), ln))
+        q = "".join(chr(33 + int(b)) for b in rng.integers(0, 41, ln))
+        p = f"p{i}" if plus else ""
+        recs.append(f"@rd_{i} x={i % 7}{'y' * (i % 3)}\n{s}\n+{p}\n{q}\n")
+    return "".join(recs).encode()
+
+
+def _error(call):
+    try:
+        return "ok", call()
+    except ValueError as e:
+        return type(e).__name__, str(e)
+
+
+class _Trickle:
+    """A reader that hands out at most ``k`` bytes a call and has no
+    ``readinto``: windows of the streaming route end mid-record."""
+
+    def __init__(self, data: bytes, k: int):
+        self.data, self.k, self.pos = data, k, 0
+
+    def read(self, n=-1):
+        n = self.k if n is None or n < 0 else min(n, self.k)
+        out = self.data[self.pos : self.pos + n]
+        self.pos += len(out)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# 1. record scan
+# ---------------------------------------------------------------------------
+
+
+@SETTINGS
+@given(data=fastq_texts(), max_records=st.integers(1, 12))
+def test_scan_equals_the_runtime_scan(data, max_records):
+    arr = np.frombuffer(data, np.uint8)
+    offs, consumed, err = bindings.scan_records(arr, max_records)
+    got, qmin, info = cuda_kernels.records_scan(torch.from_numpy(arr.copy()), max_records)
+    assert int(info[recops.SCAN_ERROR]) == err
+    if err:
+        return
+    n = int(info[recops.SCAN_COUNT])
+    assert n == len(offs) and int(info[recops.SCAN_CONSUMED]) == consumed
+    assert np.array_equal(got[:n].numpy(), offs)
+    # the runtime's quality minimum for Phred detection, per record
+    for i in range(n):
+        q = arr[offs[i, 6] : offs[i, 6] + offs[i, 7]]
+        assert int(qmin[i]) == (int(q.min()) if len(q) else recops.EMPTY_QMIN)
+    if n:
+        lens = offs[:, 3]
+        assert int(info[recops.SCAN_SEQ_SUM]) == lens.sum()
+        assert int(info[recops.SCAN_SEQ_MAX]) == lens.max()
+        assert int(info[recops.SCAN_PACKED_SUM]) == ((lens + 3) // 4).sum()
+        assert int(info[recops.SCAN_HDR_MAX]) == offs[:, 1].max()
+        assert int(info[recops.SCAN_PLUS_SUM]) == offs[:, 5].sum()
+
+
+def _jax_blocks(data, block_size, route):
+    p = jparser.FastqStreamParser(io.BytesIO(data), block_size=block_size)
+    return list(p._blocks_numpy() if route == "numpy" else p.blocks())
+
+
+def _port_blocks(data, block_size, reader):
+    src = io.BytesIO(data) if reader == "view" else _Trickle(data, 7)
+    return list(pparser.FastqStreamParser(src, block_size=block_size, device="cpu").blocks())
+
+
+def _same_blocks(got, want):
+    assert [b.n for b in got] == [b.n for b in want]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.lengths, w.lengths)
+        for name in ("header_starts", "header_lengths", "plus_starts", "plus_lengths"):
+            assert np.array_equal(getattr(g, name), getattr(w, name)), name
+        assert [g.record(i) for i in range(g.n)] == [w.record(i) for i in range(w.n)]
+        assert np.array_equal(g.seq, w.seq) and np.array_equal(g.qual, w.qual)
+        assert g.text.tobytes() == w.text[: len(g.text)].tobytes()
+
+
+@SETTINGS
+@given(data=fastq_texts(max_records=14, max_len=120), block_size=st.integers(1, 6),
+       reader=st.sampled_from(["view", "trickle"]), route=st.sampled_from(["native", "numpy"]))
+def test_parser_blocks_equal_both_jax_routes(data, block_size, reader, route):
+    """Blocks, offsets, records and padded rows of the port's parser equal
+    the JAX parser's (its runtime route and its numpy route), from a view of
+    the input and from a reader whose windows end mid-record; a malformed
+    input fails with the same string."""
+    want = _error(lambda: _jax_blocks(data, block_size, route))
+    got = _error(lambda: _port_blocks(data, block_size, reader))
+    assert got[0] == want[0]
+    if got[0] != "ok":
+        assert got == want
+        return
+    _same_blocks(got[1], want[1])
+
+
+BAD_LINES = {
+    "header": (0, lambda line: b"x" + line[1:]),
+    "sequence": (1, lambda line: line + b"A"),
+    "plus": (2, lambda line: b"-" + line[1:]),
+    "quality": (3, lambda line: line[:-1]),
+    "empty_header": (0, lambda line: b""),
+    "empty_plus": (2, lambda line: b""),
+}
+
+
+@pytest.mark.parametrize("where", sorted(BAD_LINES))
+@pytest.mark.parametrize("record", [0, 5, 11])
+def test_malformed_line_fails_as_in_jax(where, record):
+    """One malformed line of a record, in the first block or a later one:
+    the same error from both packages' compress (and the first bad line wins
+    over a later one)."""
+    lines = _fastq(12, seed=3).split(b"\n")
+    which, mutate = BAD_LINES[where]
+    lines[4 * record + which] = mutate(lines[4 * record + which])
+    lines[4 * 11 + 2] = b"-late"  # a later fault that must not win
+    data = b"\n".join(lines)
+    want = _error(lambda: jfq.compress_bytes(data, jfq.Options(block_size=4)))
+    got = _error(lambda: tfq.compress_bytes(data, tfq.Options(block_size=4), device="cpu"))
+    assert got == want and got[0] == "FastqParseError"
+
+
+@pytest.mark.parametrize("tail", [b"x\n", b"@r\nAC\n-\n", b"@r\nAC\n+", b"@r\nAC\n", b"\n\n\n"])
+def test_leftover_lines_fail_as_in_jax(tail):
+    """The complete lines of a trailing partial record are validated (an
+    unterminated one is not)."""
+    data = _fastq(9, seed=4) + tail
+    for block in (4, 100):
+        want = _error(lambda: jfq.compress_bytes(data, jfq.Options(block_size=block)))
+        got = _error(lambda: tfq.compress_bytes(data, tfq.Options(block_size=block),
+                                                device="cpu"))
+        assert got[0] == want[0]
+        assert got == want if got[0] != "ok" else got[1] == want[1]
+
+
+# ---------------------------------------------------------------------------
+# 2. row gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fill", [0, 0xFF])
+@pytest.mark.parametrize("width", [0, 3, 32, 45])
+def test_gather_equals_the_runtime_gather(fill, width):
+    rng = np.random.default_rng(width + fill)
+    data = rng.integers(0, 256, 500).astype(np.uint8)
+    lens = rng.integers(0, 50, 17).astype(np.int64)
+    starts = rng.integers(0, 450, 17).astype(np.int64)
+    want = bindings.gather_rows(data, starts, lens, pad_to=width, fill=fill)
+    t = torch.from_numpy(data)
+    got = cuda_kernels.rows_gather(t, torch.from_numpy(starts), torch.from_numpy(lens),
+                                   20, width, fill)
+    assert np.array_equal(got[:17].numpy(), want)
+    assert (got[17:] == fill).all()
+    # back to back from 0 (the decoder's layout), and bytes past the end
+    back = cuda_kernels.rows_gather(t, None, torch.from_numpy(lens), 17, width, fill)
+    excl = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    want = bindings.gather_rows(np.concatenate([data, np.full(1000, fill, np.uint8)]),
+                                excl, lens, pad_to=width, fill=fill)
+    assert np.array_equal(back.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# 3. stream build
+# ---------------------------------------------------------------------------
+
+
+@SETTINGS
+@given(data=fastq_texts(max_records=12, max_len=90), wide=st.booleans())
+def test_streams_equal_the_runtime_stream_build(data, wide):
+    cut = data.rfind(b"@part")
+    data = data[:cut] if cut >= 0 else data
+    if not data:
+        return
+    jblock = _jax_blocks(data, 1000, "native")[0]
+    pblock = _port_blocks(data, 1000, "view")[0]
+    want = bindings.build_raw_streams(jblock, 33, wide)
+    got = pblocks.block_to_raw_streams(pblock, 33, wide_npos=wide)
+    for name in FIELDS:
+        assert getattr(got, name) == bytes(memoryview(getattr(want, name))), name
+    assert (got.num_records, got.original_seq_size) == (want.num_records, want.original_seq_size)
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+@pytest.mark.parametrize("field", ["header", "plus"])
+@pytest.mark.parametrize("size", [65535, 65536])
+def test_field_of_65535_bytes_and_one_more(version, field, size):
+    """A header or plus payload of 65,535 bytes fits the u16 prefix; one of
+    65,536 fails with the JAX package's string."""
+    long = "h" * size
+    rec = f"@{long if field == 'header' else 'r'}\nACGT\n+{long if field == 'plus' else ''}\nIIII\n"
+    data = (rec + "@r2\nAC\n+\nII\n").encode()
+    want = _error(lambda: jfq.compress_bytes(data, jfq.Options(version=version)))
+    got = _error(lambda: tfq.compress_bytes(data, tfq.Options(version=version), device="cpu"))
+    assert got == want
+    assert (got[0] == "ok") == (size == 65535)
+    if got[0] == "ok":
+        assert tfq.decompress_bytes(got[1], device="cpu") == data or version == 1
+
+
+# ---------------------------------------------------------------------------
+# 4. FASTQ assembly
+# ---------------------------------------------------------------------------
+
+
+def _streams(data, version, block_size=10_000):
+    comp = tfq.compress_bytes(data, tfq.Options(block_size=block_size, version=version),
+                              device="cpu")
+    r = io.BytesIO(comp)
+    fh = C.read_file_header(r)
+    hdr = C.read_block_header(r, fh.version)
+    payload = r.read(sum(hdr.stream_sizes(fh.version)))
+    return hdr, payload, fh
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("alphabet", ["ACGT", "ACGTNNNNacgtRY."])
+def test_text_equals_the_runtime_decode(version, alphabet):
+    data = _fastq(300, seed=5, alphabet=alphabet, plus=True)
+    hdr, payload, fh = _streams(data, version)
+    ds = pblocks.decode_streams(hdr, payload, version, pzstd.get_codec())
+    want = bindings.decode_block_full(ds, 33, False)
+    assert pblocks.streams_to_fastq(ds, 33, "cpu") == want
+
+
+def test_assembly_equals_the_runtime_assembly():
+    """The assembly kernel's plain version from the dense decode's rows and
+    the three chained streams equals ``fq_assemble`` given the walked
+    chains and the N-restored rows."""
+    data = _fastq(200, seed=6, alphabet="ACGTNNN", plus=True)
+    hdr, payload, _ = _streams(data, 2)
+    ds = pblocks.decode_streams(hdr, payload, 2, pzstd.get_codec())
+    r = ds.num_records
+    lengths = ds.lengths.view("<u4").astype(np.int64)
+    width = int(lengths.max())
+    packed = bindings.gather_rows(ds.seq, np.concatenate(([0], np.cumsum((lengths + 3) // 4)[:-1])),
+                                  (lengths + 3) // 4, pad_to=-(-width // 4))
+    deltas = bindings.gather_rows(ds.qual, np.concatenate(([0], np.cumsum(lengths)[:-1])),
+                                  lengths, pad_to=width)
+    seq, qual = jrefops.decode_block_arrays(packed, deltas, lengths.astype(np.int32), 33)
+    counts, rows, pos = bindings.parse_npos(ds.npos, r)
+    seq = np.array(seq)
+    seq[rows, pos] = ord("N")
+    hs, hl = bindings.parse_len16(ds.headers, r, "header")
+    ps, pl = bindings.parse_len16(ds.plus, r, "plus-line payload")
+    want = bindings.assemble_fastq(ds.headers, hs, hl, ds.plus, ps, pl, 1, seq,
+                                   np.array(qual), lengths)
+    seq_t, qual_t = (torch.from_numpy(np.ascontiguousarray(x)) for x in
+                     jrefops.decode_block_arrays(packed, deltas, lengths.astype(np.int32), 33))
+    out, info = cuda_kernels.fastq_assemble(
+        seq_t, qual_t, torch.from_numpy(lengths), torch.from_numpy(ds.headers.copy()),
+        torch.from_numpy(ds.plus.copy()), torch.from_numpy(ds.npos.copy()), False,
+        len(ds.lengths), len(ds.seq), len(ds.qual))
+    assert int(info[1]) == 0
+    assert out[: int(info[0])].numpy().tobytes() == want == data
+
+
+def _jax_device_text(ds, wide):
+    """The JAX package's device-path assembly (its numpy walk around a
+    dense decode; the order of its checks is the port's)."""
+    return jblocks.streams_to_fastq(ds, 33, jrefops.decode_block_arrays, wide_npos=wide)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("how", ["truncate_1", "truncate_half", "flip_first", "flip_last"])
+@pytest.mark.parametrize("version", [2, 3])
+def test_stream_faults_fail_as_in_jax(field, how, version):
+    """One truncated or flipped byte in each of a block's six decoded
+    streams: the same text or the same error (type and string) as the JAX
+    package's device path, the first fault in the same order."""
+    data = _fastq(40, seed=7, alphabet="ACGTNN", plus=True)
+    hdr, payload, _ = _streams(data, 2)
+    ds = pblocks.decode_streams(hdr, payload, 2, pzstd.get_codec())
+    orig = getattr(ds, field)
+    if how.startswith("truncate"):
+        bad = orig[: len(orig) - 1] if how == "truncate_1" else orig[: len(orig) // 2]
+    else:
+        bad = orig.copy()
+        bad[0 if how == "flip_first" else -1] ^= 0x41
+    setattr(ds, field, bad)
+    wide = version == 3
+    if wide:  # the v3 layout of the same positions: u32 counts and positions
+        ds.npos = np.frombuffer(ds.npos[: len(ds.npos) // 2 * 2].tobytes(), "<u2").astype(
+            "<u4").view(np.uint8)
+    want = _error(lambda: _jax_device_text(ds, wide))
+    got = _error(lambda: pblocks.streams_to_fastq(ds, 33, "cpu", wide_npos=wide))
+    assert got == want
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_empty_and_zero_length_reads_round_trip(version):
+    data = b"@\n\n+\n\n@e2\nN\n+\n!\n@\nAC\n+\nII\n"
+    got = tfq.compress_bytes(data, tfq.Options(version=version), device="cpu")
+    assert got == jfq.compress_bytes(data, jfq.Options(version=version))
+    assert tfq.decompress_bytes(got, device="cpu") == jfq.decompress_bytes(got)
+
+
+def test_chains_equal_a_walk():
+    """Pointer doubling gives every node of a length-prefixed chain, and
+    truncation, as the sequential walk does."""
+    rng = np.random.default_rng(8)
+    for trial in range(40):
+        r = int(rng.integers(0, 30))
+        lens = rng.integers(0, 9, r)
+        stream = b"".join(int(n).to_bytes(2, "little") + bytes(int(n)) for n in lens)
+        cut = len(stream) - int(rng.integers(0, 3)) * (trial % 2)
+        data = np.frombuffer(stream[:cut], np.uint8)
+        s = recops.chain_starts(torch.from_numpy(data.copy()), 1, 2, len(data), r)
+        try:
+            starts, walked = bindings.parse_len16(data, r, "header")
+        except ValueError:
+            assert int(s[r]) == len(data) + 1
+            continue
+        assert int(s[r]) <= len(data)
+        assert np.array_equal(s[:r].numpy() + 2, starts)
+
+
+# ---------------------------------------------------------------------------
+# the routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_round_trip_containers_equal_jax(version):
+    data = _fastq(700, seed=9, alphabet="ACGTNacgt", plus=True)
+    opts = dict(block_size=250, version=version)
+    got = tfq.compress_bytes(data, tfq.Options(**opts), device="cpu")
+    assert got == jfq.compress_bytes(data, jfq.Options(**opts))
+    assert tfq.decompress_bytes(got, device="cpu") == jfq.decompress_bytes(got)
+
+
+def test_mesh_round_trip_container_equals_jax():
+    from fastqpacker_tpu.parallel import mesh as jmesh
+    from fastqpacker_tpu.pipeline import meshpipe as jmeshpipe
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe as pmeshpipe
+
+    data = _fastq(300, seed=10)
+    want = jmeshpipe.compress_mesh_bytes(data, jfq.Options(block_size=150), jmesh.make_mesh(1))
+    got = pmeshpipe.compress_mesh_bytes(data, tfq.Options(block_size=150),
+                                        pmesh.make_mesh(1, device="cpu"))
+    assert got == want
+    out = io.BytesIO()
+    pmeshpipe.decompress_mesh(io.BytesIO(got), out, pmesh.make_mesh(1, device="cpu"))
+    assert out.getvalue() == data
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_v1_v2_route_builds_no_host_row_matrix(version, monkeypatch):
+    """The v1/v2 compress reads rows on the block's device only: the padded
+    host matrices of a block are never built (nor are its host offsets)."""
+
+    def refuse(self, *a):
+        raise AssertionError("a host row matrix or host offsets were built")
+
+    monkeypatch.setattr(pparser.RecordBlock, "_host_rows", refuse)
+    monkeypatch.setattr(pparser.RecordBlock, "offsets", property(refuse))
+    data = _fastq(500, seed=11, plus=True, alphabet="ACGTN")
+    got = tfq.compress_bytes(data, tfq.Options(block_size=120, version=version), device="cpu")
+    assert got == jfq.compress_bytes(data, jfq.Options(block_size=120, version=version))
+
+
+@pytest.mark.parametrize("low_record", [None, 0, 45, 150])
+def test_detection_window_reads_the_scan_minima(low_record):
+    """Phred+64 detection over the reference's window of records, spanning
+    several blocks, from the scan's per-record minima: all qualities >= 64
+    give +64, one low record inside the window gives +33, as in the JAX
+    package."""
+    rng = np.random.default_rng(12)
+    recs = []
+    for i in range(160):
+        ln = int(rng.integers(0, 30))
+        q = bytes(64 + int(b) for b in rng.integers(0, 40, ln))
+        if i == low_record:
+            q = b"#" + q
+            ln += 1
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, b"A" * ln, q))
+    data = b"".join(recs)
+    for block in (7, 1000):
+        got = tfq.compress_bytes(data, tfq.Options(block_size=block), device="cpu")
+        assert got == jfq.compress_bytes(data, jfq.Options(block_size=block))
+        assert C.parse_file_header(got[: C.FILE_HEADER_SIZE]).phred64 == (low_record is None)

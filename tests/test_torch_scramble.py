@@ -25,6 +25,7 @@ from fastqpacker_tpu.utils import gopcg as jax_gopcg
 from fastqpacker_tpu_torch.cli import fqscramble as port_scramble
 from fastqpacker_tpu_torch.parser import fastq as port_fastq
 from fastqpacker_tpu_torch.utils import gopcg
+from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN_FQ = (REPO / "tests" / "testdata" / "golden" / "golden.fq").read_bytes()
