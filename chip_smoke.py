@@ -80,7 +80,23 @@ Phases, each fatal on failure:
    block on compress, two gathers and an assembly per block on decompress),
    and phase e2e prints ``scripts/torch_stage_breakdown.py``'s per-stage ms
    per block of the v2, v3 and mesh paths;
-8. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
+8. the context-model passes as kernels (``phase=ctxprep``,
+   ``csrc/ctxprep.cu``): ``fq_qctx_prepare`` and ``fq_sctx_prepare`` against
+   their plain versions, byte-equal, on a 100,000 x 151 block of the v3
+   corpus (walk qualities) and of the mesh corpus (Markov bases, Phred
+   walks), timed beside their bounds and beside ``torch.bincount`` of the
+   same histogram keys (printed only: the port never calls it);
+   ``fq_wctx_layout`` (the encoder's symbol-index and context matrices, the
+   decoder's start matrix) and ``fq_wctx_unlayout`` (packed rows or quality
+   deltas) on the mesh block at sequence orders 2, 4, 6 and quality orders 0,
+   1, on the lanes the mesh path picks for each, byte-equal, the wire bytes
+   equal to the block's own streams; the two length mismatches and an index
+   >= npres in a decoded matrix raising their strings on the card as on the
+   CPU. Phases 5 and 9 hold their launches: every v3 block prepares its
+   quality candidate on the card, every mesh block both candidates, one
+   layout per wctx encode, one layout and one unlayout per ``TAG_WCTX``
+   decode (batched and per block);
+9. end to end, ``--mesh`` (``compress_mesh`` / ``decompress_mesh`` on
    ``make_mesh(1)``): ``--mesh-blocks`` blocks of 100,000 records of the
    context-model corpus (order-1 Markov bases, per-record quality walks in
    Phred 0-41); round trip, the ordinary ``decompress`` reads the container,
@@ -88,7 +104,7 @@ Phases, each fatal on failure:
    the launch counts follow the tags, and the card's container equals the
    CPU's on a two-block prefix; then the one card listed four times at a
    block size of 5,000 against the CPU's container for d = 4;
-9. the CLI surfaces (``phase=surfaces``) on the v2, v3 and mesh containers
+10. the CLI surfaces (``phase=surfaces``) on the v2, v3 and mesh containers
    of phases 4, 5 and 8, at their full size: ``info`` (its block and tag
    counts against the container's), ``check`` on the card (OK and the
    input's size; one dense decode per block, one rANS decode per
@@ -104,7 +120,7 @@ Phases, each fatal on failure:
    stream; and ``fqscramble`` (host only) on 2 MiB against
    ``gopcg.scramble_text``. Each kernel's row of the JSON line gains
    ``launches_surfaces``, its count in each of those runs;
-10. several cards and several hosts (``phase=parallel``), on the corpora of
+11. several cards and several hosts (``phase=parallel``), on the corpora of
    phases 4, 5 and 8, on four shard devices: the first four cards, or the one
    card listed four times (then ``multi_card=not_measured``).
    ``encode_blocks_parallel`` / ``decode_sharded`` on four shards of 37,500 x
@@ -123,7 +139,7 @@ Phases, each fatal on failure:
    MB/s per direction; each host's section of a 4 MiB slice equal to the
    CPU's; four simulated hosts on one card decode to the input. Each kernel's
    row of the JSON line gains ``launches_parallel``;
-11. ``fqpack bench`` on the card (``phase=bench``): the six kernel metrics
+12. ``fqpack bench`` on the card (``phase=bench``): the six kernel metrics
    (``kernel``, ``decode-kernel``, ``mesh-entropy``, ``mesh-entropy-decode``,
    ``wctx-entropy``, ``wctx-entropy-decode``) at ``--mb 16``, each in its own
    process through the CLI: exit 0, one JSON line with the JAX bench's metric
@@ -182,6 +198,14 @@ KERNELS = {
     "fq_rows_gather": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:527"),
     "fq_streams_build": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:980"),
     "fq_fastq_assemble": ("records.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1153"),
+    # the context-model passes: the runtime's prepare passes and the host
+    # lane passes of the JAX package's wctx coder (start_matrix :178,
+    # to_matrix :157, context_matrix :218; from_matrix :170 with
+    # seqctx.py:103 pack_stream and pipeline/native.py:348 _raw_to_delta)
+    "fq_qctx_prepare": ("ctxprep.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1629"),
+    "fq_sctx_prepare": ("ctxprep.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:2092"),
+    "fq_wctx_layout": ("ctxprep.cu", "fastqpacker_tpu/ops/wctx.py:178"),
+    "fq_wctx_unlayout": ("ctxprep.cu", "fastqpacker_tpu/ops/wctx.py:170"),
 }
 QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
 SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
@@ -827,6 +851,15 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
     check(c_counts[ck.RECORDS_SCAN] >= blocks and c_counts[ck.STREAMS_BUILD] == blocks
           and d_counts[ck.FASTQ_ASSEMBLE] == blocks,
           f"{label}: the block stages ran on the card in both directions")
+    # every block's quality pick prepares its qctx candidate (the full pass
+    # or the sampled pre-gate) on the card; the sctx pre-gate is skipped by
+    # the cross-block memo on some blocks; no TAG_WCTX stream, so no lane pass
+    check(c_counts[ck.QCTX_PREPARE] >= blocks and c_counts[ck.SCTX_PREPARE] >= 1,
+          f"{label}: the qctx / sctx prepare passes ran on the card")
+    check(c_counts[ck.WCTX_LAYOUT] == c_counts[ck.WCTX_UNLAYOUT] == 0
+          and all(d_counts[k] == 0 for k in (ck.QCTX_PREPARE, ck.SCTX_PREPARE,
+                                              ck.WCTX_LAYOUT, ck.WCTX_UNLAYOUT)),
+          f"{label}: no lane pass without a TAG_WCTX stream, no prepare on decompress")
 
     # the card's container against the CPU's, on a prefix that ends at a
     # record boundary; one worker, since the probe memo depends on order
@@ -1123,6 +1156,216 @@ def phase_records(ft, ck, recops, rng) -> dict:
     faults = records_faults(ft, ck, recops)
     errs = {name: max(r["errs"][name] for r in rows.values()) for name in rows[RECORD_TIMED]["errs"]}
     return {"errs": errs, "times": rows[RECORD_TIMED]["times"], "faults": faults}
+
+
+# ---------------------------------------------------------------------------
+# phase ctxprep: the context-model passes as kernels (csrc/ctxprep.cu)
+# ---------------------------------------------------------------------------
+
+# the streams the layout kernels are timed on in the kernels line: the
+# mesh path's quality stream (model 1, order 1) on the lanes it picks
+CTX_TIMED = (1, 1)
+CTX_MODELS = [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]  # seq orders 2/4/6, qual 0/1
+
+
+def corpus_block(data: bytes):
+    """The seq (packed rows) and qual (deltas) streams and the lengths of
+    the first 100,000-record block of ``data``, built on the card."""
+    from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser
+    from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
+
+    blk = next(FastqStreamParser(io.BytesIO(data), block_size=BLOCK_RECORDS, device=DEV).blocks())
+    check(blk.n == BLOCK_RECORDS, f"corpus block of {blk.n} records")
+    raw = blockcodec.block_to_raw_streams(blk, 33, wide_npos=True)
+    return (np.frombuffer(raw.seq, np.uint8), np.frombuffer(raw.qual, np.uint8),
+            np.frombuffer(raw.lengths, "<u4").astype(np.int64))
+
+
+def ctx_time(name, shape, kfn, pfn, args, nbytes, ops, err, lib=None) -> tuple:
+    """A kernel timed over rotated inputs beside its plain version (and a
+    PyTorch reference call, printed only), with its bound."""
+    sets = rotations(args, max(nbytes, 1))
+    kms = gpu_ms(kfn, sets, 20)
+    pms = gpu_ms(pfn, sets[:1], 1)
+    extra = {}
+    if lib is not None:
+        lname, lfn, largs = lib
+        extra[f"{lname}_ms"] = gpu_ms(lfn, rotations(largs, largs[0].numel() * 8), 20)
+        print(f"phase=ctxprep kernel={name} {shape} {lname}_ms={extra[f'{lname}_ms']:.6f} "
+              f"(the same keys counted by one PyTorch call; printed only)")
+    return (*report(name, shape, kms, pms, None, nbytes, ops, err), extra)
+
+
+def ctxprep_corpus(ck, ctxprep, wctx, label: str, data: bytes, layouts: bool) -> dict:
+    """Each kernel of csrc/ctxprep.cu on one corpus block against its plain
+    version on the card (byte-equal), timed; with ``layouts``, the lane
+    passes at every (model, order) the mesh path codes, on the lanes it
+    picks for them."""
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    packed_h, delta_h, lengths = corpus_block(data)
+    n, nrec, m = int(lengths.sum()), len(lengths), len(packed_h)
+    delta, packed = t(delta_h), t(packed_h)
+    bounds_h = ctxprep.record_bounds(lengths)
+    pbounds_h = ctxprep.record_bounds(lengths, packed=True)
+    bounds, pbounds = t(bounds_h), t(pbounds_h)
+    errs, times = {}, {}
+    shape = f"corpus={label} records={nrec} symbols={n}"
+
+    raw, hist2 = ck.qctx_prepare(delta, bounds)
+    praw, phist2 = ctxprep.qctx_prepare_plain(delta, bounds)
+    errs[ck.QCTX_PREPARE] = max(max_err(raw, praw), max_err(hist2, phist2))
+    check(errs[ck.QCTX_PREPARE] == 0, f"{label}: fq_qctx_prepare == plain")
+    keys = ctxprep.qctx_keys(delta, bounds)[1]
+    times[ck.QCTX_PREPARE] = ctx_time(
+        ck.QCTX_PREPARE, shape, ck.qctx_prepare, ctxprep.qctx_prepare_plain, (delta, bounds),
+        2 * n + 8 * (nrec + 1) + 4 * ctxprep.QCTX_CONTEXTS * 256, 16 * n, errs[ck.QCTX_PREPARE],
+        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.QCTX_CONTEXTS * 256), (keys,)))
+    del keys
+    bases, hist6 = ck.sctx_prepare(packed, pbounds, n)
+    pbases, phist6 = ctxprep.sctx_prepare_plain(packed, pbounds)
+    errs[ck.SCTX_PREPARE] = max(max_err(bases, pbases), max_err(hist6, phist6))
+    check(errs[ck.SCTX_PREPARE] == 0, f"{label}: fq_sctx_prepare == plain")
+    keys = ctxprep.sctx_keys(packed, pbounds, n)[1]
+    times[ck.SCTX_PREPARE] = ctx_time(
+        ck.SCTX_PREPARE, shape, lambda a, b: ck.sctx_prepare(a, b, n),
+        ctxprep.sctx_prepare_plain, (packed, pbounds),
+        m + n + 16 * (nrec + 1) + 4 * ctxprep.SCTX_CONTEXTS * 4, 16 * n, errs[ck.SCTX_PREPARE],
+        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.SCTX_CONTEXTS * 4), (keys,)))
+    del keys
+    print(f"phase=ctxprep corpus={label} records={nrec} symbols={n} packed_bytes={m} "
+          f"qctx_prepare_byte_equal=true sctx_prepare_byte_equal=true")
+    row = {"errs": errs, "times": times, "layout": {}}
+    if not layouts:
+        return row
+    hist2_h = hist2.cpu().numpy().astype(np.int64)
+    hist6_h = hist6.cpu().numpy().astype(np.int64)
+    errs[ck.WCTX_LAYOUT] = errs[ck.WCTX_UNLAYOUT] = 0
+    for model, order in CTX_MODELS:
+        if model == 0:
+            syms, hist = bases, (seqctx.marginalize(hist6_h, order) if order < 6 else hist6_h)
+            mode, out_bytes, ub = ctxprep.UNLAYOUT_PACKED, m, pbounds
+        else:
+            syms, hist = raw, qualctx.hist_for_model(hist2_h, order)
+            mode, out_bytes, ub = ctxprep.UNLAYOUT_DELTA, n, bounds
+        lanes = wctx.pick_lanes_for(hist, n)
+        tab_h, S, seg = ctxprep.lane_layout(lengths, lanes)
+        counts = hist.sum(axis=0)
+        present = np.flatnonzero(counts > 0)
+        pad = int(np.argmax(counts))
+        tab, idx, pres = t(tab_h), t(wctx._sym_to_idx(present)), t(present.astype(np.uint8))
+        enc_args = (syms, bounds, tab, S, model, order, idx, pad)
+        sym_idx, ctx = ck.wctx_layout(*enc_args)
+        psym, pctx = ctxprep.wctx_layout_plain(*enc_args)
+        start = ck.wctx_layout(None, bounds, tab, S, model, order)
+        pstart = ctxprep.wctx_layout_plain(None, bounds, tab, S, model, order, None, 0)
+        e_lay = max(max_err(sym_idx, psym), max_err(ctx, pctx), max_err(start, pstart))
+        # the decoder's matrix: the symbols' indices, 0 on padding
+        mat = torch.where(t(np.arange(S)[:, None] < seg[None, :]), sym_idx, 0)
+        wire, fault = ck.wctx_unlayout(mat, ub, tab, pres, mode, out_bytes)
+        pwire, pfault = ctxprep.wctx_unlayout_plain(mat, ub, tab, pres, mode)
+        e_un = max(max_err(wire, pwire), max_err(fault, pfault))
+        want = packed_h if model == 0 else delta_h
+        check(e_lay == 0 and e_un == 0 and int(fault) == 0
+              and np.array_equal(wire.cpu().numpy(), want),
+              f"{label} model={model} order={order}: layout / unlayout == plain, wire == stream")
+        errs[ck.WCTX_LAYOUT] = max(errs[ck.WCTX_LAYOUT], e_lay)
+        errs[ck.WCTX_UNLAYOUT] = max(errs[ck.WCTX_UNLAYOUT], e_un)
+        cells = S * lanes
+        geo = 8 * (nrec + 1) + 16 * (lanes + 1)
+        lshape = f"{shape} model={model} order={order} lanes={lanes} steps={S} cells={cells}"
+        row["layout"][(model, order)] = {
+            "encode": ctx_time(ck.WCTX_LAYOUT, lshape + " direction=encode",
+                               lambda a: ck.wctx_layout(a, *enc_args[1:]),
+                               lambda a: ctxprep.wctx_layout_plain(a, *enc_args[1:]), (syms,),
+                               n + 3 * cells + geo + 256, 8 * cells, e_lay),
+            "decode": ctx_time(ck.WCTX_LAYOUT, lshape + " direction=decode",
+                               lambda b: ck.wctx_layout(None, b, tab, S, model, order),
+                               lambda b: ctxprep.wctx_layout_plain(None, b, tab, S, model,
+                                                                   order, None, 0),
+                               (bounds,), cells + geo, 2 * cells, e_lay),
+            "unlayout": ctx_time(ck.WCTX_UNLAYOUT, lshape,
+                                 lambda a: ck.wctx_unlayout(a, ub, tab, pres, mode, out_bytes),
+                                 lambda a: ctxprep.wctx_unlayout_plain(a, ub, tab, pres, mode),
+                                 (mat,), n + out_bytes + geo * (2 if model == 0 else 1)
+                                 + len(present), 6 * n, e_un),
+            "lanes": lanes, "steps": S,
+        }
+        print(f"phase=ctxprep corpus={label} model={model} order={order} lanes={lanes} "
+              f"steps={S} layout_byte_equal=true unlayout_byte_equal=true wire_equals_stream=true")
+        del sym_idx, ctx, start, mat, wire, psym, pctx, pstart, pwire
+        torch.cuda.empty_cache()
+    return row
+
+
+def ctxprep_faults(ck, ctxprep, wctx) -> dict:
+    """The length mismatches raise their strings before any launch, and an
+    index >= npres in a decoded matrix raises "corrupted wctx stream" from
+    the unlayout's fault flag, on the card as on the CPU."""
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx
+
+    lengths = np.array([151, 0, 37, 70_001], np.int64)
+    msgs = []
+    for dev in (DEV, torch.device("cpu")):
+        got = []
+        for fn, stream in ((qualctx.prepare, np.zeros(int(lengths.sum()) - 1, np.uint8)),
+                           (seqctx.prepare, np.zeros(int(((lengths + 3) >> 2).sum()) + 1,
+                                                     np.uint8))):
+            try:
+                fn(stream, lengths, dev)
+                got.append(None)
+            except ValueError as e:
+                got.append(str(e))
+        small = np.full(300, 50, np.int64)  # the CPU's plain decode walks every step
+        rng = np.random.default_rng(9)
+        syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, int(small.sum()))) // 3, 0, 41)
+        payload = wctx.encode_stream(syms.astype(np.uint8), small, 1, 1, lanes=256, device=dev)
+        real = ck.wctx_unlayout
+
+        def flipped(mat, *args):
+            mat = mat.clone()
+            mat[1, 0] = 255
+            return real(mat, *args)
+
+        ck.wctx_unlayout = flipped
+        try:
+            wctx.decode_wire(payload, small, device=dev)
+            got.append(None)
+        except wctx.WctxError as e:
+            got.append(str(e))
+        finally:
+            ck.wctx_unlayout = real
+        msgs.append(got)
+    want = ["qual stream length does not match record lengths",
+            "packed sequence data does not match lengths", "corrupted wctx stream"]
+    check(msgs[0] == msgs[1] == want, f"ctxprep faults: {msgs}")
+    print(f"phase=ctxprep faults={json.dumps(msgs[0])} equal_to_cpu=true")
+    return {"faults": len(want)}
+
+
+def phase_ctxprep(ft, ck, args) -> dict:
+    """The four context-model kernels at full width (100,000 x 151): the
+    prepare passes on the v3 run's corpus (walk qualities) and the mesh
+    run's (Markov bases, Phred walks), the lane passes on the latter at every
+    model and order the mesh path codes; then their faults."""
+    from fastqpacker_tpu_torch.ops import ctxprep, wctx
+    from fastqpacker_tpu_torch.utils.synth import synth_fastq
+
+    one = len(synth_fastq(0, read_len=READ_LEN))
+    walk = synth_fastq((BLOCK_RECORDS * one + one // 2) / (1 << 20), seed=args.seed + 11,
+                       qual_model="walk")
+    rows = {"walk": ctxprep_corpus(ck, ctxprep, wctx, "walk151", walk, False)}
+    del walk
+    markov = context_corpus(BLOCK_RECORDS, args.seed + 12)
+    rows["markov"] = ctxprep_corpus(ck, ctxprep, wctx, "markov151", markov, True)
+    del markov
+    faults = ctxprep_faults(ck, ctxprep, wctx)
+    errs = {}
+    for row in rows.values():
+        for name, e in row["errs"].items():
+            errs[name] = max(errs.get(name, 0), e)
+    return {"errs": errs, "rows": rows, **faults}
 
 
 # the per-stage breakdowns phase e2e prints: format -> --mb (v2: a few
@@ -1726,14 +1969,28 @@ def phase_mesh(ft, ck, args) -> dict:
           f"{label}: the block stages ran on the card in both directions")
     check(c_counts[ck.CRC32] > 0 and d_counts[ck.CRC32] > 0,
           f"{label}: CRC32 launched in both directions")
+    # the plan prepares both context models of every block on the card; each
+    # wctx encode takes its matrices from a layout launch, and each TAG_WCTX
+    # decode its start matrix and its wire bytes
+    check(c_counts[ck.QCTX_PREPARE] == c_counts[ck.SCTX_PREPARE] == blocks,
+          f"{label}: one qctx and one sctx prepare launch per block")
+    check(c_counts[ck.WCTX_LAYOUT] == c_counts[ck.WCTX_ENCODE]
+          and c_counts[ck.WCTX_UNLAYOUT] == 0,
+          f"{label}: one layout launch per wctx encode")
+    check(d_counts[ck.WCTX_LAYOUT] == d_counts[ck.WCTX_UNLAYOUT] == n_wctx
+          and d_counts[ck.QCTX_PREPARE] == d_counts[ck.SCTX_PREPARE] == 0,
+          f"{label}: one start-matrix layout and one unlayout per TAG_WCTX stream")
 
     ck.reset_launches()
     t0 = time.perf_counter()
     check(ft.decompress_bytes(comp, device=DEV) == data,
           f"{label}: the ordinary decompress reads the mesh container")
     t_o = time.perf_counter() - t0
-    check(ck.launches[ck.WCTX_DECODE] == n_wctx,
-          f"{label}: the ordinary decompress decodes TAG_WCTX on the card")
+    o_counts = ck.launches.as_dict()
+    check(o_counts[ck.WCTX_DECODE] == o_counts[ck.WCTX_LAYOUT]
+          == o_counts[ck.WCTX_UNLAYOUT] == n_wctx,
+          f"{label}: the ordinary decompress decodes TAG_WCTX on the card, its start "
+          f"matrices and wire bytes too")
     mb = len(data) / 1e6
     print(
         f"phase=e2e run={label} input_bytes={len(data)} container_bytes={len(comp)} "
@@ -1785,7 +2042,8 @@ def phase_mesh(ft, ck, args) -> dict:
     print(f"phase=e2e run=mesh_d4_one_card_four_times records=24000 block_size=5000 "
           f"blocks={blocks4} tags={json.dumps(tags4, sort_keys=True)} "
           f"wctx_encode_launches={enc4} byte_identical_to_cpu_d4=true round_trip=true")
-    return {"compress": c_counts, "decompress": d_counts, "qual": qual0, **kept}
+    return {"compress": c_counts, "decompress": d_counts, "ordinary_decompress": o_counts,
+            "qual": qual0, **kept}
 
 
 # ---------------------------------------------------------------------------
@@ -2363,6 +2621,7 @@ def main() -> int:
     kern_crc = phase_crc(ck, crc32, rng)
     kern_wctx = phase_wctx(ck, wctx, rans, rng)
     kern_records = phase_records(ft, ck, recops, rng)
+    kern_ctx = phase_ctxprep(ft, ck, args)
 
     # warm-up: a round trip of the same size (kernel loads, the worker
     # threads' streams, page-locked buffers of the block sizes), so the
@@ -2499,6 +2758,39 @@ def main() -> int:
         }
         rows.append((name, main_launches[direction][name], kern_records["errs"][name],
                      (*kern_records["times"][name], None), more))
+    # the context-model passes: the counts of the mesh run (the prepare
+    # passes and the encode's layout on compress, the unlayout on
+    # decompress), the v3 run beside; times at the walk corpus (prepare) and
+    # the mesh path's quality stream (the lane passes), every shape beside
+    ctx_rows = kern_ctx["rows"]
+    for name, direction in ((ck.QCTX_PREPARE, "compress"), (ck.SCTX_PREPARE, "compress"),
+                            (ck.WCTX_LAYOUT, "compress"), (ck.WCTX_UNLAYOUT, "decompress")):
+        more = {
+            "launches_v3": {d: v3_launches[d][name] for d in ("compress", "decompress")},
+            "launches_mesh": {d: mesh_run[d][name] for d in ("compress", "decompress")},
+            "launches_mesh_ordinary_decompress": mesh_run["ordinary_decompress"][name],
+            "faults_checked": kern_ctx["faults"],
+        }
+        if name in (ck.QCTX_PREPARE, ck.SCTX_PREPARE):
+            *times, lib = ctx_rows["walk"]["times"][name]
+            mk = ctx_rows["markov"]["times"][name]
+            more.update(shape=f"walk151 block of {BLOCK_RECORDS} records", **lib,
+                        by_shape={"markov151": {**dict(zip(fields, mk[:5])), **mk[5]}})
+        else:
+            part = "encode" if name == ck.WCTX_LAYOUT else "unlayout"
+            lay = ctx_rows["markov"]["layout"]
+            *times, _ = lay[CTX_TIMED][part]
+            by_shape = {}
+            for (m_, o_), row in lay.items():
+                for p_ in (("encode", "decode") if name == ck.WCTX_LAYOUT else ("unlayout",)):
+                    by_shape[f"model{m_}_order{o_}_{p_}"] = {
+                        **dict(zip(fields, row[p_][:5])), "lanes": row["lanes"],
+                        "steps": row["steps"]}
+            more.update(shape=f"markov151 model={CTX_TIMED[0]} order={CTX_TIMED[1]} "
+                              f"lanes={lay[CTX_TIMED]['lanes']} steps={lay[CTX_TIMED]['steps']}",
+                        by_shape=by_shape)
+        rows.append((name, mesh_run[direction][name], kern_ctx["errs"][name],
+                     (*times[:5], None), more))
     for row in rows[:6]:  # the earlier kernels run on the mesh path too
         name = row[0]
         direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"

@@ -16,6 +16,14 @@ the XLA programs ``_encode_kernel`` and ``_decode_kernel`` of
 replace the host functions ``fq_scan_records_ex``, ``fq_gather_rows``,
 ``fq_build_streams`` and ``fq_decode_block_full`` / ``fq_assemble`` of
 ``fastqpacker_tpu/runtime/fqruntime.cpp`` (the JAX package's C++ runtime).
+Context-model passes (``csrc/ctxprep.cu``): ``qctx_prepare`` and
+``sctx_prepare`` replace ``fq_qctx_prepare`` and ``fq_sctx_prepare`` of that
+runtime; ``wctx_layout`` replaces the host passes ``start_matrix``,
+``to_matrix`` and ``context_matrix`` (with the present-symbol map) of
+``fastqpacker_tpu/ops/wctx.py``, and ``wctx_unlayout`` its ``from_matrix``
+and present map, then ``pack_stream`` of ``fastqpacker_tpu/ops/seqctx.py`` or
+the quality delta transform (``_raw_to_delta``) of
+``fastqpacker_tpu/pipeline/native.py``.
 
 Each wrapper checks its tensors, allocates the outputs on their device and
 launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
@@ -41,7 +49,7 @@ from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import MAX_LANES as RANS_MAX_LANES
 from .rans import RANS_L, rans_compact_plain, rans_decode_plain, rans_encode_plain
-from . import records
+from . import ctxprep, records
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
 
@@ -57,6 +65,10 @@ RECORDS_SCAN = "fq_records_scan"
 ROWS_GATHER = "fq_rows_gather"
 STREAMS_BUILD = "fq_streams_build"
 FASTQ_ASSEMBLE = "fq_fastq_assemble"
+QCTX_PREPARE = "fq_qctx_prepare"
+SCTX_PREPARE = "fq_sctx_prepare"
+WCTX_LAYOUT = "fq_wctx_layout"
+WCTX_UNLAYOUT = "fq_wctx_unlayout"
 
 # which library (csrc/<name>.cu) exports each launcher
 _LIBRARY = {
@@ -672,3 +684,142 @@ def fastq_assemble(
             plus_n, int(has_plus), npos.data_ptr(), npos.numel(), int(wide), len_n,
             seq_n, qual_n, scratch, out, cap, info)
     return out[:cap], info
+
+
+# ---------------------------------------------------------------------------
+# context-model passes: qctx / sctx prepare, the wctx lane matrices
+# ---------------------------------------------------------------------------
+
+
+def _check_bounds(name: str, t: torch.Tensor, rows: int, dev) -> int:
+    """A (rows, nrec + 1) int64 bounds tensor (1-D for one row) -> nrec."""
+    if (t.dtype != torch.int64 or t.dim() != (1 if rows == 1 else 2) or t.device != dev
+            or t.shape[-1] < 1 or (rows > 1 and t.shape[0] != rows) or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous ({rows}, nrec + 1) int64 tensor on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.shape[-1] - 1
+
+
+def qctx_prepare(delta: torch.Tensor, bounds: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integration and max-model histogram of an (n,) uint8 quality delta
+    stream whose records start at ``bounds`` ((nrec + 1,) int64, the last
+    = n, checked by the caller) -> (raw (n,) uint8, (3072, 256) int32); see
+    :func:`..ops.ctxprep.qctx_prepare_plain`. One launch."""
+    n = delta.numel()
+    dev = delta.device
+    _check("delta", delta, torch.uint8, (n,), dev)
+    nrec = _check_bounds("bounds", bounds, 1, dev)
+    if _plain_or_cuda(dev):
+        return ctxprep.qctx_prepare_plain(delta, bounds)
+    raw = torch.empty((n,), dtype=torch.uint8, device=dev)
+    hist = torch.empty((ctxprep.QCTX_CONTEXTS, 256), dtype=torch.int32, device=dev)
+    _launch(QCTX_PREPARE, dev, delta, n, bounds, nrec, raw, hist)
+    return raw, hist
+
+
+def sctx_prepare(packed: torch.Tensor, bounds: torch.Tensor, n: int):
+    """Unpack of (m,) uint8 packed sequence rows and the order-6 histogram;
+    ``bounds``: (2, nrec + 1) int64, the records' first base and first packed
+    byte (:func:`..ops.ctxprep.record_bounds`), ``n`` the bases (its last
+    first-base entry, checked by the caller) -> (bases (n,) uint8, (4096, 4)
+    int32); see :func:`..ops.ctxprep.sctx_prepare_plain`. One launch."""
+    m = packed.numel()
+    dev = packed.device
+    _check("packed", packed, torch.uint8, (m,), dev)
+    nrec = _check_bounds("bounds", bounds, 2, dev)
+    if _plain_or_cuda(dev):
+        return ctxprep.sctx_prepare_plain(packed, bounds)
+    bases = torch.empty((n,), dtype=torch.uint8, device=dev)
+    hist = torch.empty((ctxprep.SCTX_CONTEXTS, 4), dtype=torch.int32, device=dev)
+    _launch(SCTX_PREPARE, dev, packed, m, bounds, nrec, bases, hist)
+    return bases, hist
+
+
+def _check_lane_table(lanes_tab: torch.Tensor, steps: int, dev) -> int:
+    if (lanes_tab.dtype != torch.int64 or lanes_tab.dim() != 2 or lanes_tab.shape[0] != 2
+            or lanes_tab.shape[1] < 2 or lanes_tab.device != dev
+            or not lanes_tab.is_contiguous()):
+        raise ValueError(f"lanes_tab: expected a contiguous (2, lanes + 1) int64 tensor on "
+                         f"{dev}, got {lanes_tab.dtype} {tuple(lanes_tab.shape)}")
+    if steps < 1:
+        raise ValueError(f"steps must be positive, got {steps}")
+    return lanes_tab.shape[1] - 1
+
+
+def wctx_layout(
+    syms: torch.Tensor | None,
+    bounds: torch.Tensor,
+    lanes_tab: torch.Tensor,
+    steps: int,
+    model: int,
+    order: int,
+    idx_map: torch.Tensor | None = None,
+    pad_sym: int = 0,
+):
+    """The (steps, lanes) matrices of one wctx stream: with ``syms`` the
+    (n,) uint8 symbols, ``(sym_idx uint8, ctx int16)`` (``idx_map`` the
+    (256,) uint8 present-index map, ``pad_sym`` the pad symbol); with
+    ``syms`` None the uint8 start matrix of the decoder. ``bounds``: (nrec +
+    1,) int64 record starts; ``lanes_tab``: (2, lanes + 1) int64 lane
+    starts and first records (:func:`..ops.ctxprep.lane_layout`). See
+    :func:`..ops.ctxprep.wctx_layout_plain`. One launch."""
+    dev = bounds.device
+    _check_bounds("bounds", bounds, 1, dev)
+    lanes = _check_lane_table(lanes_tab, steps, dev)
+    if (model, order) not in ((0, 2), (0, 4), (0, 6), (1, 0), (1, 1)):
+        raise ValueError(f"unsupported wctx model/order {model}/{order}")
+    if syms is not None:
+        _check("syms", syms, torch.uint8, (syms.numel(),), dev)
+        if idx_map is None:
+            raise ValueError("wctx_layout: the encode needs idx_map")
+        _check("idx_map", idx_map, torch.uint8, (256,), dev)
+        if not 0 <= pad_sym <= 255:
+            raise ValueError(f"pad_sym must be a byte, got {pad_sym}")
+    if _plain_or_cuda(dev):
+        return ctxprep.wctx_layout_plain(syms, bounds, lanes_tab, steps, model, order,
+                                         idx_map, pad_sym)
+    if syms is None:
+        start = torch.empty((steps, lanes), dtype=torch.uint8, device=dev)
+        _launch(WCTX_LAYOUT, dev, None, bounds, lanes_tab, lanes, steps, model, order, None,
+                0, None, None, start)
+        return start
+    sym_idx = torch.empty((steps, lanes), dtype=torch.uint8, device=dev)
+    ctx = torch.empty((steps, lanes), dtype=torch.int16, device=dev)
+    _launch(WCTX_LAYOUT, dev, syms, bounds, lanes_tab, lanes, steps, model, order, idx_map,
+            pad_sym, sym_idx, ctx, None)
+    return sym_idx, ctx
+
+
+def wctx_unlayout(
+    mat: torch.Tensor,
+    bounds: torch.Tensor,
+    lanes_tab: torch.Tensor,
+    present: torch.Tensor,
+    mode: int,
+    size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoded (steps, lanes) present-index matrix in record order, as
+    ``mode`` says (:data:`..ops.ctxprep.UNLAYOUT_FLAT`, ``_PACKED`` with
+    (2, nrec + 1) ``bounds``, ``_DELTA``), ``size`` output bytes (the
+    symbols, or the packed bytes) -> (uint8 (size,), int32 (1,) fault); see
+    :func:`..ops.ctxprep.wctx_unlayout_plain`. One launch."""
+    if mat.dim() != 2 or mat.shape[0] < 1:
+        raise ValueError(f"mat: expected (S, N) with S >= 1, got {tuple(mat.shape)}")
+    steps, lanes = mat.shape
+    dev = mat.device
+    _check("mat", mat, torch.uint8, (steps, lanes), dev)
+    if mode not in (ctxprep.UNLAYOUT_FLAT, ctxprep.UNLAYOUT_PACKED, ctxprep.UNLAYOUT_DELTA):
+        raise ValueError(f"unknown unlayout mode {mode}")
+    nrec = _check_bounds("bounds", bounds, 2 if mode == ctxprep.UNLAYOUT_PACKED else 1, dev)
+    if _check_lane_table(lanes_tab, steps, dev) != lanes:
+        raise ValueError(f"lanes_tab: {lanes_tab.shape[1] - 1} lanes, mat {lanes}")
+    if not 1 <= present.numel() <= 256:
+        raise ValueError(f"present: 1 to 256 symbols, got {present.numel()}")
+    _check("present", present, torch.uint8, (present.numel(),), dev)
+    if _plain_or_cuda(dev):
+        return ctxprep.wctx_unlayout_plain(mat, bounds, lanes_tab, present, mode)
+    dst = torch.empty((size,), dtype=torch.uint8, device=dev)
+    fault = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _launch(WCTX_UNLAYOUT, dev, mat, bounds, nrec, lanes_tab, lanes, steps, present,
+            present.numel(), mode, dst, fault)
+    return dst, fault

@@ -29,8 +29,11 @@ The port's copy of the numpy/Python reference paths of
 ``fastqpacker_tpu/ops/qualctx.py``. It is a host coder by wire format (4
 chunks x 4 sequential states), not a device program; the per-symbol Python
 walks are slow (seconds per block) and stand until the host stages get
-native code. Every size estimate keeps that module's float arithmetic, so
-the picks are the same.
+native code. Its prepare pass (integration and the max-model histogram)
+runs on a device, the CUDA card unless the caller names the CPU
+(``fq_qctx_prepare``, :mod:`.ctxprep`).
+Every size estimate keeps that module's float arithmetic, so the picks are
+the same.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import struct
 import numpy as np
 
 from . import rans
+from .device import resolve_device
 
 NUM_QBINS = 48  # prev-quality bins; 47 doubles as the record-start sentinel
 NUM_PBUCKETS = 8
@@ -60,24 +64,8 @@ class QctxError(ValueError):
 
 
 # ---------------------------------------------------------------------------
-# Shared vectorized prep (used by both reference and native wrappers)
+# Contexts and chunk bounds (vectorized)
 # ---------------------------------------------------------------------------
-
-
-def integrate(delta: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-    """Per-record integration of the delta stream (mod 256), vectorized:
-    raw[j] = cumsum(delta)[j] - cumsum(delta)[record_start - 1]."""
-    if len(delta) == 0:
-        return delta.astype(np.uint8)
-    csum = np.cumsum(delta.astype(np.int64))
-    starts = np.zeros(len(lengths), dtype=np.int64)
-    np.cumsum(lengths[:-1].astype(np.int64), out=starts[1:])
-    base = np.zeros(len(delta), dtype=np.int64)
-    nz = lengths > 0
-    base[starts[nz]] = 1  # record-start marker
-    seg = np.cumsum(base) - 1  # record id per symbol
-    start_csum = np.concatenate(([0], csum))[starts[nz]]
-    return ((csum - start_csum[seg]) % 256).astype(np.uint8)
 
 
 def contexts(
@@ -111,34 +99,38 @@ def contexts(
     return (ctx * NUM_Q2B + q2b).astype(np.int32)
 
 
+def chunk_bounds_arrays(
+    lengths: np.ndarray, num_chunks: int = NUM_CHUNKS
+) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`chunk_bounds` as two int64 arrays, computed without a loop
+    over the chunks (a wctx stream has up to 8,192 lanes): each boundary is
+    the record after the one that holds symbol ``total * k // num_chunks``,
+    clamped to the record count and to the boundary before it."""
+    lengths = lengths.astype(np.int64)
+    csum = np.cumsum(lengths)
+    total = int(csum[-1]) if len(csum) else 0
+    n = len(lengths)
+    if total:
+        targets = total * np.arange(1, num_chunks, dtype=np.int64) // num_chunks
+        b = np.searchsorted(csum, targets, side="left") + 1
+    else:
+        b = np.zeros(num_chunks - 1, np.int64)
+    rb = np.empty(num_chunks + 1, np.int64)
+    rb[0] = 0
+    rb[1:-1] = np.maximum.accumulate(np.minimum(b, n))
+    rb[-1] = n
+    sb = np.concatenate(([0], csum))[rb]
+    return rb, sb
+
+
 def chunk_bounds(lengths: np.ndarray, num_chunks: int = NUM_CHUNKS):
     """Record-aligned chunk boundaries balanced by symbol count.
 
     Returns (record_bounds, symbol_bounds), each of len num_chunks+1.
     Deterministic integer arithmetic — the C++ decoder recomputes this.
     """
-    lengths = lengths.astype(np.int64)
-    csum = np.cumsum(lengths)
-    total = int(csum[-1]) if len(csum) else 0
-    rb = [0]
-    for k in range(1, num_chunks):
-        target = total * k // num_chunks
-        b = int(np.searchsorted(csum, target, side="left")) + 1 if total else 0
-        # boundary after the record containing symbol `target`; clamp
-        b = min(max(b, rb[-1]), len(lengths))
-        rb.append(b)
-    rb.append(len(lengths))
-    sb = [0 if b == 0 else int(csum[b - 1]) for b in rb]
-    return rb, sb
-
-
-def histogram(
-    raw: np.ndarray, ctx: np.ndarray, num_ctx: int = NUM_CTX2
-) -> np.ndarray:
-    """(num_ctx, 256) int64 symbol histogram."""
-    flat = ctx.astype(np.int64) * 256 + raw.astype(np.int64)
-    h = np.bincount(flat, minlength=num_ctx * 256)
-    return h.reshape(num_ctx, 256)
+    rb, sb = chunk_bounds_arrays(lengths, num_chunks)
+    return rb.tolist(), sb.tolist()
 
 
 def hist_for_model(hist2: np.ndarray, model: int) -> np.ndarray:
@@ -179,7 +171,8 @@ def estimate_size(hist: np.ndarray, freq: np.ndarray | None = None) -> int:
 
 
 def sample_estimate(
-    delta: np.ndarray, lengths: np.ndarray, max_syms: int = 1 << 17
+    delta: np.ndarray, lengths: np.ndarray, max_syms: int = 1 << 17,
+    device=None,
 ) -> int | None:
     """Optimistic projected qctx size from a record-aligned prefix —
     the pre-gate twin of seqctx.sample_estimate: the full model
@@ -191,7 +184,9 @@ def sample_estimate(
     factor stands in for its possible edge plus sampling under-count.
     Optimistic is the safe direction for a skip-gate. Returns None when
     the stream is within 2x of the sample budget (just run the real
-    estimate)."""
+    estimate). The prefix goes through :func:`prepare` on ``device``
+    (default: the CUDA card) and model 0 is the marginal of its
+    histogram."""
     lengths = lengths.astype(np.int64)
     total = int(lengths.sum())
     if total <= 2 * max_syms:
@@ -202,11 +197,8 @@ def sample_estimate(
     nb = int(lens_s.sum())
     if nb == 0:
         return None
-    raw_s = integrate(
-        np.ascontiguousarray(delta[:nb]).astype(np.uint8), lens_s
-    )
-    ctx0 = contexts(raw_s, lens_s, model=0)
-    hist = histogram(raw_s, ctx0, num_ctx=NUM_CTX)
+    delta_s = np.ascontiguousarray(delta[:nb]).astype(np.uint8)
+    hist = hist_for_model(prepare(delta_s, lens_s, device)[1], 0)
     nz = hist > 0
     freq = normalize_tables(hist)
     f = freq.astype(np.float64)
@@ -354,16 +346,17 @@ def _slot_syms(freq: np.ndarray) -> np.ndarray:
     return out
 
 
-def prepare(
-    delta: np.ndarray, lengths: np.ndarray
-) -> tuple[np.ndarray, np.ndarray]:
+def prepare(delta: np.ndarray, lengths: np.ndarray, device=None):
     """-> (raw symbols, (NUM_CTX2, 256) max-model histogram). Both
     models' tables derive from this one histogram
-    (:func:`hist_for_model`)."""
+    (:func:`hist_for_model`). The pass runs on ``device`` (default: the
+    CUDA card; ``fq_qctx_prepare``, :func:`.ctxprep.qctx_prepare`) and the
+    raw symbols stay there (:class:`.ctxprep.Symbols`)."""
     if int(lengths.sum()) != len(delta):
         raise QctxError("qual stream length does not match record lengths")
-    raw = integrate(delta, lengths)
-    return raw, histogram(raw, contexts(raw, lengths, model=1))
+    from . import ctxprep
+
+    return ctxprep.qctx_prepare(resolve_device(device), delta, lengths)
 
 
 def _assemble_payload(total, blob, states, word_runs, model) -> bytes:
@@ -407,16 +400,17 @@ def encode_prepared(
     return _assemble_payload(len(raw), blob, states, word_runs, model)
 
 
-def encode(delta: bytes | np.ndarray, lengths: np.ndarray) -> bytes:
-    """delta qual stream + record lengths -> qctx payload."""
+def encode(delta: bytes | np.ndarray, lengths: np.ndarray, device=None) -> bytes:
+    """delta qual stream + record lengths -> qctx payload (the prepare
+    pass on ``device``, default: the CUDA card)."""
     d = (
         np.frombuffer(delta, np.uint8)
         if isinstance(delta, (bytes, bytearray))
         else delta
     )
     lengths = np.asarray(lengths, dtype=np.int64)
-    raw, hist = prepare(d, lengths)
-    return encode_prepared(raw, lengths, hist)
+    raw, hist = prepare(d, lengths, device)
+    return encode_prepared(raw.numpy(), lengths, hist)
 
 
 # The JAX package's whole-file decoder takes a table blob of at most this
@@ -506,7 +500,7 @@ def decode(
 
 
 def deintegrate(raw: np.ndarray, lengths: np.ndarray) -> bytes:
-    """Inverse of :func:`integrate` (vectorized)."""
+    """Inverse of the prepare pass's per-record integration (vectorized)."""
     n = len(raw)
     if n == 0:
         return b""

@@ -36,8 +36,10 @@ packed stream, so padding must reproduce exactly.
 
 The port's copy of the numpy/Python reference paths of
 ``fastqpacker_tpu/ops/seqctx.py``: a host coder by wire format, with slow
-per-symbol Python walks (see :mod:`.qualctx`). Every size estimate keeps
-that module's float arithmetic, so the picks are the same.
+per-symbol Python walks (see :mod:`.qualctx`). Its prepare pass (unpack and
+the order-6 histogram) runs on a device, the CUDA card unless the caller
+names the CPU (``fq_sctx_prepare``, :mod:`.ctxprep`). Every size estimate keeps that
+module's float arithmetic, so the picks are the same.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import struct
 import numpy as np
 
 from . import rans
+from .device import resolve_device
 from .qualctx import chunk_bounds
 
 MAX_ORDER = 6
@@ -150,15 +153,6 @@ def contexts(
     return ctx.astype(np.int32)
 
 
-def histogram(
-    bases: np.ndarray, lengths: np.ndarray, order: int = MAX_ORDER
-) -> np.ndarray:
-    """(4**order, 4) int64 histogram at the maximum candidate order."""
-    ctx = contexts(bases, lengths, order)
-    flat = ctx.astype(np.int64) * 4 + bases.astype(np.int64)
-    return np.bincount(flat, minlength=(4**order) * 4).reshape(-1, 4)
-
-
 def marginalize(hist: np.ndarray, order: int) -> np.ndarray:
     """Reduce a max-order histogram to a lower order by summing over the
     high (oldest-predecessor) context bits."""
@@ -209,7 +203,8 @@ def estimate_size(hist6: np.ndarray, order: int) -> int:
 
 
 def sample_estimate(
-    packed: np.ndarray, lengths: np.ndarray, max_bases: int = 1 << 20
+    packed: np.ndarray, lengths: np.ndarray, max_bases: int = 1 << 20,
+    device=None,
 ) -> int | None:
     """Optimistic projected sctx size from a record-aligned prefix.
 
@@ -221,7 +216,8 @@ def sample_estimate(
     taking the minimum. The projection is *optimistic* (sampled tables
     under-count used contexts, so overhead is under-estimated), which is
     the safe direction for a skip-gate. Returns None when the stream is
-    within 2x of the sample budget (just run the real estimate).
+    within 2x of the sample budget (just run the real estimate). The
+    prefix's prepare runs on ``device`` (default: the CUDA card).
     """
     lengths = lengths.astype(np.int64)
     total = int(lengths.sum())
@@ -234,7 +230,7 @@ def sample_estimate(
     if nb == 0:
         return None
     plen_s = int(packed_row_lengths(lens_s).sum())
-    _, hist6_s = prepare(np.ascontiguousarray(packed[:plen_s]), lens_s)
+    _, hist6_s = prepare(np.ascontiguousarray(packed[:plen_s]), lens_s, device)
     best = None
     for k in ORDERS:
         hist = marginalize(hist6_s, k) if k < MAX_ORDER else hist6_s
@@ -361,12 +357,18 @@ def _decode_chunk(
 # ---------------------------------------------------------------------------
 
 
-def prepare(
-    packed: np.ndarray, lengths: np.ndarray
-) -> tuple[np.ndarray, np.ndarray]:
-    """-> (flat base symbols, max-order histogram)."""
-    bases = unpack_stream(packed, lengths)
-    return bases, histogram(bases, lengths)
+def prepare(packed: np.ndarray, lengths: np.ndarray, device=None):
+    """-> (flat base symbols, max-order histogram). The pass runs on
+    ``device`` (default: the CUDA card; ``fq_sctx_prepare``,
+    :func:`.ctxprep.sctx_prepare`) and the bases stay there
+    (:class:`.ctxprep.Symbols`); the lengths are checked against the packed
+    size first, as :func:`unpack_stream` does."""
+    from . import ctxprep
+
+    lengths = np.asarray(lengths, np.int64)
+    if int(lengths.sum()) and int(packed_row_lengths(lengths).sum()) != len(packed):
+        raise SctxError("packed sequence data does not match lengths")
+    return ctxprep.sctx_prepare(resolve_device(device), packed, lengths)
 
 
 def encode_prepared(
@@ -405,15 +407,17 @@ def encode_prepared(
     return bytes(out)
 
 
-def encode(packed: bytes | np.ndarray, lengths: np.ndarray) -> bytes:
+def encode(packed: bytes | np.ndarray, lengths: np.ndarray, device=None) -> bytes:
+    """packed rows + record lengths -> sctx payload (the prepare pass on
+    ``device``, default: the CUDA card)."""
     p = (
         np.frombuffer(packed, np.uint8)
         if isinstance(packed, (bytes, bytearray))
         else packed
     )
     lengths = np.asarray(lengths, dtype=np.int64)
-    bases, hist6 = prepare(p, lengths)
-    return encode_prepared(bases, lengths, hist6)
+    bases, hist6 = prepare(p, lengths, device)
+    return encode_prepared(bases.numpy(), lengths, hist6)
 
 
 def decode(payload: bytes, lengths: np.ndarray) -> bytes:

@@ -39,10 +39,15 @@ Wire format (little-endian), one standalone stream:
   | u32 nwords | u32 states[N] | u16 words[nwords]
 
 Symbols are the *unpacked* representation (base codes for model 0, raw
-integrated qualities for model 1); callers convert to/from the v3 wire
-streams (packed rows / per-record deltas). Lane layout, step count and
-the per-(step, lane) record-start mask are all derived deterministically
-from ``lengths`` + ``lanes`` on both sides.
+integrated qualities for model 1); the v3 wire streams are packed rows /
+per-record deltas. Lane layout, step count and the per-(step, lane)
+record-start mask are all derived deterministically from ``lengths`` +
+``lanes`` on both sides. The (S, N) lane matrices are built on the device
+(``fq_wctx_layout``: the encoder's symbol-index and context matrices, the
+decoder's start matrix), and the decoded matrix goes back to record order
+there (``fq_wctx_unlayout``: symbols, packed rows or deltas), so only the
+wire bytes cross to the host (:mod:`.ctxprep`); the numpy lane functions
+below are the reference the tests and the kernel benchmarks use.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ import struct
 import numpy as np
 import torch
 
-from . import rans
+from . import ctxprep, rans
+from .ctxprep import UNLAYOUT_DELTA, UNLAYOUT_FLAT, UNLAYOUT_PACKED
 from .device import resolve_device, to_device
 from .qualctx import chunk_bounds
 
@@ -128,7 +134,7 @@ def pick_lanes_for(hist: np.ndarray, n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Lane layout (host, deterministic from lengths + lanes)
+# Lane layout (host reference, deterministic from lengths + lanes)
 # ---------------------------------------------------------------------------
 
 
@@ -489,21 +495,29 @@ def stream_layout(lengths: np.ndarray, lanes: int):
     return sb, S, (sb[1:] - sb[:-1]).astype(np.int32)
 
 
+def _on(dev: torch.device, a, dtype: np.dtype) -> torch.Tensor:
+    """A matrix built on ``dev`` as it is, or a host array copied there."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return to_device(dev, np.asarray(a).astype(dtype, copy=False))
+
+
 def launch_encode(
     dev: torch.device,
-    sym_idx: np.ndarray,
-    ctxm: np.ndarray,
+    sym_idx,
+    ctxm,
     seg: np.ndarray,
     freq_p: np.ndarray,
 ):
     """Enqueue one stream's encode and word compaction on ``dev``'s
-    current stream. Returns the device tensors ``(flat, total, states,
-    status)`` that :func:`fetch_encoded` reads."""
+    current stream; the (S, N) matrices are tensors on ``dev``
+    (:func:`prepare_encode`) or host arrays. Returns the device tensors
+    ``(flat, total, states, status)`` that :func:`fetch_encoded` reads."""
     from . import cuda_kernels
 
     words, flags, states, status = cuda_kernels.wctx_encode(
-        to_device(dev, sym_idx),
-        to_device(dev, ctxm.astype(np.int16)),
+        _on(dev, sym_idx, np.uint8),
+        _on(dev, ctxm, np.int16),
         to_device(dev, seg.astype(np.int32)),
         to_device(dev, device_table(freq_p)),
     )
@@ -550,6 +564,55 @@ def _check_lanes(lanes: int) -> None:
         raise ValueError(f"lanes must be a power of two, got {lanes}")
 
 
+def data_histogram(
+    flat_syms: np.ndarray, lengths: np.ndarray, model: int, order: int
+) -> np.ndarray:
+    """(C, 256) int64 histogram of a flat stream's symbols under its
+    in-record contexts: what :func:`matrix_histogram` counts over the data
+    cells of its lane matrices, for any lane count."""
+    from . import qualctx, seqctx
+
+    C, _, _ = model_geometry(model, order)
+    syms = np.asarray(flat_syms, np.uint8)
+    if model == MODEL_SEQ:
+        ctx = seqctx.contexts(syms, lengths, order)
+    else:
+        ctx = qualctx.contexts(syms, lengths, model=order)
+    flat = ctx.astype(np.int64) * 256 + syms.astype(np.int64)
+    return np.bincount(flat, minlength=C * 256).reshape(C, 256)
+
+
+def prepare_encode(
+    dev: torch.device, syms, lengths: np.ndarray, hist: np.ndarray,
+    model: int, order: int, lanes: int,
+) -> dict:
+    """One stream's encode inputs on ``dev``: the lane layout, the tables
+    from ``hist`` (its (C, 256) data histogram: pad cells are skipped by
+    the coders, so the tables are the prepare histograms') and the (S, N)
+    symbol-index and context matrices, built there by ``fq_wctx_layout``
+    from the flat symbols (:class:`.ctxprep.Symbols` already on the device,
+    or a host array). The pad symbol is the most frequent one."""
+    from . import cuda_kernels
+
+    lengths = np.asarray(lengths, np.int64)
+    tab, S, seg = ctxprep.lane_layout(lengths, lanes)
+    hist = hist.astype(np.int64)
+    counts = hist.sum(axis=0)
+    present = np.flatnonzero(counts > 0)
+    freq_p = np.ascontiguousarray(normalize_tables(hist)[:, present])
+    if isinstance(syms, ctxprep.Symbols):
+        sym_t = syms.on(dev)
+    else:
+        sym_t = to_device(dev, np.asarray(syms, np.uint8))
+    sym_idx, ctxm = cuda_kernels.wctx_layout(
+        sym_t, to_device(dev, ctxprep.record_bounds(lengths)), to_device(dev, tab), S,
+        model, order, to_device(dev, _sym_to_idx(present)), int(np.argmax(counts)))
+    return {
+        "sb": tab[0], "S": S, "n": len(syms), "npres": len(present), "seg": seg,
+        "present": present, "freq_p": freq_p, "sym_idx": sym_idx, "ctxm": ctxm,
+    }
+
+
 def encode_stream(
     flat_syms: np.ndarray,
     lengths: np.ndarray,
@@ -567,27 +630,17 @@ def encode_stream(
         raise WctxError("wctx stream length does not match records")
     N = lanes or pick_lanes(n)
     _check_lanes(N)
-    C, _, _ = model_geometry(model, order)
-    sb, S, seg = stream_layout(lengths, N)
-    startm = start_matrix(lengths, sb, S)
-    # pad fill value is arbitrary — pad cells are skipped by the coders
-    # and excluded from the tables; most-frequent keeps the matrix
-    # content deterministic
-    counts = np.bincount(flat_syms, minlength=256)
-    pad_sym = int(np.argmax(counts))
-    symm = to_matrix(flat_syms, sb, S, pad_sym)
-    ctxm = context_matrix(symm, startm, model, order)
-    present, freq_p = build_tables(symm, ctxm, C, seg)
-    if len(present) > B_MAX and model == MODEL_QUAL:
+    hist = data_histogram(flat_syms, lengths, model, order)
+    if model == MODEL_QUAL and int((hist.sum(axis=0) > 0).sum()) > B_MAX:
         raise WctxError(
-            f"wctx present alphabet {len(present)} exceeds {B_MAX}"
+            f"wctx present alphabet {int((hist.sum(axis=0) > 0).sum())} exceeds {B_MAX}"
         )
-    sym_idx = _sym_to_idx(present)[symm]
+    p = prepare_encode(dev, flat_syms, lengths, hist, model, order, N)
     words, states = fetch_encoded(
-        launch_encode(dev, sym_idx, ctxm, seg, freq_p)
+        launch_encode(dev, p["sym_idx"], p["ctxm"], p["seg"], p["freq_p"])
     )
     return assemble_payload(
-        model, order, N, n, present, freq_p, states, words
+        model, order, N, n, p["present"], p["freq_p"], states, words
     )
 
 
@@ -656,43 +709,62 @@ def parse_stream(payload: bytes | memoryview):
     }
 
 
-def launch_decode(dev: torch.device, p: dict, lengths: np.ndarray):
+def launch_decode(
+    dev: torch.device, p: dict, lengths: np.ndarray, output: int = UNLAYOUT_FLAT
+):
     """Enqueue the decode of one parsed stream (:func:`parse_stream`) on
-    ``dev``'s current stream. Returns what :func:`fetch_decoded` reads."""
+    ``dev``'s current stream: the start matrix (``fq_wctx_layout``), the
+    decode, and the decoded matrix back in record order
+    (``fq_wctx_unlayout``) as ``output`` says: the symbols
+    (:data:`UNLAYOUT_FLAT`), packed sequence rows (:data:`UNLAYOUT_PACKED`)
+    or the quality delta stream (:data:`UNLAYOUT_DELTA`). Returns what
+    :func:`fetch_decoded` reads."""
     from . import cuda_kernels
 
     N = p["N"]
     if dev.type == "cuda" and N > MAX_DECODE_LANES:
         raise WctxError("unsupported wctx lane count")
-    sb, S, seg = stream_layout(lengths, N)
-    startm = start_matrix(lengths, sb, S)
+    lengths = np.asarray(lengths, np.int64)
+    tab, S, seg = ctxprep.lane_layout(lengths, N)
+    packed = output == UNLAYOUT_PACKED
+    bounds_h = ctxprep.record_bounds(lengths, packed=packed)
+    bounds = to_device(dev, bounds_h)
+    tab_d = to_device(dev, tab)
+    present = to_device(dev, p["present"].astype(np.uint8))
+    startm = cuda_kernels.wctx_layout(
+        None, bounds[0] if packed else bounds, tab_d, S, p["model"], p["order"])
     out, info = cuda_kernels.wctx_decode(
         to_device(dev, np.asarray(p["words"]).astype("<u2").view(np.int16)),
         to_device(dev, p["states"].view(np.int32)),
-        to_device(dev, startm.view(np.uint8)),
+        startm,
         to_device(dev, seg),
         to_device(dev, device_table(p["freq_p"])),
-        to_device(dev, p["present"].astype(np.uint8)),
+        present,
         p["model"],
         p["order"],
     )
-    return out, info, sb, p
+    size = int(bounds_h[1, -1] if packed else bounds_h[-1])
+    wire, fault = cuda_kernels.wctx_unlayout(out, bounds, tab_d, present, output, size)
+    return wire, info, fault, p
 
 
 def fetch_decoded(handles) -> np.ndarray:
-    """Wait for :func:`launch_decode`'s work, check it and return the flat
-    unpacked symbols."""
-    out, info, sb, p = handles
+    """Wait for :func:`launch_decode`'s work, check it and return its
+    output bytes (np.uint8)."""
+    wire, info, fault, p = handles
     consumed, bad = (int(v) for v in info.cpu())
     # a sound stream uses up exactly the words it carries
     if consumed != len(p["words"]):
         raise WctxError("trailing wctx words")
-    if bad:
+    if bad or int(fault.item()):
         raise WctxError("corrupted wctx stream")
-    out_idx = from_matrix(out.cpu().numpy(), sb)
-    if int(out_idx.max(initial=0)) >= len(p["present"]):
-        raise WctxError("corrupted wctx stream")
-    return p["present"].astype(np.uint8)[out_idx]
+    return wire.cpu().numpy()
+
+
+def wire_output(p: dict) -> int:
+    """The v3 wire form of a parsed stream's symbols: packed rows for the
+    sequence model, the delta stream for qualities."""
+    return UNLAYOUT_PACKED if p["model"] == MODEL_SEQ else UNLAYOUT_DELTA
 
 
 def decode_stream(
@@ -708,3 +780,17 @@ def decode_stream(
     if p["total"] == 0:
         return np.zeros(0, np.uint8)
     return fetch_decoded(launch_decode(dev, p, lengths))
+
+
+def decode_wire(payload: bytes, lengths: np.ndarray, device=None) -> bytes:
+    """Decode a TAG_WCTX payload on ``device`` (default: the CUDA card) to
+    the v3 wire stream of its slot: packed sequence rows or the quality
+    delta stream, built on the device; only those bytes come back."""
+    dev = resolve_device(device)
+    lengths = np.asarray(lengths, np.int64)
+    p = parse_stream(payload)
+    if int(lengths.sum()) != p["total"]:
+        raise WctxError("wctx total does not match record lengths")
+    if p["total"] == 0:
+        return b""
+    return fetch_decoded(launch_decode(dev, p, lengths, wire_output(p))).tobytes()

@@ -550,29 +550,6 @@ def entropy_decode_streams(
 # ---------------------------------------------------------------------------
 
 
-def _wctx_block_prep(syms, lengths, hist, model, order, N):
-    """Host-side per-block prep for the wctx encode: lane layout,
-    matrices, tables. ``hist``: (C, 256) DATA histogram — used as-is: pad
-    cells are skipped by the coders, so the tables are exactly the host
-    prepare histograms. Returns a dict of the pieces."""
-    lengths = np.asarray(lengths, np.int64)
-    sb, S, seg = wctx.stream_layout(lengths, N)
-    hist = hist.astype(np.int64)
-    pad_sym = int(np.argmax(hist.sum(axis=0)))
-    present = np.flatnonzero(hist.sum(axis=0) > 0)
-    freq_full = wctx.normalize_tables(hist)
-    freq_p = np.ascontiguousarray(freq_full[:, present])
-    startm = wctx.start_matrix(lengths, sb, S)
-    symm = wctx.to_matrix(np.asarray(syms, np.uint8), sb, S, pad_sym)
-    ctxm = wctx.context_matrix(symm, startm, model, order)
-    sym_idx = wctx._sym_to_idx(present)[symm]
-    return {
-        "sb": sb, "S": S, "n": len(syms), "npres": len(present), "seg": seg,
-        "present": present, "freq_p": freq_p,
-        "sym_idx": sym_idx, "ctxm": ctxm,
-    }
-
-
 def wctx_encode_streams(
     jobs: list,
     model: int,
@@ -586,7 +563,9 @@ def wctx_encode_streams(
     decodable by ``ops/wctx.decode_stream``).
 
     ``jobs``: up to D entries of ``(flat_syms, lengths, data_hist)``
-    where ``data_hist`` is the (C, 256) histogram over data positions
+    where ``flat_syms`` are the prepared symbols (a host array, or the
+    :class:`..ops.ctxprep.Symbols` of a prepare pass, best on the entry's
+    device) and ``data_hist`` is the (C, 256) histogram over data positions
     (sctx/qualctx prepare output reshaped); ``None`` entries are skipped
     (their payload comes back as ``None``).
 
@@ -609,7 +588,8 @@ def wctx_encode_streams(
     )
 
     def prep_and_launch(dev, job):
-        p = _wctx_block_prep(job[0], job[1], job[2], model, order, N)
+        # the lane layout and tables on the host, the matrices on ``dev``
+        p = wctx.prepare_encode(dev, job[0], job[1], job[2], model, order, N)
         launched = _Launched(
             dev, wctx.launch_encode, p.pop("sym_idx"), p.pop("ctxm"), p["seg"],
             p["freq_p"],
@@ -634,12 +614,14 @@ def wctx_decode_streams(
     payloads: list,
     lengths_list: list,
     mesh=None,
+    wire: bool = False,
 ) -> list | None:
     """Batch-decode one TAG_WCTX payload per device — the decode twin of
-    :func:`wctx_encode_streams`. Returns flat unpacked symbol arrays, or
-    ``None`` when the group is not batchable (mixed models/orders/lane
-    counts — fall back to per-stream decoding). ``None`` payload slots
-    are skipped."""
+    :func:`wctx_encode_streams`. Returns flat unpacked symbol arrays (with
+    ``wire``, each stream's v3 wire bytes instead: packed rows or quality
+    deltas, built on its device), or ``None`` when the group is not
+    batchable (mixed models/orders/lane counts — fall back to per-stream
+    decoding). ``None`` payload slots are skipped."""
     mesh = _resolve_mesh(mesh)
     d = len(mesh)
     if len(payloads) > d:
@@ -679,7 +661,8 @@ def wctx_decode_streams(
         p, lens = job
         if p["total"] == 0:
             return np.zeros(0, np.uint8)
-        return _Launched(dev, wctx.launch_decode, p, lens).fetch(wctx.fetch_decoded)
+        output = wctx.wire_output(p) if wire else wctx.UNLAYOUT_FLAT
+        return _Launched(dev, wctx.launch_decode, p, lens, output).fetch(wctx.fetch_decoded)
 
     return for_each_device(
         mesh, decode, [None if p is None else (p, lens) for p, lens in zip(parsed, lens_l)])

@@ -19,12 +19,14 @@ transform and the block CRC32 run on the first device of the mesh.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import struct
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, Optional
 
 import numpy as np
+import torch
 
 from ..entropy import zstd as zstd_entropy
 from ..format import container
@@ -38,23 +40,37 @@ from . import blocks as blockcodec
 from . import native
 
 
-def _plan_seq(ordereds, lengths_l, codec, seq_dict=None):
+@contextlib.contextmanager
+def _on_device(dev):
+    """Launches of the body on ``dev``'s card and this thread's stream of
+    it (no-op on the CPU)."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev), devops.worker_stream(dev):
+        yield
+
+
+def _plan_seq(ordereds, lengths_l, codec, seq_dict, devs):
     """Per-block sequence-slot pick: device context coder (TAG_WCTX over
     unpacked codes) vs the host candidates (adaptive zstd; probe-gated
     sldm for coverage structure, with the container-level cross-block
     dictionary as LDM prefix when present) — the same empirical-size
     policy as the per-block v3 pipeline (native._encode_tagged_seq), with
-    wctx standing in for sctx. Returns (infos, chosen seq order or None)."""
+    wctx standing in for sctx. Block i's prepare pass runs on ``devs[i]``
+    (``fq_sctx_prepare``), where its bases stay. Returns (infos, chosen seq
+    order or None)."""
     infos = []
-    for o, lens in zip(ordereds, lengths_l):
+    for i, (o, lens) in enumerate(zip(ordereds, lengths_l)):
         s = o[0]
         z = native._zstd_candidate(codec, s)
         info = {"host": bytes([native.TAG_ZSTD]) + z}
         if len(s) >= native.RANS_MIN_BYTES:
             s_arr = np.frombuffer(s, np.uint8)
             try:
-                info["bases"], info["hist6"] = seqctx.prepare(s_arr, lens)
-            except ValueError:
+                with _on_device(devs[i]):
+                    info["bases"], info["hist6"] = seqctx.prepare(s_arr, lens, devs[i])
+            except seqctx.SctxError:
                 pass
             try:
                 if (
@@ -62,7 +78,7 @@ def _plan_seq(ordereds, lengths_l, codec, seq_dict=None):
                     or sldm.coverage_probe(s_arr) >= sldm.DUP_THRESHOLD
                 ):
                     cand = (
-                        sldm.encode_bases(info["bases"], prefix=seq_dict)
+                        sldm.encode_bases(info["bases"].numpy(), prefix=seq_dict)
                         if "bases" in info
                         else sldm.encode(s_arr, lens, prefix=seq_dict)
                     )
@@ -93,13 +109,15 @@ def _plan_seq(ordereds, lengths_l, codec, seq_dict=None):
     return infos, best_k
 
 
-def _plan_qual(ordereds, lengths_l, codec):
+def _plan_qual(ordereds, lengths_l, codec, devs):
     """Per-block quality-slot pick: device context coder (order-1 and
     order-2 models, like host qctx) vs device order-0 rANS vs host
     adaptive zstd, by estimated size (mirrors
-    native._encode_tagged_qual). Returns (infos, round qual order)."""
+    native._encode_tagged_qual). Block i's prepare pass runs on ``devs[i]``
+    (``fq_qctx_prepare``), where its raw qualities stay. Returns (infos,
+    round qual order)."""
     infos = []
-    for o, lens in zip(ordereds, lengths_l):
+    for i, (o, lens) in enumerate(zip(ordereds, lengths_l)):
         q = o[1]
         z = native._zstd_candidate(codec, q)
         info = {"host": bytes([native.TAG_ZSTD]) + z, "choice": "host"}
@@ -107,7 +125,8 @@ def _plan_qual(ordereds, lengths_l, codec):
             q_arr = np.frombuffer(q, np.uint8)
             bar = len(z)
             try:
-                raw_q, hist2 = qualctx.prepare(q_arr, lens)
+                with _on_device(devs[i]):
+                    raw_q, hist2 = qualctx.prepare(q_arr, lens, devs[i])
                 hist0 = qualctx.hist_for_model(hist2, 0)
                 if int((hist0.any(axis=0)).sum()) <= wctx.B_MAX:
                     est = {
@@ -144,13 +163,13 @@ def _plan_qual(ordereds, lengths_l, codec):
                 if est_q < bar and (
                     w_est is None or est_q < w_est * 0.95
                 ):
-                    hq = qualctx.encode_prepared(raw_q, lens, hist2)
+                    hq = qualctx.encode_prepared(raw_q.numpy(), lens, hist2)
                     if len(hq) + 1 < len(info["host"]):
                         info["host"] = bytes([native.TAG_QCTX]) + hq
                         if len(hq) + 1 < bar:
                             bar = len(hq) + 1
                             info["choice"] = "host"
-            except ValueError:
+            except qualctx.QctxError:
                 pass
             est_r0 = native._rans_size_estimate(q)
             if est_r0 < bar:
@@ -169,19 +188,22 @@ def _plan_qual(ordereds, lengths_l, codec):
     return infos, q_order
 
 
-def _plan_round(raws, dev, seq_dict=None):
+def _plan_round(raws, mesh, seq_dict=None):
     """Host planning for one round (runs on the prefetch worker,
     overlapped with the previous round's device work): ordered streams,
-    per-stream empirical picks, CRCs (on ``dev``), host candidate frames.
-    The zstd codec is taken thread-locally (ZSTD contexts are not
-    thread-safe; this runs on a different thread than _finish_round)."""
+    per-stream empirical picks (block i's context prepare passes on
+    ``mesh[i]``, where its wctx encode runs), CRCs (on ``mesh[0]``), host
+    candidate frames. The zstd codec is taken thread-locally (ZSTD
+    contexts are not thread-safe; this runs on a different thread than
+    _finish_round)."""
     codec = zstd_entropy.get_codec()
+    dev = mesh[0]
     ordereds = [raw.ordered(container.VERSION_2) for raw in raws]
     lengths_l = [
         np.frombuffer(o[5], "<u4").astype(np.int64) for o in ordereds
     ]
-    seq_infos, seq_k = _plan_seq(ordereds, lengths_l, codec, seq_dict)
-    qual_infos, qual_order = _plan_qual(ordereds, lengths_l, codec)
+    seq_infos, seq_k = _plan_seq(ordereds, lengths_l, codec, seq_dict, mesh)
+    qual_infos, qual_order = _plan_qual(ordereds, lengths_l, codec, mesh)
     crcs = [native._crc_streams(o, dev) for o in ordereds]
     return {
         "raws": raws,
@@ -213,9 +235,11 @@ def _dispatch_round(plan, mesh):
     qual_infos = plan["qual_infos"]
 
     # --- device program 1: seq context coder
+    # Job i is block i's (None where the coder does not run), so it runs
+    # on mesh[i], the device its prepare pass left the symbols on.
     plan["seq_finish"] = None
     if seq_k is not None:
-        jobs, slots = [], []
+        jobs = [None] * len(seq_infos)
         for i, info in enumerate(seq_infos):
             est = info.get("est", {}).get(seq_k)
             # run the device coder whenever the estimate is within noise
@@ -228,10 +252,9 @@ def _dispatch_round(plan, mesh):
                 if seq_k < seqctx.MAX_ORDER
                 else info["hist6"]
             )
-            jobs.append((info["bases"], lengths_l[i], h))
-            slots.append(i)
-        if jobs:
-            plan["seq_slots"] = slots
+            jobs[i] = (info["bases"], lengths_l[i], h)
+        if any(jobs):
+            plan["seq_slots"] = range(len(jobs))
             plan["seq_finish"] = pmesh.wctx_encode_streams(
                 jobs, wctx.MODEL_SEQ, seq_k, mesh, async_result=True
             )
@@ -239,15 +262,12 @@ def _dispatch_round(plan, mesh):
     # --- device program 2: qual context coder
     plan["qw_finish"] = None
     q_order = plan["qual_order"]
-    wjobs, wslots = [], []
+    wjobs = [None] * len(qual_infos)
     for i, info in enumerate(qual_infos):
         if info["choice"] == "wctx":
-            wjobs.append(
-                (info["raw"], lengths_l[i], info["hists"][q_order])
-            )
-            wslots.append(i)
-    if wjobs:
-        plan["qw_slots"] = wslots
+            wjobs[i] = (info["raw"], lengths_l[i], info["hists"][q_order])
+    if any(wjobs):
+        plan["qw_slots"] = range(len(wjobs))
         plan["qw_finish"] = pmesh.wctx_encode_streams(
             wjobs, wctx.MODEL_QUAL, q_order, mesh, async_result=True
         )
@@ -341,7 +361,7 @@ def _finish_round(plan) -> list[bytes]:
 
 def _encode_round(raws, mesh) -> list[bytes]:
     """Synchronous round encode (tests / simple callers)."""
-    plan = _plan_round(raws, mesh[0])
+    plan = _plan_round(raws, mesh)
     return _finish_round(_dispatch_round(plan, mesh))
 
 
@@ -439,7 +459,7 @@ def compress_mesh(
                 else native._raw_streams(blk, qual_offset)
                 for blk in blks
             ]
-            return _plan_round(raws, dev, seq_dict)
+            return _plan_round(raws, mesh, seq_dict)
 
     def rounds():
         group: list[RecordBlock] = []
@@ -590,25 +610,18 @@ def decompress_mesh(
                     lens_cache = group_lengths(group)
                 with blockcodec.runtime_stream_errors(native.TAG_WCTX, runtime_errors):
                     try:
-                        flats = pmesh.wctx_decode_streams(
-                            [c[1:] for c in chunks], lens_cache, mesh
+                        # each stream comes back as its wire bytes
+                        # (packed rows or quality deltas), built on its card
+                        wires = pmesh.wctx_decode_streams(
+                            [c[1:] for c in chunks], lens_cache, mesh, wire=True
                         )
                     except wctx.WctxError as e:
                         raise container.FormatError(str(e)) from None
-                    if flats is None:
+                    if wires is None:
                         continue  # mixed models/lanes: per-block path
-                    for i, flat in enumerate(flats[: len(group)]):
-                        if flat is None:
-                            continue
-                        model = chunks[i][1]
-                        if model == wctx.MODEL_SEQ:
-                            pre[i][slot] = seqctx.pack_stream(
-                                flat, lens_cache[i]
-                            ).tobytes()
-                        else:
-                            pre[i][slot] = native._raw_to_delta(
-                                flat, lens_cache[i]
-                            )
+                    for i, wire in enumerate(wires[: len(group)]):
+                        if wire is not None:
+                            pre[i][slot] = wire.tobytes()
             # other/mixed codec tags in this group: per-block path
         with devops.worker_stream(dev):
             for (hdr, payload), p in zip(group, pre):

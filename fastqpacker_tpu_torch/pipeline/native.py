@@ -179,17 +179,17 @@ def _encode_tagged_seq(
             if memo is not None and not memo.sctx_should_probe():
                 sctx_hopeless = True
             else:
-                proj = seqctx.sample_estimate(s_arr, lengths)
+                proj = seqctx.sample_estimate(s_arr, lengths, device=dev)
                 sctx_hopeless = proj is not None and proj >= bar * margin
                 if memo is not None:
                     memo.sctx_outcome(sctx_hopeless)
         if not sctx_hopeless:
-            bases, hist6 = seqctx.prepare(s_arr, lengths)
+            bases, hist6 = seqctx.prepare(s_arr, lengths, dev)
             _, est_s = seqctx.pick_order(hist6)
-    except ValueError:
+    except seqctx.SctxError:
         est_s = None
     if est_s is not None and est_s < bar * margin:
-        q = seqctx.encode_prepared(bases, lengths, hist6)
+        q = seqctx.encode_prepared(bases.numpy(), lengths, hist6)
         if len(q) < bar:
             best, bar = bytes([TAG_SCTX]) + q, len(q)
     # coverage-redundancy candidate: unpacked codes + zstd-LDM.
@@ -204,7 +204,7 @@ def _encode_tagged_seq(
                 memo.cov_outcome(run_cov)
         if run_cov:
             d = (
-                sldm.encode_bases(bases, prefix=seq_dict)
+                sldm.encode_bases(bases.numpy(), prefix=seq_dict)
                 if bases is not None
                 else sldm.encode(s_arr, lengths, prefix=seq_dict)
             )
@@ -306,31 +306,12 @@ def _decode_tagged(
                 "wctx stream outside the sequence/quality slots"
             )
         try:
-            model = payload[0] if payload else 255
-            flat = wctx.decode_stream(payload, lengths, device=dev)
-            if model == wctx.MODEL_SEQ:
-                # symbols are unpacked base codes -> packed wire rows
-                return seqctx.pack_stream(flat, lengths).tobytes()
-            # symbols are raw qualities -> per-record delta wire stream
-            return _raw_to_delta(flat, lengths)
+            # packed wire rows (sequence model) or the per-record delta
+            # stream (qualities), built on the device from its decode
+            return wctx.decode_wire(payload, lengths, device=dev)
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     raise container.FormatError(f"unknown stream codec tag: {tag}")
-
-
-def _raw_to_delta(raw: np.ndarray, lengths: np.ndarray) -> bytes:
-    """Integrated qualities -> the v3 per-record delta stream (inverse
-    of qualctx.integrate), vectorized."""
-    if len(raw) == 0:
-        return b""
-    d = np.empty(len(raw), np.uint8)
-    d[0] = raw[0]
-    np.subtract(raw[1:], raw[:-1], out=d[1:])
-    starts = np.zeros(len(lengths), dtype=np.int64)
-    np.cumsum(lengths[:-1].astype(np.int64), out=starts[1:])
-    nz = lengths > 0
-    d[starts[nz]] = raw[starts[nz]]
-    return d.tobytes()
 
 
 def _encode_tagged_qual(
@@ -356,19 +337,17 @@ def _encode_tagged_qual(
     # keeps the full histogram pass off streams with no structure.
     try_qctx = order1 or r0 < len(z)
     if not try_qctx:
-        proj = qualctx.sample_estimate(np.frombuffer(s, np.uint8), lengths)
+        proj = qualctx.sample_estimate(np.frombuffer(s, np.uint8), lengths, device=dev)
         try_qctx = proj is None or proj < bar * SCTX_WIN_MARGIN
     if try_qctx:
         try:
-            raw, hist2 = qualctx.prepare(
-                np.frombuffer(s, np.uint8), lengths
-            )
+            raw, hist2 = qualctx.prepare(np.frombuffer(s, np.uint8), lengths, dev)
             _, est1 = qualctx.pick_model(hist2)
-        except ValueError:
+        except qualctx.QctxError:
             est1 = None
         margin = 1.0 if (order1 or r0 < len(z)) else SCTX_WIN_MARGIN
         if est1 is not None and est1 < bar * margin:
-            q = qualctx.encode_prepared(raw, lengths, hist2)
+            q = qualctx.encode_prepared(raw.numpy(), lengths, hist2)
             if len(q) < bar:
                 return bytes([TAG_QCTX]) + q
     if r0 < len(z):

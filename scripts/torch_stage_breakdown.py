@@ -18,13 +18,18 @@ and the text's copy back. ``--format v3``
 runs the v3 block encoder and decoder (``pipeline/native.py``) with its
 stages wrapped in timers, on data whose quality streams are coded with
 order-0 rANS: CRC32, zstd candidates, pick estimates, rANS encode and
-decode (with their copies), and the context coders and tokenizer when they
-run. ``--format mesh`` does the same for the ``--mesh`` path
+decode (with their copies), the context prepare passes (the kernels
+``c.qctx_prepare`` and ``c.sctx_prepare``, and the calls around them with
+their copies), and the context coders and tokenizer when they run.
+``--format mesh`` does the same for the ``--mesh`` path
 (``pipeline/meshpipe.py`` on a one-device list) on whole 100,000-record
-blocks of the context-model corpus, one round at a time: the plan (context
-histograms, estimates, zstd candidates, CRC32), the context coder's host
-prep (lane matrices, tables), copies, kernels, the finish, and the batched
-decode. A stage named ``x(incl. ...)`` contains the stages named ``x.*``.
+blocks of the context-model corpus, one round at a time: the plan (the
+prepare passes on the card, estimates, zstd candidates, CRC32), the context
+coder's prep (lane layout and tables on the host, the lane matrices on the
+card: ``c.wctx_layout``), copies, kernels, the finish, and the batched
+decode (``d.wctx_layout`` for the start matrices, ``d.wctx_unlayout`` for
+the wire bytes). A stage named ``x(incl. ...)`` contains the stages named
+``x.*``.
 
 Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3|mesh] [--mb 64]
                                                 [--seed 0]
@@ -97,7 +102,7 @@ def to_host(t):
 def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     """Per-stage ms of the v3 block encoder and decoder, stages timed by
     wrapping the functions ``pipeline/native.py`` calls."""
-    from fastqpacker_tpu_torch.ops import crc32, qualctx, rans, seqctx, sldm, tokenize
+    from fastqpacker_tpu_torch.ops import crc32, ctxprep, qualctx, rans, seqctx, sldm, tokenize
     from fastqpacker_tpu_torch.pipeline import native
 
     c = Clock()
@@ -123,7 +128,9 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (seqctx, "sample_estimate", "pick.sctx_sample_estimate"),
         (sldm, "coverage_probe", "pick.coverage_probe"),
         (qualctx, "sample_estimate", "pick.qctx_sample_estimate"),
-        (qualctx, "prepare", "pick.qctx_prepare"),
+        (qualctx, "prepare", "pick.qctx_prepare(incl. copies, kernel)"),
+        (seqctx, "prepare", "pick.sctx_prepare(incl. copies, kernel)"),
+        (ctxprep.Symbols, "numpy", "symbols_to_host"),
         (qualctx, "pick_model", "pick.qctx_pick_model"),
         (seqctx, "pick_order", "pick.sctx_pick_order"),
         (qualctx, "encode_prepared", "qctx_encode"),
@@ -146,6 +153,10 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "rans_compact", "rans_encode.compact_kernel"),
         (cuda_kernels, "rans_decode", "rans_decode.kernel"),
         (cuda_kernels, "crc32_chunks", "crc32.kernel"),
+        (cuda_kernels, "qctx_prepare", "qctx_prepare"),
+        (cuda_kernels, "sctx_prepare", "sctx_prepare"),
+        (cuda_kernels, "wctx_layout", "wctx_layout"),
+        (cuda_kernels, "wctx_unlayout", "wctx_unlayout"),
         (rans, "to_device", "rans.h2d"),
         (crc32, "to_device", "crc32.h2d"),
     ):
@@ -187,8 +198,7 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     the device list ``[dev]``, one round (= one block) at a time, stages
     timed by wrapping the functions the path calls."""
     from fastqpacker_tpu_torch.format import container
-    from fastqpacker_tpu_torch.ops import qualctx, seqctx, sldm, wctx
-    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.ops import ctxprep, qualctx, seqctx, sldm, wctx
     from fastqpacker_tpu_torch.pipeline import meshpipe, native
 
     c = Clock()
@@ -206,8 +216,9 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     for owner, attr, label in (
         (native, "_raw_streams", "raw_streams(incl. gather, dense encode, stream build, copies)"),
         (meshpipe, "_plan_round", "plan(incl. plan.*)"),
-        (seqctx, "prepare", "plan.seqctx_prepare"),
-        (qualctx, "prepare", "plan.qualctx_prepare"),
+        (seqctx, "prepare", "plan.seqctx_prepare(incl. copies, kernel)"),
+        (qualctx, "prepare", "plan.qualctx_prepare(incl. copies, kernel)"),
+        (ctxprep.Symbols, "numpy", "symbols_to_host"),
         (qualctx, "pick_model", "plan.qctx_pick_model"),
         (qualctx, "encode_prepared", "plan.qctx_encode(python)"),
         (wctx, "estimate_size", "plan.wctx_estimate_size"),
@@ -216,20 +227,15 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (sldm, "coverage_probe", "plan.coverage_probe"),
         (native, "_crc_streams", "crc32(incl. copies)"),
         (meshpipe, "_dispatch_round", "dispatch(incl. prep.*, wctx.h2d, kernels)"),
-        (pmesh, "_wctx_block_prep", "prep(incl. prep.*)"),
-        (wctx, "stream_layout", "prep.lane_bounds"),
-        (wctx, "start_matrix", "prep.start_matrix"),
-        (wctx, "to_matrix", "prep.to_matrix"),
-        (wctx, "context_matrix", "prep.context_matrix"),
+        (wctx, "prepare_encode", "prep(incl. prep.*, wctx_layout)"),
+        (ctxprep, "lane_layout", "lane_layout(prep and decode)"),
         (wctx, "normalize_tables", "prep.normalize_tables"),
         (meshpipe, "_finish_round", "finish(incl. finish.*)"),
         (wctx, "fetch_encoded", "finish.fetch(wait, d2h)"),
         (wctx, "assemble_payload", "finish.assemble_payload"),
         (native, "_encode_tagged_headers", "finish.headers"),
         (wctx, "parse_stream", "parse_stream"),
-        (wctx, "fetch_decoded", "fetch(wait, d2h, from_matrix)"),
-        (seqctx, "pack_stream", "pack_stream"),
-        (native, "_raw_to_delta", "raw_to_delta"),
+        (wctx, "fetch_decoded", "fetch(wait, d2h of the wire bytes)"),
         (native, "decode_block_payload", "block_payload(incl. zstd, crc32, fastq_assembly)"),
         (blockcodec, "streams_to_fastq", "fastq_assembly(incl. copies, gather, dense decode)"),
     ):
@@ -243,6 +249,10 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "rans_compact", "compact.kernel"),
         (cuda_kernels, "wctx_decode", "wctx_decode.kernel"),
         (cuda_kernels, "rans_decode", "rans_decode.kernel"),
+        (cuda_kernels, "qctx_prepare", "qctx_prepare"),
+        (cuda_kernels, "sctx_prepare", "sctx_prepare"),
+        (cuda_kernels, "wctx_layout", "wctx_layout"),
+        (cuda_kernels, "wctx_unlayout", "wctx_unlayout"),
     ):
         wrap("device", owner, attr, label)
 

@@ -1577,3 +1577,138 @@ def test_records_failing_build_raises_and_never_runs_the_plain_version(cuda, mon
         cuda_kernels.records_scan(text, 4)
     with pytest.raises(RuntimeError, match="nvcc failed to build records.cu"):
         tfq.compress_bytes(b"@r\nAC\n+\nII\n", device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# the context-model passes (csrc/ctxprep.cu)
+# ---------------------------------------------------------------------------
+
+CTX_LENGTHS = {
+    "varlen_with_empty": lambda rng: np.where(rng.random(5000) < 0.1, 0,
+                                              rng.integers(1, 300, 5000)),
+    "fixed151": lambda rng: np.full(20_000, 151),
+    "long_read": lambda rng: np.array([37, 70_001, 0, 5, 151, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CTX_LENGTHS))
+def test_ctxprep_kernels_match_plain(case, cuda):
+    """The four kernels against their plain versions on the card, byte for
+    byte: both prepare passes, the layout at every model and order (encode
+    matrices and start matrix) on 256 to 8,192 lanes, the unlayout in its
+    three modes; one launch each."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    rng = np.random.default_rng(sorted(CTX_LENGTHS).index(case))
+    lengths = CTX_LENGTHS[case](rng).astype(np.int64)
+    n = int(lengths.sum())
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    delta, bounds = t(rng.integers(0, 256, n).astype(np.uint8)), t(ctxprep.record_bounds(lengths))
+    pb_h = ctxprep.record_bounds(lengths, packed=True)
+    packed, pbounds = t(rng.integers(0, 256, int(pb_h[1, -1])).astype(np.uint8)), t(pb_h)
+    cuda_kernels.reset_launches()
+    raw, hist2 = cuda_kernels.qctx_prepare(delta, bounds)
+    bases, hist6 = cuda_kernels.sctx_prepare(packed, pbounds, n)
+    for got, want in ((raw, hist2), ctxprep.qctx_prepare_plain(delta, bounds)), \
+            ((bases, hist6), ctxprep.sctx_prepare_plain(packed, pbounds)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cuda_kernels.launches[cuda_kernels.QCTX_PREPARE] == 1
+    assert cuda_kernels.launches[cuda_kernels.SCTX_PREPARE] == 1
+    for model, order in [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]:
+        syms = bases if model == 0 else raw
+        counts = np.bincount(syms.cpu().numpy(), minlength=256)
+        present = np.flatnonzero(counts > 0)
+        idx = np.zeros(256, np.uint8)
+        idx[present] = np.arange(len(present))
+        for lanes in (256, 8192):
+            tab_h, steps, seg = ctxprep.lane_layout(lengths, lanes)
+            tab = t(tab_h)
+            args = (syms, bounds, tab, steps, model, order, t(idx), int(np.argmax(counts)))
+            got = cuda_kernels.wctx_layout(*args)
+            want = ctxprep.wctx_layout_plain(*args)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            start = cuda_kernels.wctx_layout(None, bounds, tab, steps, model, order)
+            assert torch.equal(start, ctxprep.wctx_layout_plain(None, bounds, tab, steps, model,
+                                                                order, None, 0))
+            mat = torch.where(t(np.arange(steps)[:, None] < seg[None, :]), got[0], 0)
+            pads = np.argwhere(np.arange(steps)[:, None] >= seg[None, :])
+            if len(pads):  # a pad cell past the present symbols: no fault
+                mat[tuple(pads[0])] = 200
+            pres = t(present.astype(np.uint8))
+            for mode, b, size in ((ctxprep.UNLAYOUT_FLAT, bounds, n),
+                                  (ctxprep.UNLAYOUT_PACKED, pbounds, int(pb_h[1, -1])),
+                                  (ctxprep.UNLAYOUT_DELTA, bounds, n)):
+                out, fault = cuda_kernels.wctx_unlayout(mat, b, tab, pres, mode, size)
+                pout, pfault = ctxprep.wctx_unlayout_plain(mat, b, tab, pres, mode)
+                torch.cuda.synchronize()
+                assert torch.equal(out, pout) and torch.equal(fault, pfault)
+                assert int(fault) == 0
+                if mode == ctxprep.UNLAYOUT_FLAT:
+                    assert torch.equal(out, syms)
+
+
+def test_ctxprep_v3_and_mesh_containers_equal_the_cpu_at_two_blocks(cuda):
+    """v3 (qctx / sctx candidates prepared on the card) and ``--mesh`` (the
+    plan's prepare passes, the encode's lane matrices, the decoders' start
+    matrices and wire bytes on the card): containers and text equal to the
+    CPU's at two blocks, each kernel launched where the path runs it."""
+    from fastqpacker_tpu_torch.parallel import mesh as pmesh
+    from fastqpacker_tpu_torch.pipeline import meshpipe
+
+    one = len(synth_fastq(0, read_len=151))
+    data = synth_fastq(2 * 12_000 * one / (1 << 20), seed=21, qual_model="walk")
+    v3 = tfq.Options(version=3, workers=1, block_size=12_000)
+    cuda_kernels.reset_launches()
+    comp = tfq.compress_bytes(data, v3, device=cuda)
+    counts = cuda_kernels.launches.as_dict()
+    assert comp == tfq.compress_bytes(data, v3, device="cpu")
+    assert counts[cuda_kernels.QCTX_PREPARE] >= 2 and counts[cuda_kernels.SCTX_PREPARE] >= 1
+    assert tfq.decompress_bytes(comp, device=cuda) == data
+    one = len(synth_fastq(0, read_len=100))
+    data = synth_fastq(3600 * one / (1 << 20), read_len=100, seed=22,
+                       qual_model="phredwalk", seq_model="markov")
+    opts = tfq.Options(block_size=1800)
+    cuda_kernels.reset_launches()
+    mcomp = meshpipe.compress_mesh_bytes(data, opts, [cuda])
+    counts = cuda_kernels.launches.as_dict()
+    assert mcomp == meshpipe.compress_mesh_bytes(data, opts, pmesh.make_mesh(1, device="cpu"))
+    assert counts[cuda_kernels.QCTX_PREPARE] == counts[cuda_kernels.SCTX_PREPARE] == 2
+    assert counts[cuda_kernels.WCTX_LAYOUT] == counts[cuda_kernels.WCTX_ENCODE] > 0
+    for decode in (lambda: meshpipe_decode(meshpipe, mcomp, [cuda]),
+                   lambda: tfq.decompress_bytes(mcomp, device=cuda)):
+        cuda_kernels.reset_launches()
+        assert decode() == data
+        counts = cuda_kernels.launches.as_dict()
+        assert (counts[cuda_kernels.WCTX_LAYOUT] == counts[cuda_kernels.WCTX_UNLAYOUT]
+                == counts[cuda_kernels.WCTX_DECODE] > 0)
+
+
+def meshpipe_decode(meshpipe, comp, mesh) -> bytes:
+    out = io.BytesIO()
+    meshpipe.decompress_mesh(io.BytesIO(comp), out, mesh)
+    return out.getvalue()
+
+
+def test_ctxprep_failing_build_raises_and_never_runs_the_plain_version(cuda, monkeypatch):
+    """No fallback: when the context passes' library does not build, a CUDA
+    tensor raises; nothing runs the plain versions in their place."""
+    from fastqpacker_tpu_torch.ops import build, ctxprep, qualctx
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed to build {name}.cu")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "_libs", {k: v for k, v in build._libs.items() if k != "ctxprep"})
+    monkeypatch.setattr(build, "_compile", fail)
+    for name in ("qctx_prepare_plain", "sctx_prepare_plain", "wctx_layout_plain",
+                 "wctx_unlayout_plain"):
+        monkeypatch.setattr(ctxprep, name, plain)
+    lengths = np.full(10, 20, np.int64)
+    with pytest.raises(RuntimeError, match="nvcc failed to build ctxprep.cu"):
+        qualctx.prepare(np.zeros(200, np.uint8), lengths, cuda)
+    bounds = torch.from_numpy(ctxprep.record_bounds(lengths)).to(cuda)
+    tab = torch.from_numpy(ctxprep.lane_layout(lengths, 256)[0]).to(cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed to build ctxprep.cu"):
+        cuda_kernels.wctx_layout(None, bounds, tab, 20, 1, 0)

@@ -88,8 +88,9 @@ def test_the_mesh_slice_modules_are_in_the_package():
     assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "wctx_codec.cu").is_file()
     assert set(build.SIGNATURES["wctx_codec"]) == {"fq_wctx_encode", "fq_wctx_decode"}
     assert {"fq_wctx_encode", "fq_wctx_decode"} <= set(cuda_kernels.launches.as_dict())
-    # the eight kernels of the three paths and the four block stages
-    assert len(cuda_kernels.launches.as_dict()) == 12
+    # the eight kernels of the three paths, the four block stages and the
+    # four context-model passes
+    assert len(cuda_kernels.launches.as_dict()) == 16
 
 
 def test_the_block_stage_modules_are_in_the_package():
@@ -116,6 +117,31 @@ def test_the_block_stage_modules_are_in_the_package():
     stages = {"fq_records_scan", "fq_rows_gather", "fq_streams_build", "fq_fastq_assemble"}
     assert set(build.SIGNATURES["records"]) == stages
     assert stages <= set(cuda_kernels.launches.as_dict())
+
+
+def test_the_context_pass_modules_are_in_the_package():
+    """The context-model passes (``ops/ctxprep.py``: the qctx and sctx
+    prepare passes, the wctx lane matrices both ways) exist under the port,
+    so the walk above imported them with JAX and the JAX package blocked,
+    neither they nor the modules that route through them import either, and
+    their source and launchers are registered with the build."""
+    import importlib
+
+    from fastqpacker_tpu_torch.ops import build, cuda_kernels
+
+    for name in ("ops.ctxprep", "ops.qualctx", "ops.seqctx", "ops.wctx", "parallel.mesh",
+                 "pipeline.native", "pipeline.meshpipe"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "ctxprep.cu").is_file()
+    passes = {"fq_qctx_prepare", "fq_sctx_prepare", "fq_wctx_layout", "fq_wctx_unlayout"}
+    assert set(build.SIGNATURES["ctxprep"]) == passes
+    assert passes <= set(cuda_kernels.launches.as_dict())
 
 
 def test_the_cli_surface_modules_are_in_the_package():
@@ -207,9 +233,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
                   "rans_decode_plain", "crc32_chunks_plain",
                   "wctx_encode_plain", "wctx_decode_plain"):
         monkeypatch.setattr(cuda_kernels, plain, no_cpu)
+    from fastqpacker_tpu_torch.ops import ctxprep as port_ctxprep
+
+    for plain in ("qctx_prepare_plain", "sctx_prepare_plain", "wctx_layout_plain",
+                  "wctx_unlayout_plain"):
+        monkeypatch.setattr(port_ctxprep, plain, no_cpu)
     from fastqpacker_tpu_torch.ops import crc32 as port_crc32
     from fastqpacker_tpu_torch.ops import rans as port_rans
     from fastqpacker_tpu_torch.ops import wctx as port_wctx
+    from fastqpacker_tpu_torch.ops import qualctx as port_qualctx
+    from fastqpacker_tpu_torch.ops import seqctx as port_seqctx
     from fastqpacker_tpu_torch.parallel import mesh as port_mesh
     from fastqpacker_tpu_torch.parallel import multihost as port_multihost
     from fastqpacker_tpu_torch.pipeline import meshpipe as port_meshpipe
@@ -233,6 +266,13 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: port_crc32.crc32_device(b"x" * 100_000),
         lambda: port_wctx.encode_stream(np.zeros(9, np.uint8), np.array([9]), 0, 2),
         lambda: port_wctx.decode_stream(b"x" * 100, np.array([9])),
+        lambda: port_wctx.decode_wire(b"x" * 100, np.array([9])),
+        lambda: port_qualctx.prepare(np.zeros(9, np.uint8), np.array([9])),
+        lambda: port_qualctx.sample_estimate(np.zeros(64, np.uint8), np.full(4, 16), 8),
+        lambda: port_qualctx.encode(bytes(9), np.array([9])),
+        lambda: port_seqctx.prepare(np.zeros(3, np.uint8), np.array([9])),
+        lambda: port_seqctx.sample_estimate(np.zeros(16, np.uint8), np.full(4, 16), 8),
+        lambda: port_seqctx.encode(bytes(3), np.array([9])),
         lambda: port_mesh.make_mesh(),
         lambda: port_mesh.entropy_encode_streams([b"x" * 100]),
         lambda: port_meshpipe.compress_mesh_bytes(data),

@@ -437,19 +437,61 @@ def test_make_mesh_starts_at_a_named_card(monkeypatch):
 
 
 def test_raw_to_delta_equals_jax():
-    from fastqpacker_tpu_torch.pipeline import native as pnative
+    """The quality delta stream that the port builds from a decoded
+    ``TAG_WCTX`` matrix (the plain version of ``fq_wctx_unlayout``, which
+    took the place of its ``_raw_to_delta``) equals the JAX package's
+    ``_raw_to_delta`` and integrates back to the qualities."""
+    import torch
+
+    from fastqpacker_tpu_torch.ops import ctxprep
 
     rng = np.random.default_rng(90)
     lengths = wi.rand_lengths(rng, 300)
     raw = wi.walk_quals(rng, int(lengths.sum()))
-    assert pnative._raw_to_delta(raw, lengths) == jnative._raw_to_delta(raw, lengths)
-    assert pnative._raw_to_delta(raw[:0], lengths[:0]) == b""
-    assert np.array_equal(
-        jqualctx.integrate(
-            np.frombuffer(pnative._raw_to_delta(raw, lengths), np.uint8), lengths
-        ),
-        raw,
-    )
+    present = np.flatnonzero(np.bincount(raw, minlength=256) > 0)
+    tab, steps, _ = ctxprep.lane_layout(lengths, 256)
+    mat = pwctx._sym_to_idx(present)[pwctx.to_matrix(raw, tab[0], steps, int(present[0]))]
+    delta, fault = ctxprep.wctx_unlayout_plain(
+        torch.from_numpy(mat), torch.from_numpy(ctxprep.record_bounds(lengths)),
+        torch.from_numpy(tab), torch.from_numpy(present.astype(np.uint8)),
+        ctxprep.UNLAYOUT_DELTA)
+    assert delta.numpy().tobytes() == jnative._raw_to_delta(raw, lengths)
+    assert int(fault) == 0
+    assert np.array_equal(jqualctx.integrate(delta.numpy(), lengths), raw)
+    # an empty stream: decode_wire returns before any launch
+    assert pwctx.decode_wire(_empty_wctx(pwctx.MODEL_QUAL, 1), lengths[:0], "cpu") == (
+        jnative._raw_to_delta(raw[:0], lengths[:0]))
+
+
+def _empty_wctx(model, order, lanes_log2=8):
+    """A TAG_WCTX payload of zero symbols: one present symbol, all-zero
+    tables, no words."""
+    from fastqpacker_tpu_torch.entropy import zstd as pzstd
+
+    ctxs = pwctx.model_geometry(model, order)[0]
+    blob = pzstd.get_codec().compress(bytes(2 * ctxs))
+    return (struct.pack(pwctx.HEADER_FMT, model, order, lanes_log2, 0)
+            + struct.pack("<H", 1) + bytes(1) + struct.pack("<I", len(blob)) + blob
+            + struct.pack("<I", 0) + bytes(4 << lanes_log2))
+
+
+@pytest.mark.parametrize("records", [0, 3])
+@pytest.mark.parametrize("model, order", [(pwctx.MODEL_SEQ, 2), (pwctx.MODEL_QUAL, 1)])
+def test_decode_wire_of_an_empty_stream_equals_jax(model, order, records):
+    """A ``TAG_WCTX`` payload over no records, or over records of length 0,
+    decodes to the empty wire stream of its slot on the CPU, as the JAX
+    package's decode and its ``pack_stream`` / ``_raw_to_delta`` give it."""
+    from fastqpacker_tpu.ops import seqctx as jseqctx
+
+    payload = _empty_wctx(model, order)
+    lengths = np.zeros(records, np.int64)
+    flat = jwctx.decode_stream(payload, lengths)
+    assert len(flat) == 0
+    if model == pwctx.MODEL_SEQ:
+        want = jseqctx.pack_stream(flat, lengths).tobytes()
+    else:
+        want = jnative._raw_to_delta(flat, lengths)
+    assert pwctx.decode_wire(payload, lengths, "cpu") == want == b""
 
 
 def test_source_view_and_first_block_sniff(tmp_path):
