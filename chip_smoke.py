@@ -70,16 +70,23 @@ Phases, each fatal on failure:
    ``csrc/records.cu``): ``fq_records_scan``, ``fq_rows_gather``,
    ``fq_streams_build`` and ``fq_fastq_assemble`` against their plain
    versions, byte-equal, on a v2 block (37,500 x 151), a block of 50-300 bp
-   reads and a v3 block (100,000 x 151, u32 N positions): the scan's offsets,
-   quality minima and sums, the gathers from the text and back to back, the
-   six streams, the text rebuilt equal to the input; timed on the v2 block
-   beside their bounds (no PyTorch call computes any of them:
-   ``library_ms`` null); every scan fault and each truncated or flipped
-   stream raising its string on the card as on the CPU. Phases 4 and 5 hold
-   their launches (a scan per window, two gathers and a stream build per
-   block on compress, two gathers and an assembly per block on decompress),
-   and phase e2e prints ``scripts/torch_stage_breakdown.py``'s per-stage ms
-   per block of the v2, v3 and mesh paths;
+   reads, a v3 block (100,000 x 151, u32 N positions) and blocks of 37,500
+   and 100,000 Illumina-style read names of varying width (a header chain
+   that is not uniform): the scan's offsets, quality minima and sums, the
+   gathers from the text, back to back and the decoder's pair, the six
+   streams, the text rebuilt equal to the input. The gather (each route)
+   and the assembly are timed at every block beside their bounds, with the
+   device operations (``torch.profiler``) and host microseconds of one
+   wrapper call; the back-to-back gather beside
+   ``torch.nested.nested_tensor_from_jagged(...).to_padded_tensor`` of the
+   same runs (``library_ms``; no PyTorch call computes the other routes or
+   kernels); the scan and the stream build on the v2 block. Every scan fault
+   and each truncated or flipped stream raises its string on the card as on
+   the CPU. Phases 4 and 5 hold their launches (a scan per window, two
+   gathers and a stream build per block on compress, one pair gather and an
+   assembly per block on decompress), and phase e2e prints
+   ``scripts/torch_stage_breakdown.py``'s per-stage ms per block of the v2,
+   v3 and mesh paths;
 8. the context-model passes as kernels (``phase=ctxprep``,
    ``csrc/ctxprep.cu``): ``fq_qctx_prepare`` and ``fq_sctx_prepare`` against
    their plain versions, byte-equal, on a 100,000 x 151 block of the v3
@@ -930,11 +937,12 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
     check(dec_launches == blocks, f"{label}: one decode launch per block")
     # the block stages: a scan per window (a window that holds too few
     # records is scanned again, larger), two gathers and a stream build per
-    # block on compress; two gathers and an assembly per block on decompress
+    # block on compress; one pair gather and an assembly per block on
+    # decompress
     check(c_counts[ck.RECORDS_SCAN] >= blocks and c_counts[ck.STREAMS_BUILD] == blocks
           and c_counts[ck.ROWS_GATHER] == 2 * blocks and c_counts[ck.FASTQ_ASSEMBLE] == 0,
           f"{label}: compress scanned, gathered and built on the card: {c_counts}")
-    check(d_counts[ck.FASTQ_ASSEMBLE] == blocks and d_counts[ck.ROWS_GATHER] == 2 * blocks
+    check(d_counts[ck.FASTQ_ASSEMBLE] == blocks and d_counts[ck.ROWS_GATHER] == blocks
           and d_counts[ck.RECORDS_SCAN] == 0,
           f"{label}: decompress gathered and assembled on the card: {d_counts}")
     t0 = time.perf_counter()
@@ -961,10 +969,17 @@ def round_trip(ft, ck, data: bytes, label: str) -> dict:
 # phase records: the C++ runtime's block stages as kernels (csrc/records.cu)
 # ---------------------------------------------------------------------------
 
-# the block stages' timed inputs: label -> (records, read length or range)
-RECORD_SHAPES = {"v2_37500x151": (37_500, 151), "varlen50_300_37500": (37_500, (50, 300)),
-                 "v3_100000x151": (100_000, 151)}
+# the block stages' inputs: label -> (records, read length or range, read
+# names: fixed-width ids, or Illumina-style names of varying width)
+RECORD_SHAPES = {
+    "v2_37500x151": (37_500, 151, "fixed"),
+    "varlen50_300_37500": (37_500, (50, 300), "fixed"),
+    "v3_100000x151": (100_000, 151, "fixed"),
+    "names_37500x151": (37_500, 151, "illumina"),
+    "names_100000x151": (100_000, 151, "illumina"),
+}
 RECORD_TIMED = "v2_37500x151"  # the shape of the kernels line: a v2 block
+RECORD_HOST_CALLS = 20  # wrapper calls per reading of the host clock
 
 
 def scan_bytes(n_text: int, count: int) -> int:
@@ -972,26 +987,128 @@ def scan_bytes(n_text: int, count: int) -> int:
     return n_text + 66 * count + 128
 
 
-def records_block(ft, rng, records: int, lens, seed: int) -> bytes:
+def records_block(records: int, lens, names: str, seed: int, synth=None) -> bytes:
     """One block's FASTQ text: synthetic reads of ``lens`` (a length or a
-    (lo, hi) range), ~0.1% N, fixed-width headers."""
-    from fastqpacker_tpu_torch.utils.synth import synth_fastq
-
+    (lo, hi) range), ~0.1% N; fixed-width headers, or Illumina-style read
+    names whose width varies (``names="illumina"``). ``synth``: the module
+    that writes them (default: the port's ``utils/synth.py``)."""
+    if synth is None:
+        from fastqpacker_tpu_torch.utils import synth
+    if names == "illumina":
+        return synth.illumina_fastq(records, read_len=lens, seed=seed)
     if isinstance(lens, tuple):
-        data = synth_fastq(1 + records * 420 // (1 << 20), read_len=lens[1],
-                           min_len=lens[0], seed=seed)
+        data = synth.synth_fastq(1 + records * 420 // (1 << 20), read_len=lens[1],
+                                 min_len=lens[0], seed=seed)
     else:
-        data = synth_fastq(1 + records * (2 * lens + 80) // (1 << 20), read_len=lens,
-                           seed=seed)
+        data = synth.synth_fastq(1 + records * (2 * lens + 80) // (1 << 20), read_len=lens,
+                                 seed=seed)
     ends = np.flatnonzero(np.frombuffer(data, np.uint8) == 0x0A)[3::4]
     check(len(ends) >= records, f"records_block: {len(ends)} < {records} records")
     return data[: int(ends[records - 1]) + 1]
 
 
+def rotate(args: tuple, nbytes: int) -> list:
+    """``rotations`` of an argument tuple whose tensors are cloned and
+    whose other arguments pass as they are."""
+    k = max(2, -(-150_000_000 // nbytes))
+    return [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            for _ in range(k)]
+
+
+def host_us(fn, args) -> float:
+    """Host microseconds per wrapper call: the enqueue of RECORD_HOST_CALLS
+    calls on the host clock, with no synchronisation between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RECORD_HOST_CALLS):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / RECORD_HOST_CALLS * 1e6
+
+
+def nested_pad(data: torch.Tensor, offsets: torch.Tensor, rows: int, width: int):
+    """The one PyTorch call that pads runs back to back into rows (a
+    yardstick; the port never calls it)."""
+    return torch.nested.nested_tensor_from_jagged(data, offsets).to_padded_tensor(
+        0, (rows, width))
+
+
+def library_pad_ms(data, lens, rows: int, width: int, iters: int) -> tuple:
+    """``nested_pad``'s device ms on the decode's quality runs, or None and
+    why (the installed PyTorch may lack it, or refuse uint8)."""
+    if not hasattr(torch.nested, "nested_tensor_from_jagged"):
+        return None, "torch.nested.nested_tensor_from_jagged missing"
+    offsets = torch.zeros(lens.numel() + 1, dtype=torch.int64, device=lens.device)
+    torch.cumsum(lens, 0, out=offsets[1:])
+    values = data[: int(offsets[-1])]
+    try:
+        got = nested_pad(values, offsets, rows, width)
+    except Exception as e:  # noqa: BLE001 (reported, not a failure of the port)
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    torch.cuda.synchronize()
+    ms = gpu_ms(lambda v, o: nested_pad(v, o, rows, width), [(values, offsets)] * 2, iters)
+    del got
+    return ms, "torch.nested.nested_tensor_from_jagged(data, offsets).to_padded_tensor"
+
+
+def time_case(name: str, label: str, route: str, kfn, pfn, args: tuple, nbytes: int,
+              ops: int, err: int, lms=None, note=None) -> dict:
+    """One kernel's device time (calls queued behind a sleep kernel, inputs
+    rotated past the L2 cache), its plain version's, its bound and the host
+    microseconds of one wrapper call; printed, and returned as a
+    ``by_shape`` entry."""
+    sets = rotate(args, nbytes)
+    kms = gpu_ms(kfn, sets, 50)
+    pms = gpu_ms(pfn, sets[:1] * 2, 3)
+    hus = host_us(kfn, args)
+    del sets
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"phase=records kernel={name} block={label} route={route} kernel_ms={kms:.6f} "
+          f"bound_us={bound_ms * 1e3:.3f} bytes={nbytes} plain_ms={pms:.6f} "
+          f"library_ms={'null' if lms is None else f'{lms:.6f}'} "
+          f"roofline_share={bound_ms / kms:.4f} host_us_per_call={hus:.1f} max_abs_err={err}"
+          + (f" library={json.dumps(note)}" if note else ""))
+    return {"ms": kms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lms, "host_us_per_call": hus}
+
+
+# the blocks at which the device operations of one wrapper call are counted
+# (fixed-width headers, names of varying width), and each route's ceiling
+RECORD_OPS_SHAPES = ("v2_37500x151", "names_100000x151")
+RECORD_OPS_LIMIT = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3}
+
+
+def records_device_ops() -> dict:
+    """The device operations (``torch.profiler``) of one call of each
+    gather route and of the assembly, counted by ``scripts/records_ab.py
+    --ops-only`` in a process of its own: the profiler of a long process can
+    miss kernels. label -> route -> (count, names)."""
+    cmd = [sys.executable, "scripts/records_ab.py", "--root", ".", "--ops-only"]
+    for label in RECORD_OPS_SHAPES:
+        cmd += ["--shape", label]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"records_ab.py --ops-only: {proc.stderr[-2000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    out: dict = {}
+    for c in run["cases"]:
+        n = c["device_ops_per_call"]
+        check(1 <= n <= RECORD_OPS_LIMIT[c["route"]],
+              f"{c['shape']} {c['route']}: {n} device operations per call ({c['device_ops']})")
+        out.setdefault(c["shape"], {})[c["route"]] = {"device_ops_per_call": n,
+                                                       "device_ops": c["device_ops"]}
+        print(f"phase=records block={c['shape']} route={c['route']} device_ops_per_call={n} "
+              f"ops={json.dumps(c['device_ops'])}")
+    return out
+
+
 def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: bool) -> dict:
     """The four block stages of one block, each kernel held against its
     plain version on the card (byte-equal), the text rebuilt equal to the
-    input; with ``timed``, each timed beside its bound and plain version."""
+    input; the gather (from the text, back to back, the decode's pair) and
+    the assembly timed beside their bounds and plain versions, with their
+    device operations and host microseconds per call; with ``timed``, the
+    scan and the stream build too."""
     from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
 
     text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(DEV)
@@ -1020,7 +1137,7 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
     check(errs[ck.ROWS_GATHER] == 0, f"{label}: gather kernel == plain")
     seq_rows, qual_rows = (g for g, _ in gathers)
     lengths32 = offsets[:, 3].to(torch.int32)
-    # 3. stream build (v2 layout; v3's u32 npos on the 100,000-record block)
+    # 3. stream build (v2 layout; v3's u32 npos on the 100,000-record blocks)
     wide = records == BLOCK_RECORDS
     enc = ck.encode_arrays(seq_rows, qual_rows, lengths32, 33,
                            npos_cap=(1 << 31) - 1 if wide else 1 << 16)
@@ -1032,19 +1149,22 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
     errs[ck.STREAMS_BUILD] = max(max_err(buf, pbuf), max_err(binfo, pinfo))
     check(errs[ck.STREAMS_BUILD] == 0, f"{label}: stream build kernel == plain")
     check(int(binfo[0]) == sizes[4], f"{label}: npos bytes agree with the scan")
-    # 4. assembly from the streams (the decompress side)
+    # 4. assembly from the streams (the decompress side): the decoder's pair
+    # gather (quality deltas and packed bases in one launch), then the text
     parts, at = [], 0
     for size in sizes:
         parts.append(buf[at : at + size])
         at += size
     seq_s, qual_s, hdr_s, plus_s, npos_s, len_s = parts
     lens = len_s.clone().view(torch.int32).to(torch.int64)
-    packed = ck.rows_gather(seq_s, None, (lens + 3) >> 2, records, width // 4, 0)
-    deltas = ck.rows_gather(qual_s, None, lens, records, width, 0)
-    check(max_err(packed, recops.rows_gather_plain(seq_s, None, (lens + 3) >> 2, records,
-                                                   width // 4, 0)) == 0
-          and max_err(deltas, recops.rows_gather_plain(qual_s, None, lens, records, width, 0))
-          == 0, f"{label}: back-to-back gather kernel == plain")
+    pair = (qual_s, None, lens, records, width, 0)
+    quarter = (seq_s, width // 4)
+    deltas, packed = ck.rows_gather(*pair, quarter=quarter)
+    want = recops.rows_gather_plain(*pair, quarter=quarter)
+    single = ck.rows_gather(*pair)
+    errs[ck.ROWS_GATHER] = max(errs[ck.ROWS_GATHER], max_err(deltas, want[0]),
+                               max_err(packed, want[1]), max_err(single, want[0]))
+    check(errs[ck.ROWS_GATHER] == 0, f"{label}: back-to-back and pair gather kernel == plain")
     seq_a, qual_a = ck.decode_arrays(packed, deltas, lens.to(torch.int32), 33)
     asm_args = (seq_a, qual_a, lens, hdr_s, plus_s, npos_s, wide, sizes[5], sizes[0], sizes[1])
     out, ainfo = ck.fastq_assemble(*asm_args)
@@ -1055,21 +1175,46 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
     check(bytes(out[:total].cpu().numpy()) == data, f"{label}: assembled text equals the input")
     print(f"phase=records case={label} records={records} text_bytes={len(data)} width={width} "
           f"stream_bytes={json.dumps(sizes)} byte_equal=true round_trip=true")
-    row = {"errs": errs, "times": {}}
-    if not timed:
-        return row
+    row = {"errs": errs, "times": {}, "by_shape": {ck.ROWS_GATHER: {}, ck.FASTQ_ASSEMBLE: {}}}
     torch.cuda.synchronize()
     nb = len(data)
     seq_total, hdr_plus = int(info_h[recops.SCAN_SEQ_SUM]), sizes[2] + sizes[3] - 4 * records
+    gather_err, asm_err = errs[ck.ROWS_GATHER], errs[ck.FASTQ_ASSEMBLE]
+    by = row["by_shape"]
+    # reads the qualities, starts and lengths (16 B a row); writes the rows
+    by[ck.ROWS_GATHER]["text"] = time_case(
+        ck.ROWS_GATHER, label, "text",
+        lambda t, o: ck.rows_gather(t, o[:, 6], o[:, 3], records, width, 0xFF),
+        lambda t, o: recops.rows_gather_plain(t, o[:, 6], o[:, 3], records, width, 0xFF),
+        (text, offsets), seq_total + 16 * records + records * width, records * width, gather_err)
+    lms, note = library_pad_ms(qual_s, lens, records, width, 50)
+    by[ck.ROWS_GATHER]["back_to_back"] = time_case(
+        ck.ROWS_GATHER, label, "back_to_back",
+        lambda q, n: ck.rows_gather(q, None, n, records, width, 0),
+        lambda q, n: recops.rows_gather_plain(q, None, n, records, width, 0),
+        (qual_s, lens), seq_total + 8 * records + records * width, records * width, gather_err,
+        lms, note)
+    by[ck.ROWS_GATHER]["pair"] = time_case(
+        ck.ROWS_GATHER, label, "pair",
+        lambda q, s_, n: ck.rows_gather(q, None, n, records, width, 0, quarter=(s_, width // 4)),
+        lambda q, s_, n: recops.rows_gather_plain(q, None, n, records, width, 0,
+                                                  quarter=(s_, width // 4)),
+        (qual_s, seq_s, lens), seq_total + sizes[0] + 8 * records + records * (width + width // 4),
+        records * (width + width // 4), gather_err)
+    by[ck.FASTQ_ASSEMBLE]["assemble"] = time_case(
+        ck.FASTQ_ASSEMBLE, label, "assemble", lambda *a: ck.fastq_assemble(*a),
+        lambda *a: recops.fastq_assemble_plain(*a), asm_args,
+        # reads the rows, lengths, header, plus and npos streams; writes the text
+        2 * seq_total + 8 * records + sizes[2] + sizes[3] + sizes[4] + total, 2 * total,
+        asm_err)
+    if not timed:
+        return row
+    row["times"][ck.ROWS_GATHER] = by[ck.ROWS_GATHER]["text"]
+    row["times"][ck.FASTQ_ASSEMBLE] = by[ck.FASTQ_ASSEMBLE]["assemble"]
     cases = {
         ck.RECORDS_SCAN: (lambda t: ck.records_scan(t, records),
                           lambda t: recops.records_scan_plain(t, records),
                           [(text,)], scan_bytes(nb, records), 4 * nb),
-        ck.ROWS_GATHER: (lambda t, o: ck.rows_gather(t, o[:, 6], o[:, 3], records, width, 0xFF),
-                         lambda t, o: recops.rows_gather_plain(t, o[:, 6], o[:, 3], records,
-                                                               width, 0xFF),
-                         [(text, offsets)], seq_total + 16 * records + records * width,
-                         records * width),
         ck.STREAMS_BUILD: (lambda *a: ck.streams_build(text, offsets, *a, wide, sizes),
                            lambda *a: recops.streams_build_plain(text, offsets, *a, wide, sizes),
                            [(enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts)],
@@ -1077,23 +1222,15 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
                            # writes the streams
                            hdr_plus + 64 * records + sizes[0] + sizes[1]
                            + records * (width // 8) + 4 * records + sum(sizes), 2 * sum(sizes)),
-        ck.FASTQ_ASSEMBLE: (lambda *a: ck.fastq_assemble(*a),
-                            lambda *a: recops.fastq_assemble_plain(*a),
-                            [asm_args], 2 * seq_total + 8 * records + sizes[2] + sizes[3]
-                            + sizes[4] + total, 2 * total),
     }
     for name, (kfn, pfn, args, nbytes, ops) in cases.items():
         sets = args * 2
         kms = gpu_ms(kfn, sets, 50)
         pms = gpu_ms(pfn, sets, 3)
-        row["times"][name] = report(name, f"block={label}", kms, pms, None, nbytes, ops,
-                                    errs[name])
-    # the decoder's gather: runs back to back from 0, starts by a scan of the lengths
-    kms = gpu_ms(lambda q: ck.rows_gather(q, None, lens, records, width, 0), [(qual_s,)] * 2, 50)
-    pms = gpu_ms(lambda q: recops.rows_gather_plain(q, None, lens, records, width, 0),
-                 [(qual_s,)] * 2, 3)
-    report(ck.ROWS_GATHER, f"block={label} back_to_back=true", kms, pms, None,
-           seq_total + 8 * records + records * width, records * width, errs[ck.ROWS_GATHER])
+        kms, pms, bound_ms, bound_by, lms = report(name, f"block={label}", kms, pms, None,
+                                                   nbytes, ops, errs[name])
+        row["times"][name] = {"ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": lms}
     return row
 
 
@@ -1147,15 +1284,28 @@ def records_faults(ft, ck, recops) -> dict:
 
 
 def phase_records(ft, ck, recops, rng) -> dict:
-    """The four block stages at the main paths' shapes against their plain
-    versions, timed on the v2 block, and their faults."""
+    """The four block stages at the main paths' shapes and at blocks of
+    read names of varying width, against their plain versions; the gather
+    and the assembly timed at every shape, the scan and the stream build on
+    the v2 block; and their faults."""
     rows = {}
-    for i, (label, (records, lens)) in enumerate(RECORD_SHAPES.items()):
-        data = records_block(ft, rng, records, lens, seed=100 + i)
+    for i, (label, (records, lens, names)) in enumerate(RECORD_SHAPES.items()):
+        data = records_block(records, lens, names, seed=100 + i)
         rows[label] = records_case(ft, ck, recops, data, records, label, label == RECORD_TIMED)
+        del data
+        torch.cuda.empty_cache()
     faults = records_faults(ft, ck, recops)
     errs = {name: max(r["errs"][name] for r in rows.values()) for name in rows[RECORD_TIMED]["errs"]}
-    return {"errs": errs, "times": rows[RECORD_TIMED]["times"], "faults": faults}
+    by_shape = {name: {label: r["by_shape"][name] for label, r in rows.items()}
+                for name in (ck.ROWS_GATHER, ck.FASTQ_ASSEMBLE)}
+    routes = {ck.ROWS_GATHER: ("text", "back_to_back", "decoder"), ck.FASTQ_ASSEMBLE: ("assemble",)}
+    for label, per_route in records_device_ops().items():
+        for name, names in routes.items():
+            for route in names:
+                key = "pair" if route == "decoder" else route
+                by_shape[name][label][key].update(per_route[route])
+    return {"errs": errs, "times": rows[RECORD_TIMED]["times"], "faults": faults,
+            "by_shape": by_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -2756,8 +2906,12 @@ def main() -> int:
             "launches_mesh": {d: mesh_run[d][name] for d in ("compress", "decompress")},
             "faults_checked": kern_records["faults"],
         }
+        if name in kern_records["by_shape"]:
+            more["by_shape"] = kern_records["by_shape"][name]
+        t = kern_records["times"][name]
         rows.append((name, main_launches[direction][name], kern_records["errs"][name],
-                     (*kern_records["times"][name], None), more))
+                     (t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"], t["library_ms"],
+                      None), more))
     # the context-model passes: the counts of the mesh run (the prepare
     # passes and the encode's layout on compress, the unlayout on
     # decompress), the v3 run beside; times at the walk corpus (prepare) and

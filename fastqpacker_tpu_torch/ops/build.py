@@ -75,18 +75,22 @@ SIGNATURES = {
         # text, n, max_records, scratch, offsets, qmin, info, stream
         "fq_records_scan": [_P, _L, _L, _P, _P, _P, _P, _P],
         # data, data_n, starts (or null), starts stride, lens, lens stride,
-        # r, rows, width, fill, scratch, out, stream
-        "fq_rows_gather": [_P, _L, _P, _L, _P, _L, _L, _L, _L, _I, _P, _P, _P],
+        # r, rows, width, fill, data2, data2_n, width2, out2 (or null),
+        # tile_rows, ticket, status, epoch, out, stream
+        "fq_rows_gather": [_P, _L, _P, _L, _P, _L, _L, _L, _L, _I, _P, _L, _L, _P,
+                           _I, _P, _P, _L, _P, _P],
         # text, offsets, n, packed, packed pitch, qual_delta, qual pitch,
         # nmask, nmask pitch, n_counts, wide, six stream sizes, scratch,
         # out, info, stream
         "fq_streams_build": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _P, _I,
                              _L, _L, _L, _L, _L, _L, _P, _P, _P, _P],
-        # seq_rows, qual_rows, pitch, lengths, r, headers, headers_n, plus,
-        # plus_n, has_plus, npos, npos_n, wide, len_n, seq_n, qual_n,
-        # scratch, out, cap, info, stream
-        "fq_fastq_assemble": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _P, _L,
-                              _I, _L, _L, _L, _P, _P, _L, _P, _P],
+        # seq_rows, qual_rows, pitch, lengths, r, headers, headers_n,
+        # headers tile, plus, plus_n, has_plus, plus tile, npos, npos_n, wide,
+        # npos tile, len_n, seq_n, qual_n, checks, tile_records, scratch, out,
+        # cap, info, ticket, status, epoch, stream
+        "fq_fastq_assemble": [_P, _P, _L, _P, _L, _P, _L, _I, _P, _L, _I, _I, _P, _L,
+                              _I, _I, _L, _L, _L, _I, _I, _P, _P, _L, _P, _P, _P,
+                              _L, _P],
     },
     "ctxprep": {
         # delta, n, bounds, nrec, raw, hist, stream
@@ -119,13 +123,6 @@ QUERIES = {
     "wctx_codec": {
         # lanes, contexts, width, out (four int32)
         "fq_wctx_decode_geometry": [_I, _I, _I, _P],
-    },
-    "records": {
-        # the scratch bytes of each launcher: its sizes, out (one int64)
-        "fq_records_scan_scratch": [_L, _L, _P],
-        "fq_rows_gather_scratch": [_L, _P],
-        "fq_streams_build_scratch": [_L, _P],
-        "fq_fastq_assemble_scratch": [_L, _L, _L, _L, _I, _P],
     },
 }
 

@@ -532,14 +532,54 @@ def crc32_chunks(data: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _scratch(dev: torch.device, query: str, *sizes) -> torch.Tensor:
-    """The scratch bytes a records launcher needs, as its library's
-    ``*_scratch`` query gives them."""
-    out = ctypes.c_longlong(0)
-    rc = getattr(build.load("records"), query)(*sizes, ctypes.addressof(out))
-    if rc != 0:
-        raise ValueError(f"{query}{sizes}: cudaError_t {rc}")
-    return torch.empty((max(out.value, 1),), dtype=torch.uint8, device=dev)
+def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
+    """A records launcher's scratch, sized by its formula in :mod:`.records`."""
+    return torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _sm_counts.get(dev.index)
+    if n is None:
+        n = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+class _Chained:
+    """The ticket word and status words of the launches whose tiles wait
+    on each other (the back-to-back gather, the assembly), one per (device,
+    CUDA stream): launches on one stream run in order, so they share them.
+    The ticket is left at 0 by every launch; the status words are zeroed once
+    and never cleared, and each launch takes an epoch of its own, so a word
+    of an earlier launch reads as not ready."""
+
+    def __init__(self, dev: torch.device, tiles: int):
+        self.ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.status = torch.zeros((tiles * records.STATUS_WORDS,), dtype=torch.int64, device=dev)
+        self.epoch = 0
+
+
+_chained: dict[tuple[int, int], _Chained] = {}
+_chained_lock = threading.Lock()
+
+
+def _chained_state(dev: torch.device, tiles: int) -> tuple[_Chained, int]:
+    """This stream's ticket and status words for ``tiles`` tiles, and a
+    fresh epoch. A larger launch gets a larger status buffer, zeroed on this
+    stream before the launch."""
+    with torch.cuda.device(dev):
+        key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        with _chained_lock:
+            st = _chained.get(key)
+            if st is None:
+                st = _chained[key] = _Chained(dev, max(tiles, 4096))
+            elif st.status.numel() < tiles * records.STATUS_WORDS:
+                st.status = torch.zeros((tiles * 2 * records.STATUS_WORDS,), dtype=torch.int64,
+                                        device=dev)
+            st.epoch += 1
+            return st, st.epoch
 
 
 def _check_1d(name: str, t: torch.Tensor, dtype, dev) -> None:
@@ -562,7 +602,7 @@ def records_scan(text: torch.Tensor, max_records: int):
     offsets = torch.empty((max_records, 8), dtype=torch.int64, device=dev)
     qmin = torch.empty((max_records,), dtype=torch.int16, device=dev)
     info = torch.empty((records.SCAN_INFO,), dtype=torch.int64, device=dev)
-    scratch = _scratch(dev, "fq_records_scan_scratch", n, max_records)
+    scratch = _scratch(dev, records.records_scan_scratch(n, max_records))
     _launch(RECORDS_SCAN, dev, text, n, max_records, scratch, offsets, qmin, info)
     return offsets, qmin, info
 
@@ -574,11 +614,15 @@ def rows_gather(
     rows: int,
     width: int,
     fill: int,
-) -> torch.Tensor:
+    quarter: tuple[torch.Tensor, int] | None = None,
+):
     """Variable-length runs of ``data`` into a padded (rows, width) uint8
     matrix; ``starts`` and ``lens`` are 1-D int64, strided views allowed
     (a column of the scan's offsets), ``starts=None`` for runs back to back
-    from 0; see :func:`..ops.records.rows_gather_plain`. One launch."""
+    from 0; ``quarter=(data2, width2)`` (back to back only) also returns the
+    (rows, width2) matrix of the runs of ``(lens + 3) >> 2`` bytes of
+    ``data2`` (the decode's packed bases beside its qualities); see
+    :func:`..ops.records.rows_gather_plain`. One launch."""
     dev = data.device
     _check("data", data, torch.uint8, (data.numel(),), dev)
     _check_1d("lens", lens, torch.int64, dev)
@@ -589,18 +633,31 @@ def rows_gather(
             raise ValueError(f"starts: {starts.numel()} rows, lens {r}")
     if rows < r or width < 0 or not 0 <= fill <= 255:
         raise ValueError(f"rows_gather: rows {rows} < {r}, width {width} or fill {fill}")
+    data2, width2 = quarter if quarter is not None else (None, 0)
+    if quarter is not None:
+        _check("data2", data2, torch.uint8, (data2.numel(),), dev)
+        if starts is not None or width2 < 0:
+            raise ValueError("rows_gather: a quarter gather takes runs back to back, width >= 0")
     if _plain_or_cuda(dev):
-        return records.rows_gather_plain(data, starts, lens, rows, width, fill)
+        return records.rows_gather_plain(data, starts, lens, rows, width, fill, quarter)
     out = torch.empty((rows, width), dtype=torch.uint8, device=dev)
-    scratch = _scratch(dev, "fq_rows_gather_scratch", r)
+    out2 = torch.empty((rows, width2), dtype=torch.uint8, device=dev) if quarter else None
+    tile_rows = records.gather_tile_rows(width + width2, starts is None)
+    if starts is None:
+        st, epoch = _chained_state(dev, -(-rows // tile_rows))
+    else:  # the tiles are independent: no ticket, no status
+        st, epoch = None, 1
     # passed as pointers: a stream at any byte offset of a staging buffer,
-    # int64 columns of the scan's offsets (the kernel reads neither in
-    # 16-byte units)
+    # int64 columns of the scan's offsets (the kernel reads the source in
+    # aligned words of its own and the offsets one at a time)
     _launch(ROWS_GATHER, dev, data.data_ptr(), data.numel(),
             0 if starts is None else starts.data_ptr(),
             0 if starts is None else starts.stride(0), lens.data_ptr(), lens.stride(0),
-            r, rows, width, fill, scratch, out)
-    return out
+            r, rows, width, fill, data2.data_ptr() if quarter else 0,
+            data2.numel() if quarter else 0, width2, out2.data_ptr() if quarter else 0,
+            tile_rows, st.ticket.data_ptr() if st else 0, st.status.data_ptr() if st else 0,
+            epoch, out)
+    return (out, out2) if quarter is not None else out
 
 
 def streams_build(
@@ -634,7 +691,7 @@ def streams_build(
                                            n_counts, wide, sizes)
     out = torch.empty((max(sum(sizes), 1),), dtype=torch.uint8, device=dev)
     info = torch.empty((2,), dtype=torch.int64, device=dev)
-    scratch = _scratch(dev, "fq_streams_build_scratch", n)
+    scratch = _scratch(dev, records.streams_build_scratch(n))
     _launch(STREAMS_BUILD, dev, text, offsets, n, packed, packed.stride(0), qual_delta,
             qual_delta.stride(0), nmask, nmask.stride(0), n_counts, int(wide), *sizes,
             scratch, out, info)
@@ -655,7 +712,8 @@ def fastq_assemble(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A block's FASTQ text from the dense decode's rows and the header,
     plus and npos streams; see :func:`..ops.records.fastq_assemble_plain`.
-    One launch."""
+    Three launches (the uniform checks and length sums, the chains that are
+    not uniform, the text), counted as one call of the kernel."""
     dev = seq_rows.device
     r = lengths.numel()
     _check("lengths", lengths, torch.int64, (r,), dev)
@@ -673,16 +731,27 @@ def fastq_assemble(
                                             npos, wide, len_n, seq_n, qual_n)
     has_plus = plus is not None
     plus_n = plus.numel() if has_plus else 0
+    unit = 4 if wide else 2
+    nodes = (headers.numel(), plus_n, npos.numel() // unit)
+    if r > records.NODE_LIMIT or max(nodes) > records.NODE_LIMIT:
+        raise ValueError(f"fastq_assemble: {r} records or streams of {nodes} nodes "
+                         f"(at most {records.NODE_LIMIT} each)")
     cap = records.assemble_capacity(r, headers.numel(), plus_n, qual_n, has_plus)
     out = torch.empty((max(cap, 1),), dtype=torch.uint8, device=dev)
     info = torch.empty((2,), dtype=torch.int64, device=dev)
-    scratch = _scratch(dev, "fq_fastq_assemble_scratch", r, headers.numel(), plus_n,
-                       npos.numel(), int(wide))
+    checks = max(1, min(_sm_count(dev), -(-r // records.CHECK_THREADS)))
+    scratch = _scratch(dev, records.assemble_scratch(r, checks))
+    tiles = [records.chain_tile_nodes(n) for n in nodes]
+    chain_tiles = sum(n // t + 1 for n, t in zip(nodes, tiles))
+    tile_records = records.assemble_tile_records(seq_rows.shape[1])
+    st, epoch = _chained_state(dev, chain_tiles)
     # streams may be views at any byte offset of a staging buffer
     _launch(FASTQ_ASSEMBLE, dev, seq_rows, qual_rows, seq_rows.shape[1], lengths, r,
-            headers.data_ptr(), headers.numel(), plus.data_ptr() if has_plus else 0,
-            plus_n, int(has_plus), npos.data_ptr(), npos.numel(), int(wide), len_n,
-            seq_n, qual_n, scratch, out, cap, info)
+            headers.data_ptr(), headers.numel(), tiles[0],
+            plus.data_ptr() if has_plus else 0, plus_n, int(has_plus), tiles[1],
+            npos.data_ptr(), npos.numel(), int(wide), tiles[2], len_n, seq_n, qual_n,
+            checks, tile_records, scratch, out, cap, info,
+            st.ticket, st.status, epoch)
     return out[:cap], info
 
 

@@ -13,8 +13,14 @@ rows and streams stay there between the stages.
 Each ``*_plain`` function is the plain PyTorch version of one kernel: what
 the wrappers of :mod:`.cuda_kernels` run on CPU tensors and what the kernels
 are held against on the card. They compute the same values, so the two agree
-byte for byte on every input; the length-prefixed chains are resolved the same
-way in both (a uniform stream recognised first, else pointer doubling).
+byte for byte on every input. Both recognise a uniform length-prefixed chain
+first; past that the plain version resolves a chain by pointer doubling over
+the whole stream and the kernel by tiles of the stream chained in order
+(``csrc/records.cu``), to the same nodes.
+
+The kernels' geometry lives here (the wrappers pass it to the launchers, and
+``tests/test_torch_records.py`` holds the constants equal to the source), so
+the tests can cut their inputs at the kernels' tile edges.
 """
 
 from __future__ import annotations
@@ -56,6 +62,65 @@ FAULT_INVALID_NPOS = 1 << 4
 
 _NL, _CR = 0x0A, 0x0D
 _I64 = torch.int64
+
+# csrc/records.cu's geometry
+SCAN_TILE = 32768  # text bytes per CTA of the scan's newline passes (kTile)
+GATHER_MAX_ROWS = 256  # rows per tile of the gather at most (kGatherMaxRows)
+GATHER_TILE_BYTES = 8192  # output bytes a gather tile aims at: from the text,
+GATHER_CHAINED_TILE_BYTES = 32768  # and back to back (fewer tiles to look back over)
+CHAIN_MIN_TILE = 1024  # nodes per tile of the chain kernel (kChainMinTile ..
+CHAIN_MAX_TILE = 16384  # kChainMaxTile, a power of two)
+CHAIN_TILES = 16  # tiles a chain's stream is cut into where the sizes allow
+ASSEMBLE_MAX_RECORDS = 64  # records per tile of the write kernel at most (kWriteMaxRecords)
+ASSEMBLE_ROW_BYTES = 8192  # row bytes (bases or qualities) a write tile aims at
+CHECK_THREADS = 256  # records a check CTA takes at a time (kCheckThreads)
+SLOT_WORDS = 4  # int64 per check CTA in the assembly's scratch (kSlotWords)
+STATUS_WORDS = 8  # int64 per tile of the look-back status buffer (kStatusWords)
+NODE_LIMIT = (1 << 31) - 2  # nodes of a chained stream, records of a block (kNodeLimit)
+
+
+def _align256(b: int) -> int:
+    return (b + 255) & ~255
+
+
+def gather_tile_rows(width: int, back_to_back: bool) -> int:
+    """Rows per CTA of the gather for rows of ``width`` bytes in all (both
+    matrices of a pair), from the text or back to back."""
+    target = GATHER_CHAINED_TILE_BYTES if back_to_back else GATHER_TILE_BYTES
+    return max(1, min(GATHER_MAX_ROWS, target // max(width, 1)))
+
+
+def chain_tile_nodes(n: int) -> int:
+    """Nodes per tile of the chain kernel for a stream of ``n`` nodes: the
+    least power of two from :data:`CHAIN_MIN_TILE` that cuts it into at
+    most :data:`CHAIN_TILES` tiles, at most :data:`CHAIN_MAX_TILE`."""
+    tile = CHAIN_MIN_TILE
+    while tile < CHAIN_MAX_TILE and tile * CHAIN_TILES < n + 1:
+        tile *= 2
+    return tile
+
+
+def assemble_tile_records(pitch: int) -> int:
+    """Records per CTA of the assembly's write kernel for rows of ``pitch``
+    bytes (it stages both rows of its tile in shared memory up to 16 KiB)."""
+    return max(1, min(ASSEMBLE_MAX_RECORDS, ASSEMBLE_ROW_BYTES // max(pitch, 1)))
+
+
+def records_scan_scratch(n: int, max_records: int) -> int:
+    """Scratch bytes of ``fq_records_scan``: the tile counts and each
+    line's newline position."""
+    return _align256(8 * (-(-n // SCAN_TILE) + 1)) + _align256(8 * (4 * max_records + 1))
+
+
+def streams_build_scratch(n: int) -> int:
+    """Scratch bytes of ``fq_streams_build``: five scanned fields of n + 1."""
+    return _align256(8 * 5 * (n + 1))
+
+
+def assemble_scratch(r: int, checks: int) -> int:
+    """Scratch bytes of ``fq_fastq_assemble``: the check CTAs' slots, then
+    s_0 .. s_r (int32) of each of the three chains."""
+    return _align256(8 * SLOT_WORDS * checks) + 3 * _align256(4 * (r + 1))
 
 
 def _excl(x: torch.Tensor) -> torch.Tensor:
@@ -171,12 +236,21 @@ def rows_gather_plain(
     rows: int,
     width: int,
     fill: int,
-) -> torch.Tensor:
+    quarter: tuple[torch.Tensor, int] | None = None,
+):
     """(rows, width) uint8: row i < len(lens) is ``data[starts[i] :
     starts[i] + lens[i]]``, cut at ``width``, then ``fill``; rows past
     len(lens) are all ``fill``, and so is every byte past the end of
     ``data``. ``starts=None`` means the runs lie back to back from 0 (the
-    exclusive prefix sum of ``lens``)."""
+    exclusive prefix sum of ``lens``). ``quarter=(data2, width2)`` (back to
+    back only) also gathers the runs of ``(lens + 3) >> 2`` bytes of
+    ``data2`` into a (rows, width2) matrix and returns both."""
+    if quarter is not None:
+        if starts is not None:
+            raise ValueError("rows_gather: a quarter gather takes runs back to back")
+        data2, width2 = quarter
+        return (rows_gather_plain(data, None, lens, rows, width, fill),
+                rows_gather_plain(data2, None, (lens.to(_I64) + 3) >> 2, rows, width2, fill))
     r = lens.numel()
     out = torch.full((rows, width), fill, dtype=torch.uint8, device=data.device)
     n = data.numel()
@@ -306,11 +380,12 @@ def chain_starts(data: torch.Tensor, unit: int, w: int, n_units: int, r: int) ->
     s_i + w + value(s_i)), every step checked against ``n_units``: a step
     that leaves the stream goes to the absorbing node n_units + 1, so the
     chain is truncated iff s_r == n_units + 1. Pointer doubling: log2(r)
-    rounds over the n_units + 2 nodes, as the kernel does."""
+    rounds over the n_units + 2 nodes; the kernel reaches the same nodes by
+    tiles of the stream (``csrc/records.cu`` ``chain_kernel``)."""
     dev = data.device
     if r > 0 and n_units >= w * r and (n_units - w * r) % r == 0:
         # every record of one length (the fixed-width header): the kernel's
-        # first check, s_i = i * stride
+        # check kernel, s_i = i * stride
         stride = w + (n_units - w * r) // r
         at = torch.arange(r + 1, dtype=_I64, device=dev) * stride
         if bool((chain_values(data, unit, w, n_units, at[:r]) == stride - w).all()):
@@ -356,8 +431,10 @@ def fastq_assemble_plain(
     ``len_n``, ``seq_n`` and ``qual_n`` are the byte sizes of the lengths,
     sequence and quality streams. Returns ``(buffer, info)``, ``info`` (2,)
     int64: the text's bytes and the fault flags (bit k set for
-    :data:`ASSEMBLE_FAULTS` [k]); with any fault but an invalid N position
-    the buffer's content is unspecified."""
+    :data:`ASSEMBLE_FAULTS` [k]; the N positions are checked for one past
+    the read whenever the lengths, sequence, quality and N position streams
+    are whole, as the decoder checks them before the header and plus
+    streams); with any fault but an invalid N position nothing is written."""
     dev = seq_rows.device
     r = lengths.numel()
     has_plus = plus is not None
@@ -387,7 +464,17 @@ def fastq_assemble_plain(
     size = 6 + hl + pl + 2 * lengths
     offs = _excl(size)
     total = int(offs[-1])
-    if flags:
+    if not flags & (FAULT_INVALID_NPOS - 1):
+        # the N positions are whole: the decoder checks them before it walks
+        # the header and plus streams
+        counts = chain_values(npos, unit, 1, nn, ns[:r])
+        n_rec, unit_at = _segments(ns[:r] + 1, counts)
+        n_pos = chain_values(npos, unit, 1, nn, unit_at)
+        bad = n_pos >= lengths[n_rec]
+        if bool(bad.any()):
+            flags |= FAULT_INVALID_NPOS
+        good = ~bad
+    if flags & ~FAULT_INVALID_NPOS:
         return out, torch.tensor([total, flags], dtype=_I64, device=dev)
     o = offs[:-1]
     out[o] = ord("@")
@@ -408,14 +495,7 @@ def fastq_assemble_plain(
     seg, col = _segments(torch.zeros_like(lengths), lengths)
     out[qual_at[seg] + col] = qual_rows[seg, col]
     out[qual_at + lengths] = _NL
-    counts = chain_values(npos, unit, 1, nn, ns[:r])
-    seg, unit_at = _segments(ns[:r] + 1, counts)
-    pos = chain_values(npos, unit, 1, nn, unit_at)
-    bad = pos >= lengths[seg]
-    if bool(bad.any()):
-        flags |= FAULT_INVALID_NPOS
-    good = ~bad
-    out[seq_at[seg[good]] + pos[good]] = ord("N")
+    out[seq_at[n_rec[good]] + n_pos[good]] = ord("N")
     return out, torch.tensor([total, flags], dtype=_I64, device=dev)
 
 

@@ -498,7 +498,7 @@ def streams_to_fastq(
     """Reconstruct the block's FASTQ text (compress.go:944-1078) on
     ``device`` (default: the CPU, the kernels' plain versions): the six
     streams go to the device in one copy, the packed and quality-delta rows
-    are gathered there (:func:`..ops.cuda_kernels.rows_gather`), decoded by
+    are gathered there by one launch (:func:`..ops.cuda_kernels.rows_gather`), decoded by
     the dense kernel and assembled with N restored
     (:func:`..ops.cuda_kernels.fastq_assemble`); the text comes back in one
     copy. Faults are raised in the order of the reference's checks:
@@ -531,8 +531,9 @@ def streams_to_fastq(
     on_dev = staged.to(dev, non_blocking=True)
     len_t, seq_t, qual_t, hdr_t, plus_t, npos_t = (on_dev[a:b] for a, b in bounds)
     lens = len_t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    packed = cuda_kernels.rows_gather(seq_t, None, (lens + 3) >> 2, r, width // 4, 0)
-    deltas = cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0)
+    # one launch: the quality deltas and, beside them, the packed bases
+    deltas, packed = cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0,
+                                              quarter=(seq_t, width // 4))
     seq_rows, qual_rows = cuda_kernels.decode_arrays(
         packed, deltas, lens.to(torch.int32), qual_offset)
     out, info = cuda_kernels.fastq_assemble(

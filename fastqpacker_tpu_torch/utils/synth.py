@@ -19,6 +19,10 @@ gives every record its own walk in Phred 0-41 (ASCII 33-74: uniform steps
 in -2..2, summed and divided by 3, from Phred 30). Together they are the
 context-model corpus: the context coders beat zstd and order-0 rANS on both
 streams, so the ``--mesh`` path codes them ``TAG_WCTX``.
+
+:func:`illumina_fastq` writes a block of records whose read names vary in
+width as real Illumina names do, so that a header stream is not one record
+length throughout.
 """
 
 from __future__ import annotations
@@ -141,3 +145,31 @@ def synth_fastq(
     keep[:, hw + 1 : hw + 1 + read_len] = ~pad
     keep[:, hw + 4 + read_len : hw + 4 + 2 * read_len] = ~pad
     return rows[keep].tobytes()
+
+
+def illumina_fastq(records: int, read_len: int = 151, seed: int = 0) -> bytes:
+    """``records`` records with Illumina-style read names of varying width,
+    ``@<instrument>:<run>:<flowcell>:<lane>:<tile>:<x>:<y> <read>:N:0:<index>``
+    (tile, x and y of 1-5 digits each, the digit count and the value drawn
+    per record), IID bases with about 0.1% N and qualities tiled from the
+    default pool, all reproducible from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = records
+    digits = rng.integers(1, 6, size=(n, 3))
+    coords = rng.integers(0, 10**digits, dtype=np.int64)  # below 10 ** digits
+    lanes = rng.integers(1, 5, size=n)
+    reads = rng.integers(1, 3, size=n)
+    index = "".join("ACGT"[k] for k in rng.integers(0, 4, size=8))
+    names = [
+        f"@A00953:{217 + seed % 100}:HFWLKDSXY:{lane}:{t}:{x}:{y} {rd}:N:0:{index}\n".encode()
+        for lane, (t, x, y), rd in zip(lanes.tolist(), coords.tolist(), reads.tolist())
+    ]
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)]
+    nn = max(1, n * read_len // 1000)
+    seq[rng.integers(0, n, nn), rng.integers(0, read_len, nn)] = ord("N")
+    steps = rng.integers(-2, 3, size=(_QUAL_POOL, read_len)).astype(np.int32)
+    qrows = np.clip(33 + 30 + np.cumsum(steps, axis=1) // 3, 33, 74).astype(np.uint8)
+    body = np.concatenate(
+        [seq, np.full((n, 3), np.frombuffer(b"\n+\n", np.uint8)),
+         qrows[np.arange(n) % _QUAL_POOL], np.full((n, 1), 0x0A, np.uint8)], axis=1)
+    return b"".join(h + b for h, b in zip(names, map(bytes, body)))

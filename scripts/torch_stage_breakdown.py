@@ -414,9 +414,8 @@ def main() -> int:
             on_dev[cut[i] : cut[i + 1]] for i in range(6))
         lens = len_t.view(torch.int32).to(torch.int64)
         width = blockcodec.bucket_len(int(ds.lengths.view("<u4").max()))
-        packed, deltas = c.device("d.gather", lambda: (
-            cuda_kernels.rows_gather(seq_t, None, (lens + 3) >> 2, r, width // 4, 0),
-            cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0)))
+        deltas, packed = c.device("d.gather", lambda: cuda_kernels.rows_gather(
+            qual_t, None, lens, r, width, 0, quarter=(seq_t, width // 4)))
         seq, qual = c.device("d.decode_kernel", cuda_kernels.decode_arrays, packed, deltas,
                              lens.to(torch.int32), qual_offset)
         out, _ = c.device("d.assemble", cuda_kernels.fastq_assemble, seq, qual, lens, hdr_t,

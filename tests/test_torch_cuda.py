@@ -1555,6 +1555,8 @@ def test_records_v2_container_and_text_equal_the_cpu_at_two_blocks(cuda):
     cuda_kernels.reset_launches()
     assert tfq.decompress_bytes(comp, device=cuda) == data
     assert cuda_kernels.launches[cuda_kernels.FASTQ_ASSEMBLE] == 2
+    # one pair gather (quality deltas and packed bases) per block
+    assert cuda_kernels.launches[cuda_kernels.ROWS_GATHER] == 2
 
 
 def test_records_failing_build_raises_and_never_runs_the_plain_version(cuda, monkeypatch):
@@ -1577,6 +1579,268 @@ def test_records_failing_build_raises_and_never_runs_the_plain_version(cuda, mon
         cuda_kernels.records_scan(text, 4)
     with pytest.raises(RuntimeError, match="nvcc failed to build records.cu"):
         tfq.compress_bytes(b"@r\nAC\n+\nII\n", device=cuda)
+
+
+GATHER_WIDTHS = [40, 80, 160, 45, 7, 0]
+
+
+@pytest.mark.parametrize("width", GATHER_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1, 3, 13])
+def test_records_gather_matches_plain_at_tile_edges(width, offset, cuda):
+    """Both routes of the gather and the pair gather, byte for byte against
+    the plain version: rows one short of, at and one past the tile edges,
+    sources that are views at odd byte offsets, starts that ascend and
+    starts that do not (some before the source, some past its end), lengths
+    of 0 and past the width, rows past the runs."""
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    import torch_records_inputs as ri
+
+    edges = set()
+    for tile in (recops.gather_tile_rows(width, False), recops.gather_tile_rows(width, True),
+                 recops.gather_tile_rows(width + width // 4, True)):
+        edges |= {tile - 1, tile, tile + 1, 3 * tile + 1}
+    for r in sorted(e for e in edges if e > 0):
+        rng = np.random.default_rng(r * 100 + width + offset)
+        data, starts, scattered, lens = ri.gather_case(rng, r, 9000, hi=width + 9)
+        buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint8), data])).to(cuda)
+        d = buf[offset:]
+        d2 = torch.flip(buf, (0,))[offset + 1 :]  # another view, odd offset
+        ln = torch.from_numpy(lens).to(cuda)
+        rows = r + 5
+        for st in (starts, scattered):
+            s_t = torch.from_numpy(st).to(cuda)
+            got = cuda_kernels.rows_gather(d, s_t, ln, rows, width, 0xFF)
+            assert torch.equal(got, recops.rows_gather_plain(d, s_t, ln, rows, width, 0xFF))
+            # strided columns, as the scan's offsets are
+            cols = torch.stack([s_t, ln], 1)
+            got = cuda_kernels.rows_gather(d, cols[:, 0], cols[:, 1], rows, width, 7)
+            assert torch.equal(got, recops.rows_gather_plain(d, s_t, ln, rows, width, 7))
+        got = cuda_kernels.rows_gather(d, None, ln, rows, width, 0)
+        assert torch.equal(got, recops.rows_gather_plain(d, None, ln, rows, width, 0))
+        pair = cuda_kernels.rows_gather(d, None, ln, rows, width, 0, quarter=(d2, width // 4))
+        want = recops.rows_gather_plain(d, None, ln, rows, width, 0, quarter=(d2, width // 4))
+        assert torch.equal(pair[0], want[0]) and torch.equal(pair[1], want[1])
+
+
+def test_records_gather_back_to_back_over_many_tiles(cuda):
+    """The look-back over hundreds of tiles (the decode's 100,000-record
+    block), launches back to back on one stream and on a second stream,
+    against the plain version: every launch takes fresh status words."""
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    rng = np.random.default_rng(5)
+    lens = torch.from_numpy(rng.integers(0, 161, 100_000)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, int(lens.sum()) + 5).astype(np.uint8)).to(cuda)
+    want = recops.rows_gather_plain(data[3:], None, lens, 100_000, 160, 0,
+                                    quarter=(data[1:], 40))
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side, torch.cuda.current_stream()):
+        with torch.cuda.stream(stream):
+            outs = [cuda_kernels.rows_gather(data[3:], None, lens, 100_000, 160, 0,
+                                             quarter=(data[1:], 40)) for _ in range(3)]
+        stream.synchronize()
+        for got in outs:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _assemble_args(data: bytes, wide: bool, cuda, plus=True):
+    """The assembly's inputs of a one-block container of ``data`` (the
+    decoded rows and streams), on the card."""
+    from fastqpacker_tpu_torch.entropy import zstd as pzstd
+    from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+
+    C = tfq.container
+    comp = tfq.compress_bytes(data, tfq.Options(block_size=1 << 20), device="cpu")
+    hdr = C.parse_block_header(comp[C.FILE_HEADER_SIZE :], 2)
+    ds = pblocks.decode_streams(hdr, comp[C.FILE_HEADER_SIZE + C.BLOCK_HEADER_SIZE_V2 :], 2,
+                                pzstd.get_codec())
+    if wide:  # the v3 layout of the same positions
+        ds.npos = np.frombuffer(ds.npos.tobytes(), "<u2").astype("<u4").view(np.uint8)
+    r = ds.num_records
+    lens = torch.from_numpy(ds.lengths.view("<u4").astype(np.int64)).to(cuda)
+    width = pblocks.bucket_len(int(lens.max()))
+    seq_t, qual_t = (torch.from_numpy(x.copy()).to(cuda) for x in (ds.seq, ds.qual))
+    deltas, packed = cuda_kernels.rows_gather(qual_t, None, lens, r, width, 0,
+                                              quarter=(seq_t, width // 4))
+    seq, qual = cuda_kernels.decode_arrays(packed, deltas, lens.to(torch.int32), 33)
+    streams = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+               for x in (ds.headers, ds.plus, ds.npos)]
+    return ds, [seq, qual, lens, streams[0], streams[1] if plus else None, streams[2], wide,
+                len(ds.lengths), len(ds.seq), len(ds.qual)]
+
+
+def _assemble_equal(args):
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    out, info = cuda_kernels.fastq_assemble(*args)
+    pout, pinfo = recops.fastq_assemble_plain(*args)
+    assert torch.equal(info, pinfo), (info.tolist(), pinfo.tolist())
+    if int(pinfo[1]) & ~recops.FAULT_INVALID_NPOS == 0:
+        total = int(pinfo[0])
+        assert torch.equal(out[:total], pout[:total])
+    return pout, pinfo
+
+
+def _edge_names():
+    import torch_records_inputs as ri
+
+    return sorted(ri.edge_cases())
+
+
+@pytest.mark.parametrize("name", _edge_names())
+@pytest.mark.parametrize("wide", [False, True])
+def test_records_assemble_matches_plain_at_chain_tile_edges(name, wide, cuda):
+    """Chained streams that end at, one before and one past the chain
+    kernel's tile edges, records on every edge, a uniform stream that only
+    its last records break, a 65,535-byte header and plus line: the card's
+    text and info equal the plain version's, with and without the plus
+    stream (v1's bare '+'), and the text equals the input."""
+    import torch_records_inputs as ri
+
+    data = ri.edge_cases()[name]
+    _, args = _assemble_args(data, wide, cuda)
+    pout, pinfo = _assemble_equal(args)
+    assert int(pinfo[1]) == 0 and bytes(pout[: int(pinfo[0])].cpu().numpy()) == data
+    args[4] = None
+    _assemble_equal(args)
+
+
+ASSEMBLE_FAULTS = {
+    "headers_cut": ("headers", lambda x: x[:-1]),
+    "headers_half": ("headers", lambda x: x[: len(x) // 2]),
+    "headers_flip": ("headers", lambda x: _flip(x, 1)),
+    "plus_cut": ("plus", lambda x: x[:-1]),
+    "npos_cut": ("npos", lambda x: x[:-2]),
+    "npos_odd": ("npos", lambda x: x[:-1]),
+    "npos_past_read": ("npos", lambda x: _flip(x, -1, 0x7F)),
+    "npos_first": ("npos", lambda x: _flip(x, 0, 0x05)),
+    "seq_short": ("seq_n", lambda n: n - 1),
+    "qual_short": ("qual_n", lambda n: n - 1),
+    "lengths_short": ("len_n", lambda n: n - 1),
+    "headers_and_npos": ("headers+npos", None),
+}
+
+
+def _flip(x, at, bits=0x40):
+    y = x.clone()
+    y[at] ^= bits
+    return y
+
+
+@pytest.mark.parametrize("fault", sorted(ASSEMBLE_FAULTS))
+@pytest.mark.parametrize("wide", [False, True])
+def test_records_assemble_faults_match_plain(fault, wide, cuda):
+    """Each assembly fault, and two at once: the card's info words (the
+    text's bytes and every fault bit) equal the plain version's."""
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    import torch_records_inputs as ri
+
+    data = ri.fastq(300, 7, read_len=(20, 90))
+    _, args = _assemble_args(data, wide, cuda)
+    at = {"headers": 3, "plus": 4, "npos": 5, "len_n": 7, "seq_n": 8, "qual_n": 9}
+    field, fn = ASSEMBLE_FAULTS[fault]
+    if fault == "headers_and_npos":
+        args[3] = args[3][:-3]
+        args[5] = _flip(args[5], -1, 0x7F)
+    else:
+        args[at[field]] = fn(args[at[field]])
+    _, pinfo = _assemble_equal(args)
+    assert int(pinfo[1]) != 0 or fault in ("headers_flip", "npos_first")
+    assert recops.fault_message(int(pinfo[1])) is not None or fault in ("headers_flip",
+                                                                        "npos_first")
+
+
+def test_records_variable_width_names_at_100000_records(cuda):
+    """A 100,000-record block of Illumina-style read names of varying width
+    (the header chain is not uniform) through the four block stages on the
+    card: every kernel equal to its plain version and the text to the
+    input."""
+    from fastqpacker_tpu_torch.ops import records as recops
+    from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+    from fastqpacker_tpu_torch.utils.synth import illumina_fastq
+
+    data = illumina_fastq(100_000, seed=11)
+    text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    offsets, _, info = cuda_kernels.records_scan(text, 100_000)
+    assert int(info[recops.SCAN_COUNT]) == 100_000
+    width = pblocks.bucket_len(int(info[recops.SCAN_SEQ_MAX]))
+    rows = [cuda_kernels.rows_gather(text, offsets[:, c], offsets[:, 3], 100_000, width, f)
+            for c, f in ((2, 0), (6, 0xFF))]
+    for (c, f), g in zip(((2, 0), (6, 0xFF)), rows):
+        assert torch.equal(g, recops.rows_gather_plain(text, offsets[:, c], offsets[:, 3],
+                                                       100_000, width, f))
+    for wide in (False, True):
+        ds, args = _assemble_args(data, wide, cuda)
+        pout, pinfo = _assemble_equal(args)
+        assert int(pinfo[1]) == 0 and bytes(pout[: int(pinfo[0])].cpu().numpy()) == data
+        assert pblocks.streams_to_fastq(ds, 33, cuda, wide_npos=wide) == data
+
+
+def test_records_kernels_from_two_threads_on_own_and_shared_streams(cuda):
+    """The decoder's pair gather and the assembly (a chain that leaves the
+    read-name fast path, u32 N positions) from two threads at once, on a
+    stream each and then on one shared stream: every call equals the plain
+    version. The ticket and status words are per stream, an epoch per call."""
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    import torch_records_inputs as ri
+
+    blocks = []
+    for i, name in enumerate(("names_long", "npos_2048")):
+        ds, args = _assemble_args(ri.edge_cases()[name], bool(i), cuda)
+        lens, r, width = args[2], args[2].numel(), args[0].shape[1]
+        qual, seq = (torch.from_numpy(x.copy()).to(cuda) for x in (ds.qual, ds.seq))
+        blocks.append((args, recops.fastq_assemble_plain(*args), qual, seq, lens, r, width,
+                       recops.rows_gather_plain(qual, None, lens, r, width, 0,
+                                                quarter=(seq, width // 4))))
+    torch.cuda.synchronize()
+
+    def call(i):
+        args, (pout, pinfo), qual, seq, lens, r, width, (gq, gp) = blocks[i]
+        out, info = cuda_kernels.fastq_assemble(*args)
+        q, pk = cuda_kernels.rows_gather(qual, None, lens, r, width, 0, quarter=(seq, width // 4))
+        torch.cuda.current_stream().synchronize()
+        total = int(pinfo[0])
+        assert torch.equal(info, pinfo) and torch.equal(out[:total], pout[:total])
+        assert torch.equal(q, gq) and torch.equal(pk, gp)
+
+    _from_two_threads(call, cuda, rounds=60)
+    shared, errors = torch.cuda.Stream(cuda), []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(shared):
+                for _ in range(60):
+                    call(i)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    workers = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in workers) and not errors, errors
+
+
+def test_records_device_operations_per_wrapper_call(cuda):
+    """One device operation per gather call, from the text, back to back
+    and as the decoder's pair; at most three per assembly call, with
+    fixed-width headers and with names of varying width. Counted by
+    ``torch.profiler`` in a process of its own (``scripts/records_ab.py
+    --ops-only``): in a long process the profiler can miss kernels."""
+    cmd = [sys.executable, str(REPO / "scripts" / "records_ab.py"), "--root", str(REPO),
+           "--ops-only", "--shape", "v2_37500x151", "--shape", "names_100000x151"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
+    limit = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3}
+    assert {(c["shape"], c["route"]) for c in cases} == {
+        (s, r) for s in ("v2_37500x151", "names_100000x151") for r in limit}
+    for c in cases:
+        assert 1 <= c["device_ops_per_call"] <= limit[c["route"]], c
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,8 @@ from fastqpacker_tpu_torch.parser import fastq as pparser
 from fastqpacker_tpu_torch.pipeline import blocks as pblocks
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
+import torch_records_inputs as ri
+
 C = tfq.container
 FIELDS = ("seq", "qual", "headers", "plus", "npos", "lengths")
 SETTINGS = settings(max_examples=30, deadline=None, derandomize=True,
@@ -227,6 +229,74 @@ def test_gather_equals_the_runtime_gather(fill, width):
     assert np.array_equal(back.numpy(), want)
 
 
+@pytest.mark.parametrize("route", ["text", "back_to_back", "pair"])
+@pytest.mark.parametrize("width", [40, 80, 45])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_gather_widths_and_views_equal_the_runtime_gather(route, width, offset):
+    """Gathers at widths the kernel stores in 8-byte units (40: the decode's
+    packed rows at L = 160), 16-byte units (80) and single bytes (45), from
+    views at odd byte offsets, with rows one short of, at and one past the
+    kernel's tile edges; the pair gather returns the runtime's two gathers
+    (the packed rows at (length + 3) // 4)."""
+    tile = recops.gather_tile_rows(width + width // 4 * (route == "pair"), route != "text")
+    for r in (tile - 1, tile, tile + 1):
+        rng = np.random.default_rng(r + width + offset)
+        data, starts, _, lens = ri.gather_case(rng, r, 4 * r + 2 * width * r, hi=width + 5)
+        view = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint8), data]))[offset:]
+        lt = torch.from_numpy(lens)
+        if route == "text":  # the runtime reads past the end: give it fill bytes there
+            got = cuda_kernels.rows_gather(view, torch.from_numpy(starts), lt, r, width, 0xFF)
+            want = bindings.gather_rows(np.concatenate([data, np.full(2 * width, 0xFF, np.uint8)]),
+                                        starts, lens, pad_to=width, fill=0xFF)
+            assert np.array_equal(got.numpy(), want)
+            continue
+        excl = np.concatenate(([0], np.cumsum(lens)[:-1]))
+        pad = np.concatenate([data, np.zeros(2 * width, np.uint8)])
+        want = bindings.gather_rows(pad, excl, lens, pad_to=width, fill=0)
+        if route == "back_to_back":
+            got = cuda_kernels.rows_gather(view, None, lt, r, width, 0)
+            assert np.array_equal(got.numpy(), want)
+            continue
+        q = (lens + 3) // 4
+        qexcl = np.concatenate(([0], np.cumsum(q)[:-1]))
+        want_q = bindings.gather_rows(pad, qexcl, q, pad_to=width // 4, fill=0)
+        got, got_q = cuda_kernels.rows_gather(view, None, lt, r, width, 0,
+                                              quarter=(view, width // 4))
+        assert np.array_equal(got.numpy(), want) and np.array_equal(got_q.numpy(), want_q)
+
+
+def test_kernel_geometry_equals_the_source():
+    """The geometry the wrappers pass and the tests cut their inputs at is
+    the kernel source's (``csrc/records.cu``)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(recops.__file__).parent.parent / "csrc" / "records.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr (?:long long|int) {name} = ([^;]+);", src)
+        return eval(m.group(1).replace("LL", ""), {})  # noqa: S307 (the repo's own source)
+
+    assert const("kTile") == recops.SCAN_TILE
+    assert const("kGatherMaxRows") == recops.GATHER_MAX_ROWS
+    assert const("kChainMinTile") == recops.CHAIN_MIN_TILE
+    assert const("kChainMaxTile") == recops.CHAIN_MAX_TILE
+    assert const("kWriteMaxRecords") == recops.ASSEMBLE_MAX_RECORDS
+    assert 2 * recops.ASSEMBLE_ROW_BYTES == const("kRowStage")
+    assert const("kCheckThreads") == recops.CHECK_THREADS
+    assert const("kSlotWords") == recops.SLOT_WORDS
+    assert const("kStatusWords") == recops.STATUS_WORDS
+    assert const("kNodeLimit") == recops.NODE_LIMIT
+    for n in (0, 1, 16 * 1024 - 1, 16 * 1024, 16 * 1024 + 1, 4_700_000):
+        tile = recops.chain_tile_nodes(n)
+        assert recops.CHAIN_MIN_TILE <= tile <= recops.CHAIN_MAX_TILE and tile & (tile - 1) == 0
+        assert n + 1 <= recops.CHAIN_TILES * tile or tile == recops.CHAIN_MAX_TILE
+    for w in (0, 1, 40, 200, 16384, 100_000):
+        for chained in (False, True):
+            assert 1 <= recops.gather_tile_rows(w, chained) <= recops.GATHER_MAX_ROWS
+        assert 1 <= recops.assemble_tile_records(w) <= recops.ASSEMBLE_MAX_RECORDS
+
+
 # ---------------------------------------------------------------------------
 # 3. stream build
 # ---------------------------------------------------------------------------
@@ -380,6 +450,88 @@ def test_chains_equal_a_walk():
             continue
         assert int(s[r]) <= len(data)
         assert np.array_equal(s[:r].numpy() + 2, starts)
+
+
+@pytest.mark.parametrize("name", sorted(ri.edge_cases()))
+def test_chains_at_tile_edges_equal_the_runtime(name):
+    """Header, plus and N-position streams that end at, one before and one
+    past the chain kernel's tile edges (records on every edge, a stream that
+    only its last records keep from being uniform, 65,535-byte header and
+    plus lines): every chain node equals the runtime's walk, and the block's
+    text equals the runtime's decode and the input."""
+    data = ri.edge_cases()[name]
+    hdr, payload, _ = _streams(data, 2, block_size=1 << 20)
+    ds = pblocks.decode_streams(hdr, payload, 2, pzstd.get_codec())
+    r = ds.num_records
+    for field, what in (("headers", "header"), ("plus", "plus-line payload")):
+        stream = getattr(ds, field)
+        s = recops.chain_starts(torch.from_numpy(stream.copy()), 1, 2, len(stream), r)
+        starts, _ = bindings.parse_len16(stream, r, what)
+        assert np.array_equal(s[:r].numpy() + 2, starts) and int(s[r]) == len(stream)
+    counts, _, _ = bindings.parse_npos(ds.npos, r)
+    s = recops.chain_starts(torch.from_numpy(ds.npos.copy()), 2, 1, len(ds.npos) // 2, r)
+    assert np.array_equal(np.diff(s.numpy()), 1 + counts)
+    assert pblocks.streams_to_fastq(ds, 33, "cpu") == bindings.decode_block_full(ds, 33, False)
+    assert pblocks.streams_to_fastq(ds, 33, "cpu") == data
+
+
+@pytest.mark.parametrize("version", [2, 3])
+def test_variable_width_names_equal_jax(version):
+    """Illumina-style read names of varying width (a header stream that is
+    not one record length throughout): the same container as the JAX
+    package's and the same text back."""
+    from fastqpacker_tpu_torch.utils.synth import illumina_fastq
+
+    data = illumina_fastq(2500, read_len=60, seed=version)
+    opts = dict(block_size=1000, version=version)
+    got = tfq.compress_bytes(data, tfq.Options(**opts), device="cpu")
+    assert got == jfq.compress_bytes(data, jfq.Options(**opts))
+    assert tfq.decompress_bytes(got, device="cpu") == data == jfq.decompress_bytes(got)
+
+
+def _first_npos_unit(npos: np.ndarray, unit: int) -> int:
+    """The unit index of the first recorded N position of a stream."""
+    vals = npos[: len(npos) // unit * unit].view("<u2" if unit == 2 else "<u4")
+    at = 0
+    while vals[at] == 0:
+        at += 1
+    return at + 1
+
+
+FAULTS = {
+    "lengths": lambda ds, u: setattr(ds, "lengths", ds.lengths[:-1]),
+    "seq": lambda ds, u: setattr(ds, "seq", ds.seq[:-1]),
+    "qual": lambda ds, u: setattr(ds, "qual", ds.qual[:-1]),
+    "npos_cut": lambda ds, u: setattr(ds, "npos", ds.npos[: -2 * u]),
+    "npos_invalid": lambda ds, u: ds.npos.__setitem__(
+        slice(u * _first_npos_unit(ds.npos, u), u * _first_npos_unit(ds.npos, u) + 2), 0xFF),
+    "headers": lambda ds, u: setattr(ds, "headers", ds.headers[:-1]),
+    "plus": lambda ds, u: setattr(ds, "plus", ds.plus[:-1]),
+}
+
+
+@pytest.mark.parametrize("pair", [(a, b) for i, a in enumerate(FAULTS) for b in list(FAULTS)[i:]])
+@pytest.mark.parametrize("version", [2, 3])
+def test_fault_order_equals_jax(pair, version):
+    """One or two assembly faults at once (every fault bit): the same
+    error, type and string, as the JAX package's device path, the first
+    fault in the decoder's order."""
+    data = _fastq(40, seed=7, alphabet="ACGTNN", plus=True)
+    hdr, payload, _ = _streams(data, 2)
+    ds = pblocks.decode_streams(hdr, payload, 2, pzstd.get_codec())
+    wide = version == 3
+    unit = 4 if wide else 2
+    if wide:
+        ds.npos = np.frombuffer(ds.npos.tobytes(), "<u2").astype("<u4").view(np.uint8).copy()
+    else:
+        ds.npos = ds.npos.copy()
+    for name in set(pair):
+        FAULTS[name](ds, unit)
+    want = _error(lambda: _jax_device_text(ds, wide))
+    got = _error(lambda: pblocks.streams_to_fastq(ds, 33, "cpu", wide_npos=wide))
+    assert got == want and got[0] != "ok"
+    flags_bit = [m for m in recops.ASSEMBLE_FAULTS if m == got[1]]
+    assert flags_bit, got
 
 
 # ---------------------------------------------------------------------------
