@@ -74,13 +74,14 @@ Phases, each fatal on failure:
    and 100,000 Illumina-style read names of varying width (a header chain
    that is not uniform): the scan's offsets, quality minima and sums, the
    gathers from the text, back to back and the decoder's pair, the six
-   streams, the text rebuilt equal to the input. The gather (each route)
-   and the assembly are timed at every block beside their bounds, with the
-   device operations (``torch.profiler``) and host microseconds of one
-   wrapper call; the back-to-back gather beside
+   streams, the text rebuilt equal to the input. Every kernel (each gather
+   route) is timed at every block beside its bound, inputs rotated past the
+   L2, with the device operations (``torch.profiler``) and host
+   microseconds of one wrapper call; the back-to-back gather beside
    ``torch.nested.nested_tensor_from_jagged(...).to_padded_tensor`` of the
    same runs (``library_ms``; no PyTorch call computes the other routes or
-   kernels); the scan and the stream build on the v2 block. Every scan fault
+   kernels); on the v2 block the host microseconds of the scan and stream
+   build wrappers step by step (``phase=records host_split``). Every scan fault
    and each truncated or flipped stream raises its string on the card as on
    the CPU. Phases 4 and 5 hold their launches (a scan per window, two
    gathers and a stream build per block on compress, one pair gather and an
@@ -987,6 +988,23 @@ def scan_bytes(n_text: int, count: int) -> int:
     return n_text + 66 * count + 128
 
 
+def mask_bytes(nmask: torch.Tensor, records: int) -> int:
+    """The N-mask bytes the stream build needs: in each record's row, those
+    up to its last nonzero byte (none in the row of a record with no N)."""
+    m = nmask[:records] != 0
+    if not m.numel():
+        return 0
+    return int((m * torch.arange(1, m.shape[1] + 1, device=m.device)).amax(1).sum())
+
+
+def streams_bytes(sizes: list, records: int, nmask: torch.Tensor) -> int:
+    # reads the header and plus payloads, offsets (64 B), packed and delta
+    # bytes and N counts per record, and the N masks as far as each row's
+    # last N; writes the six streams
+    return (sizes[2] + sizes[3] - 4 * records + 64 * records + sizes[0] + sizes[1]
+            + mask_bytes(nmask, records) + 4 * records + sum(sizes))
+
+
 def records_block(records: int, lens, names: str, seed: int, synth=None) -> bytes:
     """One block's FASTQ text: synthetic reads of ``lens`` (a length or a
     (lo, hi) range), ~0.1% N; fixed-width headers, or Illumina-style read
@@ -1076,12 +1094,14 @@ def time_case(name: str, label: str, route: str, kfn, pfn, args: tuple, nbytes: 
 # the blocks at which the device operations of one wrapper call are counted
 # (fixed-width headers, names of varying width), and each route's ceiling
 RECORD_OPS_SHAPES = ("v2_37500x151", "names_100000x151")
-RECORD_OPS_LIMIT = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3}
+RECORD_OPS_LIMIT = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3, "scan": 2,
+                    "streams": 1}
 
 
 def records_device_ops() -> dict:
-    """The device operations (``torch.profiler``) of one call of each
-    gather route and of the assembly, counted by ``scripts/records_ab.py
+    """The device operations (``torch.profiler``) of one call of the scan,
+    each gather route, the stream build and the assembly, counted by
+    ``scripts/records_ab.py
     --ops-only`` in a process of its own: the profiler of a long process can
     miss kernels. label -> route -> (count, names)."""
     cmd = [sys.executable, "scripts/records_ab.py", "--root", ".", "--ops-only"]
@@ -1175,18 +1195,29 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
     check(bytes(out[:total].cpu().numpy()) == data, f"{label}: assembled text equals the input")
     print(f"phase=records case={label} records={records} text_bytes={len(data)} width={width} "
           f"stream_bytes={json.dumps(sizes)} byte_equal=true round_trip=true")
-    row = {"errs": errs, "times": {}, "by_shape": {ck.ROWS_GATHER: {}, ck.FASTQ_ASSEMBLE: {}}}
+    names = (ck.RECORDS_SCAN, ck.ROWS_GATHER, ck.STREAMS_BUILD, ck.FASTQ_ASSEMBLE)
+    row = {"errs": errs, "times": {}, "by_shape": {name: {} for name in names}}
     torch.cuda.synchronize()
     nb = len(data)
-    seq_total, hdr_plus = int(info_h[recops.SCAN_SEQ_SUM]), sizes[2] + sizes[3] - 4 * records
+    seq_total = int(info_h[recops.SCAN_SEQ_SUM])
     gather_err, asm_err = errs[ck.ROWS_GATHER], errs[ck.FASTQ_ASSEMBLE]
     by = row["by_shape"]
+    by[ck.RECORDS_SCAN]["scan"] = time_case(
+        ck.RECORDS_SCAN, label, "scan", lambda t: ck.records_scan(t, records),
+        lambda t: recops.records_scan_plain(t, records), (text,), scan_bytes(nb, records),
+        4 * nb, errs[ck.RECORDS_SCAN])
     # reads the qualities, starts and lengths (16 B a row); writes the rows
     by[ck.ROWS_GATHER]["text"] = time_case(
         ck.ROWS_GATHER, label, "text",
         lambda t, o: ck.rows_gather(t, o[:, 6], o[:, 3], records, width, 0xFF),
         lambda t, o: recops.rows_gather_plain(t, o[:, 6], o[:, 3], records, width, 0xFF),
         (text, offsets), seq_total + 16 * records + records * width, records * width, gather_err)
+    by[ck.STREAMS_BUILD]["streams"] = time_case(
+        ck.STREAMS_BUILD, label, "streams",
+        lambda t, o, *a: ck.streams_build(t, o, *a, wide, sizes),
+        lambda t, o, *a: recops.streams_build_plain(t, o, *a, wide, sizes),
+        (text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts),
+        streams_bytes(sizes, records, enc.nmask_bits), 2 * sum(sizes), errs[ck.STREAMS_BUILD])
     lms, note = library_pad_ms(qual_s, lens, records, width, 50)
     by[ck.ROWS_GATHER]["back_to_back"] = time_case(
         ck.ROWS_GATHER, label, "back_to_back",
@@ -1209,29 +1240,93 @@ def records_case(ft, ck, recops, data: bytes, records: int, label: str, timed: b
         asm_err)
     if not timed:
         return row
-    row["times"][ck.ROWS_GATHER] = by[ck.ROWS_GATHER]["text"]
-    row["times"][ck.FASTQ_ASSEMBLE] = by[ck.FASTQ_ASSEMBLE]["assemble"]
-    cases = {
-        ck.RECORDS_SCAN: (lambda t: ck.records_scan(t, records),
-                          lambda t: recops.records_scan_plain(t, records),
-                          [(text,)], scan_bytes(nb, records), 4 * nb),
-        ck.STREAMS_BUILD: (lambda *a: ck.streams_build(text, offsets, *a, wide, sizes),
-                           lambda *a: recops.streams_build_plain(text, offsets, *a, wide, sizes),
-                           [(enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts)],
-                           # reads payloads, offsets, packed / delta bytes, N masks;
-                           # writes the streams
-                           hdr_plus + 64 * records + sizes[0] + sizes[1]
-                           + records * (width // 8) + 4 * records + sum(sizes), 2 * sum(sizes)),
+    for name, route in ((ck.RECORDS_SCAN, "scan"), (ck.ROWS_GATHER, "text"),
+                        (ck.STREAMS_BUILD, "streams"), (ck.FASTQ_ASSEMBLE, "assemble")):
+        row["times"][name] = by[name][route]
+    row["host_split"] = {
+        ck.RECORDS_SCAN: host_split(ck, ck.RECORDS_SCAN, lambda: ck.records_scan(text, records)),
+        ck.STREAMS_BUILD: host_split(ck, ck.STREAMS_BUILD, lambda: ck.streams_build(
+            text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts, wide,
+            sizes)),
     }
-    for name, (kfn, pfn, args, nbytes, ops) in cases.items():
-        sets = args * 2
-        kms = gpu_ms(kfn, sets, 50)
-        pms = gpu_ms(pfn, sets, 3)
-        kms, pms, bound_ms, bound_by, lms = report(name, f"block={label}", kms, pms, None,
-                                                   nbytes, ops, errs[name])
-        row["times"][name] = {"ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": lms}
     return row
+
+
+HOST_SPLIT_CALLS = 200  # wrapper calls per reading of the host split
+# the wrappers' helpers in ops/cuda_kernels.py that the split times, by step
+HOST_SPLIT_STEPS = {"_check": "checks", "_check_1d": "checks", "_plain_or_cuda": "checks",
+                    "_sm_count": "scratch", "_scratch": "scratch",
+                    "_chained_state": "chained_state", "_launch": "launch"}
+
+
+def host_split(ck, name: str, call) -> dict:
+    """Host microseconds of one call of a records wrapper (``call``, run
+    HOST_SPLIT_CALLS times on the host clock), step by step, through the
+    wrapper itself: for a second run, each helper of HOST_SPLIT_STEPS and,
+    inside ``_launch``, the ctypes call are wrapped in a timer. What the
+    helpers do not take ("outputs_and_rest") is the wrapper's own code, its
+    output allocations the most of it. The ``record_function`` span and the
+    device context that ``_launch`` opens are timed alone beside it. Printed
+    as a phase record."""
+    us = dict.fromkeys(("checks", "scratch", "chained_state", "launch", "launch.ctypes_call"),
+                       0.0)
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                us[key] += time.perf_counter() - t0
+        return run
+
+    class Lib:  # the loaded library, each entry point's call timed
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, attr):
+            return timed(getattr(self.lib, attr), "launch.ctypes_call")
+
+    def per_call(body) -> float:
+        body()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_SPLIT_CALLS):
+            body()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / HOST_SPLIT_CALLS * 1e6
+
+    whole = per_call(call)
+    saved, build = {attr: getattr(ck, attr) for attr in HOST_SPLIT_STEPS}, ck.build
+    try:
+        for attr, key in HOST_SPLIT_STEPS.items():
+            setattr(ck, attr, timed(saved[attr], key))
+        ck.build = type("build", (), {"load": staticmethod(lambda lib: Lib(build.load(lib)))})
+        call()
+        us.update(dict.fromkeys(us, 0.0))
+        timed_whole = per_call(call)
+    finally:
+        for attr, fn in saved.items():
+            setattr(ck, attr, fn)
+        ck.build = build
+    split = {k: v / HOST_SPLIT_CALLS * 1e6 for k, v in us.items()}
+    split["launch.rest"] = split["launch"] - split["launch.ctypes_call"]
+    split["outputs_and_rest"] = timed_whole - sum(
+        split[k] for k in ("checks", "scratch", "chained_state", "launch"))
+    def span():
+        with torch.profiler.record_function(name):
+            pass
+
+    def context():
+        with torch.cuda.device(DEV):
+            pass
+
+    out = {"whole_wrapper": whole, "whole_wrapper_with_timers": timed_whole, **split,
+           "alone.record_function": per_call(span), "alone.device_context": per_call(context)}
+    print(f"phase=records host_split kernel={name} calls={HOST_SPLIT_CALLS} "
+          f"us_per_call={json.dumps({k: round(v, 3) for k, v in out.items()})}")
+    return out
 
 
 def records_faults(ft, ck, recops) -> dict:
@@ -1285,9 +1380,10 @@ def records_faults(ft, ck, recops) -> dict:
 
 def phase_records(ft, ck, recops, rng) -> dict:
     """The four block stages at the main paths' shapes and at blocks of
-    read names of varying width, against their plain versions; the gather
-    and the assembly timed at every shape, the scan and the stream build on
-    the v2 block; and their faults."""
+    read names of varying width, against their plain versions, each timed
+    at every shape with its device operations and host microseconds per
+    call; the host split of the scan and stream build wrappers on the v2
+    block; and their faults."""
     rows = {}
     for i, (label, (records, lens, names)) in enumerate(RECORD_SHAPES.items()):
         data = records_block(records, lens, names, seed=100 + i)
@@ -1296,16 +1392,16 @@ def phase_records(ft, ck, recops, rng) -> dict:
         torch.cuda.empty_cache()
     faults = records_faults(ft, ck, recops)
     errs = {name: max(r["errs"][name] for r in rows.values()) for name in rows[RECORD_TIMED]["errs"]}
-    by_shape = {name: {label: r["by_shape"][name] for label, r in rows.items()}
-                for name in (ck.ROWS_GATHER, ck.FASTQ_ASSEMBLE)}
-    routes = {ck.ROWS_GATHER: ("text", "back_to_back", "decoder"), ck.FASTQ_ASSEMBLE: ("assemble",)}
+    routes = {ck.RECORDS_SCAN: ("scan",), ck.ROWS_GATHER: ("text", "back_to_back", "decoder"),
+              ck.STREAMS_BUILD: ("streams",), ck.FASTQ_ASSEMBLE: ("assemble",)}
+    by_shape = {name: {label: r["by_shape"][name] for label, r in rows.items()} for name in routes}
     for label, per_route in records_device_ops().items():
         for name, names in routes.items():
             for route in names:
                 key = "pair" if route == "decoder" else route
                 by_shape[name][label][key].update(per_route[route])
     return {"errs": errs, "times": rows[RECORD_TIMED]["times"], "faults": faults,
-            "by_shape": by_shape}
+            "by_shape": by_shape, "host_split": rows[RECORD_TIMED]["host_split"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2906,8 +3002,9 @@ def main() -> int:
             "launches_mesh": {d: mesh_run[d][name] for d in ("compress", "decompress")},
             "faults_checked": kern_records["faults"],
         }
-        if name in kern_records["by_shape"]:
-            more["by_shape"] = kern_records["by_shape"][name]
+        more["by_shape"] = kern_records["by_shape"][name]
+        if name in kern_records["host_split"]:
+            more["host_split_us"] = kern_records["host_split"][name]
         t = kern_records["times"][name]
         rows.append((name, main_launches[direction][name], kern_records["errs"][name],
                      (t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"], t["library_ms"],

@@ -18,23 +18,50 @@
 // What bounds them. Each moves every byte of its inputs and outputs once or
 // twice and computes almost nothing per byte, so bytes bound all four (a
 // block's text is 12.8-34 MB). The runtime walks a block record by record on
-// one thread; here:
-// - the record scan counts newlines per 32 KiB tile (16-byte loads, a SIMD
-//   byte compare), scans the tile counts in one CTA, writes each newline's
-//   position at its global line index, then lets warps stride over the
-//   records for their line bounds, checks, quality minima and ambiguous
-//   bases, with the block's sums gathered per CTA; the first bad line wins by
-//   an atomic minimum of its index;
-// - the stream build gives one warp to each record, at offsets from
-//   exclusive scans over the records (one CTA of 1,024 threads per field);
+// one thread; here nothing runs on one thread or one CTA alone: where a
+// stage needs a prefix over the whole block, its CTAs take their tiles by
+// ticket and get the tiles before them by a decoupled look-back (Merrill &
+// Garland), and where it needs the block's sums, the last CTA to finish
+// combines every CTA's partials.
+// - The record scan is two launches and reads the text twice. The newline
+//   pass counts and places the newlines in one read: persistent CTAs take
+//   32 KiB tiles by ticket, each held in registers (a lane 8 coalesced
+//   16-byte units, exact SWAR byte compares) while the CTA's next tile
+//   arrives in shared memory by cp.async; the newlines are ranked by warp
+//   scans, the tile's line index comes from a look-back by the whole CTA
+//   over the tiles before it (tile_prefix_cta: up to 256 tiles' words a
+//   round, down to the nearest tile whose inclusive sum is out), and each
+//   newline's position is written at its line index (the first
+//   4 * max_records); the last tile writes the text's line count. The records pass gives a group of 4 lanes to each record, eight
+//   records a warp at once: lanes load the record's line bounds (the next
+//   round's while this one is processed), the bytes each check needs and
+//   16-byte aligned units of the bases and qualities, masked to the line at
+//   its two end units only, for the quality minimum and the ambiguous bases.
+//   Its grid is what the card holds at once; each CTA writes its partial
+//   sums, and the last one (a ticket counter) writes every info slot. Bytes
+//   bound it: the text from device memory, then again (mostly from L2) for
+//   the lines; the run is latency-bound (dependent loads per record).
+// - The stream build is one launch: a CTA per tile of up to 128 records
+//   forms each record's five field sizes in registers and their exclusive
+//   prefix in the CTA, publishes the tile's sums, and builds its six ranges
+//   in a shared-memory window while the tiles before it publish theirs: a
+//   group of 8 lanes per record copies the record's pieces (head bytes,
+//   aligned 16-byte units and tail bytes of its packed row, quality row and
+//   header and plus payloads, each read as aligned words realigned by funnel
+//   shifts, two jobs a lane loaded before any is stored; partial words or-ed
+//   into the zeroed window by shared atomics), its computed fields and its
+//   N positions (the mask's set bits ranked by a scan over the group). Then
+//   a look-back by the whole CTA places the tile in the buffer, and the CTA
+//   stores the window in aligned 16-byte units (bytes where a range starts
+//   or ends inside a unit). The tile that takes the last ticket writes info.
 // - the row gather is one launch: a CTA per tile of rows writes the tile's
 //   rows x width output bytes, which are contiguous, in 16-byte units (8-
 //   or 4-byte ones where the width asks), each read as aligned words of the
 //   source realigned by funnel shifts; runs back to back from 0 (the decode)
 //   get their starts from the tile's scan of the lengths and a decoupled
-//   look-back over the tiles before it (Merrill & Garland); one launch can
-//   gather a second matrix of (length + 3) / 4 bytes a row from a second
-//   source (the decode's packed bases beside its qualities);
+//   look-back over the tiles before it; one launch can gather a second
+//   matrix of (length + 3) / 4 bytes a row from a second source (the
+//   decode's packed bases beside its qualities);
 // - the assembly is three launches. The length-prefixed chains of the
 //   decoder (s_(i+1) = s_i + 2 + len(s_i) over the header and plus payloads,
 //   s_(i+1) = s_i + 1 + count(s_i) over the N positions) are first checked
@@ -60,8 +87,8 @@
 //   and stored in aligned 16-byte units. Nothing is written when a stream is
 //   truncated.
 // A launch does not synchronise and allocates nothing: each entry takes the
-// scratch its wrapper sized, and the gather and the assembly a ticket word
-// and status words that persist across launches on one stream.
+// scratch its wrapper sized, and a ticket word and status words that
+// persist across launches on one stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,14 +100,22 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;             // threads per CTA (8 warps)
+constexpr int kThreads = 256;             // threads per CTA of the scan (8 warps)
 constexpr int kWarps = kThreads / 32;
-constexpr long long kTile = 32768;        // text bytes per CTA of the newline passes
-constexpr int kScanThreads = 1024;        // threads of the one-CTA prefix scans
-constexpr int kScanVals = 8;              // values per thread per tile of a prefix scan
+constexpr int kUnits = 8;                 // 16-byte units per lane of the newline pass
+constexpr long long kTile = 32768;        // text bytes per CTA of the newline pass
+constexpr int kScanCtasPerSm = 8;         // the records pass's grid at most, per SM
+constexpr int kRecordsMinCtas = 1;        // the records pass's CTAs per SM to fit registers for
+constexpr int kGroup = 4;                 // lanes per record of the records pass
+constexpr int kRecordsPerWarp = 32 / kGroup;
+static_assert(kGroup >= 4 && kGroup <= 8 && 32 % kGroup == 0,
+              "a lane per line, a group per record");
+constexpr int kPass = 8;                  // 16-byte units a lane loads at once in the records pass
 constexpr long long kNone = 0x7fffffffffffffffLL;
 constexpr long long kV2NposLimit = 1LL << 16;
 constexpr int kEmptyQmin = 256;
+
+static_assert(kTile == 16LL * kUnits * kThreads, "a lane holds kUnits units of its tile");
 
 // fq_records_scan's info slots (ops/records.py SCAN_*)
 enum {
@@ -88,6 +123,13 @@ enum {
   kPackedSum, kHdrSum, kHdrMax, kPlusSum, kPlusMax, kAmbig, kOverflowRow,
   kInfoSlots = 16
 };
+// the records pass's partials per CTA: five sums, three maxima, two minima
+enum {
+  kPartSeq = 0, kPartPacked, kPartHdr, kPartPlus, kPartAmbig, kPartSeqMax, kPartHdrMax,
+  kPartPlusMax, kPartBad, kPartFar
+};
+constexpr int kParts = 10;
+static_assert(kPartFar + 1 == kParts, "kParts partials per CTA");
 // fq_fastq_assemble's fault bits (ops/records.py ASSEMBLE_FAULTS)
 enum {
   kFaultLen = 1, kFaultSeq = 2, kFaultQual = 4, kFaultNposTrunc = 8,
@@ -117,82 +159,71 @@ __device__ inline long long warp_sum(long long v) {
   return v;
 }
 
-__device__ inline int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
 __device__ inline long long warp_min_ll(long long v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
+__device__ inline long long warp_max(long long v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
 // Inclusive prefix of v over the 32 lanes of a warp.
-__device__ inline long long warp_incl(long long v) {
+template <typename T>
+__device__ inline T warp_incl(T v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(kFull, v, o);
+    const T y = __shfl_up_sync(kFull, v, o);
     if (lane >= o) v += y;
   }
   return v;
 }
 
-// Exclusive prefix of v over the CTA (blockDim.x a multiple of 32, at most
-// 1,024 threads); *total gets the CTA's sum. sh: 33 shared slots. Every
-// thread must call it.
-__device__ long long block_excl(long long v, long long* total, long long* sh) {
+// Exclusive prefixes of N values over the CTA (blockDim.x a multiple of 32,
+// at most 1,024 threads), each in ex[k]; total[k] gets the CTA's sums. sh:
+// 33 * N shared slots. Every thread must call it.
+template <int N>
+__device__ void block_excl_n(const long long (&v)[N], long long (&ex)[N], long long (&total)[N],
+                             long long* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const long long incl = warp_incl(v);
-  if (lane == 31) sh[warp] = incl;
+  long long incl[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    incl[k] = warp_incl(v[k]);
+    if (lane == 31) sh[33 * k + warp] = incl[k];
+  }
   __syncthreads();
   if (warp == 0) {
-    const long long w = lane < nw ? sh[lane] : 0;
-    const long long wi = warp_incl(w);
-    if (lane < nw) sh[lane] = wi - w;
-    if (lane == 31) sh[32] = wi;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const long long w = lane < nw ? sh[33 * k + lane] : 0;
+      const long long wi = warp_incl(w);
+      if (lane < nw) sh[33 * k + lane] = wi - w;
+      if (lane == 31) sh[33 * k + 32] = wi;
+    }
   }
   __syncthreads();
-  const long long res = sh[warp] + incl - v;
-  *total = sh[32];
-  __syncthreads();  // sh is reused by the next call
-  return res;
-}
-
-// Exclusive prefix sums of F fields of r values, one CTA per field: field f
-// is a[f * (r + 1) + 0 .. r), its sum is written at a[f * (r + 1) + r].
-__global__ void __launch_bounds__(kScanThreads) scan_fields_kernel(long long* a, long long r) {
-  __shared__ long long sh[33];
-  long long* base = a + (long long)blockIdx.x * (r + 1);
-  long long carry = 0;
-  constexpr long long kStep = (long long)kScanThreads * kScanVals;
-  for (long long tile = 0; tile < r; tile += kStep) {
-    long long v[kScanVals];
-    long long s = 0;
-    const long long lo = tile + (long long)threadIdx.x * kScanVals;
 #pragma unroll
-    for (int k = 0; k < kScanVals; ++k) {
-      v[k] = lo + k < r ? base[lo + k] : 0;
-      s += v[k];
-    }
-    long long total;
-    long long run = carry + block_excl(s, &total, sh);
-#pragma unroll
-    for (int k = 0; k < kScanVals; ++k) {
-      if (lo + k < r) base[lo + k] = run;
-      run += v[k];
-    }
-    carry += total;
+  for (int k = 0; k < N; ++k) {
+    ex[k] = sh[33 * k + warp] + incl[k] - v[k];
+    total[k] = sh[33 * k + 32];
   }
-  if (threadIdx.x == 0) base[r] = carry;
+  __syncthreads();  // sh is reused by the next call
 }
 
-inline cudaError_t scan_fields(long long* a, int fields, long long r, cudaStream_t s) {
-  scan_fields_kernel<<<fields, kScanThreads, 0, s>>>(a, r);
-  return cudaGetLastError();
+// Exclusive prefix of v over the CTA; *total gets the CTA's sum. sh: 33
+// shared slots. Every thread must call it.
+__device__ inline long long block_excl(long long v, long long* total, long long* sh) {
+  const long long in[1] = {v};
+  long long ex[1], tot[1];
+  block_excl_n<1>(in, ex, tot, sh);
+  *total = tot[0];
+  return ex[0];
 }
 
 inline unsigned grid_for(long long items, int per_cta) {
@@ -201,7 +232,8 @@ inline unsigned grid_for(long long items, int per_cta) {
 }
 
 // ---------------------------------------------------------------------------
-// tickets and status words (the row gather and the assembly)
+// tickets and status words (the newline pass, the row gather, the stream
+// build and the assembly)
 // ---------------------------------------------------------------------------
 
 // A launch whose tiles wait on each other takes each CTA's tile from a
@@ -213,9 +245,10 @@ inline unsigned grid_for(long long items, int per_cta) {
 // its entry). The sums are stored before the flag is released; a reader
 // acquires the flag, then reads the sums it names. A flag of another epoch
 // is not ready.
-constexpr int kStatusWords = 8;
-constexpr int kSums = 3;
+constexpr int kStatusWords = 16;
+constexpr int kSums = 5;
 constexpr unsigned long long kAggregate = 1, kInclusive = 2;
+static_assert(2 + 2 * kSums <= kStatusWords, "flag, sums and the hand-off word fit a tile's words");
 
 __device__ inline unsigned long long ld_acquire(const unsigned long long* p) {
   unsigned long long v;
@@ -237,12 +270,20 @@ __device__ inline void st_release(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// The CTA's tile, from the ticket counter. Every thread must call it.
-__device__ inline long long take_ticket(unsigned* ticket) {
+// The CTA's tile, from the ticket counter, which goes back to 0 after the
+// ticket `last` (a launch takes last + 1 tickets in all). Every thread must
+// call it.
+__device__ inline long long take_ticket(unsigned* ticket, unsigned last) {
   __shared__ unsigned s_ticket;
-  if (threadIdx.x == 0) s_ticket = atomicInc(ticket, gridDim.x - 1);
+  __syncthreads();  // s_ticket of the CTA's previous ticket has been read
+  if (threadIdx.x == 0) s_ticket = atomicInc(ticket, last);
   __syncthreads();
   return (long long)s_ticket;
+}
+
+// A ticket per CTA.
+__device__ inline long long take_ticket(unsigned* ticket) {
+  return take_ticket(ticket, gridDim.x - 1);
 }
 
 // Tile `tile`'s sums v[0 .. N) as its aggregate or inclusive state. One
@@ -256,12 +297,6 @@ __device__ inline void publish(unsigned long long* status, long long tile,
 #pragma unroll
   for (int k = 0; k < N; ++k) st_relaxed(st + off + k, (unsigned long long)v[k]);
   st_release(st, (epoch << 2) | state);
-}
-
-__device__ inline long long warp_max(long long v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
 }
 
 // The sums of the tiles before `tile` (> 0), by one whole warp: windows of
@@ -306,6 +341,7 @@ __device__ void look_back(const unsigned long long* status, long long tile,
 template <int N, int kMax = -1>
 __device__ void tile_prefix(unsigned long long* status, long long tile, unsigned long long epoch,
                             const long long (&v)[N], long long (&pre)[N]) {
+  static_assert(N <= kSums, "a tile publishes at most kSums sums");
   __shared__ long long s_pre[kSums];
   if (threadIdx.x < 32) {
     long long p[N];
@@ -332,208 +368,511 @@ __device__ void tile_prefix(unsigned long long* status, long long tile, unsigned
   __syncthreads();  // s_pre is reused by the next call
 }
 
+// The exclusive prefix over the tiles of a launch, as tile_prefix, but the
+// whole CTA looks back, a tile a thread: each round reads blockDim.x tiles
+// at once (each thread waits for its tile's aggregate, which every tile
+// publishes before it looks back) and combines them down to the nearest
+// inclusive one, so a tile far from the nearest inclusive tile waits
+// tile / blockDim.x round trips, not tile / 32. Sums only. sh: 33 * N
+// shared slots; `published`: the tile's aggregate is out already. Every
+// thread must call it.
+template <int N>
+__device__ void tile_prefix_cta(unsigned long long* status, long long tile,
+                                unsigned long long epoch, const long long (&v)[N],
+                                long long (&pre)[N], long long* sh, bool published = false) {
+  static_assert(N <= kSums, "a tile publishes at most kSums sums");
+  __shared__ int s_near;
+#pragma unroll
+  for (int k = 0; k < N; ++k) pre[k] = 0;
+  if (tile > 0) {
+    if (threadIdx.x == 0 && !published) publish(status, tile, epoch, kAggregate, v);
+    for (long long end = tile; end > 0; end -= blockDim.x) {
+      const long long j = end - 1 - threadIdx.x;
+      unsigned long long state = 0;
+      if (j >= 0) {
+        do {
+          const unsigned long long f = ld_acquire(status + j * kStatusWords);
+          state = (f >> 2) == epoch ? (f & 3) : 0;
+        } while (!state);
+      }
+      if (threadIdx.x == 0) s_near = blockDim.x;
+      __syncthreads();
+      if (state == kInclusive) atomicMin(&s_near, (int)threadIdx.x);
+      __syncthreads();
+      const int near = s_near;
+      long long x[N], ex[N], tot[N];
+      const bool mine = j >= 0 && (int)threadIdx.x <= near;
+      const unsigned long long* sums =
+          status + (mine ? j : 0) * kStatusWords + (state == kInclusive ? 1 + kSums : 1);
+#pragma unroll
+      for (int k = 0; k < N; ++k) x[k] = mine ? (long long)ld_relaxed(sums + k) : 0;
+      block_excl_n<N>(x, ex, tot, sh);
+#pragma unroll
+      for (int k = 0; k < N; ++k) pre[k] += tot[k];
+      if (near < (int)blockDim.x) break;  // uniform: the nearest inclusive tile is in
+    }
+  }
+  if (threadIdx.x == 0) {
+    long long inc[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) inc[k] = pre[k] + v[k];
+    publish(status, tile, epoch, kInclusive, inc);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // 1. record scan
 // ---------------------------------------------------------------------------
 
+struct ScanArgs {
+  const uint8_t* text;  // 16-byte aligned
+  long long n;
+  long long cap;        // 4 * max_records: lines looked at
+  long long* total;     // the text's newlines (the newline pass's last tile)
+  long long* nl;        // each newline's position at its line index, the first cap
+  long long tiles;      // the newline pass's tiles
+  long long* parts;     // kParts x gridDim.x partials of the records pass
+  long long* offsets;
+  int16_t* qmin;
+  long long* info;
+  unsigned* ticket;
+  unsigned long long* status;
+  unsigned long long epoch;
+};
+
+// 0x80 in each byte of w equal to the byte of cc (replicated), 0 elsewhere:
+// exact, no carry crosses a byte.
+__device__ inline uint32_t eq_bytes(uint32_t w, uint32_t cc) {
+  const uint32_t y = w ^ cc;
+  return ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y | 0x7F7F7F7Fu);
+}
+
+constexpr uint32_t kNewlines = 0x0a0a0a0au;
+
+// Bit b set where byte b of the 16-byte unit q is a newline.
+__device__ inline unsigned mask16(const uint4& q) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)  // the 0x80 bits of a word to bits 0-3
+    m |= (((eq_bytes(w[k], kNewlines) >> 7) * 0x00204081u) >> 21 & 0xfu) << (4 * k);
+  return m;
+}
+
+static_assert(kUnits == 8, "pick8 picks a lane's unit");
+__device__ inline int pick8(const int (&v)[8], int i) {
+  return i < 4 ? (i < 2 ? (i == 0 ? v[0] : v[1]) : (i == 2 ? v[2] : v[3]))
+               : (i < 6 ? (i == 4 ? v[4] : v[5]) : (i == 6 ? v[6] : v[7]));
+}
+
 __device__ inline int newlines16(const uint4& q) {
-  const unsigned nl = 0x0a0a0a0au;
-  return (__popc(__vcmpeq4(q.x, nl)) + __popc(__vcmpeq4(q.y, nl)) +
-          __popc(__vcmpeq4(q.z, nl)) + __popc(__vcmpeq4(q.w, nl))) >> 3;
+  return __popc(eq_bytes(q.x, kNewlines)) + __popc(eq_bytes(q.y, kNewlines)) +
+         __popc(eq_bytes(q.z, kNewlines)) + __popc(eq_bytes(q.w, kNewlines));
 }
 
-// Newlines of each kTile-byte tile of the text: counts[t]. The text is
-// 16-byte aligned, so every 16-byte unit of a tile is too.
-__global__ void __launch_bounds__(kThreads) count_newlines_kernel(
-    const uint8_t* __restrict__ text, long long n, long long* __restrict__ counts) {
-  __shared__ long long sh[33];
-  const long long lo = (long long)blockIdx.x * kTile;
-  const long long hi = min(lo + kTile, n);
-  long long c = 0;
-  for (long long i = lo + 16LL * threadIdx.x; i < hi; i += 16LL * kThreads) {
-    if (i + 16 <= hi) {
-      c += newlines16(*reinterpret_cast<const uint4*>(text + i));
-    } else {
-      for (long long j = i; j < hi; ++j) c += text[j] == '\n';
-    }
-  }
-  long long total;
-  block_excl(c, &total, sh);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+// The 16 bytes at i (16-byte aligned) of the text, 0 past its end.
+__device__ inline uint4 text_unit(const uint8_t* __restrict__ text, long long n, long long i) {
+  if (i + 16 <= n) return __ldg(reinterpret_cast<const uint4*>(text + i));
+  uint32_t w[4] = {0, 0, 0, 0};
+  for (int b = 0; b < 16 && i + b < n; ++b) w[b >> 2] |= (uint32_t)text[i + b] << (8 * (b & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Positions of the newlines, at their line index (tile prefix + rank in
-// the tile), for the first `cap` lines.
-__global__ void __launch_bounds__(kThreads) write_newlines_kernel(
-    const uint8_t* __restrict__ text, long long n, const long long* __restrict__ prefix,
-    long long* __restrict__ nl, long long cap) {
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+// The newline pass. Persistent CTAs take kTile-byte tiles of the text by
+// ticket (a.tiles in all); warp w holds the tile's w-th 4 KiB in registers,
+// lane l its units k * 32 + l (k < kUnits), so each load instruction of a
+// warp reads 512 contiguous bytes. While a CTA counts its tile, looks back
+// and writes its newlines, the next tile it took arrives in shared memory
+// by cp.async. A newline's line index is the tile's (the sum of every tile
+// before it, by a look-back of the whole CTA), its warp's, the units before its unit (warp sums)
+// and the lanes before it in its unit row (warp scan). Only the first cap
+// lines are written; the last tile writes the text's line count.
+__global__ void __launch_bounds__(kThreads) newlines_kernel(ScanArgs a) {
+  __shared__ __align__(16) uint4 s_next[kTile / 16];
+  __shared__ long long s_warp[kWarps];
   __shared__ long long sh[33];
-  const long long lo = (long long)blockIdx.x * kTile;
-  const long long hi = min(lo + kTile, n);
-  long long carry = prefix[blockIdx.x];
-  if (carry >= cap) return;  // uniform over the CTA
-  for (long long chunk = lo; chunk < hi; chunk += 16LL * kThreads) {
-    const long long i = chunk + 16LL * threadIdx.x;
-    uint8_t b[16];
-    int c = 0;
-    if (i + 16 <= hi) {
-      const uint4 q = *reinterpret_cast<const uint4*>(text + i);
-      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned last = (unsigned)(a.tiles + gridDim.x - 1);
+  const long long lead = (long long)warp * (kTile / kWarps) + 16LL * lane;
+  long long tile = take_ticket(a.ticket, last);
+  uint4 q[kUnits];
 #pragma unroll
-      for (int k = 0; k < 16; ++k) b[k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
-    } else {
+  for (int k = 0; k < kUnits; ++k) q[k] = text_unit(a.text, a.n, tile * kTile + lead + 512LL * k);
+  while (tile < a.tiles) {
+    const long long next = take_ticket(a.ticket, last);
+    if (next < a.tiles) {
 #pragma unroll
-      for (int k = 0; k < 16; ++k) b[k] = i + k < hi ? text[i + k] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) c += b[k] == '\n';
-    long long total;
-    long long at = carry + block_excl(c, &total, sh);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if (b[k] == '\n') {
-        if (at < cap) nl[at] = i + k;
-        ++at;
+      for (int k = 0; k < kUnits; ++k) {
+        const long long i = next * kTile + lead + 512LL * k;
+        if (i + 16 <= a.n) cp_async16(&s_next[(lead + 512LL * k) >> 4], a.text + i);
       }
     }
-    carry += total;
-  }
-}
-
-__global__ void init_scan_kernel(long long* info) {
-  const int t = threadIdx.x;
-  if (t < kInfoSlots) info[t] = (t == kErrorLine || t == kOverflowRow) ? kNone : 0;
-}
-
-__device__ inline bool ambiguous(uint8_t b) {
-  const uint8_t u = b & 0xDF;
-  return !(u == 'A' || u == 'C' || u == 'G' || u == 'T');
-}
-
-// Warps stride over the records: line bounds, checks, offsets, quality
-// minimum, ambiguous bases; the block's sums are gathered per CTA in shared
-// memory and added to info once per CTA (one global atomic per CTA and sum,
-// not one per record: same-address atomics from every record serialise).
-__global__ void __launch_bounds__(kThreads) records_kernel(
-    const uint8_t* __restrict__ text, const long long* __restrict__ nl,
-    const long long* __restrict__ total_lines, long long cap, long long max_records,
-    long long* __restrict__ offsets, int16_t* __restrict__ qmin, long long* info) {
-  __shared__ long long sums[8];  // seq, packed, hdr, plus, ambiguous; maxima: seq, hdr, plus
-  __shared__ long long first_bad, first_far;
-  if (threadIdx.x < 8) sums[threadIdx.x] = 0;
-  if (threadIdx.x == 0) {
-    first_bad = kNone;
-    first_far = kNone;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long lines = min(*total_lines, cap);
-  const long long nrec = min(max_records, (lines + 3) / 4);
-  const long long warps = (long long)gridDim.x * kWarps;
-  long long seq = 0, packed = 0, hdr = 0, plus = 0, ambig = 0, seq_max = 0, hdr_max = 0,
-            plus_max = 0, bad_line = kNone, far_row = kNone;
-  for (long long rec = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5; rec < nrec;
-       rec += warps) {
-    const int have = (int)min(4LL, lines - rec * 4);
-    long long start[4] = {0, 0, 0, 0}, len[4] = {0, 0, 0, 0};
-    for (int li = 0; li < have; ++li) {
-      const long long line = rec * 4 + li;
-      const long long end = nl[line];
-      const long long st = line ? nl[line - 1] + 1 : 0;
-      long long l = end - st;
-      if (l > 0 && text[end - 1] == '\r') --l;
-      start[li] = st;
-      len[li] = l;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    const long long base = tile * kTile + (long long)warp * (kTile / kWarps);
+    int ex[kUnits], run = 0;
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int c = newlines16(q[k]);
+      const int incl = warp_incl(c);
+      ex[k] = run + incl - c;
+      run += __shfl_sync(kFull, incl, 31);
     }
-    if (lane == 0) {
+    if (lane == 0) s_warp[warp] = run;
+    __syncthreads();
+    long long before = 0, sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      sum += s_warp[w];
+    }
+    const long long v[1] = {sum};
+    long long p[1];
+    tile_prefix_cta<1>(a.status, tile, a.epoch, v, p, sh);
+    const long long pre = p[0];
+    if (threadIdx.x == 0 && tile == a.tiles - 1) *a.total = pre + sum;
+    if (pre < a.cap) {  // uniform over the CTA
+      // the lane's newlines, unit by unit, from a 16-bit mask of each unit
+      unsigned long long m[2] = {0, 0};
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k)
+        m[k >> 2] |= (unsigned long long)mask16(q[k]) << (16 * (k & 3));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        for (unsigned long long rest = m[h]; rest; rest &= rest - 1) {
+          const int bit = __ffsll(rest) - 1, k = 4 * h + (bit >> 4);
+          const unsigned unit_bits = (unsigned)(m[h] >> (bit & ~15)) & 0xffffu;
+          const long long at =
+              pre + before + pick8(ex, k) + __popc(unit_bits & ((1u << (bit & 15)) - 1));
+          if (at < a.cap) a.nl[at] = base + 16LL * (k * 32 + lane) + (bit & 15);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (next < a.tiles) {
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const long long i = next * kTile + lead + 512LL * k;
+        q[k] = i + 16 <= a.n ? s_next[(lead + 512LL * k) >> 4] : text_unit(a.text, a.n, i);
+      }
+    }
+    tile = next;
+  }
+}
+
+// 0xff in each byte of word k (bytes 4k .. 4k + 3) of a 16-byte unit that
+// lies in [b, e) (0 <= b, e <= 16), 0 elsewhere.
+__device__ inline uint32_t word_mask(int b, int e, int k) {
+  const int lo = min(max(b - 4 * k, 0), 4), hi = min(max(e - 4 * k, 0), 4);
+  const uint32_t below_hi = hi >= 4 ? kFull : (1u << (8 * hi)) - 1;
+  const uint32_t below_lo = lo >= 4 ? kFull : (1u << (8 * lo)) - 1;
+  return below_hi & ~below_lo;
+}
+
+// 0x80 in each byte of w that is not an ACGT base (either case).
+__device__ inline uint32_t ambiguous4(uint32_t w) {
+  const uint32_t u = w & 0xDFDFDFDFu;
+  return ~(eq_bytes(u, 0x41414141u) | eq_bytes(u, 0x43434343u) | eq_bytes(u, 0x47474747u) |
+           eq_bytes(u, 0x54545454u)) & 0x80808080u;
+}
+
+// A record's line bounds, two values a lane: lane k < 4 of its group the
+// end of line 4 rec + k - 1 (-1 before the text and past `lines`), lane 0
+// also that of line 4 rec + 3.
+struct Bounds {
+  long long x, y;
+};
+
+__device__ inline Bounds record_bounds(const ScanArgs& a, long long rec, long long lines,
+                                       int sub) {
+  const long long line = 4 * rec - 1 + sub;
+  Bounds b;
+  b.x = sub < 4 && line >= 0 && line < lines ? a.nl[line] : -1;
+  b.y = sub == 0 && 4 * rec + 3 < lines ? a.nl[4 * rec + 3] : -1;
+  return b;
+}
+
+__device__ inline long long pick4(const long long (&v)[4], int i) {
+  return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
+}
+
+// The address of unit u of a record's bases (u < us) or qualities: 16-byte
+// aligned units that cover each line.
+__device__ inline long long unit_at(long long u, long long us, long long st1, long long st3) {
+  return u < us ? ((st1 >> 4) + u) << 4 : ((st3 >> 4) + u - us) << 4;
+}
+
+// The sum, the maximum or the minimum of v over the kGroup lanes of a group
+// (every lane of the warp calls it; v is the same in all lanes after).
+__device__ inline long long group_sum(long long v) {
+#pragma unroll
+  for (int o = kGroup / 2; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ inline unsigned group_min(unsigned v) {
+#pragma unroll
+  for (int o = kGroup / 2; o; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ inline unsigned group_or(unsigned v) {
+#pragma unroll
+  for (int o = kGroup / 2; o; o >>= 1) v |= __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// A group of kGroup lanes per record (kRecordsPerWarp records a warp at
+// once), striding over the records; the warp's lanes all run every step (a
+// group past the records idles), so shuffles, ballots and reductions need
+// no divergent masks. Line bounds come from the newline positions (loaded a
+// round ahead), then one round of loads a record: lane li < 4 of the group
+// line li's last byte (a '\r'?) and first byte, and every lane up to kPass
+// 16-byte units of the bases and qualities
+// (each line with its '\r', masked to the line's length at its two end units
+// only); the checks, offsets, quality minimum and ambiguous bases (exact
+// SWAR byte compares). The groups' sums are combined per CTA into parts, and
+// the last CTA to finish writes every info slot.
+__global__ void __launch_bounds__(kThreads, kRecordsMinCtas) records_kernel(ScanArgs a) {
+  __shared__ long long s_part[kWarps][kParts];
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % kGroup, grp = lane / kGroup;
+  const long long lines = min(*a.total, a.cap);
+  const long long nrec = (lines + 3) / 4;
+  const long long stride = (long long)gridDim.x * kWarps * kRecordsPerWarp;
+  long long p[kParts];
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) p[k] = k >= kPartBad ? kNone : 0;
+  long long first = ((long long)blockIdx.x * kWarps + warp) * kRecordsPerWarp;  // the warp's
+  Bounds next = {-1, -1};
+  if (first + grp < nrec) next = record_bounds(a, first + grp, lines, sub);
+  for (; first < nrec; first += stride) {
+    const long long rec = first + grp;
+    const Bounds cur = next;
+    if (first + stride + grp < nrec) next = record_bounds(a, first + stride + grp, lines, sub);
+    const int have = rec < nrec ? (int)min(4LL, lines - rec * 4) : 0;
+    long long st[4], en[4];
+#pragma unroll
+    for (int li = 0; li < 4; ++li) {
+      st[li] = __shfl_sync(kFull, cur.x, li, kGroup) + 1;
+      en[li] = li < 3 ? __shfl_sync(kFull, cur.x, li + 1, kGroup)
+                      : __shfl_sync(kFull, cur.y, 0, kGroup);
+    }
+    // lane li < 4 of the group: line li's last byte (a '\r'?) and first byte
+    const int li = sub & 3;
+    const long long my_st = pick4(st, li), my_en = pick4(en, li);
+    int last = 0, head = 0;
+    if (sub < 4 && li < have && my_en > my_st) {
+      last = a.text[my_en - 1];
+      head = a.text[my_st];
+    }
+    const long long us = have == 4 && en[1] > st[1] ? ((en[1] + 15) >> 4) - (st[1] >> 4) : 0;
+    const long long uq = have == 4 && en[3] > st[3] ? ((en[3] + 15) >> 4) - (st[3] >> 4) : 0;
+    const long long units = us + uq;
+    uint4 q[kPass];
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) {
+      const long long u = sub + (long long)kGroup * j;
+      const uint4* at = reinterpret_cast<const uint4*>(a.text + unit_at(u, us, st[1], st[3]));
+      q[j] = u < units ? __ldg(at) : make_uint4(0, 0, 0, 0);
+    }
+    const unsigned cr = (__ballot_sync(kFull, sub < 4 && last == '\r') >> (kGroup * grp)) & 15;
+    const int first0 = __shfl_sync(kFull, head, 0, kGroup);
+    const int first2 = __shfl_sync(kFull, head, 2, kGroup);
+    long long len[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) len[k] = k < have ? en[k] - st[k] - ((cr >> k) & 1) : 0;
+    if (have) {
       long long bad = kNone;
-      if (len[0] == 0 || text[start[0]] != '@') bad = rec * 4;
-      else if (have > 2 && (len[2] == 0 || text[start[2]] != '+')) bad = rec * 4 + 2;
+      if (len[0] == 0 || first0 != '@') bad = rec * 4;
+      else if (have > 2 && (len[2] == 0 || first2 != '+')) bad = rec * 4 + 2;
       else if (have == 4 && len[1] != len[3]) bad = rec * 4 + 3;
-      bad_line = min(bad_line, bad);
+      p[kPartBad] = min(p[kPartBad], bad);
     }
-    if (have < 4) continue;
-    if (lane < 8) {
-      const int f = lane >> 1;
-      const long long strip = (f == 0 || f == 2) ? 1 : 0;
-      offsets[rec * 8 + lane] = (lane & 1) ? len[f] - strip : start[f] + strip;
-    }
-    // quality minimum
-    int m = kEmptyQmin;
-    for (long long j = lane; j < len[3]; j += 32) m = min(m, (int)text[start[3] + j]);
-    m = warp_min(m);
-    // ambiguous bases, and the first one past the u16 positions
-    long long amb = 0, far = kNone;
-    for (long long j = lane; j < len[1]; j += 32) {
-      if (ambiguous(text[start[1] + j])) {
-        ++amb;
-        if (j >= kV2NposLimit) far = min(far, j);
+    if (have == 4) {
+#pragma unroll
+      for (int c = sub; c < 8; c += kGroup) {
+        const int f = c >> 1;
+        const long long strip = (f == 0 || f == 2) ? 1 : 0;
+        a.offsets[rec * 8 + c] = (c & 1) ? pick4(len, f) - strip : pick4(st, f) + strip;
       }
     }
-    amb = warp_sum(amb);
-    far = warp_min_ll(far);
-    if (lane == 0) {
-      qmin[rec] = (int16_t)m;
+    // quality minimum (bytes off the line read as 0xff) and ambiguous bases;
+    // a record of more than kGroup * kPass units loops, the warp with it
+    uint32_t mn4 = kFull;
+    unsigned amb = 0, far = 0;
+    const long long most = __reduce_max_sync(kFull, (unsigned)min(units, 0x7fffffffLL));
+    for (long long u0 = 0; u0 < most; u0 += (long long)kGroup * kPass) {
+      if (u0) {
+#pragma unroll
+        for (int j = 0; j < kPass; ++j) {
+          const long long u = u0 + sub + (long long)kGroup * j;
+          if (u < units)
+            q[j] = __ldg(reinterpret_cast<const uint4*>(a.text + unit_at(u, us, st[1], st[3])));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        const long long u = u0 + sub + (long long)kGroup * j;
+        if (u >= units) continue;
+        const long long a0 = unit_at(u, us, st[1], st[3]);
+        const bool seq = u < us;
+        const long long lo = seq ? st[1] : st[3], hi = lo + (seq ? len[1] : len[3]);
+        const uint32_t w[4] = {q[j].x, q[j].y, q[j].z, q[j].w};
+        uint32_t m[4] = {kFull, kFull, kFull, kFull};
+        if (a0 < lo || a0 + 16 > hi) {  // the line's first or last unit
+          const int b = (int)max(min(lo - a0, 16LL), 0LL), e = (int)max(min(hi - a0, 16LL), 0LL);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) m[k] = word_mask(b, e, k);
+        }
+        if (seq) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint32_t hit = ambiguous4(w[k]) & m[k];
+            amb += __popc(hit);
+            if (len[1] > kV2NposLimit && a0 + 4 * k + 4 > lo + kV2NposLimit) {
+              const int b = (int)max(min(lo + kV2NposLimit - a0, 16LL), 0LL);
+              far |= hit & word_mask(b, 16, k);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) mn4 = __vminu4(mn4, w[k] | ~m[k]);
+        }
+      }
+    }
+    unsigned mn = min(min(mn4 & 0xff, (mn4 >> 8) & 0xff), min((mn4 >> 16) & 0xff, mn4 >> 24));
+    mn = group_min(mn);
+    const long long ambs = group_sum(amb);
+    far = group_or(far);
+    if (have == 4) {
+      if (sub == 0) a.qmin[rec] = (int16_t)(len[3] ? (int)mn : kEmptyQmin);
       const long long hl = max(len[0] - 1, 0LL), pl = max(len[2] - 1, 0LL);
-      seq += len[1];
-      packed += (len[1] + 3) >> 2;
-      hdr += hl;
-      plus += pl;
-      ambig += amb;
-      seq_max = max(seq_max, len[1]);
-      hdr_max = max(hdr_max, hl);
-      plus_max = max(plus_max, pl);
-      if (far != kNone) far_row = min(far_row, rec);
+      p[kPartSeq] += len[1];
+      p[kPartPacked] += (len[1] + 3) >> 2;
+      p[kPartHdr] += hl;
+      p[kPartPlus] += pl;
+      p[kPartAmbig] += ambs;
+      p[kPartSeqMax] = max(p[kPartSeqMax], len[1]);
+      p[kPartHdrMax] = max(p[kPartHdrMax], hl);
+      p[kPartPlusMax] = max(p[kPartPlusMax], pl);
+      if (far) p[kPartFar] = min(p[kPartFar], rec);
     }
   }
-  if (lane == 0) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums + 0), (unsigned long long)seq);
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums + 1), (unsigned long long)packed);
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums + 2), (unsigned long long)hdr);
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums + 3), (unsigned long long)plus);
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums + 4), (unsigned long long)ambig);
-    atomicMax(sums + 5, seq_max);
-    atomicMax(sums + 6, hdr_max);
-    atomicMax(sums + 7, plus_max);
-    atomicMin(&first_bad, bad_line);
-    atomicMin(&first_far, far_row);
-  }
+  // the groups' partials (the same in every lane of a group) into the
+  // warp's, the CTA's, then parts
+  if (sub)
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) p[k] = k >= kPartBad ? kNone : 0;
+#pragma unroll
+  for (int k = 0; k < kParts; ++k)
+    p[k] = k < kPartSeqMax ? warp_sum(p[k]) : (k < kPartBad ? warp_max(p[k]) : warp_min_ll(p[k]));
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) s_part[warp][k] = p[k];
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int slot[8] = {kSeqSum, kPackedSum, kHdrSum, kPlusSum, kAmbig, kSeqMax, kHdrMax,
-                         kPlusMax};
-    for (int k = 0; k < 5; ++k)
-      if (sums[k])
-        atomicAdd(reinterpret_cast<unsigned long long*>(info + slot[k]),
-                  (unsigned long long)sums[k]);
-    for (int k = 5; k < 8; ++k)
-      if (sums[k]) atomicMax(info + slot[k], sums[k]);
-    if (first_bad != kNone) atomicMin(info + kErrorLine, first_bad);
-    if (first_far != kNone) atomicMin(info + kOverflowRow, first_far);
+  const int t = threadIdx.x;
+  if (t < kParts) {
+    long long x = s_part[0][t];
+    for (int w = 1; w < kWarps; ++w) {
+      const long long y = s_part[w][t];
+      x = t < kPartSeqMax ? x + y : (t < kPartBad ? max(x, y) : min(x, y));
+    }
+    a.parts[(long long)t * gridDim.x + blockIdx.x] = x;
+  }
+  __threadfence();  // this CTA's parts before its ticket
+  __syncthreads();
+  if (t == 0) s_last = atomicInc(a.ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last CTA: every CTA's parts, combined
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) p[k] = k >= kPartBad ? kNone : 0;
+  for (long long j = t; j < gridDim.x; j += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {
+      const long long y = __ldcg(a.parts + (long long)k * gridDim.x + j);
+      p[k] = k < kPartSeqMax ? p[k] + y : (k < kPartBad ? max(p[k], y) : min(p[k], y));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kParts; ++k)
+    p[k] = k < kPartSeqMax ? warp_sum(p[k]) : (k < kPartBad ? warp_max(p[k]) : warp_min_ll(p[k]));
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) s_part[warp][k] = p[k];
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {
+      long long x = s_part[0][k];
+      for (int w = 1; w < kWarps; ++w) {
+        const long long y = s_part[w][k];
+        x = k < kPartSeqMax ? x + y : (k < kPartBad ? max(x, y) : min(x, y));
+      }
+      p[k] = x;
+    }
+    const long long count = lines / 4, e = p[kPartBad];
+    long long* info = a.info;
+    info[kCount] = count;
+    info[kConsumed] = count ? a.nl[4 * count - 1] + 1 : 0;
+    info[kError] = e == kNone ? 0 : (e % 4 == 0 ? 1 : (e % 4 == 2 ? 2 : 3));
+    info[kErrorLine] = e;
+    info[kLines] = lines;
+    info[kSeqSum] = p[kPartSeq];
+    info[kSeqMax] = p[kPartSeqMax];
+    info[kPackedSum] = p[kPartPacked];
+    info[kHdrSum] = p[kPartHdr];
+    info[kHdrMax] = p[kPartHdrMax];
+    info[kPlusSum] = p[kPartPlus];
+    info[kPlusMax] = p[kPartPlusMax];
+    info[kAmbig] = p[kPartAmbig];
+    info[kOverflowRow] = p[kPartFar];
+    for (int k = kOverflowRow + 1; k < kInfoSlots; ++k) info[k] = 0;
   }
 }
 
-__global__ void finish_scan_kernel(const long long* __restrict__ nl,
-                                   const long long* __restrict__ total_lines, long long cap,
-                                   long long* info) {
-  const long long lines = min(*total_lines, cap);
-  const long long count = lines / 4;
-  info[kLines] = lines;
-  info[kCount] = count;
-  info[kConsumed] = count ? nl[4 * count - 1] + 1 : 0;
-  const long long e = info[kErrorLine];
-  info[kError] = e == kNone ? 0 : (e % 4 == 0 ? 1 : (e % 4 == 2 ? 2 : 3));
+inline long long scan_tiles(long long n) { return n > 0 ? (n + kTile - 1) / kTile : 1; }
+
+// CTAs of `threads` threads of `kernel` that the current device holds at
+// once (at most kScanCtasPerSm an SM), queried once per device and kernel.
+long long resident_ctas(const void* kernel, int threads) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> per_sm;
+  int dev = 0, occ = 1;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = per_sm.find({dev, kernel});
+    if (it != per_sm.end()) {
+      occ = it->second;
+    } else if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, 0) ==
+                   cudaSuccess && occ > 0) {
+      per_sm[{dev, kernel}] = occ;
+    } else {
+      occ = 1;
+    }
+  }
+  return (long long)(occ < kScanCtasPerSm ? occ : kScanCtasPerSm) * sm_count();
 }
 
-inline long long scan_tiles(long long n) { return (n + kTile - 1) / kTile; }
-
-// The records kernel's grid: a warp per record up to a few CTAs per SM,
-// beyond that the warps stride.
-inline unsigned records_grid(long long max_records) {
-  const int sms = sm_count();
-  const long long want = (max_records + kWarps - 1) / kWarps;
-  const long long most = 8LL * sms;
-  return (unsigned)(want < 1 ? 1 : (want < most ? want : most));
+// The records pass's grid: kWarps * kRecordsPerWarp records a CTA at once,
+// at most what the card holds at once (the CTAs then stride), at most
+// `most` CTAs (the parts' room).
+unsigned records_grid(long long max_records, long long most) {
+  const long long per_cta = (long long)kWarps * kRecordsPerWarp;
+  long long g = (max_records + per_cta - 1) / per_cta;
+  const long long resident = resident_ctas((const void*)records_kernel, kThreads);
+  g = g < resident ? g : resident;
+  g = g < most ? g : most;
+  return (unsigned)(g < 1 ? 1 : g);
 }
 
 // ---------------------------------------------------------------------------
@@ -728,99 +1067,372 @@ __global__ void __launch_bounds__(kGatherThreads) gather_kernel(GatherArgs a) {
 // 3. v1/v2 stream build
 // ---------------------------------------------------------------------------
 
-// Per record: packed bytes, quality bytes, u16 + header, u16 + plus, and
-// 1 + N count (in npos units), as fields 0-4 of f (stride n + 1).
-__global__ void stream_fields_kernel(const long long* __restrict__ offsets,
-                                     const int32_t* __restrict__ n_counts, long long n,
-                                     long long* __restrict__ f) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const long long* o = offsets + i * 8;
-  const long long s = n + 1;
-  f[i] = (o[3] + 3) >> 2;
-  f[s + i] = o[3];
-  f[2 * s + i] = 2 + o[1];
-  f[3 * s + i] = 2 + o[5];
-  f[4 * s + i] = 1 + (long long)n_counts[i];
-}
+constexpr int kStreamThreads = 256;
+constexpr int kStreamMaxRecords = 128;  // records per tile of the stream build at most
+constexpr int kStreamGroup = 8;         // lanes per record of the stream build
+constexpr int kStreamBatch = 2;         // jobs a lane loads before it stores them
+constexpr int kStreamWindow = 40960;    // dynamic shared bytes: the tile's six ranges
+constexpr int kStreamMinCtas = 3;       // the stream build's CTAs per SM to fit registers for
 
-__device__ inline void put_le(uint8_t* out, long long at, long long end, unsigned long long v,
-                              int unit) {
-  for (int k = 0; k < unit; ++k)
-    if (at + k < end) out[at + k] = (uint8_t)(v >> (8 * k));
-}
-
-struct Regions {
-  long long base[6];  // byte offset of each stream in the buffer
-  long long end;      // the buffer's size
+struct StreamArgs {
+  const uint8_t* text;
+  const long long* offsets;  // (n, 8)
+  long long n;
+  const uint8_t* packed;
+  long long pp;
+  const uint8_t* qual;
+  long long qp;
+  const uint8_t* nmask;
+  long long np;
+  const int32_t* n_counts;
+  int unit;                  // bytes per N position: 2, or 4 (wide)
+  int tile_records;
+  long long base[6];         // byte offset of each stream in the buffer
+  long long end;             // the buffer's size
+  uint8_t* out;              // 16-byte aligned
+  long long* info;
+  unsigned* ticket;
+  unsigned long long* status;
+  unsigned long long epoch;
 };
 
-// One warp per record: its bytes of each of the six streams.
-__global__ void __launch_bounds__(kThreads) write_streams_kernel(
-    const uint8_t* __restrict__ text, const long long* __restrict__ offsets, long long n,
-    const uint8_t* __restrict__ packed, long long pp, const uint8_t* __restrict__ qual_delta,
-    long long qp, const uint8_t* __restrict__ nmask, long long np,
-    const int32_t* __restrict__ n_counts, int unit, const long long* __restrict__ f,
-    Regions g, uint8_t* __restrict__ out) {
-  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const long long s = n + 1;
-  const long long* o = offsets + i * 8;
-  const long long len = o[3];
-  const long long plen = (len + 3) >> 2;
-  // sequence and quality
-  {
-    const long long at = g.base[0] + f[i];
-    for (long long j = lane; j < plen; j += 32)
-      if (at + j < g.end) out[at + j] = packed[i * pp + j];
+// A tile's records in shared memory: where each record's bytes of each
+// stream start (in the tile's range when the tile is staged in the window,
+// else in the buffer), where its header and plus payloads lie in the text,
+// its read length, payload lengths and N count; the six ranges.
+struct StreamTile {
+  long long at[6][kStreamMaxRecords];
+  long long hdr[kStreamMaxRecords], plus[kStreamMaxRecords], len[kStreamMaxRecords];
+  int hl[kStreamMaxRecords], pl[kStreamMaxRecords], cnt[kStreamMaxRecords];
+  long long lo[6];     // where each stream's range of the tile starts in the buffer
+  long long hi[6];     // its size: the limit of the records' offsets in the tile
+  long long shift[6];  // where the range starts in the window
+  long long used;      // the window's bytes in use
+  int staged;          // the six ranges fit the window
+};
+
+// Where a record's bytes of stream k go: the tile's shared-memory window
+// (kStaged; zeroed first, so a job's partial words are or-ed in by shared
+// atomics and the bytes of other jobs in them stay), or the buffer itself
+// (byte stores). Bytes past the range (the buffer) are dropped.
+// The n bytes o (1 <= n <= 16, byte 0 at x) of stream k.
+template <bool kStaged>
+__device__ inline void sink_job(const StreamTile& t, uint8_t* win, uint8_t* out, long long end,
+                                int k, long long x, int n, const uint32_t (&o)[4]) {
+  const long long hi = kStaged ? t.hi[k] : end;
+  if (x + n > hi) n = (int)(hi - x);
+  if (n <= 0) return;
+  if (!kStaged) {
+    if (n == 16 && !(x & 15)) {
+      *reinterpret_cast<uint4*>(out + x) = make_uint4(o[0], o[1], o[2], o[3]);
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      if (q < n) out[x + q] = (uint8_t)(o[q >> 2] >> (8 * (q & 3)));
+    return;
   }
-  {
-    const long long at = g.base[1] + f[s + i];
-    for (long long j = lane; j < len; j += 32)
-      if (at + j < g.end) out[at + j] = qual_delta[i * qp + j];
+  const long long wo = x + t.shift[k];
+  if (n == 16 && !(wo & 15)) {
+    *reinterpret_cast<uint4*>(win + wo) = make_uint4(o[0], o[1], o[2], o[3]);
+    return;
   }
-  // headers and plus payloads: u16 length, bytes
-  for (int which = 0; which < 2; ++which) {
-    const long long src = o[which ? 4 : 0], l = o[which ? 5 : 1];
-    const long long at = g.base[which ? 3 : 2] + f[(which ? 3 : 2) * s + i];
-    if (lane == 0) put_le(out, at, g.end, (unsigned long long)l, 2);
-    for (long long j = lane; j < l; j += 32)
-      if (at + 2 + j < g.end) out[at + 2 + j] = text[src + j];
+  // the bytes moved to their place in five aligned words, each or-ed in
+  const unsigned sh = 8u * (unsigned)(wo & 3);
+  const uint32_t w[5] = {o[0] << sh, __funnelshift_l(o[0], o[1], sh),
+                         __funnelshift_l(o[1], o[2], sh), __funnelshift_l(o[2], o[3], sh),
+                         __funnelshift_l(o[3], 0u, sh)};
+  uint32_t* dst = reinterpret_cast<uint32_t*>(win + (wo & ~3LL));
+  const int b = (int)(wo & 3), e = b + n;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const uint32_t m = word_mask(b, e, i);
+    if (m) atomicOr(dst + i, w[i] & m);
   }
-  // N positions: the count, then the set bits of the row's mask in order
-  {
-    const long long cnt = n_counts[i];
-    const long long at = g.base[4] + (long long)unit * f[4 * s + i];
-    if (lane == 0) put_le(out, at, g.end, (unsigned long long)cnt, unit);
-    if (cnt) {
-      const long long nbytes = (len + 7) >> 3;
-      long long carry = 0;
-      for (long long b0 = 0; b0 < nbytes && carry < cnt; b0 += 32) {
-        const long long bi = b0 + lane;
-        const unsigned bits = bi < nbytes ? nmask[i * np + bi] : 0u;
-        const long long c = __popc(bits);
-        const long long incl = warp_incl(c);
-        long long rank = carry + incl - c;
-        for (unsigned rest = bits; rest; rest &= rest - 1) {
-          const long long pos = bi * 8 + (__ffs(rest) - 1);
-          if (rank < cnt) put_le(out, at + (long long)unit * (1 + rank), g.end,
-                                 (unsigned long long)pos, unit);
-          ++rank;
+}
+
+// The `unit`-byte little-endian v at x of stream k.
+template <bool kStaged>
+__device__ inline void sink_le(const StreamTile& t, uint8_t* win, uint8_t* out, long long end,
+                               int k, long long x, unsigned long long v, int unit) {
+  const uint32_t o[4] = {(uint32_t)v, (uint32_t)(v >> 32), 0, 0};
+  sink_job<kStaged>(t, win, out, end, k, x, unit, o);
+}
+
+// A piece of a record: n bytes from src to the buffer at d. Its jobs are the
+// bytes before its first aligned 16-byte unit (the head), each aligned unit
+// inside it, and the bytes after its last one (the tail); a piece inside
+// one unit is one job.
+struct Piece {
+  const uint8_t* src;
+  long long d, n;
+};
+
+__device__ inline long long piece_jobs(const Piece& p) {
+  if (p.n <= 0) return 0;
+  const long long a = (p.d + 15) & ~15LL, e = (p.d + p.n) & ~15LL;
+  return (a > p.d) + (e > a ? (e - a) >> 4 : 0) + ((e > a ? e : a) < p.d + p.n);
+}
+
+// Job i of piece p (branch-free): the buffer bytes [*x, *x + *k), *k = 16 at
+// an aligned *x for a unit; *src the source of byte *x.
+__device__ inline void piece_job(const Piece& p, long long i, long long* x, int* k,
+                                 const uint8_t** src) {
+  const long long a = (p.d + 15) & ~15LL, e = (p.d + p.n) & ~15LL, end = p.d + p.n;
+  const long long h = a > p.d ? 1 : 0;
+  const bool head = h && i == 0;
+  const long long u = i - h, units = e > a ? (e - a) >> 4 : 0;
+  const long long tail = e > a ? e : a;
+  *x = head ? p.d : (u < units ? a + 16 * u : tail);
+  *k = (int)(head ? (a < end ? a : end) - p.d : (u < units ? 16 : end - tail));
+  *src = p.src + (*x - p.d);
+}
+
+// Piece w of four, field by field (no copy of the four to local memory).
+__device__ inline Piece pick_piece(int w, const Piece& p0, const Piece& p1, const Piece& p2,
+                                   const Piece& p3) {
+  Piece p;
+  p.src = w == 0 ? p0.src : (w == 1 ? p1.src : (w == 2 ? p2.src : p3.src));
+  p.d = w == 0 ? p0.d : (w == 1 ? p1.d : (w == 2 ? p2.d : p3.d));
+  p.n = w == 0 ? p0.n : (w == 1 ? p1.n : (w == 2 ? p2.n : p3.n));
+  return p;
+}
+
+// The aligned 16-byte word of src and the next where the k bytes from src
+// reach it (else the same word again); *off: src's offset in the first.
+__device__ inline void load_job(const uint8_t* src, int k, int* off, uint4* lo, uint4* hi) {
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  *off = (int)(sa & 15);
+  const uint4* base = reinterpret_cast<const uint4*>(sa - *off);
+  *lo = __ldg(base);
+  *hi = __ldg(base + (*off + k > 16 ? 1 : 0));
+}
+
+// The 16 bytes from byte off of the 32 bytes (lo, hi), as four words.
+__device__ inline void realign16(const uint4& lo, const uint4& hi, int off, uint32_t (&o)[4]) {
+  uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  if (off & 8) {
+#pragma unroll
+    for (int k = 0; k + 2 < 8; ++k) w[k] = w[k + 2];
+  }
+  if (off & 4) {
+#pragma unroll
+    for (int k = 0; k + 1 < 8; ++k) w[k] = w[k + 1];
+  }
+  const unsigned s = 8u * (unsigned)(off & 3);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(w[k], w[k + 1], s);
+}
+
+// The tile's records by groups of kStreamGroup lanes: their pieces, computed
+// fields and N positions, into the window (kStaged) or the buffer.
+template <bool kStaged>
+__device__ void stream_records(const StreamArgs& a, const StreamTile& t, long long i0, int count,
+                               uint8_t* win) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int sub = lane % kStreamGroup, grp = lane / kStreamGroup;
+  constexpr int kPerWarp = 32 / kStreamGroup;
+  constexpr int kGroups = kStreamThreads / kStreamGroup;
+  const long long u = a.unit;
+  // every lane of a warp runs each step (a group past the tile idles), so
+  // the shuffles need no divergent masks
+  for (int r0 = (tid >> 5) * kPerWarp; r0 < count; r0 += kGroups) {
+    const int r = r0 + grp;
+    const bool on = r < count;
+    const int rr = on ? r : 0;
+    const long long len = on ? t.len[rr] : 0, rec = i0 + rr;
+    const Piece p0 = {a.packed + rec * a.pp, t.at[0][rr], (len + 3) >> 2};
+    const Piece p1 = {a.qual + rec * a.qp, t.at[1][rr], len};
+    const Piece p2 = {a.text + t.hdr[rr], t.at[2][rr] + 2, on ? t.hl[rr] : 0};
+    const Piece p3 = {a.text + t.plus[rr], t.at[3][rr] + 2, on ? t.pl[rr] : 0};
+    const long long f1 = piece_jobs(p0), f2 = f1 + piece_jobs(p1), f3 = f2 + piece_jobs(p2);
+    const long long jobs = f3 + piece_jobs(p3);
+    for (long long j0 = 0; j0 < jobs; j0 += (long long)kStreamGroup * kStreamBatch) {
+      // every slot's two aligned source words are loaded before any is used
+      uint4 lo[kStreamBatch], hi[kStreamBatch];
+      long long x[kStreamBatch];
+      int k[kStreamBatch], off[kStreamBatch], w[kStreamBatch];
+#pragma unroll
+      for (int b = 0; b < kStreamBatch; ++b) {
+        const long long j = j0 + sub + (long long)kStreamGroup * b;
+        w[b] = (j >= f1) + (j >= f2) + (j >= f3);
+        const Piece pw = pick_piece(w[b], p0, p1, p2, p3);
+        const long long before = w[b] == 0 ? 0 : (w[b] == 1 ? f1 : (w[b] == 2 ? f2 : f3));
+        const uint8_t* src;
+        piece_job(pw, j - before, &x[b], &k[b], &src);
+        if (j >= jobs) {  // past the jobs: the offsets, a word it ignores
+          k[b] = 0;
+          src = reinterpret_cast<const uint8_t*>(a.offsets);
         }
-        carry += __shfl_sync(kFull, incl, 31);
+        load_job(src, k[b], &off[b], &lo[b], &hi[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < kStreamBatch; ++b) {
+        if (!k[b]) continue;
+        uint32_t o[4];
+        realign16(lo[b], hi[b], off[b], o);
+        sink_job<kStaged>(t, win, a.out, a.end, w[b], x[b], k[b], o);
+      }
+    }
+    // the computed fields, a lane each
+    const long long cnt = on ? t.cnt[rr] : 0;
+    if (on) {
+      if (sub < 4) {
+        const int k = 2 + sub;
+        const unsigned long long v =
+            sub == 0 ? t.hl[rr] : (sub == 1 ? t.pl[rr] : (sub == 2 ? cnt : len));
+        const int width = sub == 2 ? a.unit : (sub == 3 ? 4 : 2);
+        sink_le<kStaged>(t, win, a.out, a.end, k, t.at[k][rr], v, width);
+      }
+    }
+    // N positions: four mask bytes a lane, ranked over the group
+    const long long nbytes = cnt ? (len + 7) >> 3 : 0, at4 = t.at[4][rr];
+    const uint8_t* mask = a.nmask + rec * a.np;
+    long long carry = 0;
+    const long long most = __reduce_max_sync(kFull, (unsigned)min(nbytes, 0x7fffffffLL));
+    for (long long b0 = 0; b0 < most; b0 += 4LL * kStreamGroup) {
+      const long long bi = b0 + 4LL * sub;
+      uint32_t bits = 0;
+      if (carry < cnt) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t m = mask[bi + q < nbytes ? bi + q : nbytes - 1];
+          bits |= (bi + q < nbytes ? m : 0u) << (8 * q);
+        }
+      }
+      const int c = __popc(bits);
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < kStreamGroup; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o, kStreamGroup);
+        if (sub >= o) incl += y;
+      }
+      long long rank = carry + incl - c;
+      for (uint32_t rest = bits; rest && rank < cnt; rest &= rest - 1, ++rank)
+        sink_le<kStaged>(t, win, a.out, a.end, 4, at4 + u * (1 + rank),
+                         (unsigned long long)(bi * 8 + __ffs(rest) - 1), a.unit);
+      carry += __shfl_sync(kFull, incl, kStreamGroup - 1, kStreamGroup);
+    }
+  }
+}
+
+// One tile of a.tile_records records per CTA, tiles by ticket:
+// 1. each record's bytes of the packed, quality, header and plus streams
+//    and its N positions (in units), their exclusive prefix over the CTA
+//    (where each record's bytes start in the tile's ranges) and sums (the
+//    tile's aggregate, published at once);
+// 2. a group of kStreamGroup lanes per record writes the record's pieces
+//    (packed row, quality row, header and plus payloads: head bytes, aligned
+//    16-byte units, tail bytes, each read as aligned words realigned by
+//    funnel shifts, kStreamBatch jobs a lane loaded before any is stored),
+//    its computed fields (u16 header and plus lengths, the N count, the u32
+//    length), then its N positions (the set bits of its mask, ranked by a
+//    scan over the group), into a shared-memory window that holds the
+//    tile's six ranges, each from an aligned offset;
+// 3. the look-back over the tiles before (by the whole CTA): where the
+//    ranges start in the buffer; the CTA stores the window in aligned
+//    16-byte units (two aligned window words realigned a unit), byte stores
+//    where a range starts or ends inside a unit (the tile beside owns the
+//    unit's other bytes).
+// A tile whose ranges do not fit the window looks back first and writes the
+// buffer in 2 directly (two records that share a unit each store their own
+// bytes of it). The tile of the last ticket writes info.
+__global__ void __launch_bounds__(kStreamThreads, kStreamMinCtas) streams_kernel(StreamArgs a) {
+  extern __shared__ __align__(16) uint8_t win[];
+  __shared__ StreamTile t;
+  __shared__ long long sh[33 * 5];
+  const long long tile = take_ticket(a.ticket);
+  const long long i0 = tile * a.tile_records;
+  const int count = (int)min((long long)a.tile_records, a.n - i0);
+  const int tid = threadIdx.x;
+  long long v[5] = {0, 0, 0, 0, 0};
+  if (tid < count) {
+    const long long* o = a.offsets + (i0 + tid) * 8;
+    const long long len = o[3];
+    const int hl = (int)o[1], pl = (int)o[5], cnt = a.n_counts[i0 + tid];
+    t.hdr[tid] = o[0];
+    t.plus[tid] = o[4];
+    t.len[tid] = len;
+    t.hl[tid] = hl;
+    t.pl[tid] = pl;
+    t.cnt[tid] = cnt;
+    v[0] = (len + 3) >> 2;
+    v[1] = len;
+    v[2] = 2 + (long long)hl;
+    v[3] = 2 + (long long)pl;
+    v[4] = 1 + (long long)cnt;
+  }
+  long long ex[5], tot[5], pre[5];
+  block_excl_n<5>(v, ex, tot, sh);
+  const long long mult[5] = {1, 1, 1, 1, a.unit};
+  if (tid == 0) {
+    // the window: each stream's range of the tile from an aligned offset, in
+    // order, 16 bytes to spare for the realigned reads of the stores
+    long long used = 0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const long long size = k < 5 ? tot[k] * mult[k] : 4LL * count;
+      t.shift[k] = used;
+      t.hi[k] = size;
+      used += (size + 15) & ~15LL;
+    }
+    t.used = used;
+    t.staged = used + 16 <= kStreamWindow;
+    if (t.staged && tile > 0) publish(a.status, tile, a.epoch, kAggregate, tot);
+  }
+  __syncthreads();
+  if (t.staged) {
+    // 2. the records into the window at their offsets in the tile, while
+    // the tiles before publish; then the tile's place in the buffer
+    if (tid < count) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) t.at[k][tid] = ex[k] * mult[k];
+      t.at[5][tid] = 4LL * tid;
+    }
+    for (long long x = 16LL * tid; x < t.used; x += 16LL * kStreamThreads)
+      *reinterpret_cast<uint4*>(win + x) = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    stream_records<true>(a, t, i0, count, win);
+    tile_prefix_cta<5>(a.status, tile, a.epoch, tot, pre, sh, true);
+  } else {
+    tile_prefix_cta<5>(a.status, tile, a.epoch, tot, pre, sh);
+    if (tid < count) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) t.at[k][tid] = a.base[k] + (pre[k] + ex[k]) * mult[k];
+      t.at[5][tid] = a.base[5] + 4 * (i0 + tid);
+    }
+    __syncthreads();
+    stream_records<false>(a, t, i0, count, win);
+  }
+  if (tid == 0) {
+    if (tile == (long long)gridDim.x - 1) {
+      a.info[0] = a.unit * (pre[4] + tot[4]);
+      a.info[1] = pre[0] + tot[0];
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) t.lo[k] = a.base[k] + pre[k] * mult[k];
+    t.lo[5] = a.base[5] + 4 * i0;
+  }
+  if (!t.staged) return;
+  // 3. the window's ranges into the buffer: aligned 16-byte units, each read
+  // as two aligned window words realigned by funnel shifts; bytes at the ends
+  __syncthreads();
+  for (int k = 0; k < 6; ++k) {
+    const long long lo = t.lo[k];
+    const long long hi = min(lo + t.hi[k], a.end);
+    const long long shift = t.shift[k] - lo;  // window byte of buffer byte x: x + shift
+    for (long long u = (lo & ~15LL) + 16LL * tid; u < hi; u += 16LL * kStreamThreads) {
+      if (u >= lo && u + 16 <= hi) {
+        const long long w = u + shift;
+        const uint4* q = reinterpret_cast<const uint4*>(win + (w & ~15LL));
+        uint32_t o[4];
+        realign16(q[0], q[1], (int)(w & 15), o);
+        *reinterpret_cast<uint4*>(a.out + u) = make_uint4(o[0], o[1], o[2], o[3]);
+      } else {
+        for (long long b = u > lo ? u : lo; b < u + 16 && b < hi; ++b) a.out[b] = win[b + shift];
       }
     }
   }
-  // length: u32
-  if (lane == 0) put_le(out, g.base[5] + 4 * i, g.end, (unsigned long long)len, 4);
-}
-
-__global__ void finish_streams_kernel(const long long* __restrict__ f, long long n, int unit,
-                                      long long* info) {
-  const long long s = n + 1;
-  info[0] = (long long)unit * f[4 * s + n];
-  info[1] = f[n];
 }
 
 // ---------------------------------------------------------------------------
@@ -1449,19 +2061,24 @@ __global__ void __launch_bounds__(kWriteThreads) write_kernel(Assemble a) {
              (unsigned long long)kFaultNposInvalid);
 }
 
-// Raises the write kernel's dynamic shared memory cap once per device.
-cudaError_t ready_write() {
+// Raises a kernel's dynamic shared memory cap to `bytes` once per device.
+cudaError_t raise_shared(const void* kernel, int bytes) {
   static std::mutex mu;
-  static std::set<int> raised;
+  static std::set<std::pair<int, const void*>> raised;
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
   std::lock_guard<std::mutex> lock(mu);
-  if (raised.count(dev)) return cudaSuccess;
-  rc = cudaFuncSetAttribute((const void*)write_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            kRowStage + 64 + 2 * (kSpanStage + 32) + kWindow);
-  if (rc == cudaSuccess) raised.insert(dev);
+  if (raised.count({dev, kernel})) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc == cudaSuccess) raised.insert({dev, kernel});
   return rc;
+}
+
+// Raises the write kernel's dynamic shared memory cap once per device.
+cudaError_t ready_write() {
+  return raise_shared((const void*)write_kernel,
+                      kRowStage + 64 + 2 * (kSpanStage + 32) + kWindow);
 }
 
 inline long long uniform_stride(long long n, int w, long long r, long long vmax) {
@@ -1471,52 +2088,43 @@ inline long long uniform_stride(long long n, int w, long long r, long long vmax)
 }
 
 // Raises the chain kernel's dynamic shared memory cap once per device.
-cudaError_t ready_chain() {
-  static std::mutex mu;
-  static std::set<int> raised;
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return rc;
-  std::lock_guard<std::mutex> lock(mu);
-  if (raised.count(dev)) return cudaSuccess;
-  rc = cudaFuncSetAttribute((const void*)chain_kernel,
-                            cudaFuncAttributeMaxDynamicSharedMemorySize, 5 * kChainMaxTile);
-  if (rc == cudaSuccess) raised.insert(dev);
-  return rc;
-}
+cudaError_t ready_chain() { return raise_shared((const void*)chain_kernel, 5 * kChainMaxTile); }
 
 }  // namespace
 
 extern "C" {
 
 // text: n bytes, 16-byte aligned. scratch: the bytes ops/records.py
-// records_scan_scratch gives. offsets: (max_records, 8) int64; qmin:
-// (max_records,) int16; info: 16 int64 (ops/records.py SCAN_*); rows past
-// the count are not written.
-int fq_records_scan(const void* text, long long n, long long max_records, void* scratch,
-                    void* offsets, void* qmin, void* info, void* stream) {
-  if (n < 0 || max_records <= 0) return (int)cudaErrorInvalidValue;
+// records_scan_scratch gives for max_records and ctas (the records pass's
+// CTAs at most). offsets: (max_records, 8) int64; qmin: (max_records,)
+// int16; info: 16 int64 (ops/records.py SCAN_*), every slot written; rows
+// past the count are not written. ticket, status, epoch: as
+// fq_rows_gather's, status words for ceil(n / 32 KiB) tiles. Two launches.
+int fq_records_scan(const void* text, long long n, long long max_records, int ctas,
+                    void* scratch, void* ticket, void* status, long long epoch, void* offsets,
+                    void* qmin, void* info, void* stream) {
+  if (n < 0 || max_records <= 0 || ctas < 1 || epoch < 1 || (uintptr_t)text % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* t = (const uint8_t*)text;
-  const long long tiles = scan_tiles(n);
-  long long* counts = (long long*)scratch;
-  long long* nl = (long long*)((char*)scratch + align256(8 * (tiles + 1)));
-  const long long cap = 4 * max_records;
-  long long* inf = (long long*)info;
-  init_scan_kernel<<<1, 32, 0, s>>>(inf);
-  if (tiles) count_newlines_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(t, n, counts);
+  ScanArgs a;
+  a.text = (const uint8_t*)text;
+  a.n = n;
+  a.cap = 4 * max_records;
+  a.total = (long long*)scratch;
+  a.parts = (long long*)((char*)scratch + 256);
+  a.nl = (long long*)((char*)scratch + 256 + align256(8LL * kParts * ctas));
+  a.offsets = (long long*)offsets;
+  a.qmin = (int16_t*)qmin;
+  a.info = (long long*)info;
+  a.ticket = (unsigned*)ticket;
+  a.status = (unsigned long long*)status;
+  a.epoch = (unsigned long long)epoch;
+  a.tiles = scan_tiles(n);
+  const long long resident = resident_ctas((const void*)newlines_kernel, kThreads);
+  newlines_kernel<<<(unsigned)(a.tiles < resident ? a.tiles : resident), kThreads, 0, s>>>(a);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
-  if (!tiles) {
-    cudaMemsetAsync(counts, 0, 8, s);
-  } else {
-    rc = scan_fields(counts, 1, tiles, s);
-    if (rc != cudaSuccess) return (int)rc;
-    write_newlines_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(t, n, counts, nl, cap);
-  }
-  records_kernel<<<records_grid(max_records), kThreads, 0, s>>>(
-      t, nl, counts + tiles, cap, max_records, (long long*)offsets, (int16_t*)qmin, inf);
-  finish_scan_kernel<<<1, 1, 0, s>>>(nl, counts + tiles, cap, inf);
+  records_kernel<<<records_grid(max_records, ctas), kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1559,37 +2167,51 @@ int fq_rows_gather(const void* data, long long data_n, const void* starts, long 
   return (int)cudaGetLastError();
 }
 
-// The six raw streams of n records (offsets (n, 8) from the scan) into out,
-// back to back at the byte sizes s_seq .. s_len; packed / qual_delta / nmask
-// rows at their pitches, n_counts per record; wide: u32 N positions.
-// scratch: the bytes ops/records.py streams_build_scratch gives. info: 2
-// int64, the npos and seq bytes written.
+// The six raw streams of n records (offsets (n, 8) from the scan) into out
+// (16-byte aligned), back to back at the byte sizes s_seq .. s_len; packed /
+// qual_delta / nmask rows at their pitches, n_counts per record; wide: u32
+// N positions. tile_records: records per CTA (at most 128; ops/records.py
+// stream_tile_records); ticket, status, epoch: as fq_rows_gather's (status
+// words for ceil(n / tile_records) tiles). info: 2 int64, the npos and seq
+// bytes written. One launch.
 int fq_streams_build(const void* text, const void* offsets, long long n, const void* packed,
                      long long pp, const void* qual_delta, long long qp, const void* nmask,
                      long long np, const void* n_counts, int wide, long long s_seq,
                      long long s_qual, long long s_hdr, long long s_plus, long long s_npos,
-                     long long s_len, void* scratch, void* out, void* info, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  long long* f = (long long*)scratch;
-  stream_fields_kernel<<<grid_for(n, kThreads), kThreads, 0, s>>>(
-      (const long long*)offsets, (const int32_t*)n_counts, n, f);
-  cudaError_t rc = scan_fields(f, 5, n, s);
-  if (rc != cudaSuccess) return (int)rc;
-  Regions g;
+                     long long s_len, int tile_records, void* ticket, void* status,
+                     long long epoch, void* out, void* info, void* stream) {
+  if (n <= 0 || tile_records < 1 || tile_records > kStreamMaxRecords || epoch < 1 ||
+      (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  StreamArgs a;
+  a.text = (const uint8_t*)text;
+  a.offsets = (const long long*)offsets;
+  a.n = n;
+  a.packed = (const uint8_t*)packed;
+  a.pp = pp;
+  a.qual = (const uint8_t*)qual_delta;
+  a.qp = qp;
+  a.nmask = (const uint8_t*)nmask;
+  a.np = np;
+  a.n_counts = (const int32_t*)n_counts;
+  a.unit = wide ? 4 : 2;
+  a.tile_records = tile_records;
   const long long sizes[6] = {s_seq, s_qual, s_hdr, s_plus, s_npos, s_len};
   long long b = 0;
   for (int k = 0; k < 6; ++k) {
-    g.base[k] = b;
+    a.base[k] = b;
     b += sizes[k];
   }
-  g.end = b;
-  const int unit = wide ? 4 : 2;
-  write_streams_kernel<<<grid_for(n, kWarps), kThreads, 0, s>>>(
-      (const uint8_t*)text, (const long long*)offsets, n, (const uint8_t*)packed, pp,
-      (const uint8_t*)qual_delta, qp, (const uint8_t*)nmask, np, (const int32_t*)n_counts, unit,
-      f, g, (uint8_t*)out);
-  finish_streams_kernel<<<1, 1, 0, s>>>(f, n, unit, (long long*)info);
+  a.end = b;
+  a.out = (uint8_t*)out;
+  a.info = (long long*)info;
+  a.ticket = (unsigned*)ticket;
+  a.status = (unsigned long long*)status;
+  a.epoch = (unsigned long long)epoch;
+  const cudaError_t rc = raise_shared((const void*)streams_kernel, kStreamWindow);
+  if (rc != cudaSuccess) return (int)rc;
+  streams_kernel<<<grid_for(n, tile_records), kStreamThreads, kStreamWindow,
+                   (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

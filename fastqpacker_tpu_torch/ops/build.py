@@ -72,18 +72,19 @@ SIGNATURES = {
                            _P, _P, _P],
     },
     "records": {
-        # text, n, max_records, scratch, offsets, qmin, info, stream
-        "fq_records_scan": [_P, _L, _L, _P, _P, _P, _P, _P],
+        # text, n, max_records, ctas, scratch, ticket, status, epoch,
+        # offsets, qmin, info, stream
+        "fq_records_scan": [_P, _L, _L, _I, _P, _P, _P, _L, _P, _P, _P, _P],
         # data, data_n, starts (or null), starts stride, lens, lens stride,
         # r, rows, width, fill, data2, data2_n, width2, out2 (or null),
         # tile_rows, ticket, status, epoch, out, stream
         "fq_rows_gather": [_P, _L, _P, _L, _P, _L, _L, _L, _L, _I, _P, _L, _L, _P,
                            _I, _P, _P, _L, _P, _P],
         # text, offsets, n, packed, packed pitch, qual_delta, qual pitch,
-        # nmask, nmask pitch, n_counts, wide, six stream sizes, scratch,
-        # out, info, stream
+        # nmask, nmask pitch, n_counts, wide, six stream sizes,
+        # tile_records, ticket, status, epoch, out, info, stream
         "fq_streams_build": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _P, _I,
-                             _L, _L, _L, _L, _L, _L, _P, _P, _P, _P],
+                             _L, _L, _L, _L, _L, _L, _I, _P, _P, _L, _P, _P, _P],
         # seq_rows, qual_rows, pitch, lengths, r, headers, headers_n,
         # headers tile, plus, plus_n, has_plus, plus tile, npos, npos_n, wide,
         # npos tile, len_n, seq_n, qual_n, checks, tile_records, scratch, out,

@@ -549,7 +549,8 @@ def _sm_count(dev: torch.device) -> int:
 
 class _Chained:
     """The ticket word and status words of the launches whose tiles wait
-    on each other (the back-to-back gather, the assembly), one per (device,
+    on each other or count who finishes last (the scan, the back-to-back
+    gather, the stream build, the assembly), one per (device,
     CUDA stream): launches on one stream run in order, so they share them.
     The ticket is left at 0 by every launch; the status words are zeroed once
     and never cleared, and each launch takes an epoch of its own, so a word
@@ -591,7 +592,8 @@ def _check_1d(name: str, t: torch.Tensor, dtype, dev) -> None:
 def records_scan(text: torch.Tensor, max_records: int):
     """Scan up to ``max_records`` FASTQ records of the (n,) uint8 ``text``
     -> ``(offsets, qmin, info)``; see
-    :func:`..ops.records.records_scan_plain`. One launch."""
+    :func:`..ops.records.records_scan_plain`. Two launches (the newlines,
+    the records)."""
     n = text.numel()
     dev = text.device
     _check("text", text, torch.uint8, (n,), dev)
@@ -602,8 +604,11 @@ def records_scan(text: torch.Tensor, max_records: int):
     offsets = torch.empty((max_records, 8), dtype=torch.int64, device=dev)
     qmin = torch.empty((max_records,), dtype=torch.int16, device=dev)
     info = torch.empty((records.SCAN_INFO,), dtype=torch.int64, device=dev)
-    scratch = _scratch(dev, records.records_scan_scratch(n, max_records))
-    _launch(RECORDS_SCAN, dev, text, n, max_records, scratch, offsets, qmin, info)
+    ctas = records.scan_ctas(max_records, _sm_count(dev))
+    scratch = _scratch(dev, records.records_scan_scratch(max_records, ctas))
+    st, epoch = _chained_state(dev, records.scan_tiles(n))
+    _launch(RECORDS_SCAN, dev, text, n, max_records, ctas, scratch, st.ticket, st.status,
+            epoch, offsets, qmin, info)
     return offsets, qmin, info
 
 
@@ -691,10 +696,11 @@ def streams_build(
                                            n_counts, wide, sizes)
     out = torch.empty((max(sum(sizes), 1),), dtype=torch.uint8, device=dev)
     info = torch.empty((2,), dtype=torch.int64, device=dev)
-    scratch = _scratch(dev, records.streams_build_scratch(n))
+    tile = records.stream_tile_records(sizes, n)
+    st, epoch = _chained_state(dev, -(-n // tile))
     _launch(STREAMS_BUILD, dev, text, offsets, n, packed, packed.stride(0), qual_delta,
-            qual_delta.stride(0), nmask, nmask.stride(0), n_counts, int(wide), *sizes,
-            scratch, out, info)
+            qual_delta.stride(0), nmask, nmask.stride(0), n_counts, int(wide), *sizes, tile,
+            st.ticket, st.status, epoch, out, info)
     return out[: sum(sizes)], info
 
 

@@ -64,7 +64,13 @@ _NL, _CR = 0x0A, 0x0D
 _I64 = torch.int64
 
 # csrc/records.cu's geometry
-SCAN_TILE = 32768  # text bytes per CTA of the scan's newline passes (kTile)
+SCAN_TILE = 32768  # text bytes per CTA of the scan's newline pass (kTile)
+SCAN_CTA_RECORDS = 64  # records a CTA of the scan's records pass takes at once (kWarps *
+#                        kRecordsPerWarp: a group of 4 lanes each)
+SCAN_CTAS_PER_SM = 8  # the records pass's CTAs at most, per SM (kScanCtasPerSm)
+SCAN_PARTS = 10  # int64 partials per CTA of the records pass (kParts)
+STREAM_TILE_RECORDS = 128  # records per CTA of the stream build at most (kStreamMaxRecords)
+STREAM_WINDOW = 40960  # shared bytes of a stream build tile's output (kStreamWindow)
 GATHER_MAX_ROWS = 256  # rows per tile of the gather at most (kGatherMaxRows)
 GATHER_TILE_BYTES = 8192  # output bytes a gather tile aims at: from the text,
 GATHER_CHAINED_TILE_BYTES = 32768  # and back to back (fewer tiles to look back over)
@@ -75,7 +81,7 @@ ASSEMBLE_MAX_RECORDS = 64  # records per tile of the write kernel at most (kWrit
 ASSEMBLE_ROW_BYTES = 8192  # row bytes (bases or qualities) a write tile aims at
 CHECK_THREADS = 256  # records a check CTA takes at a time (kCheckThreads)
 SLOT_WORDS = 4  # int64 per check CTA in the assembly's scratch (kSlotWords)
-STATUS_WORDS = 8  # int64 per tile of the look-back status buffer (kStatusWords)
+STATUS_WORDS = 16  # int64 per tile of the look-back status buffer (kStatusWords)
 NODE_LIMIT = (1 << 31) - 2  # nodes of a chained stream, records of a block (kNodeLimit)
 
 
@@ -106,15 +112,37 @@ def assemble_tile_records(pitch: int) -> int:
     return max(1, min(ASSEMBLE_MAX_RECORDS, ASSEMBLE_ROW_BYTES // max(pitch, 1)))
 
 
-def records_scan_scratch(n: int, max_records: int) -> int:
-    """Scratch bytes of ``fq_records_scan``: the tile counts and each
-    line's newline position."""
-    return _align256(8 * (-(-n // SCAN_TILE) + 1)) + _align256(8 * (4 * max_records + 1))
+def stream_tile_records(sizes: list[int], n: int) -> int:
+    """Records per CTA of the stream build for ``n`` records and the six
+    stream ``sizes``: the largest power of two up to
+    :data:`STREAM_TILE_RECORDS` whose average output fills at most three
+    quarters of the shared-memory window (a tile that still overflows it
+    writes the buffer directly)."""
+    avg = sum(sizes) / max(n, 1)
+    tile = STREAM_TILE_RECORDS
+    while tile > 8 and tile * avg > 0.75 * STREAM_WINDOW:
+        tile //= 2
+    return tile
 
 
-def streams_build_scratch(n: int) -> int:
-    """Scratch bytes of ``fq_streams_build``: five scanned fields of n + 1."""
-    return _align256(8 * 5 * (n + 1))
+def scan_tiles(n: int) -> int:
+    """Tiles of the scan's newline pass over ``n`` bytes of text (one for
+    empty text): the status words it takes."""
+    return max(1, -(-n // SCAN_TILE))
+
+
+def scan_ctas(max_records: int, sms: int) -> int:
+    """CTAs of the scan's records pass at most (:data:`SCAN_CTA_RECORDS`
+    records a CTA at once, at most :data:`SCAN_CTAS_PER_SM` per SM): the room
+    for their partials."""
+    return max(1, min(-(-max_records // SCAN_CTA_RECORDS), SCAN_CTAS_PER_SM * sms))
+
+
+def records_scan_scratch(max_records: int, ctas: int) -> int:
+    """Scratch bytes of ``fq_records_scan``: the text's line count, the
+    records pass's partials of up to ``ctas`` CTAs and each line's newline
+    position."""
+    return 256 + _align256(8 * SCAN_PARTS * ctas) + _align256(8 * 4 * max_records)
 
 
 def assemble_scratch(r: int, checks: int) -> int:

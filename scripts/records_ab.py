@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the row gather and the FASTQ assembly of one checkout of the port
-on one GPU.
+"""Time the block-stage kernels (record scan, row gather, stream build,
+FASTQ assembly) of one checkout of the port on one GPU.
 
 Imports ``fastqpacker_tpu_torch`` from ``--root`` (a checkout of the repo,
 for example the parent commit unpacked with ``git archive`` into a
@@ -10,6 +10,8 @@ checkout's wrappers, at every block of ``chip_smoke.py``'s ``RECORD_SHAPES``
 with u32 N positions, and blocks of 37,500 and 100,000 Illumina-style read
 names of varying width):
 
+- ``scan``: ``fq_records_scan`` of the block's text (its offsets and quality
+  minima up to the count, and its info);
 - ``text``: ``fq_rows_gather`` of the quality rows from the text at the
   scan's offsets (the compress side);
 - ``back_to_back``: ``fq_rows_gather`` of the quality rows from the quality
@@ -17,6 +19,9 @@ names of varying width):
 - ``decoder``: the decode's gathers of one block as the checkout's
   ``pipeline/blocks.py`` runs them (two wrapper calls and the ``(len + 3) >> 2``
   op in a checkout without the pair gather, one pair call with it);
+- ``streams``: ``fq_streams_build`` of the six raw streams from the text,
+  the scan's offsets and the dense encode's outputs (v3's u32 N positions
+  at 100,000 records);
 - ``assemble``: ``fq_fastq_assemble`` of the block's text from the decoded
   rows and the header, plus and N-position streams.
 
@@ -34,10 +39,11 @@ counts the device operations of one call of each route (``chip_smoke.py``
 and the ``cuda`` tests take them so, from a fresh process); ``--split``
 adds each kernel's device microseconds per call; ``--set NAME=VALUE`` first
 rewrites ``constexpr int NAME`` in a copy's ``records.cu`` (``kWindow``,
-``kWriteThreads``, ...), so one constant can be timed against the tree.
+``kWriteThreads``, ``kStreamWindow``, ...), so one constant can be timed
+against the tree.
 
-Usage: python3 scripts/records_ab.py --root DIR [--shape LABEL] [--label NAME]
-       [--iters 50] [--ops-only] [--split] [--set NAME=VALUE]
+Usage: python3 scripts/records_ab.py --root DIR [--shape LABEL] [--route ROUTE]
+       [--label NAME] [--iters 50] [--ops-only] [--split] [--set NAME=VALUE]
 """
 
 from __future__ import annotations
@@ -83,6 +89,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--shape", action="append", metavar="LABEL")
+    ap.add_argument("--route", action="append", metavar="ROUTE",
+                    help="only these routes (scan, text, back_to_back, decoder, streams, "
+                         "assemble); default all")
     ap.add_argument("--label", default=None)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
@@ -163,16 +172,22 @@ def main() -> int:
                     ck.rows_gather(s_, None, (n_ + 3) >> 2, records, width // 4, 0))
 
         cases = {
+            "scan": (lambda t: ck.records_scan(t, records), (text,), cs.scan_bytes(total, records)),
             "text": (lambda t, o: ck.rows_gather(t, o[:, 6], o[:, 3], records, width, 0xFF),
                      (text, offsets), seq_total + 16 * records + records * width),
             "back_to_back": (lambda q, n_: ck.rows_gather(q, None, n_, records, width, 0),
                              (qual_s, lens_t), seq_total + 8 * records + records * width),
             "decoder": (decoder, (qual_s, seq_s, lens_t),
                         seq_total + sizes[0] + 8 * records + records * (width + width // 4)),
+            "streams": (lambda t, o, *a: ck.streams_build(t, o, *a, wide, sizes),
+                        (text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits,
+                         enc.n_counts), cs.streams_bytes(sizes, records, enc.nmask_bits)),
             "assemble": (lambda *a: ck.fastq_assemble(*a)[0][: total], asm,
                          2 * seq_total + 8 * records + sizes[2] + sizes[3] + sizes[4] + total),
         }
         for route, (fn, fargs, nbytes) in cases.items():
+            if args.route and route not in args.route:
+                continue
             out = fn(*fargs)
             outs = out if isinstance(out, tuple) else (out,)
             if route == "assemble":

@@ -1778,11 +1778,95 @@ def test_records_variable_width_names_at_100000_records(cuda):
         assert pblocks.streams_to_fastq(ds, 33, cuda, wide_npos=wide) == data
 
 
+def _scan_equal(text, max_records):
+    """The scan kernel against its plain version: every info slot, the
+    offsets and (without a fault) the quality minima of the records found."""
+    from fastqpacker_tpu_torch.ops import records as recops
+
+    got = cuda_kernels.records_scan(text, max_records)
+    want = recops.records_scan_plain(text, max_records)
+    torch.cuda.synchronize()
+    n = int(want[2][recops.SCAN_COUNT])
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[0][:n], want[0][:n])
+    if not int(want[2][recops.SCAN_ERROR]):
+        assert torch.equal(got[1][:n], want[1][:n])
+    return got
+
+
+def _scan_edge_names():
+    import torch_records_inputs as ri
+
+    return sorted(ri.scan_edge_cases())
+
+
+def _streams_edge_names():
+    import torch_records_inputs as ri
+
+    return sorted(ri.streams_edge_cases())
+
+
+@pytest.mark.parametrize("name", _scan_edge_names())
+def test_records_scan_matches_plain_at_tile_edges(name, cuda):
+    """Texts cut at the scan kernel's 32 KiB tiles (``scan_edge_cases``):
+    the card's info, offsets and quality minima equal the plain version's,
+    at the case's max_records and at one record fewer, in two launches."""
+    import torch_records_inputs as ri
+
+    data, max_records = ri.scan_edge_cases()[name]
+    text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    cuda_kernels.reset_launches()
+    for m in {max_records, max(1, max_records - 1)}:
+        _scan_equal(text, m)
+    assert cuda_kernels.launches[cuda_kernels.RECORDS_SCAN] == len({max_records,
+                                                                   max(1, max_records - 1)})
+
+
+def _streams_case(data, wide, cuda):
+    """The stream build's inputs for one block of ``data`` on the card (the
+    plain scan, gathers and encode) and its plain result."""
+    from fastqpacker_tpu_torch.ops import device as devops
+    from fastqpacker_tpu_torch.ops import records as recops
+    from fastqpacker_tpu_torch.pipeline import blocks as pblocks
+
+    text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    n = data.count(b"\n") // 4
+    offsets, _, info = recops.records_scan_plain(text, n)
+    info_h = info.cpu().numpy()
+    width = pblocks.bucket_len(int(info_h[recops.SCAN_SEQ_MAX]))
+    rows = [recops.rows_gather_plain(text, offsets[:, c], offsets[:, 3], n + 3, width, f)
+            for c, f in ((2, 0), (6, 0xFF))]
+    lens32 = torch.zeros(n + 3, dtype=torch.int32, device=cuda)
+    lens32[:n] = offsets[:, 3]
+    enc = devops.encode_arrays_plain(*rows, lens32, 33, (1 << 31) - 1 if wide else 1 << 16)
+    sizes = recops.stream_sizes(info_h, wide)
+    args = (text, offsets, enc.packed, enc.qual_delta, enc.nmask_bits, enc.n_counts, wide, sizes)
+    return args, recops.streams_build_plain(*args)
+
+
+@pytest.mark.parametrize("name", _streams_edge_names())
+@pytest.mark.parametrize("wide", [False, True])
+def test_records_streams_match_plain_at_tile_edges(name, wide, cuda):
+    """Blocks cut at the stream build's tiles of records, ranges that start
+    and end inside 16-byte units, reads with no N and all N (narrow and
+    wide), a 70,000-bp read (``streams_edge_cases``): the card's buffer and
+    info equal the plain version's, from one launch."""
+    import torch_records_inputs as ri
+
+    args, (pbuf, pinfo) = _streams_case(ri.streams_edge_cases()[name], wide, cuda)
+    cuda_kernels.reset_launches()
+    buf, info = cuda_kernels.streams_build(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(info, pinfo) and torch.equal(buf, pbuf)
+    assert cuda_kernels.launches[cuda_kernels.STREAMS_BUILD] == 1
+
+
 def test_records_kernels_from_two_threads_on_own_and_shared_streams(cuda):
-    """The decoder's pair gather and the assembly (a chain that leaves the
-    read-name fast path, u32 N positions) from two threads at once, on a
-    stream each and then on one shared stream: every call equals the plain
-    version. The ticket and status words are per stream, an epoch per call."""
+    """The scan, the stream build, the decoder's pair gather and the
+    assembly (a chain that leaves the read-name fast path, u32 N positions)
+    from two threads at once, on a stream each and then on one shared
+    stream: every call equals the plain version. The ticket and status words
+    are per stream, an epoch per call."""
     from fastqpacker_tpu_torch.ops import records as recops
 
     import torch_records_inputs as ri
@@ -1795,16 +1879,30 @@ def test_records_kernels_from_two_threads_on_own_and_shared_streams(cuda):
         blocks.append((args, recops.fastq_assemble_plain(*args), qual, seq, lens, r, width,
                        recops.rows_gather_plain(qual, None, lens, r, width, 0,
                                                 quarter=(seq, width // 4))))
+    scans = []
+    for name in ("crlf_split", "bad_plus_tile5_bad_header_tile1"):
+        data, m = ri.scan_edge_cases()[name]
+        text = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+        scans.append((text, m, recops.records_scan_plain(text, m)))
+    streams = [_streams_case(ri.streams_edge_cases()[name], bool(i), cuda)
+               for i, name in enumerate(("three_tiles_unaligned", "all_n_wide"))]
     torch.cuda.synchronize()
 
     def call(i):
         args, (pout, pinfo), qual, seq, lens, r, width, (gq, gp) = blocks[i]
         out, info = cuda_kernels.fastq_assemble(*args)
         q, pk = cuda_kernels.rows_gather(qual, None, lens, r, width, 0, quarter=(seq, width // 4))
+        text, m, (poffs, _, pscan) = scans[i]
+        offs, _, scan = cuda_kernels.records_scan(text, m)
+        sargs, (pbuf, pbinfo) = streams[i]
+        buf, binfo = cuda_kernels.streams_build(*sargs)
         torch.cuda.current_stream().synchronize()
         total = int(pinfo[0])
         assert torch.equal(info, pinfo) and torch.equal(out[:total], pout[:total])
         assert torch.equal(q, gq) and torch.equal(pk, gp)
+        n = int(pscan[recops.SCAN_COUNT])
+        assert torch.equal(scan, pscan) and torch.equal(offs[:n], poffs[:n])
+        assert torch.equal(binfo, pbinfo) and torch.equal(buf, pbuf)
 
     _from_two_threads(call, cuda, rounds=60)
     shared, errors = torch.cuda.Stream(cuda), []
@@ -1827,8 +1925,9 @@ def test_records_kernels_from_two_threads_on_own_and_shared_streams(cuda):
 
 def test_records_device_operations_per_wrapper_call(cuda):
     """One device operation per gather call, from the text, back to back
-    and as the decoder's pair; at most three per assembly call, with
-    fixed-width headers and with names of varying width. Counted by
+    and as the decoder's pair; at most three per assembly call, two per
+    scan call and one per stream build call, with fixed-width headers and
+    with names of varying width. Counted by
     ``torch.profiler`` in a process of its own (``scripts/records_ab.py
     --ops-only``): in a long process the profiler can miss kernels."""
     cmd = [sys.executable, str(REPO / "scripts" / "records_ab.py"), "--root", str(REPO),
@@ -1836,7 +1935,7 @@ def test_records_device_operations_per_wrapper_call(cuda):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
-    limit = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3}
+    limit = {"text": 1, "back_to_back": 1, "decoder": 1, "assemble": 3, "scan": 2, "streams": 1}
     assert {(c["shape"], c["route"]) for c in cases} == {
         (s, r) for s in ("v2_37500x151", "names_100000x151") for r in limit}
     for c in cases:

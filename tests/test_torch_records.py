@@ -126,6 +126,51 @@ def test_scan_equals_the_runtime_scan(data, max_records):
         assert int(info[recops.SCAN_PLUS_SUM]) == offs[:, 5].sum()
 
 
+@pytest.mark.parametrize("name", sorted(ri.scan_edge_cases()))
+def test_scan_at_tile_edges_equals_the_runtime_scan(name):
+    """Texts cut at the scan kernel's 32 KiB tiles (a newline at an edge and
+    one byte either side, a CRLF split across one, a 70,000-bp read with an N
+    past 65,536, malformed lines in two tiles, a malformed line past the
+    lines looked at, max_records reached mid-tile, empty text, no trailing
+    newline): the plain version's error, count, consumed bytes, offsets,
+    quality minima and sums equal the runtime scan's, and its v2 overflow row
+    the first record with a non-ACGT base at 65,536 or past."""
+    data, max_records = ri.scan_edge_cases()[name]
+    arr = np.frombuffer(data, np.uint8)
+    offs, consumed, err = bindings.scan_records(arr, max_records)
+    got, qmin, info = cuda_kernels.records_scan(torch.from_numpy(arr.copy()), max_records)
+    assert int(info[recops.SCAN_ERROR]) == err
+    assert err or name not in ("bad_plus_tile5_bad_header_tile1",
+                               "bad_header_tile4_bad_length_tile2")
+    if err:
+        # the lower line index wins: the fault of the earlier tile
+        want = {"bad_plus_tile5_bad_header_tile1": 1, "bad_header_tile4_bad_length_tile2": 3}
+        assert err == want[name]
+        return
+    n = int(info[recops.SCAN_COUNT])
+    assert n == len(offs) == min(max_records, (arr == 0x0A).sum() // 4)
+    assert int(info[recops.SCAN_CONSUMED]) == consumed
+    assert np.array_equal(got[:n].numpy(), offs)
+    for i in range(n):
+        q = arr[offs[i, 6] : offs[i, 6] + offs[i, 7]]
+        assert int(qmin[i]) == (int(q.min()) if len(q) else recops.EMPTY_QMIN)
+    over = recops.NONE
+    for i in range(n):
+        seq = arr[offs[i, 2] : offs[i, 2] + offs[i, 3]]
+        amb = ~np.isin(seq & 0xDF, np.frombuffer(b"ACGT", np.uint8))
+        if over == recops.NONE and amb[recops.V2_NPOS_LIMIT :].any():
+            over = i
+    assert int(info[recops.SCAN_OVERFLOW_ROW]) == over
+    assert (over != recops.NONE) == (name == "read_70000_n_past_65536")
+    if n:
+        lens = offs[:, 3]
+        assert int(info[recops.SCAN_SEQ_SUM]) == lens.sum()
+        assert int(info[recops.SCAN_SEQ_MAX]) == lens.max()
+        assert int(info[recops.SCAN_PACKED_SUM]) == ((lens + 3) // 4).sum()
+        assert int(info[recops.SCAN_HDR_SUM]) == offs[:, 1].sum()
+        assert int(info[recops.SCAN_PLUS_MAX]) == offs[:, 5].max()
+
+
 def _jax_blocks(data, block_size, route):
     p = jparser.FastqStreamParser(io.BytesIO(data), block_size=block_size)
     return list(p._blocks_numpy() if route == "numpy" else p.blocks())
@@ -278,6 +323,14 @@ def test_kernel_geometry_equals_the_source():
         return eval(m.group(1).replace("LL", ""), {})  # noqa: S307 (the repo's own source)
 
     assert const("kTile") == recops.SCAN_TILE
+    assert const("kThreads") // 32 * (32 // const("kGroup")) == recops.SCAN_CTA_RECORDS
+    assert const("kScanCtasPerSm") == recops.SCAN_CTAS_PER_SM
+    assert const("kParts") == recops.SCAN_PARTS
+    assert const("kStreamMaxRecords") == recops.STREAM_TILE_RECORDS
+    assert const("kStreamWindow") == recops.STREAM_WINDOW
+    for sizes, n in (([0] * 6, 1), ([38, 151, 30, 2, 2, 4], 1), ([10**6] * 6, 3)):
+        tile = recops.stream_tile_records([x * n for x in sizes], n)
+        assert 8 <= tile <= recops.STREAM_TILE_RECORDS and tile & (tile - 1) == 0
     assert const("kGatherMaxRows") == recops.GATHER_MAX_ROWS
     assert const("kChainMinTile") == recops.CHAIN_MIN_TILE
     assert const("kChainMaxTile") == recops.CHAIN_MAX_TILE
@@ -295,6 +348,9 @@ def test_kernel_geometry_equals_the_source():
         for chained in (False, True):
             assert 1 <= recops.gather_tile_rows(w, chained) <= recops.GATHER_MAX_ROWS
         assert 1 <= recops.assemble_tile_records(w) <= recops.ASSEMBLE_MAX_RECORDS
+    for records, sms in ((1, 132), (37_500, 132), (100_000, 132), (10**7, 4)):
+        assert 1 <= recops.scan_ctas(records, sms) <= recops.SCAN_CTAS_PER_SM * sms
+    assert recops.scan_tiles(0) == 1 and recops.scan_tiles(recops.SCAN_TILE + 1) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +372,28 @@ def test_streams_equal_the_runtime_stream_build(data, wide):
     for name in FIELDS:
         assert getattr(got, name) == bytes(memoryview(getattr(want, name))), name
     assert (got.num_records, got.original_seq_size) == (want.num_records, want.original_seq_size)
+
+
+@pytest.mark.parametrize("name", sorted(ri.streams_edge_cases()))
+@pytest.mark.parametrize("wide", [False, True])
+def test_streams_at_tile_edges_equal_the_runtime_stream_build(name, wide):
+    """Blocks cut at the stream build kernel's tiles of records (one tile,
+    one record either side, three tiles of ranges that start and end inside
+    16-byte units), reads with no N and all N, narrow and wide, and a
+    70,000-bp read: the six streams equal the runtime's, u16 and u32 N
+    positions."""
+    data = ri.streams_edge_cases()[name]
+    jblock = _jax_blocks(data, 1 << 20, "native")[0]
+    pblock = _port_blocks(data, 1 << 20, "view")[0]
+    assert pblock.n == jblock.n == data.count(b"\n") // 4
+    want = bindings.build_raw_streams(jblock, 33, wide)
+    got = pblocks.block_to_raw_streams(pblock, 33, wide_npos=wide)
+    for field in FIELDS:
+        assert getattr(got, field) == bytes(memoryview(getattr(want, field))), field
+    assert (got.num_records, got.original_seq_size) == (want.num_records, want.original_seq_size)
+    if name.startswith("records_"):  # the kernel's tile at these sizes: the cut is at its edge
+        sizes = recops.stream_sizes(pblock.info, wide)
+        assert recops.stream_tile_records(sizes, pblock.n) == recops.STREAM_TILE_RECORDS
 
 
 @pytest.mark.parametrize("version", [1, 2, 3])
