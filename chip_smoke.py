@@ -96,8 +96,10 @@ Phases, each fatal on failure:
    same histogram keys (printed only: the port never calls it);
    ``fq_wctx_layout`` (the encoder's symbol-index and context matrices, the
    decoder's start matrix) and ``fq_wctx_unlayout`` (packed rows or quality
-   deltas) on the mesh block at sequence orders 2, 4, 6 and quality orders 0,
-   1, on the lanes the mesh path picks for each, byte-equal, the wire bytes
+   deltas; ``torch.masked_select`` of the transposed matrix's data cells
+   beside it, printed only) on the mesh block at sequence orders 2, 4, 6 and
+   quality orders 0, 1, on the lanes the mesh path picks for each,
+   byte-equal, the wire bytes
    equal to the block's own streams; the two length mismatches and an index
    >= npres in a decoded matrix raising their strings on the card as on the
    CPU. Phases 5 and 9 hold their launches: every v3 block prepares its
@@ -1435,10 +1437,10 @@ def ctx_time(name, shape, kfn, pfn, args, nbytes, ops, err, lib=None) -> tuple:
     pms = gpu_ms(pfn, sets[:1], 1)
     extra = {}
     if lib is not None:
-        lname, lfn, largs = lib
+        lname, lfn, largs, what = lib
         extra[f"{lname}_ms"] = gpu_ms(lfn, rotations(largs, largs[0].numel() * 8), 20)
         print(f"phase=ctxprep kernel={name} {shape} {lname}_ms={extra[f'{lname}_ms']:.6f} "
-              f"(the same keys counted by one PyTorch call; printed only)")
+              f"({what} by one PyTorch call; printed only)")
     return (*report(name, shape, kms, pms, None, nbytes, ops, err), extra)
 
 
@@ -1467,7 +1469,8 @@ def ctxprep_corpus(ck, ctxprep, wctx, label: str, data: bytes, layouts: bool) ->
     times[ck.QCTX_PREPARE] = ctx_time(
         ck.QCTX_PREPARE, shape, ck.qctx_prepare, ctxprep.qctx_prepare_plain, (delta, bounds),
         2 * n + 8 * (nrec + 1) + 4 * ctxprep.QCTX_CONTEXTS * 256, 16 * n, errs[ck.QCTX_PREPARE],
-        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.QCTX_CONTEXTS * 256), (keys,)))
+        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.QCTX_CONTEXTS * 256), (keys,),
+         "the same keys counted"))
     del keys
     bases, hist6 = ck.sctx_prepare(packed, pbounds, n)
     pbases, phist6 = ctxprep.sctx_prepare_plain(packed, pbounds)
@@ -1478,7 +1481,8 @@ def ctxprep_corpus(ck, ctxprep, wctx, label: str, data: bytes, layouts: bool) ->
         ck.SCTX_PREPARE, shape, lambda a, b: ck.sctx_prepare(a, b, n),
         ctxprep.sctx_prepare_plain, (packed, pbounds),
         m + n + 16 * (nrec + 1) + 4 * ctxprep.SCTX_CONTEXTS * 4, 16 * n, errs[ck.SCTX_PREPARE],
-        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.SCTX_CONTEXTS * 4), (keys,)))
+        ("bincount", lambda k: torch.bincount(k, minlength=ctxprep.SCTX_CONTEXTS * 4), (keys,),
+         "the same keys counted"))
     del keys
     print(f"phase=ctxprep corpus={label} records={nrec} symbols={n} packed_bytes={m} "
           f"qctx_prepare_byte_equal=true sctx_prepare_byte_equal=true")
@@ -1508,7 +1512,8 @@ def ctxprep_corpus(ck, ctxprep, wctx, label: str, data: bytes, layouts: bool) ->
         pstart = ctxprep.wctx_layout_plain(None, bounds, tab, S, model, order, None, 0)
         e_lay = max(max_err(sym_idx, psym), max_err(ctx, pctx), max_err(start, pstart))
         # the decoder's matrix: the symbols' indices, 0 on padding
-        mat = torch.where(t(np.arange(S)[:, None] < seg[None, :]), sym_idx, 0)
+        data = t(np.arange(S)[:, None] < seg[None, :])
+        mat = torch.where(data, sym_idx, 0)
         wire, fault = ck.wctx_unlayout(mat, ub, tab, pres, mode, out_bytes)
         pwire, pfault = ctxprep.wctx_unlayout_plain(mat, ub, tab, pres, mode)
         e_un = max(max_err(wire, pwire), max_err(fault, pfault))
@@ -1535,12 +1540,16 @@ def ctxprep_corpus(ck, ctxprep, wctx, label: str, data: bytes, layouts: bool) ->
                                  lambda a: ck.wctx_unlayout(a, ub, tab, pres, mode, out_bytes),
                                  lambda a: ctxprep.wctx_unlayout_plain(a, ub, tab, pres, mode),
                                  (mat,), n + out_bytes + geo * (2 if model == 0 else 1)
-                                 + len(present), 6 * n, e_un),
+                                 + len(present), 6 * n, e_un,
+                                 ("masked_select", lambda a, k: torch.masked_select(a.t(), k),
+                                  (mat, data.t().contiguous()),
+                                  "the data cells transposed and compacted, without the present "
+                                  "map or the delta,")),
             "lanes": lanes, "steps": S,
         }
         print(f"phase=ctxprep corpus={label} model={model} order={order} lanes={lanes} "
               f"steps={S} layout_byte_equal=true unlayout_byte_equal=true wire_equals_stream=true")
-        del sym_idx, ctx, start, mat, wire, psym, pctx, pstart, pwire
+        del sym_idx, ctx, start, mat, data, wire, psym, pctx, pstart, pwire
         torch.cuda.empty_cache()
     return row
 

@@ -94,16 +94,16 @@ SIGNATURES = {
                               _L, _P],
     },
     "ctxprep": {
-        # delta, n, bounds, nrec, raw, hist, stream
-        "fq_qctx_prepare": [_P, _L, _P, _L, _P, _P, _P],
+        # delta, n, bounds, nrec, raw, hist, ticket, status, epoch, stream
+        "fq_qctx_prepare": [_P, _L, _P, _L, _P, _P, _P, _P, _L, _P],
         # packed, packed_n, bounds, nrec, bases, hist, stream
         "fq_sctx_prepare": [_P, _L, _P, _L, _P, _P, _P],
         # syms (or null), bounds, lanes_tab, lanes, steps, model, order,
         # idx_map, pad_sym, sym_out, ctx_out, start_out, stream
         "fq_wctx_layout": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
         # mat, bounds, nrec, lanes_tab, lanes, steps, present, npres, mode,
-        # dst, fault, stream
-        "fq_wctx_unlayout": [_P, _P, _L, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+        # dst, fault, ticket, status, epoch, stream
+        "fq_wctx_unlayout": [_P, _P, _L, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _L, _P],
     },
 }
 

@@ -550,7 +550,8 @@ def _sm_count(dev: torch.device) -> int:
 class _Chained:
     """The ticket word and status words of the launches whose tiles wait
     on each other or count who finishes last (the scan, the back-to-back
-    gather, the stream build, the assembly), one per (device,
+    gather, the stream build, the assembly, the qctx prepare, the unlayout's
+    fault flag), one per (device,
     CUDA stream): launches on one stream run in order, so they share them.
     The ticket is left at 0 by every launch; the status words are zeroed once
     and never cleared, and each launch takes an epoch of its own, so a word
@@ -779,16 +780,20 @@ def qctx_prepare(delta: torch.Tensor, bounds: torch.Tensor) -> tuple[torch.Tenso
     """Integration and max-model histogram of an (n,) uint8 quality delta
     stream whose records start at ``bounds`` ((nrec + 1,) int64, the last
     = n, checked by the caller) -> (raw (n,) uint8, (3072, 256) int32); see
-    :func:`..ops.ctxprep.qctx_prepare_plain`. One launch."""
+    :func:`..ops.ctxprep.qctx_prepare_plain`. A memset of the histogram and
+    one launch; its tiles chain through this stream's status words."""
     n = delta.numel()
     dev = delta.device
     _check("delta", delta, torch.uint8, (n,), dev)
     nrec = _check_bounds("bounds", bounds, 1, dev)
+    if n > ctxprep.QCTX_MAX_SYMBOLS:
+        raise ValueError(f"qctx_prepare: {n} symbols (at most {ctxprep.QCTX_MAX_SYMBOLS})")
     if _plain_or_cuda(dev):
         return ctxprep.qctx_prepare_plain(delta, bounds)
     raw = torch.empty((n,), dtype=torch.uint8, device=dev)
     hist = torch.empty((ctxprep.QCTX_CONTEXTS, 256), dtype=torch.int32, device=dev)
-    _launch(QCTX_PREPARE, dev, delta, n, bounds, nrec, raw, hist)
+    st, epoch = _chained_state(dev, -(-n // ctxprep.QCTX_TILE))
+    _launch(QCTX_PREPARE, dev, delta, n, bounds, nrec, raw, hist, st.ticket, st.status, epoch)
     return raw, hist
 
 
@@ -877,7 +882,8 @@ def wctx_unlayout(
     ``mode`` says (:data:`..ops.ctxprep.UNLAYOUT_FLAT`, ``_PACKED`` with
     (2, nrec + 1) ``bounds``, ``_DELTA``), ``size`` output bytes (the
     symbols, or the packed bytes) -> (uint8 (size,), int32 (1,) fault); see
-    :func:`..ops.ctxprep.wctx_unlayout_plain`. One launch."""
+    :func:`..ops.ctxprep.wctx_unlayout_plain`. One launch, which writes the
+    fault flag too (its last CTA, by this stream's ticket)."""
     if mat.dim() != 2 or mat.shape[0] < 1:
         raise ValueError(f"mat: expected (S, N) with S >= 1, got {tuple(mat.shape)}")
     steps, lanes = mat.shape
@@ -894,7 +900,8 @@ def wctx_unlayout(
     if _plain_or_cuda(dev):
         return ctxprep.wctx_unlayout_plain(mat, bounds, lanes_tab, present, mode)
     dst = torch.empty((size,), dtype=torch.uint8, device=dev)
-    fault = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fault = torch.empty((1,), dtype=torch.int32, device=dev)
+    st, epoch = _chained_state(dev, 1)
     _launch(WCTX_UNLAYOUT, dev, mat, bounds, nrec, lanes_tab, lanes, steps, present,
-            present.numel(), mode, dst, fault)
+            present.numel(), mode, dst, fault, st.ticket, st.status, epoch)
     return dst, fault

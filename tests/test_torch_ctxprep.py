@@ -28,6 +28,8 @@ from fastqpacker_tpu_torch.ops import ctxprep, cuda_kernels
 from fastqpacker_tpu_torch.ops import qualctx as pqualctx
 from fastqpacker_tpu_torch.ops import seqctx as pseqctx
 from fastqpacker_tpu_torch.ops import wctx as pwctx
+from torch_ctxprep_inputs import (T, prepare_edge_cases, prepare_stream, run_edges,
+                                  unlayout_edge_cases, unlayout_stream)
 from torch_wctx_inputs import MODELS, one_torch_thread  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -257,6 +259,101 @@ def test_flipped_index_raises_corrupted_wctx_stream():
             pwctx.decode_wire(payload, lengths, device=CPU)
     finally:
         cuda_kernels.wctx_unlayout = real
+
+
+@pytest.mark.parametrize("case", sorted(prepare_edge_cases()))
+def test_qctx_prepare_at_tile_edges_equals_jax(case):
+    """The qctx prepare's plain version at the kernel's tile edges (record
+    starts on and beside them, a tile with no start, all-zero and uniform
+    deltas) against the JAX package's prepare."""
+    lengths, delta = prepare_stream(case, seed=40 + sorted(prepare_edge_cases()).index(case))
+    want_raw, want_hist = _prepare_refs(jqualctx, delta, lengths)
+    raw, hist = cuda_kernels.qctx_prepare(_t(delta), _t(ctxprep.record_bounds(lengths)))
+    assert np.array_equal(raw.numpy(), want_raw)
+    assert np.array_equal(hist.numpy(), want_hist)
+
+
+def _edge_matrix(lengths, lanes, syms):
+    """(sb, S, seg, present, decoded matrix): the symbols' present indices
+    in their lane cells, 255 (past every present symbol) on the pad cells."""
+    sb, S = jwctx.lane_bounds(lengths, lanes)
+    tab, S2, seg = ctxprep.lane_layout(lengths, lanes)
+    assert S2 == S and np.array_equal(tab[0], sb)
+    present = np.flatnonzero(np.bincount(syms, minlength=256) > 0)
+    mat = jwctx._sym_to_idx(present)[jwctx.to_matrix(syms, sb, S, int(present[0]))]
+    mat[np.arange(S)[:, None] >= seg[None, :]] = 255
+    return tab, S, seg, present, mat
+
+
+@pytest.mark.parametrize("model", [0, 1])
+@pytest.mark.parametrize("case", sorted(unlayout_edge_cases()))
+def test_unlayout_at_tile_edges_equals_jax(case, model):
+    """The unlayout's plain version at the kernel's tile edges against the
+    JAX inverse passes: ``present[from_matrix(...)]``, then
+    ``seqctx.pack_stream`` (bases) or ``native._raw_to_delta`` (qualities);
+    pad cells past the present symbols never fault, an index past them on
+    the first or last data cell of a run does."""
+    lengths, lanes, syms = unlayout_stream(case, model, 60 + model)
+    tab, S, seg, present, mat = _edge_matrix(lengths, lanes, syms)
+    pres = _t(present.astype(np.uint8))
+    args = (_t(ctxprep.record_bounds(lengths)), _t(tab), pres)
+    flat, fault = cuda_kernels.wctx_unlayout(_t(mat), *args, ctxprep.UNLAYOUT_FLAT, len(syms))
+    assert np.array_equal(flat.numpy(), present.astype(np.uint8)[jwctx.from_matrix(mat, tab[0])])
+    assert np.array_equal(flat.numpy(), syms) and int(fault) == 0
+    if model == 0:
+        out, fault = cuda_kernels.wctx_unlayout(
+            _t(mat), _t(ctxprep.record_bounds(lengths, True)), _t(tab), pres,
+            ctxprep.UNLAYOUT_PACKED, int(pseqctx.packed_row_lengths(lengths).sum()))
+        assert out.numpy().tobytes() == jseqctx.pack_stream(syms, lengths).tobytes()
+    else:
+        out, fault = cuda_kernels.wctx_unlayout(
+            _t(mat), *args, ctxprep.UNLAYOUT_DELTA, len(syms))
+        assert out.numpy().tobytes() == jnative._raw_to_delta(syms, lengths)
+    assert int(fault) == 0
+    for t, lane in run_edges(lengths, lanes):
+        bad = mat.copy()
+        bad[t, lane] = len(present)
+        _, fault = cuda_kernels.wctx_unlayout(_t(bad), *args, ctxprep.UNLAYOUT_FLAT, len(syms))
+        assert int(fault) == 1
+
+
+def test_edge_inputs_reach_the_tile_edges():
+    """The edge cases cut where their names say, at the kernels' tiles."""
+    shapes = {}
+    for case, (lengths, lanes) in unlayout_edge_cases().items():
+        shapes[case] = ctxprep.lane_layout(np.asarray(lengths, np.int64), lanes)
+    assert shapes["segments_shorter_than_a_tile"][1] < T
+    assert shapes["steps_one_past_a_tile"][1] % T == 1
+    assert unlayout_edge_cases()["lanes_not_a_multiple"][1] % ctxprep.UNLAYOUT_TILE_LANES
+    assert shapes["long_read"][1] > 200 * T
+    q = ctxprep.QCTX_TILE
+    starts = ctxprep.record_bounds(prepare_edge_cases()["starts_at_tile_edges"][0])
+    assert {q - 1, q, q + 1} <= set(starts.tolist())
+    starts = ctxprep.record_bounds(prepare_edge_cases()["tile_without_a_start"][0])
+    assert not ((starts >= q) & (starts < 2 * q)).any()
+    lengths, delta = prepare_stream("uniform_random_deltas", 0)
+    keys = ctxprep.qctx_keys(_t(delta), _t(ctxprep.record_bounds(lengths)))[1]
+    assert len(torch.unique(keys)) > 2 * ctxprep.QCTX_TABLE_SLOTS  # the spill path
+
+
+def test_kernel_geometry_equals_the_source():
+    """The tiles the tests cut their inputs at are the kernel source's
+    (``csrc/ctxprep.cu``)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ctxprep.__file__).parent.parent / "csrc" / "ctxprep.cu").read_text()
+
+    ints = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (\w+) = (\d+);", src)}
+
+    def const(name):
+        m = re.search(rf"constexpr (?:long long|int) {name} = ([^;]+);", src)
+        return eval(m.group(1).replace("LL", ""), dict(ints))  # noqa: S307 (the repo's own source)
+
+    assert const("kQTile") == ctxprep.QCTX_TILE
+    assert const("kUSteps") == ctxprep.UNLAYOUT_TILE_STEPS
+    assert const("kULanes") == ctxprep.UNLAYOUT_TILE_LANES
+    assert 1 << const("kSlotBits") == ctxprep.QCTX_TABLE_SLOTS
 
 
 def test_chunk_bounds_equal_jax():

@@ -25,6 +25,7 @@ from fastqpacker_tpu_torch.ops import cuda_kernels
 from fastqpacker_tpu_torch.ops import device as port_device
 from fastqpacker_tpu_torch.ops import rans as port_rans
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
+from torch_ctxprep_inputs import prepare_edge_cases, unlayout_edge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -2008,6 +2009,148 @@ def test_ctxprep_kernels_match_plain(case, cuda):
                 assert int(fault) == 0
                 if mode == ctxprep.UNLAYOUT_FLAT:
                     assert torch.equal(out, syms)
+
+
+def _unlayout_edge(case, model, cuda):
+    """(matrix, bounds, packed bounds, lane table, present, n, m, lengths,
+    lanes) of one ``unlayout_edge_cases`` case on the card: the symbols'
+    present indices in their lane cells, 255 on the pad cells."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    lengths, lanes, syms = ci.unlayout_stream(case, model, 70 + model)
+    tab, steps, seg = ctxprep.lane_layout(lengths, lanes)
+    present = np.flatnonzero(np.bincount(syms, minlength=256) > 0)
+    idx = np.zeros(256, np.uint8)
+    idx[present] = np.arange(len(present))
+    mat = np.full((steps, lanes), 255, np.uint8)
+    for lane in range(lanes):
+        mat[: seg[lane], lane] = idx[syms[tab[0, lane]: tab[0, lane + 1]]]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    pb = ctxprep.record_bounds(lengths, packed=True)
+    return (t(mat), t(pb[0]), t(pb), t(tab), t(present.astype(np.uint8)), int(pb[0, -1]),
+            int(pb[1, -1]), lengths, lanes)
+
+
+@pytest.mark.parametrize("case", sorted(prepare_edge_cases()))
+def test_ctxprep_qctx_prepare_matches_plain_at_tile_edges(case, cuda):
+    """The qctx prepare's tiles (record starts on and beside a tile edge, a
+    tile with no start, zero-length records at an edge, all-zero deltas on
+    one key per position bucket, uniform deltas that overflow a CTA's table)
+    against the plain version, byte for byte; one launch a call."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    lengths, delta = ci.prepare_stream(case, seed=80)
+    d = torch.from_numpy(delta).to(cuda)
+    b = torch.from_numpy(ctxprep.record_bounds(lengths)).to(cuda)
+    cuda_kernels.reset_launches()
+    for _ in range(3):  # the tickets and status words go on across calls
+        raw, hist = cuda_kernels.qctx_prepare(d, b)
+        praw, phist = ctxprep.qctx_prepare_plain(d, b)
+        torch.cuda.synchronize()
+        assert torch.equal(raw, praw) and torch.equal(hist, phist)
+    assert cuda_kernels.launches[cuda_kernels.QCTX_PREPARE] == 3
+
+
+@pytest.mark.parametrize("model", [0, 1])
+@pytest.mark.parametrize("case", sorted(unlayout_edge_cases()))
+def test_ctxprep_unlayout_matches_plain_at_tile_edges(case, model, cuda):
+    """The unlayout's tiles (segments shorter than a tile, steps one past a
+    multiple of a tile, 2,047 lanes, a 70,001-bp read, packed bytes across a
+    tile edge, records of 1-3 bases) in its three modes against the plain
+    version, byte for byte; a fault on the first data cell of a run and on
+    the last sets the flag, pads past the present symbols do not; one launch
+    a call."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    mat, b, pb, tab, pres, n, m, lengths, lanes = _unlayout_edge(case, model, cuda)
+    cuda_kernels.reset_launches()
+    for mode, bb, size in ((ctxprep.UNLAYOUT_FLAT, b, n), (ctxprep.UNLAYOUT_PACKED, pb, m),
+                           (ctxprep.UNLAYOUT_DELTA, b, n)):
+        out, fault = cuda_kernels.wctx_unlayout(mat, bb, tab, pres, mode, size)
+        pout, pfault = ctxprep.wctx_unlayout_plain(mat, bb, tab, pres, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(fault, pfault) and int(fault) == 0
+    for t, lane in ci.run_edges(lengths, lanes):
+        bad = mat.clone()
+        bad[t, lane] = pres.numel()
+        for mode, bb, size in ((ctxprep.UNLAYOUT_PACKED, pb, m), (ctxprep.UNLAYOUT_DELTA, b, n)):
+            out, fault = cuda_kernels.wctx_unlayout(bad, bb, tab, pres, mode, size)
+            pout, pfault = ctxprep.wctx_unlayout_plain(bad, bb, tab, pres, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(out, pout) and int(fault) == int(pfault) == 1
+    assert cuda_kernels.launches[cuda_kernels.WCTX_UNLAYOUT] == 3 + 2 * 3
+
+
+def test_ctxprep_kernels_from_two_threads_on_own_and_shared_streams(cuda):
+    """The qctx prepare and the unlayout (whose tiles and fault flag use the
+    stream's ticket and status words) from two threads at once, on a stream
+    each and then on one shared stream: every call equals the plain
+    version."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    work_items = []
+    for i, (pcase, ucase) in enumerate((("tile_without_a_start", "long_read"),
+                                        ("starts_at_tile_edges", "packed_bytes_across_tiles"))):
+        lengths, delta = ci.prepare_stream(pcase, seed=90 + i)
+        d = torch.from_numpy(delta).to(cuda)
+        b = torch.from_numpy(ctxprep.record_bounds(lengths)).to(cuda)
+        mat, ub, pb, tab, pres, n, m, _, _ = _unlayout_edge(ucase, 0, cuda)
+        if i:  # a fault in the second thread's matrix only
+            mat[0, 0] = pres.numel()
+        work_items.append(((d, b), ctxprep.qctx_prepare_plain(d, b), (mat, pb, tab, pres),
+                           ctxprep.wctx_unlayout_plain(mat, pb, tab, pres,
+                                                       ctxprep.UNLAYOUT_PACKED), m))
+    torch.cuda.synchronize()
+
+    def call(i):
+        qargs, (praw, phist), uargs, (pout, pfault), m = work_items[i]
+        raw, hist = cuda_kernels.qctx_prepare(*qargs)
+        out, fault = cuda_kernels.wctx_unlayout(*uargs, ctxprep.UNLAYOUT_PACKED, m)
+        torch.cuda.current_stream().synchronize()
+        assert torch.equal(raw, praw) and torch.equal(hist, phist)
+        assert torch.equal(out, pout) and torch.equal(fault, pfault) and int(fault) == i
+
+    _from_two_threads(call, cuda, rounds=40)
+    shared, errors = torch.cuda.Stream(cuda), []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(shared):
+                for _ in range(40):
+                    call(i)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    workers = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in workers) and not errors, errors
+
+
+def test_ctxprep_device_operations_per_wrapper_call(cuda):
+    """Two device operations per qctx prepare call (the histogram's memset
+    and the kernel) and one per unlayout call (no fill of the fault flag),
+    counted by ``torch.profiler`` in a process of its own
+    (``scripts/ctxprep_ab.py --ops-only``) at 20,000-record blocks."""
+    cmd = [sys.executable, str(REPO / "scripts" / "ctxprep_ab.py"), "--root", str(REPO),
+           "--ops-only", "--records", "20000", "--route", "qctx", "--route", "unlayout"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
+    want = {"qctx": 2, "unlayout": 1}
+    assert sorted(c["route"] for c in cases) == ["qctx", "qctx", "unlayout", "unlayout"]
+    for c in cases:
+        assert c["device_ops_per_call"] == want[c["route"]], c
 
 
 def test_ctxprep_v3_and_mesh_containers_equal_the_cpu_at_two_blocks(cuda):
