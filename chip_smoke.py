@@ -102,7 +102,11 @@ Phases, each fatal on failure:
    byte-equal, the wire bytes
    equal to the block's own streams; the two length mismatches and an index
    >= npres in a decoded matrix raising their strings on the card as on the
-   CPU. Phases 5 and 9 hold their launches: every v3 block prepares its
+   CPU; the sctx prepare and the layout at their tiles' edges
+   (``tests/torch_ctxprep_inputs.py``) against their plain versions; the
+   device operations of one call of each (``scripts/ctxprep_ab.py
+   --ops-only``: 2 a prepare, 1 a layout or unlayout). Phases 5 and 9 hold
+   their launches: every v3 block prepares its
    quality candidate on the card, every mesh block both candidates, one
    layout per wctx encode, one layout and one unlayout per ``TAG_WCTX``
    decode (batched and per block);
@@ -1599,6 +1603,73 @@ def ctxprep_faults(ck, ctxprep, wctx) -> dict:
     return {"faults": len(want)}
 
 
+# device operations one call of each context pass may run (a histogram's
+# memset and the kernel; one launch for the lane passes)
+CTX_OPS_LIMIT = {"qctx": 2, "sctx": 2, "layout_encode": 1, "layout_decode": 1, "unlayout": 1}
+
+
+def ctxprep_device_ops() -> dict:
+    """The device operations (``torch.profiler``) of one call of each
+    context pass at every model and order, counted by ``scripts/ctxprep_ab.py
+    --ops-only`` on a 20,000-record ``markov151`` block in a process of its
+    own (the profiler of a long process can miss kernels): route -> counts."""
+    cmd = [sys.executable, "scripts/ctxprep_ab.py", "--root", ".", "--ops-only",
+           "--records", "20000", "--corpus", "markov151"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"ctxprep_ab.py --ops-only: {proc.stderr[-2000:]}")
+    out: dict = {}
+    for c in json.loads(proc.stdout.strip().splitlines()[-1])["cases"]:
+        n = c["device_ops_per_call"]
+        check(1 <= n <= CTX_OPS_LIMIT[c["route"]],
+              f"{c['shape']} {c['route']}: {n} device operations per call ({c['device_ops']})")
+        out.setdefault(c["route"], []).append(n)
+        print(f"phase=ctxprep route={c['route']} {c['shape']} device_ops_per_call={n} "
+              f"ops={json.dumps(c['device_ops'])}")
+    return out
+
+
+def ctxprep_edges(ck, ctxprep) -> int:
+    """The sctx prepare and the layout at their tiles' edges
+    (``tests/torch_ctxprep_inputs.py``: short records, starts just before a
+    thread's 16 bases and a tile edge, a 70,001-bp read, pad bits set;
+    2,047 lanes, steps one past a tile, records starting at a tile's first
+    step, positions past 112) against their plain versions on the card,
+    byte for byte, at every model and order. Returns the cases held."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_ctxprep_inputs", Path(__file__).resolve().parent / "tests" / "torch_ctxprep_inputs.py")
+    ci = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ci)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    held = 0
+    for case in sorted(ci.sctx_prepare_edge_cases()):
+        lengths, packed_h = ci.sctx_prepare_stream(case, 83)
+        packed, b = t(packed_h), t(ctxprep.record_bounds(lengths, packed=True))
+        got = ck.sctx_prepare(packed, b, int(lengths.sum()))
+        want = ctxprep.sctx_prepare_plain(packed, b)
+        check(all(max_err(x, y) == 0 for x, y in zip(got, want)),
+              f"sctx prepare edge {case}: kernel == plain")
+        held += 1
+    for case in sorted(ci.layout_edge_cases()):
+        for model, order in CTX_MODELS:
+            lengths, lanes, syms = ci.layout_stream(case, model, 84)
+            tab, steps, _ = ctxprep.lane_layout(lengths, lanes)
+            counts = np.bincount(syms, minlength=256)
+            idx = np.zeros(256, np.uint8)
+            idx[counts > 0] = np.arange(int((counts > 0).sum()))
+            args = (t(syms), t(ctxprep.record_bounds(lengths)), t(tab), steps, model, order,
+                    t(idx), int(np.argmax(counts)))
+            got = (*ck.wctx_layout(*args), ck.wctx_layout(None, *args[1:6]))
+            want = (*ctxprep.wctx_layout_plain(*args),
+                    ctxprep.wctx_layout_plain(None, *args[1:6], None, 0))
+            check(all(max_err(x, y) == 0 for x, y in zip(got, want)),
+                  f"layout edge {case} model={model} order={order}: kernel == plain")
+            held += 1
+    print(f"phase=ctxprep edges={held} sctx_prepare_byte_equal=true layout_byte_equal=true")
+    return held
+
+
 def phase_ctxprep(ft, ck, args) -> dict:
     """The four context-model kernels at full width (100,000 x 151): the
     prepare passes on the v3 run's corpus (walk qualities) and the mesh
@@ -1616,11 +1687,13 @@ def phase_ctxprep(ft, ck, args) -> dict:
     rows["markov"] = ctxprep_corpus(ck, ctxprep, wctx, "markov151", markov, True)
     del markov
     faults = ctxprep_faults(ck, ctxprep, wctx)
+    edges = ctxprep_edges(ck, ctxprep)
+    ops = ctxprep_device_ops()
     errs = {}
     for row in rows.values():
         for name, e in row["errs"].items():
             errs[name] = max(errs.get(name, 0), e)
-    return {"errs": errs, "rows": rows, **faults}
+    return {"errs": errs, "rows": rows, "edges": edges, "device_ops": ops, **faults}
 
 
 # the per-stage breakdowns phase e2e prints: format -> --mb (v2: a few
@@ -3031,6 +3104,12 @@ def main() -> int:
             "launches_mesh_ordinary_decompress": mesh_run["ordinary_decompress"][name],
             "faults_checked": kern_ctx["faults"],
         }
+        routes = {ck.QCTX_PREPARE: ("qctx",), ck.SCTX_PREPARE: ("sctx",),
+                  ck.WCTX_LAYOUT: ("layout_encode", "layout_decode"),
+                  ck.WCTX_UNLAYOUT: ("unlayout",)}[name]
+        more["device_ops_per_call"] = {r: kern_ctx["device_ops"][r] for r in routes}
+        if name in (ck.SCTX_PREPARE, ck.WCTX_LAYOUT):
+            more["edge_cases_checked"] = kern_ctx["edges"]
         if name in (ck.QCTX_PREPARE, ck.SCTX_PREPARE):
             *times, lib = ctx_rows["walk"]["times"][name]
             mk = ctx_rows["markov"]["times"][name]

@@ -51,15 +51,33 @@
 //   2^31 - 1: a block has fewer symbols (the wrapper refuses more). The
 //   histogram is zeroed by a memset before the kernel (two device operations
 //   a call): a zeroing inside the launch would need every CTA resident at once;
-// - the sctx prepare gives one warp to a record and walks it 32 symbols a
-//   step, the six previous bases from the neighbouring lanes by shuffles and
-//   from a carried context. Its histogram (16,384 bins, 64 KB) is private to
-//   each CTA in shared memory and added to the global one at the end;
-// - the layout gives a thread to a lane and a tile of 64 steps: it finds its
-//   record by a binary search among the lane's records, then walks the tile
-//   carrying the in-record position and the previous symbols. Cells of one
-//   step lie side by side along the lanes, so the matrix stores of a warp
-//   are contiguous;
+// - the sctx prepare tiles the flat base stream: persistent CTAs (one an SM)
+//   take 16,384-base tiles in turn, a thread per 16 consecutive bases. Base
+//   j of record r is 2-bit slot j + 4 * pbounds[r] - bounds[r] of the packed
+//   stream, so a base's six previous ones are the six slots before it: a
+//   thread reads its first base's context itself (no carry between threads,
+//   no scan of values, no look-back). The tile's record starts and their
+//   shifts come from a window of bounds, one a thread, as the qctx prepare's;
+//   the record of each thread's first base from a max-scan of the starts.
+//   A thread reads three words of the packed stream and funnel-shifts its 16
+//   bases' slots into one 32-bit value (a record start splices in its own
+//   record's slots) and its first base's context into 12 bits (reversed),
+//   writes the bases as one 16-byte store and adds each key to the CTA's
+//   direct histogram (16,384 bins, 64 KB of shared memory: no hashing, no
+//   probe, no __match_any_sync: a warp's lanes hold bases 16 apart, whose
+//   keys differ), added to the global one once, at the end (~0.3 us on an
+//   H100). A memset and the kernel: two device operations a call;
+// - the layout mirrors the unlayout's tiles: a CTA takes 256 steps x 64
+//   lanes. Each lane's symbols in the tile (and 8 before it: the context
+//   reaches 6 back) are one contiguous run of the flat stream, loaded as
+//   aligned 16-byte units into lane rows in shared memory while every thread
+//   (a lane and 64 steps) finds its own steps' record starts: no thread
+//   waits on another's search. After one barrier a thread walks its cells
+//   (the position from its start bits, the context carried) and stores each
+//   cell's present index and context itself; a warp's 32 lanes write 32 B
+//   and 64 B a step, whole sectors. The decoder's start matrix comes from the
+//   start bits alone, with no symbol load and no barrier. One kernel a
+//   (model, order), one launch a call;
 // - the unlayout is a tile-staged transpose. A CTA takes 256 steps x 64 lanes
 //   of the decoded matrix (and 4 steps either side: the delta's previous
 //   symbol, the packed bytes' last bases), loads them as rows of 4-byte
@@ -91,10 +109,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSctxThreads = 1024;      // threads per CTA of the sctx prepare
-constexpr int kLaneThreads = 256;       // lanes per CTA of the layout
-constexpr long long kSteps = 64;        // steps per tile of the layout
-
 // the qctx prepare (ops/ctxprep.py QCTX_TILE)
 constexpr int kQThreads = 512;          // threads per CTA, 16 delta bytes each
 constexpr int kQWarps = kQThreads / 32;
@@ -143,6 +157,30 @@ constexpr int kSctxOrder = 6;
 constexpr unsigned kSctxMask = (1u << (2 * kSctxOrder)) - 1;
 constexpr int kSctxBins = (1 << (2 * kSctxOrder)) * 4;  // 16,384
 
+// the sctx prepare (ops/ctxprep.py SCTX_TILE)
+constexpr int kSThreads = 1024;         // threads per CTA, 16 bases each; one CTA an SM (its table)
+constexpr int kSWarps = kSThreads / 32;
+constexpr long long kSTile = 16LL * kSThreads;  // bases per tile
+constexpr int kSBits = (int)(kSTile / 32);      // record-start bits a tile
+constexpr int kSSmem = 4 * kSctxBins + 2 * 2 * (int)kSTile;  // dynamic: the histogram, two tiles' shifts
+static_assert(3 * kSTile < 65536, "a start's shift past the tile's first record fits 16 bits");
+
+// the layout (ops/ctxprep.py LAYOUT_TILE_STEPS / _LANES)
+constexpr int kLThreads = 256;
+constexpr int kLSteps = 256;            // steps per tile
+constexpr int kLLanes = 64;             // lanes per tile
+constexpr int kLPart = kLSteps * kLLanes / kLThreads;  // steps a thread walks
+constexpr int kLHead = 8;               // symbols staged before the tile (the context reaches 6 back)
+constexpr int kLUnits = (kLHead + kLSteps + 15) / 16 + 1;  // 16-byte units of a staged lane row
+constexpr int kLPitch = 16 * kLUnits + 4;  // bytes a staged lane row: an odd number of words
+constexpr int kLPer = (kLLanes * kLUnits + kLThreads - 1) / kLThreads;  // units a thread loads
+constexpr int kLPosCap = (kPbuckets - 1) * 16;  // positions past it give the same contexts
+constexpr int kLSmem = kLLanes * kLPitch;  // the encode's dynamic shared memory: the staged lane rows
+static_assert(kLThreads == 256 && kLPart <= 64 && kLPart % 16 == 0 && kLPitch % 8 == 4 &&
+                  kLHead >= 8,
+              "a byte of the index map a thread, a thread's start bits in 64, odd-word rows, "
+              "the 8 symbols before a thread's first step staged");
+
 // fq_wctx_unlayout's modes (ops/ctxprep.py UNLAYOUT_*)
 enum { kFlat = 0, kPacked = 1, kDelta = 2 };
 
@@ -151,16 +189,6 @@ __device__ inline int qctx_ctx2(int p, int prev, int prev2) {
   const int pb = min(p >> 4, kPbuckets - 1);
   const int q2b = p < 2 ? kQ2b - 1 : (min(prev2, 46) >> 3);
   return (pb * kQbins + qbin) * kQ2b + q2b;
-}
-
-// Adds one to bin for each live lane of the warp: lanes with equal bins are
-// grouped and their leader adds the group's count. Every lane of the warp
-// calls it.
-__device__ inline void add_grouped(unsigned* hist, int bin, bool live) {
-  const unsigned live_mask = __ballot_sync(kFull, live);
-  if (!live) return;
-  const unsigned peers = __match_any_sync(live_mask, bin);
-  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(hist + bin, (unsigned)__popc(peers));
 }
 
 // ---------------------------------------------------------------------------
@@ -549,46 +577,217 @@ __global__ void __launch_bounds__(kQThreads, kQCtasPerSm) qctx_prepare_kernel(Qc
   }
 }
 
-// One warp a record: unpack, write the bases, add the order-6 bins to the
-// CTA's histogram in shared memory; then add that to the global one.
-__global__ void __launch_bounds__(kSctxThreads) sctx_prepare_kernel(
-    const uint8_t* __restrict__ packed, long long packed_n, const long long* __restrict__ bounds,
-    const long long* __restrict__ pbounds, long long nrec, uint8_t* __restrict__ bases,
-    unsigned* __restrict__ hist) {
-  extern __shared__ unsigned sh[];
-  for (int i = threadIdx.x; i < kSctxBins; i += kSctxThreads) sh[i] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * (kSctxThreads / 32);
-  for (long long r = ((long long)blockIdx.x * kSctxThreads + threadIdx.x) >> 5; r < nrec;
-       r += warps) {
-    const long long start = bounds[r];
-    const long long len = bounds[r + 1] - start;
-    const long long ps = pbounds[r];
-    unsigned carry = 0;  // the context after the previous step's last base
-    for (long long base = 0; base < len; base += 32) {
-      const long long p = base + lane;
-      const long long at = ps + (p >> 2);
-      const bool live = p < len && at < packed_n;
-      const int s = live ? (packed[at] >> ((p & 3) * 2)) & 3 : 0;
-      if (live) bases[start + p] = (uint8_t)s;
-      unsigned ctx = 0;
-#pragma unroll
-      for (int k = 1; k <= kSctxOrder; ++k) {
-        unsigned v = (unsigned)__shfl_up_sync(kFull, s, k);
-        if (lane < k) v = (carry >> (2 * (k - lane - 1))) & 3;
-        ctx |= v << (2 * (k - 1));
+// ---------------------------------------------------------------------------
+// the sctx prepare
+// ---------------------------------------------------------------------------
+
+struct SctxArgs {
+  const uint8_t* packed;  // 4-byte aligned
+  long long packed_n;
+  const long long* bounds;   // nrec + 1 record starts, bounds[nrec] = n
+  const long long* pbounds;  // nrec + 1 first packed bytes
+  long long nrec;
+  uint8_t* bases;  // 16-byte aligned
+  unsigned* hist;  // zeroed before the launch
+};
+
+// The packed stream's 32-bit word w (16 bases), 0 outside it.
+__device__ inline uint32_t packed_word(const SctxArgs& a, long long w) {
+  const long long i = 4 * w;
+  if (i >= 0 && i + 4 <= a.packed_n) return __ldg(reinterpret_cast<const uint32_t*>(a.packed) + w);
+  uint32_t v = 0;
+  for (int b = 0; b < 4; ++b)
+    if (i + b >= 0 && i + b < a.packed_n) v |= (uint32_t)a.packed[i + b] << (8 * b);
+  return v;
+}
+
+// The first of the kSThreads records an sctx CTA loads for the tile at ts:
+// around the record at the mean length's guess.
+__device__ inline long long sctx_window_first(const SctxArgs& a, long long n, long long ts) {
+  return max(0LL, min((long long)((double)ts / (double)n * (double)a.nrec) - kSThreads / 8,
+                      a.nrec - 1));
+}
+
+// Marks a record start at base b of the tile [ts, te) and its shift D = 4 *
+// pbounds - bounds (base j of the record is 2-bit slot j + D of the packed
+// stream), kept as its low 16 bits: D grows by at most 3 a record, so a
+// start's D less the tile's first record's is below 3 * kSTile.
+__device__ inline void sctx_mark(unsigned* bits, uint16_t* shift, long long ts, long long te,
+                                 long long b, long long pb) {
+  if (b < ts || b >= te) return;
+  const int q = (int)(b - ts);
+  shift[q] = (uint16_t)(4 * pb - b);
+  atomicOr(&bits[q >> 5], 1u << (q & 31));
+}
+
+// Persistent CTAs, tiles of kSTile bases in turn, a thread per 16
+// consecutive bases. The tile's record starts (and each start's packed
+// shift) come from a window of bounds, the record of a thread's first base
+// from a max-scan of the starts; the thread reads its bases' 2-bit slots
+// and its first base's six previous ones as three words of the packed
+// stream, writes the bases as one 16-byte store and adds each key (ctx * 4
+// + base) to the CTA's histogram of 16,384 bins in shared memory, which is
+// added to the global one once, at the end.
+__global__ void __launch_bounds__(kSThreads, 1) sctx_prepare_kernel(SctxArgs a) {
+  extern __shared__ unsigned s_mem[];
+  unsigned* s_hist = s_mem;                 // kSctxBins counts
+  uint16_t* s_shifts = reinterpret_cast<uint16_t*>(s_mem + kSctxBins);  // by offset, two tiles
+  __shared__ unsigned s_starts[2][kSBits];  // record starts of this tile and the next
+  __shared__ int s_wlast[kSWarps];          // each warp's last start, -1 if none
+  __shared__ long long s_first;             // start of the record holding the tile's first base
+  __shared__ long long s_fshift;            // its shift
+  __shared__ long long s_after;             // the record after it (the window's misses)
+  __shared__ int s_reach;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kSctxBins; i += kSThreads) s_hist[i] = 0;
+  for (int i = threadIdx.x; i < 2 * kSBits; i += kSThreads) s_starts[i & 1][i >> 1] = 0;
+  const long long n = a.bounds[a.nrec];
+  const long long tiles = (n + kSTile - 1) / kSTile;
+  int par = 0;
+  long long tile = blockIdx.x;
+  long long rw = sctx_window_first(a, n, tile * kSTile) + threadIdx.x;
+  long long bw = 0, pw = 0;
+  if (tile < tiles) {
+    bw = rw <= a.nrec ? a.bounds[rw] : n;
+    pw = rw <= a.nrec ? a.pbounds[rw] : 0;
+  }
+  for (; tile < tiles; tile += gridDim.x) {
+    const long long ts = tile * kSTile;
+    const long long te = min(ts + kSTile, n);
+    unsigned* bits = s_starts[par];  // zeroed during the tile before
+    uint16_t* s_shift = s_shifts + par * kSTile;  // the tile before may still read the other
+    if (threadIdx.x == kSThreads - 1) s_reach = rw >= a.nrec || bw >= te;
+    if (rw <= a.nrec) sctx_mark(bits, s_shift, ts, te, bw, pw);
+    const int below = __syncthreads_count(rw <= a.nrec && bw <= ts);
+    const bool covered = below >= 1 && s_reach;
+    for (int i = threadIdx.x; i < kSBits; i += kSThreads) s_starts[par ^ 1][i] = 0;
+    if (covered) {
+      if (threadIdx.x == below - 1) {  // read after the scan's barrier
+        s_first = bw;
+        s_fshift = 4 * pw - bw;
       }
-      add_grouped(sh, (int)(ctx * 4 + s), live);
-      carry = __shfl_sync(kFull, ((ctx << 2) | s) & kSctxMask, 31);
+    } else {
+      if (warp == 0) {
+        const long long r = warp_find_record(a.bounds, a.nrec, n, ts);
+        if (lane == 0) {
+          s_first = a.bounds[r];
+          s_fshift = 4 * a.pbounds[r] - s_first;
+          s_after = r + 1;
+        }
+      }
+      __syncthreads();
+      // the starts after it: bounds are > ts, the tile holds those < te
+      for (long long r = s_after + threadIdx.x;; r += kSThreads) {
+        const long long b = r <= a.nrec ? a.bounds[r] : n;
+        if (b < te) sctx_mark(bits, s_shift, ts, te, b, a.pbounds[r]);
+        if (!__syncthreads_or(threadIdx.x == kSThreads - 1 && b < te)) break;
+      }
     }
+    // the last start at or before each thread's bases: a max-scan
+    const int o0 = 16 * threadIdx.x;
+    const unsigned fl = (bits[threadIdx.x >> 1] >> (16 * (threadIdx.x & 1))) & 0xffffu;
+    int inc = fl ? o0 + 31 - __clz(fl) : -1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc = max(inc, y);
+    }
+    if (lane == 31) s_wlast[warp] = inc;
+    __syncthreads();
+    // the next tile's window is in flight while this one is worked on
+    const long long next = tile + gridDim.x;
+    if (next < tiles) {
+      rw = sctx_window_first(a, n, next * kSTile) + threadIdx.x;
+      bw = rw <= a.nrec ? a.bounds[rw] : n;
+      pw = rw <= a.nrec ? a.pbounds[rw] : 0;
+    }
+    int ls = __shfl_up_sync(kFull, inc, 1);
+    if (lane == 0) ls = -1;
+    for (int w = warp - 1; ls < 0 && w >= 0; --w) ls = s_wlast[w];
+    const long long j0 = ts + o0;
+    const long long fshift = s_fshift;
+    long long shift, p;  // the first base's packed shift and position in its record
+    if (ls >= 0) {
+      shift = fshift + (uint16_t)(s_shift[ls] - (uint16_t)fshift);
+      p = o0 - ls;
+    } else {
+      shift = fshift;
+      p = j0 - s_first;
+    }
+    const int live = (int)max(0LL, min(16LL, te - j0));
+    // the packed stream from six slots before the first base: three words,
+    // slot x at bit 2 * (x - 16 * wb)
+    const long long x0 = j0 + shift;
+    const long long wb = (x0 - 6) >> 4;
+    const uint32_t w0 = live ? packed_word(a, wb) : 0u;
+    const uint32_t w1 = live ? packed_word(a, wb + 1) : 0u;
+    const uint32_t w2 = live ? packed_word(a, wb + 2) : 0u;
+    // 16 slots from slot 16 * wb + d (d >= 0): from the words, or past them
+    // (a run of short records) from the stream
+    auto slots16 = [&](long long d) -> uint32_t {
+      if (d < 16) return __funnelshift_r(w0, w1, 2 * (int)d);
+      if (d < 32) return __funnelshift_r(w1, w2, 2 * (int)(d - 16));
+      const long long x = 16 * wb + d;
+      return __funnelshift_r(packed_word(a, x >> 4), packed_word(a, (x >> 4) + 1),
+                             2 * (int)(x & 15));
+    };
+    // the slots before 4 * packed_n hold bases; a row past them is not counted
+    const long long lim = 4 * a.packed_n - 16 * wb;
+    auto lows = [](long long k) -> unsigned {  // bases 0 .. k - 1 of the thread's 16
+      return k >= 16 ? 0xffffu : k <= 0 ? 0u : (1u << k) - 1;
+    };
+    const int d0 = (int)(x0 - 16 * wb);  // 6 .. 21
+    uint32_t v = slots16(d0);             // base i at bits 2i
+    unsigned in = lows(lim - d0);
+    // a record start at base i: bases i on from its record's slots
+    for (unsigned rest = fl; rest; rest &= rest - 1) {
+      const int i = __ffs(rest) - 1;
+      const long long d = j0 + fshift + (uint16_t)(s_shift[o0 + i] - (uint16_t)fshift) - 16 * wb;
+      const uint32_t keep = (1u << (2 * i)) - 1;
+      v = (v & keep) | (slots16(d) & ~keep);
+      in = (in & lows(i)) | (lows(lim - d) & ~lows(i));
+    }
+    in &= lows(live);
+    uint32_t m = in;  // each bit of `in` twice: the bases' bits
+    m = (m | (m << 8)) & 0x00ff00ffu;
+    m = (m | (m << 4)) & 0x0f0f0f0fu;
+    m = (m | (m << 2)) & 0x33333333u;
+    m = (m | (m << 1)) & 0x55555555u;
+    v &= m | (m << 1);
+    // the first base's context: the six slots before it, the latest lowest
+    uint32_t ctx = __brev(slots16(d0 - 6) & 0xfffu) >> 20;  // slot order reversed
+    ctx = ((ctx >> 1) & 0x555u) | ((ctx & 0x555u) << 1);      // each base's two bits back
+    if (p < kSctxOrder) ctx &= (1u << (2 * p)) - 1;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if ((fl >> i) & 1) ctx = 0;
+      const uint32_t key = (ctx << 2) | ((v >> (2 * i)) & 3u);
+      if ((in >> i) & 1) atomicAdd(s_hist + key, 1u);
+      ctx = key & kSctxMask;
+    }
+    uint32_t out[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // a base a byte
+      const uint32_t b = (v >> (8 * k)) & 0xffu;
+      out[k] = (b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303u;
+    }
+    if (live == 16) {
+      *reinterpret_cast<uint4*>(a.bases + j0) = make_uint4(out[0], out[1], out[2], out[3]);
+    } else {
+      for (int i = 0; i < live; ++i) a.bases[j0 + i] = (uint8_t)(out[i >> 2] >> (8 * (i & 3)));
+    }
+    par ^= 1;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kSctxBins; i += kSctxThreads) {
-    const unsigned v = sh[i];
-    if (v) atomicAdd(hist + i, v);
+  for (int i = threadIdx.x; i < kSctxBins; i += kSThreads) {
+    const unsigned v = s_hist[i];
+    if (v) atomicAdd(a.hist + i, v);
   }
 }
+
+// ---------------------------------------------------------------------------
+// a lane's records in a tile (the layout and the unlayout)
+// ---------------------------------------------------------------------------
 
 // The last record r in [lo, hi) with bounds[r] <= j (bounds[lo] <= j).
 __device__ inline long long find_record(const long long* __restrict__ bounds, long long lo,
@@ -601,81 +800,235 @@ __device__ inline long long find_record(const long long* __restrict__ bounds, lo
   return lo;
 }
 
-// A thread a lane and a tile of kSteps steps. Encode (syms set): the
-// present-index symbol and context of each cell; decode: its start flag.
-__global__ void __launch_bounds__(kLaneThreads) wctx_layout_kernel(
-    const uint8_t* __restrict__ syms, const long long* __restrict__ bounds,
-    const long long* __restrict__ lanes_tab, int lanes, int steps, int model, int order,
-    const uint8_t* __restrict__ idx_map, int pad_sym, uint8_t* __restrict__ sym_out,
-    int16_t* __restrict__ ctx_out, uint8_t* __restrict__ start_out) {
-  const int l = blockIdx.y * kLaneThreads + threadIdx.x;
-  if (l >= lanes) return;
-  const long long* sb = lanes_tab;
-  const long long* rb = lanes_tab + lanes + 1;
-  const bool enc = syms != nullptr;
-  const long long t0 = (long long)blockIdx.x * kSteps;
-  const long long t1 = min(t0 + kSteps, (long long)steps);
-  const long long lo = sb[l];
-  const long long seg = sb[l + 1] - lo;
-  const long long tdata = min(t1, seg);
-  const unsigned mask = (1u << (2 * order)) - 1;
-  long long t = t0;
-  if (t < tdata) {
-    long long j = lo + t;
-    long long r = find_record(bounds, rb[l], rb[l + 1], j);
-    long long next = bounds[r + 1];
-    long long p = t == 0 ? 0 : j - bounds[r];
-    unsigned ctx = 0;  // model 0: the previous `order` bases, latest lowest
-    int prev = 0, prev2 = 0;
-    if (enc && p > 0) {
-      if (model == 0) {
-        for (int i = order; i >= 1; --i) ctx = (ctx << 2) | (p >= i ? syms[j - i] : 0u);
-      } else {
-        prev = syms[j - 1];
-        prev2 = p >= 2 ? syms[j - 2] : 0;
-      }
+// The record starts of a lane's symbols [j0, lim) (the lane's records rb0
+// .. rb1 - 1 begin at sb, and j0 < lim <= its end): mark(q) where a record
+// begins at j0 + q; *p0 is j0's position in its record and, with pbounds,
+// *pstart the record's first packed byte. The record at the lane's mean
+// length's guess and the bounds after it are loaded at once: one round trip
+// for reads of one length.
+template <typename Mark>
+__device__ void lane_records(const long long* __restrict__ bounds,
+                                  const long long* __restrict__ pbounds, long long rb0,
+                                  long long rb1, long long sb, long long seg, long long j0,
+                                  long long lim, Mark mark, long long* p0, long long* pstart) {
+  const long long g = rb0 + min((j0 - sb) * (rb1 - rb0) / seg, rb1 - rb0 - 1);
+  long long nb[kUAhead];
+#pragma unroll
+  for (int k = 0; k < kUAhead; ++k) nb[k] = g + k <= rb1 ? bounds[g + k] : lim;
+  const long long pg = pbounds ? pbounds[g] : 0;
+  long long r0 = g;
+  if (nb[0] > j0) r0 = find_record(bounds, rb0, g, j0);
+  else if (nb[1] <= j0) r0 = find_record(bounds, g + 1, rb1, j0);
+  *p0 = j0 - (r0 == g ? nb[0] : bounds[r0]);
+  if (pbounds) *pstart = r0 == g ? pg : pbounds[r0];
+  if (*p0 == 0) mark(0);
+  // the records after it: the bounds loaded with the guess, then four at a time
+  long long r = r0;
+  if (r0 == g) {
+#pragma unroll
+    for (int k = 1; k < kUAhead; ++k) {
+      if (nb[k] < lim) mark((int)(nb[k] - j0));
     }
-    for (; t < tdata; ++t, ++j, ++p) {
-      if (j == next) {  // the next record begins
-        while (bounds[r + 1] <= j) ++r;
-        next = bounds[r + 1];
-        p = 0;
-      }
-      const long long cell = t * lanes + l;
-      if (!enc) {
-        start_out[cell] = p == 0;
+    r = nb[kUAhead - 1] < lim ? g + kUAhead - 1 : rb1;
+  }
+  for (; r < rb1; r += 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) nb[k] = r + 1 + k <= rb1 ? bounds[r + 1 + k] : lim;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (nb[k] < lim) mark((int)(nb[k] - j0));
+    }
+    if (nb[3] >= lim) break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// staged rows (the layout and the unlayout)
+// ---------------------------------------------------------------------------
+
+// 16 bytes of a shared row from byte offset o (any alignment), as 4 words.
+__device__ inline void row16(const uint8_t* row, int o, uint32_t (&v)[4]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (o >> 2);
+  const int sh = 8 * (o & 3);
+  uint32_t x[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) x[k] = w[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = __funnelshift_r(x[k], x[k + 1], sh);
+}
+
+// Bits o .. o + 15 of a lane's record-start bitmap (0 before bit 0).
+__device__ inline unsigned start_bits16(const unsigned* words, int o) {
+  const int wi = o >> 5;
+  const unsigned long long lo = wi >= 0 ? words[wi] : 0u;
+  const unsigned long long hi = wi + 1 >= 0 && wi + 1 < kUStartWords ? words[wi + 1] : 0u;
+  return (unsigned)(((hi << 32) | lo) >> (o & 31)) & 0xffffu;
+}
+
+// 0xff in byte k where bit k of the nibble is set.
+__device__ inline uint32_t byte_mask(unsigned nib) {
+  return ((nib * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// ---------------------------------------------------------------------------
+// the layout
+// ---------------------------------------------------------------------------
+
+struct LayoutArgs {
+  const uint8_t* syms;  // the encode's flat symbols (16-byte aligned), null on decode
+  const long long* bounds;     // nrec + 1 record starts
+  const long long* lanes_tab;  // (2, lanes + 1): each lane's first symbol and first record
+  int lanes, steps;
+  const uint8_t* idx_map;
+  int pad_sym;
+  uint8_t* sym_out;  // encode: (steps, lanes) present indices
+  int16_t* ctx_out;  // encode: (steps, lanes) contexts
+  uint8_t* start_out;  // decode: (steps, lanes) start flags
+};
+
+// The context of a cell at position p in its record, before its symbol:
+// model 0, the record's previous `kOrder` bases (ctx, carried); model 1,
+// the position bucket and the previous quality bins.
+template <int kModel, int kOrder>
+__device__ inline int layout_ctx(unsigned ctx, int p, int prev, int prev2) {
+  if (kModel == 0) return (int)ctx;
+  const int c = min(p >> 4, kPbuckets - 1) * kQbins + (p == 0 ? kQbins - 1 : min(prev, 46));
+  return kOrder == 1 ? c * kQ2b + (p < 2 ? kQ2b - 1 : (min(prev2, 46) >> 3)) : c;
+}
+
+// A tile of kLSteps steps x kLLanes lanes of the lane matrices, a thread per
+// lane and kLPart steps. Every thread finds its own steps' record starts (the
+// lane's records around the mean length's guess): no thread waits on
+// another's search. The decoder's start matrix (kEnc false) comes from the
+// start bits alone. For the encoder, each lane's symbols in the tile (and
+// kLHead before it: the context reaches 6 back) are one contiguous run of
+// the flat stream, staged lane-major in shared memory as aligned 16-byte
+// units (a warp's loads on one or two runs) while the searches run; after
+// one barrier a thread walks its cells (the position from its start bits,
+// the context carried). Each thread stores its cells itself: a warp's 32
+// lanes write 32 B of indices or flags and 64 B of contexts a step, whole
+// sectors. (Staging the cells step-major in shared memory for 16-byte
+// stores took 49.4-51.8 us against 35.2-46.8 for the encode at 100,000 x
+// 151 on an H100, and 14.5-14.8 against 13.8-14.0 for the start matrix.)
+template <int kModel, int kOrder, bool kEnc>
+__global__ void __launch_bounds__(kLThreads, 4) wctx_layout_kernel(LayoutArgs a) {
+  extern __shared__ __align__(16) uint8_t s_rows[];  // the encode's staged lane rows
+  __shared__ uint8_t s_idx[256];
+  const int tid = threadIdx.x;
+  const long long t0 = (long long)blockIdx.x * kLSteps;
+  const int nsteps = (int)min((long long)kLSteps, a.steps - t0);
+  const int l0 = blockIdx.y * kLLanes;
+  const int nl = min(kLLanes, a.lanes - l0);
+  const int i = tid % kLLanes, part = tid / kLLanes;
+  const int tp = part * kLPart;  // the thread's first step, from t0
+  const int end = min(tp + kLPart, nsteps);
+  const bool active = i < nl && tp < end;
+  const long long cell0 = (t0 + tp) * a.lanes + l0 + i;  // the thread's first cell
+  // the thread's steps: their record starts (bit t - tp) and the first one's position
+  long long sb = 0, p0 = 0;
+  int data_end = 0;  // the lane's steps from t0 that hold data
+  unsigned long long bits = 0;
+  auto find_starts = [&]() {
+    if (!active) return;
+    const int l = l0 + i;
+    sb = a.lanes_tab[l];
+    const long long seg = a.lanes_tab[l + 1] - sb;
+    data_end = (int)max(0LL, min(seg - t0, (long long)nsteps));
+    if (tp < data_end)
+      lane_records(a.bounds, nullptr, a.lanes_tab[a.lanes + 1 + l], a.lanes_tab[a.lanes + 2 + l],
+                   sb, seg, sb + t0 + tp, sb + t0 + min(end, data_end),
+                   [&bits](int q) { bits |= 1ull << q; }, &p0, nullptr);
+  };
+  if (!kEnc) {
+    find_starts();
+    if (!active) return;
+    uint8_t* out = a.start_out + cell0;
+    for (int t = tp; t < end; ++t)  // every pad cell is a start
+      out[(long long)(t - tp) * a.lanes] = t >= data_end || ((bits >> (t - tp)) & 1u) ? 1 : 0;
+    return;
+  }
+  // 1. the staged rows' loads, all in flight at once: unit c of lane e /
+  // kLUnits at row byte 16 * c, unit 0 the one holding the lane's step t0 - kLHead
+  s_idx[tid] = a.idx_map[tid];
+  const long long n = a.lanes_tab[a.lanes];  // the symbols: the last lane's end
+  uint4 u[kLPer];
+#pragma unroll
+  for (int k = 0; k < kLPer; ++k) {
+    const int e = tid + k * kLThreads;
+    const int li = e / kLUnits, c = e % kLUnits;
+    u[k] = make_uint4(0, 0, 0, 0);
+    if (li < nl) {
+      const long long lsb = a.lanes_tab[l0 + li];
+      const long long lo = max(lsb + t0 - kLHead, lsb);
+      const long long hi = min(lsb + t0 + nsteps, a.lanes_tab[l0 + li + 1]);
+      const long long at = 16 * (((lsb + t0 - kLHead) >> 4) + c);
+      if (at + 16 > lo && at < hi) u[k] = unit_at(a.syms, n, at);
+    }
+  }
+  find_starts();
+#pragma unroll
+  for (int k = 0; k < kLPer; ++k) {
+    const int e = tid + k * kLThreads;
+    if (e < kLLanes * kLUnits) {  // rows of an odd number of words: four word stores
+      uint32_t* w = reinterpret_cast<uint32_t*>(s_rows + (e / kLUnits) * kLPitch) + 4 * (e % kLUnits);
+      w[0] = u[k].x;
+      w[1] = u[k].y;
+      w[2] = u[k].z;
+      w[3] = u[k].w;
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  // 2. the cells
+  const uint8_t* row = s_rows + i * kLPitch;
+  const int off = (int)((sb + t0 - kLHead) & 15) + kLHead + tp;  // row byte of the first step
+  int p = (int)min(p0, (long long)kLPosCap);
+  uint32_t h[4];
+  row16(row, off - 8, h);  // the 8 symbols before the first step
+  unsigned ctx = 0;
+  int prev = 0, prev2 = 0;
+  if (kModel == 0) {
+#pragma unroll
+    for (int k = 1; k <= kOrder; ++k)
+      if (p >= k) ctx |= ((h[(8 - k) >> 2] >> (8 * ((8 - k) & 3))) & 0xffu) << (2 * (k - 1));
+  } else {
+    if (p >= 1) prev = (int)(h[1] >> 24);
+    if (p >= 2) prev2 = (int)((h[1] >> 16) & 0xffu);
+  }
+  constexpr unsigned mask = kModel == 0 ? (1u << (2 * kOrder)) - 1 : 0u;
+  const uint8_t pad_idx = s_idx[a.pad_sym];
+  const int16_t pad_ctx = kModel == 0 ? 0 : (kOrder == 1 ? (kQbins - 1) * kQ2b + kQ2b - 1 : kQbins - 1);
+  uint8_t* sym_out = a.sym_out + cell0;
+  int16_t* ctx_out = a.ctx_out + cell0;
+  for (int c = 0; c < end - tp; c += 16) {
+    uint32_t v[4];
+    row16(row, off + c, v);
+    const unsigned sbits = (unsigned)(bits >> c) & 0xffffu;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int t = c + k;  // from tp
+      if (t >= end - tp) break;
+      const long long at = (long long)t * a.lanes;
+      if (tp + t >= data_end) {
+        sym_out[at] = pad_idx;
+        ctx_out[at] = pad_ctx;
         continue;
       }
-      if (p == 0) {
+      if ((sbits >> k) & 1u) {
+        p = 0;
         ctx = 0;
         prev = prev2 = 0;
       }
-      const int s = syms[j];
-      int c;
-      if (model == 0) {
-        c = (int)ctx;
+      const int s = (int)((v[k >> 2] >> (8 * (k & 3))) & 0xffu);
+      sym_out[at] = s_idx[s];
+      ctx_out[at] = (int16_t)layout_ctx<kModel, kOrder>(ctx, p, prev, prev2);
+      if (kModel == 0) {
         ctx = ((ctx << 2) | (unsigned)s) & mask;
       } else {
-        const int qbin = p == 0 ? kQbins - 1 : min(prev, 46);
-        c = (int)min(p >> 4, (long long)(kPbuckets - 1)) * kQbins + qbin;
-        if (order == 1) c = c * kQ2b + (p < 2 ? kQ2b - 1 : (min(prev2, 46) >> 3));
         prev2 = prev;
         prev = s;
       }
-      sym_out[cell] = idx_map[s];
-      ctx_out[cell] = (int16_t)c;
-    }
-  }
-  // padding: a record start of its own, the pad symbol, the start context
-  const uint8_t pad_idx = enc ? idx_map[pad_sym] : 0;
-  const int16_t pad_ctx = model == 0 ? 0 : (order == 1 ? (kQbins - 1) * kQ2b + kQ2b - 1 : kQbins - 1);
-  for (; t < t1; ++t) {
-    const long long cell = t * lanes + l;
-    if (enc) {
-      sym_out[cell] = pad_idx;
-      ctx_out[cell] = pad_ctx;
-    } else {
-      start_out[cell] = 1;
+      p = min(p + 1, kLPosCap);
     }
   }
 }
@@ -707,30 +1060,6 @@ __device__ inline uint32_t mat_word(const UnlayoutArgs& a, long long t, int l) {
   uint32_t v = 0;
   for (int c = 0; c < 4 && l + c < a.lanes; ++c) v |= (uint32_t)p[c] << (8 * c);
   return v;
-}
-
-// 16 bytes of a shared row from byte offset o (any alignment), as 4 words.
-__device__ inline void row16(const uint8_t* row, int o, uint32_t (&v)[4]) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (o >> 2);
-  const int sh = 8 * (o & 3);
-  uint32_t x[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) x[k] = w[k];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = __funnelshift_r(x[k], x[k + 1], sh);
-}
-
-// Bits o .. o + 15 of a lane's record-start bitmap (0 before bit 0).
-__device__ inline unsigned start_bits16(const unsigned* words, int o) {
-  const int wi = o >> 5;
-  const unsigned long long lo = wi >= 0 ? words[wi] : 0u;
-  const unsigned long long hi = wi + 1 >= 0 && wi + 1 < kUStartWords ? words[wi + 1] : 0u;
-  return (unsigned)(((hi << 32) | lo) >> (o & 31)) & 0xffffu;
-}
-
-// 0xff in byte k where bit k of the nibble is set.
-__device__ inline uint32_t byte_mask(unsigned nib) {
-  return ((nib * 0x00204081u) & 0x01010101u) * 0xffu;
 }
 
 // A tile of kUSteps steps x kULanes lanes of the decoded matrix back in
@@ -788,47 +1117,13 @@ __global__ void __launch_bounds__(kUThreads) wctx_unlayout_kernel(UnlayoutArgs a
 #pragma unroll
     for (int k = 0; k < kUStartWords; ++k) bits[k] = 0;
     if (a.mode != kFlat && run > 0) {
-      const long long j0 = sb + t0;
-      const long long lim = sb + min(t1 + 4, seg);
-      // the record at the lane's mean length's guess and the bounds after
-      // it, loaded at once: one round trip for reads of one length
-      const long long g = rb0 + min((j0 - sb) * (rb1 - rb0) / seg, rb1 - rb0 - 1);
-      long long nb[kUAhead];
-#pragma unroll
-      for (int k = 0; k < kUAhead; ++k) nb[k] = g + k <= rb1 ? a.bounds[g + k] : lim;
-      const long long pg = a.mode == kPacked ? a.pbounds[g] : 0;
-      long long r0 = g;
-      if (nb[0] > j0) r0 = find_record(a.bounds, rb0, g, j0);
-      else if (nb[1] <= j0) r0 = find_record(a.bounds, g + 1, rb1, j0);
-      const long long p0 = j0 - (r0 == g ? nb[0] : a.bounds[r0]);
+      long long p0 = 0, ps = 0;
+      lane_records(a.bounds, a.mode == kPacked ? a.pbounds : nullptr, rb0, rb1, sb, seg, sb + t0,
+                   sb + min(t1 + 4, seg), [bits](int q) { bits[q >> 5] |= 1u << (q & 31); },
+                   &p0, &ps);
       s_p0[tid] = p0;
       // the first packed byte whose first base lies in the run
-      if (a.mode == kPacked) s_dst[tid] = (r0 == g ? pg : a.pbounds[r0]) + (p0 + 3) / 4;
-      if (p0 == 0) bits[0] = 1;
-      // the records after it: the bounds loaded with the guess, then four at a time
-      long long r = r0;
-      if (r0 == g) {
-#pragma unroll
-        for (int k = 1; k < kUAhead; ++k) {
-          if (nb[k] < lim) {
-            const int q = (int)(nb[k] - j0);
-            bits[q >> 5] |= 1u << (q & 31);
-          }
-        }
-        r = nb[kUAhead - 1] < lim ? g + kUAhead - 1 : rb1;
-      }
-      for (; r < rb1; r += 4) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) nb[k] = r + 1 + k <= rb1 ? a.bounds[r + 1 + k] : lim;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (nb[k] < lim) {
-            const int q = (int)(nb[k] - j0);
-            bits[q >> 5] |= 1u << (q & 31);
-          }
-        }
-        if (nb[3] >= lim) break;
-      }
+      if (a.mode == kPacked) s_dst[tid] = ps + (p0 + 3) / 4;
     }
   }
   // 3. transpose the blocks into lane rows, the indices mapped through the
@@ -1040,9 +1335,16 @@ cudaError_t raise_smem(const void* fn, int bytes) {
   return rc;
 }
 
-dim3 lane_grid(int lanes, int steps) {
-  return dim3((unsigned)((steps + kSteps - 1) / kSteps),
-              (unsigned)((lanes + kLaneThreads - 1) / kLaneThreads));
+// Launches the layout kernel of one (model, order) or the start matrix's.
+template <int kModel, int kOrder, bool kEnc>
+int launch_layout(const LayoutArgs& a, cudaStream_t s) {
+  constexpr int smem = kEnc ? kLSmem : 0;
+  cudaError_t rc = raise_smem((const void*)wctx_layout_kernel<kModel, kOrder, kEnc>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((unsigned)((a.steps + kLSteps - 1) / kLSteps),
+                  (unsigned)((a.lanes + kLLanes - 1) / kLLanes));
+  wctx_layout_kernel<kModel, kOrder, kEnc><<<grid, kLThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1083,43 +1385,69 @@ int fq_qctx_prepare(const void* delta, long long n, const void* bounds, long lon
   return (int)cudaGetLastError();
 }
 
-// packed: packed_n bytes; bounds: (2, nrec + 1) int64, the records' first
-// base and first packed byte. bases: bounds[0][nrec] bytes; hist: (4096, 4)
-// uint32, zeroed here.
+// packed: packed_n bytes (4-byte aligned); bounds: (2, nrec + 1) int64, the
+// records' first base and first packed byte. bases: bounds[0][nrec] bytes
+// (16-byte aligned); hist: (4096, 4) uint32, zeroed here.
 int fq_sctx_prepare(const void* packed, long long packed_n, const void* bounds, long long nrec,
                     void* bases, void* hist, void* stream) {
-  if (packed_n < 0 || nrec < 0) return (int)cudaErrorInvalidValue;
+  if (packed_n < 0 || nrec < 0 || (uintptr_t)packed % 4 || (uintptr_t)bases % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t rc = cudaMemsetAsync(hist, 0, sizeof(unsigned) * (size_t)kSctxBins, s);
   if (rc != cudaSuccess) return (int)rc;
   if (nrec) {
-    rc = raise_smem((const void*)sctx_prepare_kernel, 4 * kSctxBins);
+    rc = raise_smem((const void*)sctx_prepare_kernel, kSSmem);
     if (rc != cudaSuccess) return (int)rc;
-    const long long want = (nrec + kSctxThreads / 32 - 1) / (kSctxThreads / 32);
-    const long long most = sm_count();
-    const unsigned grid = (unsigned)(want < most ? want : most);
     const long long* b = (const long long*)bounds;
-    sctx_prepare_kernel<<<grid, kSctxThreads, 4 * kSctxBins, s>>>(
-        (const uint8_t*)packed, packed_n, b, b + nrec + 1, nrec, (uint8_t*)bases,
-        (unsigned*)hist);
+    SctxArgs a;
+    a.packed = (const uint8_t*)packed;
+    a.packed_n = packed_n;
+    a.bounds = b;
+    a.pbounds = b + nrec + 1;
+    a.nrec = nrec;
+    a.bases = (uint8_t*)bases;
+    a.hist = (unsigned*)hist;
+    // the bases (read on the card) are at most four a packed byte
+    const long long want = (4 * packed_n + kSTile - 1) / kSTile;
+    const long long most = sm_count();
+    const unsigned grid = (unsigned)(want < 1 ? 1 : want < most ? want : most);
+    sctx_prepare_kernel<<<grid, kSThreads, kSSmem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 // The (steps, lanes) matrices of one wctx stream. bounds: nrec + 1 int64
 // record starts; lanes_tab: (2, lanes + 1) int64, each lane's first symbol
-// and first record. Encode (syms: the flat symbols): sym_out (present index,
-// idx_map[pad_sym] on padding) and ctx_out; decode (syms null): start_out.
+// and first record. Encode (syms: the flat symbols, 16-byte aligned):
+// sym_out (present index, idx_map[pad_sym] on padding) and ctx_out; decode
+// (syms null): start_out. (model, order): (0, 2), (0, 4), (0, 6), (1, 0)
+// or (1, 1).
 int fq_wctx_layout(const void* syms, const void* bounds, const void* lanes_tab, int lanes,
                    int steps, int model, int order, const void* idx_map, int pad_sym,
                    void* sym_out, void* ctx_out, void* start_out, void* stream) {
-  if (lanes <= 0 || steps <= 0 || order < 0 || order > kSctxOrder || pad_sym < 0 || pad_sym > 255)
+  if (lanes <= 0 || steps <= 0 || pad_sym < 0 || pad_sym > 255 || (uintptr_t)syms % 16)
     return (int)cudaErrorInvalidValue;
-  wctx_layout_kernel<<<lane_grid(lanes, steps), kLaneThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)syms, (const long long*)bounds, (const long long*)lanes_tab, lanes, steps,
-      model, order, (const uint8_t*)idx_map, pad_sym, (uint8_t*)sym_out, (int16_t*)ctx_out,
-      (uint8_t*)start_out);
-  return (int)cudaGetLastError();
+  LayoutArgs a;
+  a.syms = (const uint8_t*)syms;
+  a.bounds = (const long long*)bounds;
+  a.lanes_tab = (const long long*)lanes_tab;
+  a.lanes = lanes;
+  a.steps = steps;
+  a.idx_map = (const uint8_t*)idx_map;
+  a.pad_sym = pad_sym;
+  a.sym_out = (uint8_t*)sym_out;
+  a.ctx_out = (int16_t*)ctx_out;
+  a.start_out = (uint8_t*)start_out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!syms) return launch_layout<0, 0, false>(a, s);
+  switch (model * 8 + order) {
+    case 2: return launch_layout<0, 2, true>(a, s);
+    case 4: return launch_layout<0, 4, true>(a, s);
+    case 6: return launch_layout<0, 6, true>(a, s);
+    case 8: return launch_layout<1, 0, true>(a, s);
+    case 9: return launch_layout<1, 1, true>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The decoded (steps, lanes) present-index matrix in record order. bounds:

@@ -36,9 +36,13 @@ QCTX_CONTEXTS = NUM_PBUCKETS * NUM_QBINS * NUM_Q2B  # 3072, the max model
 SCTX_ORDER = 6
 SCTX_CONTEXTS = 4**SCTX_ORDER
 
-# the kernels' tiles (csrc/ctxprep.cu kQTile, kUSteps, kULanes)
+# the kernels' tiles (csrc/ctxprep.cu kQTile, kSTile, kLSteps, kLLanes, kUSteps, kULanes)
 QCTX_TILE = 8192  # delta bytes per tile of fq_qctx_prepare
 QCTX_TABLE_SLOTS = 8192  # (key, count) slots of its CTAs' histogram tables
+SCTX_TILE = 16384  # bases per tile of fq_sctx_prepare (16 a thread)
+LAYOUT_TILE_STEPS = 256  # steps x lanes per tile of fq_wctx_layout
+LAYOUT_TILE_LANES = 64
+LAYOUT_POSITION_CAP = 112  # in-record positions past it give the same contexts (kLPosCap)
 UNLAYOUT_TILE_STEPS = 256  # steps x lanes per tile of fq_wctx_unlayout
 UNLAYOUT_TILE_LANES = 64
 QCTX_MAX_SYMBOLS = (1 << 31) - 1  # symbols of a stream: no int32 count can overflow

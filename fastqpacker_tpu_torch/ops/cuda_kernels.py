@@ -802,7 +802,9 @@ def sctx_prepare(packed: torch.Tensor, bounds: torch.Tensor, n: int):
     ``bounds``: (2, nrec + 1) int64, the records' first base and first packed
     byte (:func:`..ops.ctxprep.record_bounds`), ``n`` the bases (its last
     first-base entry, checked by the caller) -> (bases (n,) uint8, (4096, 4)
-    int32); see :func:`..ops.ctxprep.sctx_prepare_plain`. One launch."""
+    int32); see :func:`..ops.ctxprep.sctx_prepare_plain`. A memset of the
+    histogram and one launch (persistent CTAs on tiles of
+    :data:`..ops.ctxprep.SCTX_TILE` bases)."""
     m = packed.numel()
     dev = packed.device
     _check("packed", packed, torch.uint8, (m,), dev)
@@ -842,7 +844,8 @@ def wctx_layout(
     ``syms`` None the uint8 start matrix of the decoder. ``bounds``: (nrec +
     1,) int64 record starts; ``lanes_tab``: (2, lanes + 1) int64 lane
     starts and first records (:func:`..ops.ctxprep.lane_layout`). See
-    :func:`..ops.ctxprep.wctx_layout_plain`. One launch."""
+    :func:`..ops.ctxprep.wctx_layout_plain`. One launch, a CTA per
+    :data:`..ops.ctxprep.LAYOUT_TILE_STEPS` x ``LAYOUT_TILE_LANES`` cells."""
     dev = bounds.device
     _check_bounds("bounds", bounds, 1, dev)
     lanes = _check_lane_table(lanes_tab, steps, dev)

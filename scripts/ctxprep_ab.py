@@ -13,8 +13,10 @@ corpus (the mesh run's: Markov bases, Phred walks):
   ``torch.bincount`` of the same keys beside (printed only);
 - ``sctx``: ``fq_sctx_prepare`` of its packed bases;
 - ``layout``: ``fq_wctx_layout``, the encoder's matrices and the decoder's
-  start matrix, of the ``markov151`` streams the mesh path codes (sequence
-  order 2, quality order 1, on the lanes it picks for them);
+  start matrix, of the ``markov151`` streams at every (model, order) the
+  wrapper takes (``chip_smoke.py`` CTX_MODELS: sequence orders 2, 4, 6 and
+  quality orders 0, 1; the mesh path codes sequence order 2 and quality
+  order 1), on the lanes the mesh path picks for them;
 - ``unlayout``: ``fq_wctx_unlayout`` of the decoded matrices of those two
   streams back to packed rows and quality deltas, with
   ``torch.masked_select(mat.t(), data_mask)`` beside (the transpose and
@@ -57,7 +59,8 @@ REPO = Path(__file__).resolve().parent.parent
 ROUTES = ("qctx", "sctx", "layout", "unlayout")
 CORPORA = ("walk151", "markov151")
 # the (model, order) of the streams the mesh path codes (chip_smoke.py CTX_TIMED
-# and the sequence stream beside it)
+# and the sequence stream beside it): the unlayout's; the layout takes every
+# model and order (chip_smoke.py CTX_MODELS)
 LANE_MODELS = ((0, 2), (1, 1))
 
 
@@ -121,7 +124,7 @@ def cases(cs, ck, ctxprep, wctx, label, packed_h, delta_h, lengths, routes) -> l
     bases, hist6 = ctxprep.sctx_prepare_plain(packed, pbounds)
     hist2_h = hist2.cpu().numpy().astype(np.int64)
     hist6_h = hist6.cpu().numpy().astype(np.int64)
-    for model, order in LANE_MODELS:
+    for model, order in cs.CTX_MODELS if "layout" in routes else LANE_MODELS:
         if model == 0:
             syms, hist = bases, (seqctx.marginalize(hist6_h, order) if order < 6 else hist6_h)
             mode, out_bytes, ub = ctxprep.UNLAYOUT_PACKED, m, pbounds
@@ -144,7 +147,7 @@ def cases(cs, ck, ctxprep, wctx, label, packed_h, delta_h, lengths, routes) -> l
                         lambda b, tab=tab, steps=steps, model=model, order=order:
                         ck.wctx_layout(None, b, tab, steps, model, order), (bounds,),
                         cells + geo, None))
-        if "unlayout" in routes:
+        if "unlayout" in routes and (model, order) in LANE_MODELS:
             data = t(np.arange(steps)[:, None] < seg[None, :])
             mat = torch.where(data, ctxprep.wctx_layout_plain(syms, *enc)[0], 0)
             out.append(("unlayout", shape,

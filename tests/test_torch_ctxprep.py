@@ -28,7 +28,9 @@ from fastqpacker_tpu_torch.ops import ctxprep, cuda_kernels
 from fastqpacker_tpu_torch.ops import qualctx as pqualctx
 from fastqpacker_tpu_torch.ops import seqctx as pseqctx
 from fastqpacker_tpu_torch.ops import wctx as pwctx
-from torch_ctxprep_inputs import (T, prepare_edge_cases, prepare_stream, run_edges,
+from torch_ctxprep_inputs import (LL, LT, S, T, layout_edge_cases, layout_stream,
+                                  prepare_edge_cases, prepare_stream, run_edges,
+                                  sctx_prepare_edge_cases, sctx_prepare_stream,
                                   unlayout_edge_cases, unlayout_stream)
 from torch_wctx_inputs import MODELS, one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -273,6 +275,46 @@ def test_qctx_prepare_at_tile_edges_equals_jax(case):
     assert np.array_equal(hist.numpy(), want_hist)
 
 
+@pytest.mark.parametrize("case", sorted(sctx_prepare_edge_cases()))
+def test_sctx_prepare_at_tile_edges_equals_jax(case):
+    """The sctx prepare's plain version at the kernel's tiles (records of
+    0-7 bases, starts 1-15 bases before a thread's 16 bases and a tile
+    edge, a 70,001-bp read, pad bits set, a tile of 1-base records)
+    against the JAX package's prepare."""
+    lengths, packed = sctx_prepare_stream(case, 50 + sorted(sctx_prepare_edge_cases()).index(case))
+    want_bases, want_hist = _prepare_refs(jseqctx, packed, lengths)
+    bases, hist = cuda_kernels.sctx_prepare(
+        _t(packed), _t(ctxprep.record_bounds(lengths, True)), int(lengths.sum()))
+    assert np.array_equal(bases.numpy(), want_bases)
+    assert np.array_equal(hist.numpy(), want_hist)
+
+
+@pytest.mark.parametrize("model,order", MODELS)
+@pytest.mark.parametrize("case", sorted(layout_edge_cases()))
+def test_layout_at_tile_edges_equals_jax(case, model, order):
+    """The layout's plain version at the kernel's tiles (2,047 lanes, steps
+    one past a tile, segments shorter than a tile, records that start at a
+    tile's first step, positions past 112) against the JAX lane matrices:
+    ``_sym_to_idx(present)[to_matrix(...)]``, ``context_matrix`` and
+    ``start_matrix``, pad cells included."""
+    lengths, lanes, syms = layout_stream(case, model, 30 + 10 * model + order)
+    sb, steps = jwctx.lane_bounds(lengths, lanes)
+    tab, steps2, _ = ctxprep.lane_layout(lengths, lanes)
+    assert steps2 == steps and np.array_equal(tab[0], sb)
+    startm = jwctx.start_matrix(lengths, sb, steps)
+    counts = np.bincount(syms, minlength=256)
+    pad = int(np.argmax(counts))
+    symm = jwctx.to_matrix(syms, sb, steps, pad)
+    idx = jwctx._sym_to_idx(np.flatnonzero(counts > 0))
+    bounds = _t(ctxprep.record_bounds(lengths))
+    sym_idx, ctx = cuda_kernels.wctx_layout(
+        _t(syms), bounds, _t(tab), steps, model, order, _t(idx), pad)
+    assert np.array_equal(sym_idx.numpy(), idx[symm])
+    assert np.array_equal(ctx.numpy(), jwctx.context_matrix(symm, startm, model, order))
+    start = cuda_kernels.wctx_layout(None, bounds, _t(tab), steps, model, order)
+    assert np.array_equal(start.numpy(), startm.view(np.uint8))
+
+
 def _edge_matrix(lengths, lanes, syms):
     """(sb, S, seg, present, decoded matrix): the symbols' present indices
     in their lane cells, 255 (past every present symbol) on the pad cells."""
@@ -334,6 +376,25 @@ def test_edge_inputs_reach_the_tile_edges():
     lengths, delta = prepare_stream("uniform_random_deltas", 0)
     keys = ctxprep.qctx_keys(_t(delta), _t(ctxprep.record_bounds(lengths)))[1]
     assert len(torch.unique(keys)) > 2 * ctxprep.QCTX_TABLE_SLOTS  # the spill path
+    # the sctx prepare's tiles: starts 1-15 bases before a 16-base unit and
+    # a tile edge, a read over more than four tiles, 1-base records over a tile
+    cases = sctx_prepare_edge_cases()
+    assert cases["short_records"][0].max() == 7 and not cases["short_records"][0].min()
+    starts = set(ctxprep.record_bounds(cases["starts_before_units_and_tiles"][0]).tolist())
+    assert {S - d for d in range(1, 16)} | {S, 16 * 37 - 1, 16 * 37 - 15} <= starts
+    assert cases["long_read"][0].max() > 4 * S
+    assert (cases["pad_bits_set"][0] % 4).any() and cases["pad_bits_set"][1] == "ones"
+    assert 3 * (cases["one_base_records"][0] == 1).sum() > 1 << 16
+    # the layout's tiles
+    layout = {}
+    for case, (lengths, lanes) in layout_edge_cases().items():
+        layout[case] = ctxprep.lane_layout(np.asarray(lengths, np.int64), lanes)
+    assert layout_edge_cases()["lanes_not_a_multiple"][1] % LL
+    assert layout["steps_one_past_a_tile"][1] % LT == 1
+    assert layout["segments_shorter_than_a_tile"][1] < LT
+    starts = ctxprep.record_bounds(layout_edge_cases()["starts_at_a_tile_step"][0])
+    assert {LT, 2 * LT, 4 * LT} <= set(starts.tolist())
+    assert layout_edge_cases()["positions_past_112"][0].min() > ctxprep.LAYOUT_POSITION_CAP
 
 
 def test_kernel_geometry_equals_the_source():
@@ -351,6 +412,10 @@ def test_kernel_geometry_equals_the_source():
         return eval(m.group(1).replace("LL", ""), dict(ints))  # noqa: S307 (the repo's own source)
 
     assert const("kQTile") == ctxprep.QCTX_TILE
+    assert const("kSTile") == ctxprep.SCTX_TILE
+    assert const("kLSteps") == ctxprep.LAYOUT_TILE_STEPS
+    assert const("kLLanes") == ctxprep.LAYOUT_TILE_LANES
+    assert const("kLPosCap") == ctxprep.LAYOUT_POSITION_CAP
     assert const("kUSteps") == ctxprep.UNLAYOUT_TILE_STEPS
     assert const("kULanes") == ctxprep.UNLAYOUT_TILE_LANES
     assert 1 << const("kSlotBits") == ctxprep.QCTX_TABLE_SLOTS

@@ -25,7 +25,8 @@ from fastqpacker_tpu_torch.ops import cuda_kernels
 from fastqpacker_tpu_torch.ops import device as port_device
 from fastqpacker_tpu_torch.ops import rans as port_rans
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
-from torch_ctxprep_inputs import prepare_edge_cases, unlayout_edge_cases
+from torch_ctxprep_inputs import (layout_edge_cases, prepare_edge_cases, sctx_prepare_edge_cases,
+                                  unlayout_edge_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -2055,6 +2056,58 @@ def test_ctxprep_qctx_prepare_matches_plain_at_tile_edges(case, cuda):
     assert cuda_kernels.launches[cuda_kernels.QCTX_PREPARE] == 3
 
 
+@pytest.mark.parametrize("case", sorted(sctx_prepare_edge_cases()))
+def test_ctxprep_sctx_prepare_matches_plain_at_tile_edges(case, cuda):
+    """The sctx prepare's tiles (records of 0-7 bases, starts 1-15 bases
+    before a thread's 16 bases and a tile edge, a 70,001-bp read, pad bits
+    set, a tile of 1-base records) against the plain version, byte for
+    byte; a memset and one launch a call."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    lengths, packed = ci.sctx_prepare_stream(case, seed=81)
+    pk = torch.from_numpy(packed).to(cuda)
+    b = torch.from_numpy(ctxprep.record_bounds(lengths, packed=True)).to(cuda)
+    n = int(lengths.sum())
+    cuda_kernels.reset_launches()
+    for _ in range(2):
+        bases, hist = cuda_kernels.sctx_prepare(pk, b, n)
+        pbases, phist = ctxprep.sctx_prepare_plain(pk, b)
+        torch.cuda.synchronize()
+        assert torch.equal(bases, pbases) and torch.equal(hist, phist)
+    assert cuda_kernels.launches[cuda_kernels.SCTX_PREPARE] == 2
+
+
+@pytest.mark.parametrize("model,order", [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)])
+@pytest.mark.parametrize("case", sorted(layout_edge_cases()))
+def test_ctxprep_layout_matches_plain_at_tile_edges(case, model, order, cuda):
+    """The layout's tiles (2,047 lanes, steps one past a tile, segments
+    shorter than a tile, records that start at a tile's first step,
+    positions past 112) against the plain version, byte for byte: the
+    encoder's matrices and the start matrix; one launch each."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    import torch_ctxprep_inputs as ci
+
+    lengths, lanes, syms = ci.layout_stream(case, model, 82)
+    tab, steps, _ = ctxprep.lane_layout(lengths, lanes)
+    counts = np.bincount(syms, minlength=256)
+    idx = np.zeros(256, np.uint8)
+    idx[counts > 0] = np.arange(int((counts > 0).sum()))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(syms), t(ctxprep.record_bounds(lengths)), t(tab), steps, model, order, t(idx),
+            int(np.argmax(counts)))
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.wctx_layout(*args)
+    start = cuda_kernels.wctx_layout(None, *args[1:6])
+    want = ctxprep.wctx_layout_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(start, ctxprep.wctx_layout_plain(None, *args[1:6], None, 0))
+    assert cuda_kernels.launches[cuda_kernels.WCTX_LAYOUT] == 2
+
+
 @pytest.mark.parametrize("model", [0, 1])
 @pytest.mark.parametrize("case", sorted(unlayout_edge_cases()))
 def test_ctxprep_unlayout_matches_plain_at_tile_edges(case, model, cuda):
@@ -2138,17 +2191,20 @@ def test_ctxprep_kernels_from_two_threads_on_own_and_shared_streams(cuda):
 
 
 def test_ctxprep_device_operations_per_wrapper_call(cuda):
-    """Two device operations per qctx prepare call (the histogram's memset
-    and the kernel) and one per unlayout call (no fill of the fault flag),
-    counted by ``torch.profiler`` in a process of its own
-    (``scripts/ctxprep_ab.py --ops-only``) at 20,000-record blocks."""
+    """Two device operations per qctx or sctx prepare call (the histogram's
+    memset and the kernel), one per layout call (the encoder's matrices at
+    every model and order, the start matrix) and one per unlayout call (no
+    fill of the fault flag), counted by ``torch.profiler`` in a process of
+    its own (``scripts/ctxprep_ab.py --ops-only``) at 20,000-record blocks."""
     cmd = [sys.executable, str(REPO / "scripts" / "ctxprep_ab.py"), "--root", str(REPO),
-           "--ops-only", "--records", "20000", "--route", "qctx", "--route", "unlayout"]
+           "--ops-only", "--records", "20000"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
-    want = {"qctx": 2, "unlayout": 1}
-    assert sorted(c["route"] for c in cases) == ["qctx", "qctx", "unlayout", "unlayout"]
+    want = {"qctx": 2, "sctx": 2, "layout_encode": 1, "layout_decode": 1, "unlayout": 1}
+    routes = [c["route"] for c in cases]
+    assert {r: routes.count(r) for r in want} == {"qctx": 2, "sctx": 2, "layout_encode": 5,
+                                                 "layout_decode": 5, "unlayout": 2}
     for c in cases:
         assert c["device_ops_per_call"] == want[c["route"]], c
 
