@@ -166,18 +166,38 @@ Phases, each fatal on failure:
    ``micro``; ``--backend auto`` with the probe cache deleted takes the card
    and gives ``--backend cuda``'s container, and under ``FQZ_BACKEND=cpu``
    the CPU and the same container. Each kernel's row of the JSON line gains
-   ``launches_bench``, its count in each of those runs.
+   ``launches_bench``, its count in each of those runs;
+13. the runtime's byte histogram and header tokenizer (``phase=tokens``,
+   ``csrc/hist256.cu``, ``csrc/tokens.cu``): ``fq_hist256`` against its plain
+   version at lengths 0, 1, 15, 16, 17 and past several CTAs, on views at
+   each offset 1-15, one-symbol, 256-symbol and skewed streams;
+   ``fq_tok_encode`` and ``fq_tok_decode`` on every header edge of
+   ``tests/torch_tokens_inputs.py`` (count 0, empty headers, tokens of 18 and
+   19 digits, leading zeros, token counts that change, records around the
+   tiles, the three name corpora), byte-equal, each decode fault's string
+   equal to the CPU's; ``tests/testdata/golden/golden_ctx_v3.fqz`` decoded on
+   the card; the three timed at a v3 block's streams where the stream build
+   left them (the histogram beside ``torch.bincount``, printed only), with
+   device operations and host microseconds of one wrapper call; a v3 round
+   trip of 3 blocks x 100,000 names in instrument order, its container equal
+   to the CPU's (made by a subprocess started before the first phase),
+   ``TAG_TOK`` on every header stream and the launches following the tags.
+   Phases 5 and 9 hold their ``fq_hist256`` launches (one an estimate or a
+   rANS table) and their tokenizer launches. ``--phase tokens`` runs the
+   build and this phase alone.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--mb 96] [--varlen-mb 16] [--mesh-blocks 4] [--seed 0]
+                             [--phase all|tokens]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import re
@@ -220,6 +240,10 @@ KERNELS = {
     "fq_sctx_prepare": ("ctxprep.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:2092"),
     "fq_wctx_layout": ("ctxprep.cu", "fastqpacker_tpu/ops/wctx.py:178"),
     "fq_wctx_unlayout": ("ctxprep.cu", "fastqpacker_tpu/ops/wctx.py:170"),
+    # the runtime's byte histogram and header tokenizer
+    "fq_hist256": ("hist256.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:493"),
+    "fq_tok_encode": ("tokens.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1355"),
+    "fq_tok_decode": ("tokens.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1445"),
 }
 QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
 SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
@@ -874,6 +898,16 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
           and all(d_counts[k] == 0 for k in (ck.QCTX_PREPARE, ck.SCTX_PREPARE,
                                               ck.WCTX_LAYOUT, ck.WCTX_UNLAYOUT)),
           f"{label}: no lane pass without a TAG_WCTX stream, no prepare on decompress")
+    # every order-0 histogram on the card: one a size estimate, one a rANS
+    # table; the tokenizer where the header gate lets it run, its decode per
+    # TAG_TOK stream
+    want = stream_counts(comp, ft, READ_LEN)
+    check(c_counts[ck.HIST256] == want["estimates"] + c_counts[ck.RANS_ENCODE]
+          and d_counts[ck.HIST256] == 0,
+          f"{label}: one fq_hist256 an estimate or rANS table ({c_counts[ck.HIST256]}, {want})")
+    check(c_counts[ck.TOK_ENCODE] == want["tok_encodes"]
+          and d_counts[ck.TOK_DECODE] == want["tok_streams"],
+          f"{label}: the tokenizer launches follow the header tags ({want})")
 
     # the card's container against the CPU's, on a prefix that ends at a
     # record boundary; one worker, since the probe memo depends on order
@@ -1696,6 +1730,373 @@ def phase_ctxprep(ft, ck, args) -> dict:
     return {"errs": errs, "rows": rows, "edges": edges, "device_ops": ops, **faults}
 
 
+# ---------------------------------------------------------------------------
+# phase tokens: the runtime's byte histogram and header tokenizer
+# (csrc/hist256.cu, csrc/tokens.cu)
+# ---------------------------------------------------------------------------
+
+TOKEN_BLOCKS = 3  # the ordered-name round trip: blocks of BLOCK_RECORDS records
+RANS_MIN_BYTES = 16384  # pipeline/native.py: streams below go to zstd unestimated
+TOK_GATE_BYTES = 256 << 10  # pipeline/native.py: the header gate looks at larger streams
+GOLDEN_TOK = "tests/testdata/golden/golden_ctx_v3.fqz"
+# SHA-256 of its FASTQ (tests/test_golden.py:_golden_ctx_fastq, which the CPU
+# tests decode it to)
+GOLDEN_TOK_SHA256 = "173eef211411531f4ccf343a983fe62ed4756ccd8254e230aae710e655dea76a"
+
+# the CPU's v3 container of the ordered-name corpus, made in a process of its
+# own while the card runs the other phases (one worker: the probe memo
+# depends on order)
+_CPU_REFERENCE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+import fastqpacker_tpu_torch as ft
+from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
+data = ordered_illumina_fastq(int(sys.argv[2]), seed=int(sys.argv[3]))
+opts = ft.Options(version=ft.container.VERSION_3_NATIVE, workers=1)
+open(sys.argv[4], "wb").write(ft.compress_bytes(data, opts, device="cpu"))
+"""
+
+
+class CpuReference:
+    """The CPU's container of the ordered-name corpus, from a subprocess
+    started at once; :meth:`result` waits for it, :meth:`stop` ends it."""
+
+    def __init__(self, records: int, seed: int, workdir: Path):
+        self.path = workdir / "tokens_cpu.fqz"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CPU_REFERENCE, str(Path(__file__).resolve().parent),
+             str(records), str(seed), str(self.path)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self) -> tuple[bytes, float]:
+        _, err = self.proc.communicate(timeout=900)
+        check(self.proc.returncode == 0, f"CPU reference container: {err[-2000:]}")
+        return self.path.read_bytes(), time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def load_tests_module(name: str):
+    """A module of ``tests/`` (its seeded inputs), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def on_card(b: bytes, off: int = 0) -> torch.Tensor:
+    """``b`` on the card as a view ``off`` bytes into its buffer."""
+    buf = torch.from_numpy(np.frombuffer(b"\x5a" * off + b + b"\x5a", np.uint8).copy()).to(DEV)
+    return buf[off : off + len(b)]
+
+
+def outcome(fn, *args):
+    """("ok", bytes) or ("error", the ValueError's string) of one call."""
+    try:
+        r = fn(*args)
+    except ValueError as e:
+        return ("error", str(e))
+    return ("ok", r if isinstance(r, bytes) else r.cpu().numpy().tobytes())
+
+
+def tokens_edges(ck, rans, tokenize, ti) -> dict:
+    """Every edge of ``tests/torch_tokens_inputs.py`` on the card against the
+    plain versions, byte for byte: the histogram's lengths, offsets and
+    alphabets; the header lists through the encode (a view at offset 3) and
+    back through the decode; each decode fault (string) and stream whose
+    bytes past its last record would fault; the encode's faults. Returns the
+    cases held per kernel."""
+    held = {"hist256": 0, "tok_encode": 0, "tok_decode": 0, "decode_faults": 0,
+            "encode_faults": 0}
+    for case, (buf, off, n) in sorted(ti.hist_edge_cases().items()):
+        t = on_card(buf[off : off + n], off % 16)
+        check(torch.equal(ck.hist256(t).cpu(), rans.hist256_plain(t.cpu())),
+              f"hist256 edge {case}: kernel == plain")
+        held["hist256"] += 1
+    for case, headers in sorted(ti.header_edge_cases().items()):
+        s = ti.stream_of(headers)
+        view = on_card(s, 3)
+        want = tokenize.tok_encode_plain(view.cpu(), len(headers))
+        check(torch.equal(ck.tok_encode(view, len(headers)).cpu(), want),
+              f"tok_encode edge {case}: kernel == plain")
+        back = ck.tok_decode(on_card(want.numpy().tobytes()), len(headers))
+        check(back.cpu().numpy().tobytes() == s, f"tok_decode edge {case}: the stream back")
+        held["tok_encode"] += 1
+        held["tok_decode"] += 1
+    strings = set()
+    for case, (data, count) in sorted(ti.decode_fault_cases().items()):
+        want = outcome(tokenize.decode_plain, data, count)
+        got = outcome(ck.tok_decode, on_card(data), count)
+        check(got == want, f"tok_decode fault {case}: {got[1] if got[0] == 'error' else 'ok'} "
+                           f"== the CPU's {want[1] if want[0] == 'error' else 'ok'}")
+        if want[0] == "error":
+            strings.add(want[1])
+        held["decode_faults"] += 1
+    for stream, count in ((ti.stream_of([b"a", b"b"]), 3), (ti.stream_of([b"a", b"b"])[:-1], 2),
+                          (ti.stream_of([b"a", b"b"]) + b"\x00", 2),
+                          (ti.stream_of([b"a" * 300, b"b"])[:-5], 2)):
+        want = outcome(tokenize.encode_plain, stream, count)
+        check(want[0] == "error" and outcome(ck.tok_encode, on_card(stream, 5), count) == want,
+              f"tok_encode fault {want[1]}: the CPU's string")
+        held["encode_faults"] += 1
+    print(f"phase=tokens edges={json.dumps(held, sort_keys=True)} byte_equal=true "
+          f"decode_fault_strings={json.dumps(sorted(strings))} equal_to_cpu=true")
+    return held
+
+
+def retile(view: torch.Tensor, k: int) -> list:
+    """``k`` copies of ``view``, each at the same offset past a 16-byte
+    boundary in a buffer of its own (the L2 rotation of a misaligned view)."""
+    off = view.data_ptr() % 16
+    out = []
+    for _ in range(k):
+        buf = torch.empty(view.numel() + 32, dtype=torch.uint8, device=DEV)
+        base = (16 - buf.data_ptr() % 16) % 16 + off
+        buf[base : base + view.numel()].copy_(view)
+        out.append((buf[base : base + view.numel()],))
+    return out
+
+
+def tokens_block(data: bytes):
+    """The first 100,000-record block of ``data``, its six streams built on
+    the card (``RawStreams``, their device views where the stream build left
+    them)."""
+    from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser
+    from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
+
+    blk = next(FastqStreamParser(io.BytesIO(data), block_size=BLOCK_RECORDS, device=DEV).blocks())
+    return blockcodec.block_to_raw_streams(blk, 33, wide_npos=True)
+
+
+# the device operations of one call of each of phase tokens' wrappers, in a
+# process of its own (the profiler of a long process can miss kernels)
+_TOKENS_OPS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from fastqpacker_tpu_torch.ops import cuda_kernels as ck
+from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
+raw = cs.tokens_block(ordered_illumina_fastq(cs.BLOCK_RECORDS, seed=int(sys.argv[2])))
+n = raw.num_records
+tok = ck.tok_encode(raw.device_view(2), n)
+print(json.dumps({
+    "hist256_qual": cs.device_ops(lambda: ck.hist256(raw.device_view(1))),
+    "hist256_seq": cs.device_ops(lambda: ck.hist256(raw.device_view(0))),
+    "tok_encode": cs.device_ops(lambda: ck.tok_encode(raw.device_view(2), n)),
+    "tok_decode": cs.device_ops(lambda: ck.tok_decode(tok, n)),
+}))
+"""
+
+
+def tokens_device_ops(seed: int) -> dict:
+    """Route -> the device operations (``torch.profiler``) of one wrapper
+    call at a v3 block of ordered names, counted in a process of its own."""
+    proc = subprocess.run([sys.executable, "-c", _TOKENS_OPS,
+                           str(Path(__file__).resolve().parent), str(seed)],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"tokens device operations: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
+    """The three kernels at a v3 block's shapes, on the block's streams where
+    the stream build left them (the first 100,000 records of the ordered
+    corpus): the histogram of the quality (15.1 MB) and sequence (3.8 MB)
+    streams, the tokenizer on the header stream both ways. Each kernel's
+    device time over inputs rotated past the L2 (for the tokenizer its
+    launches alone: the wrapper reads the fault and the size back), its
+    bound, its plain version's (on the card for the histogram, a bincount;
+    Python on the host for the tokenizer), ``torch.bincount`` of the same
+    bytes for the histogram (printed only: the port never calls it), device
+    operations (``torch.profiler``) and host microseconds of one wrapper
+    call (a process of its own counts the operations)."""
+    raw = tokens_block(data)
+    all_ops = tokens_device_ops(seed)
+    rows = {}
+    for label, i in (("qual", 1), ("seq", 0)):
+        view = raw.device_view(i)
+        n = view.numel()
+        sets = retile(view, max(2, -(-150_000_000 // n)))
+        kms = gpu_ms(ck.hist256, sets, 50)
+        pms = gpu_ms(rans.hist256_plain, sets[:2], 5)
+        lms = gpu_ms(lambda t: torch.bincount(t, minlength=256), sets, 20)
+        err = max_err(ck.hist256(view), rans.hist256_plain(view))
+        ops = all_ops[f"hist256_{label}"]
+        hus = host_us(ck.hist256, (view,))
+        rows[("hist256", label)] = (*report(ck.HIST256, f"stream={label} bytes={n} "
+                                            f"misalign={view.data_ptr() % 16}", kms, pms, lms,
+                                            n + 256 * 8, 0, err),
+                                    {"err": err, "bytes": n, "device_ops_per_call": len(ops),
+                                     "device_ops": ops, "host_us_per_call": hus})
+        print(f"phase=tokens kernel={ck.HIST256} stream={label} device_ops_per_call={len(ops)} "
+              f"ops={json.dumps(ops)} host_us_per_call={hus:.1f} torch_bincount_ms={lms:.6f} "
+              f"(printed only)")
+        check(len(ops) == 1, f"hist256: one device operation a call, got {ops}")
+        del sets
+    count = raw.num_records
+    view = raw.device_view(2)
+    n = view.numel()
+    t0 = time.perf_counter()
+    tok_h = tokenize.encode_plain(raw.headers, count)
+    enc_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    check(tokenize.decode_plain(tok_h, count) == raw.headers, "plain tokenizer round trip")
+    dec_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = ck.tok_encode(view, count)
+    check(got.numel() == len(tok_h), "the tokenized header stream's length == plain")
+    enc_err = max_err(got.cpu(), torch.from_numpy(np.frombuffer(tok_h, np.uint8).copy()))
+    tok = on_card(tok_h)
+    back = ck.tok_decode(tok, count)
+    check(back.numel() == len(raw.headers), "the decoded header stream's length == plain")
+    dec_err = max_err(back.cpu(), torch.from_numpy(np.frombuffer(raw.headers, np.uint8).copy()))
+    check(enc_err == 0 and dec_err == 0, "the tokenizer on the block's header stream == plain")
+    total, start = tokenize._read_varint(tok_h, 0)
+    m = len(tok_h)
+
+    def dec_launches(t):
+        ck.tok_decode_write(ck.tok_decode_launch(t, count, start), total)
+
+    k = max(2, -(-150_000_000 // n))
+    enc_sets = retile(view, k)
+    kms = gpu_ms(lambda t: ck.tok_encode_launch(t, count), enc_sets, 10)
+    ops = all_ops["tok_encode"]
+    hus = host_us(ck.tok_encode, (view, count))
+    rows[("tok_encode", "headers")] = (
+        *report(ck.TOK_ENCODE, f"headers={count} bytes={n} out={m}", kms, enc_plain_ms, None,
+                n + m, 0, enc_err),
+        {"err": enc_err, "bytes": n, "records": count, "out_bytes": m,
+         "device_ops_per_call": len(ops),
+         "device_ops": ops, "host_us_per_call": hus,
+         "plain_ms_clock": "host (the plain version is Python on the CPU)"})
+    print(f"phase=tokens kernel={ck.TOK_ENCODE} device_ops_per_call={len(ops)} "
+          f"ops={json.dumps(ops)} host_us_per_call={hus:.1f}")
+    del enc_sets
+    dec_sets = retile(tok, max(2, -(-150_000_000 // (m + n))))
+    kms = gpu_ms(dec_launches, dec_sets, 10)
+    ops = all_ops["tok_decode"]
+    hus = host_us(ck.tok_decode, (tok, count))
+    rows[("tok_decode", "headers")] = (
+        *report(ck.TOK_DECODE, f"headers={count} bytes={m} out={n}", kms, dec_plain_ms, None,
+                m + n, 0, dec_err),
+        {"err": dec_err, "bytes": m, "records": count, "out_bytes": n,
+         "device_ops_per_call": len(ops),
+         "device_ops": ops, "host_us_per_call": hus,
+         "plain_ms_clock": "host (the plain version is Python on the CPU)"})
+    print(f"phase=tokens kernel={ck.TOK_DECODE} device_ops_per_call={len(ops)} "
+          f"ops={json.dumps(ops)} host_us_per_call={hus:.1f}")
+    del dec_sets
+    return rows
+
+
+def stream_counts(comp: bytes, ft, read_len: int) -> dict:
+    """Per container: the sequence and quality streams the v3 pick estimates
+    (>= RANS_MIN_BYTES; the sequence stream of fixed ``read_len`` reads),
+    the blocks whose header stream the tokenizer encodes (TAG_TOK, or zstd
+    not cut by the header gate of pipeline/native.py) and the TAG_TOK
+    streams."""
+    from fastqpacker_tpu_torch.entropy.zstd import frame_content_size
+
+    c = ft.container
+    r = io.BytesIO(comp)
+    fh = c.read_file_header(r)
+    if fh.flags & c.FLAG_SEQ_DICT:
+        c.read_seq_dict_section(r)
+    out = {"estimates": 0, "qual_estimates": 0, "tok_encodes": 0, "tok_streams": 0}
+    while (hdr := c.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(c.VERSION_2)
+        payload = r.read(sum(sizes))
+        seq_raw = hdr.num_records * ((read_len + 3) // 4)
+        out["estimates"] += (seq_raw >= RANS_MIN_BYTES) + (hdr.original_qual_size >= RANS_MIN_BYTES)
+        out["qual_estimates"] += hdr.original_qual_size >= RANS_MIN_BYTES
+        head = payload[sizes[0] + sizes[1] : sizes[0] + sizes[1] + sizes[2]]
+        if head[0] == c.TAG_TOK:
+            out["tok_encodes"] += 1
+            out["tok_streams"] += 1
+        else:
+            gate = max(4096, (sizes[0] + sizes[1]) >> 7)
+            raw = frame_content_size(head[1:])
+            out["tok_encodes"] += not (len(head) - 1 <= gate and raw > TOK_GATE_BYTES)
+    return out
+
+
+def tokens_round_trip(ft, ck, data: bytes, cpu_ref: CpuReference) -> dict:
+    """v3 round trip of the ordered-name corpus on the card (one worker,
+    counters reset before each direction): the data back, the container
+    equal to the CPU's, TAG_TOK on every block's header stream, and the
+    launches following the tags (one fq_tok_encode a block the header gate
+    lets through, one fq_tok_decode a TAG_TOK stream, one fq_hist256 an
+    estimate or a rANS table)."""
+    opts = ft.Options(version=ft.container.VERSION_3_NATIVE, workers=1)
+    label = f"ordered151_v3_{TOKEN_BLOCKS}x{BLOCK_RECORDS}"
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    comp = ft.compress_bytes(data, opts, device=DEV)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    c_counts = ck.launches.as_dict()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = ft.decompress_bytes(comp, device=DEV)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    d_counts = ck.launches.as_dict()
+    check(out == data, f"{label}: decompressed output equals the input")
+    blocks, tags = stream_tags(comp, ft)
+    want = stream_counts(comp, ft, READ_LEN)
+    check(blocks == TOKEN_BLOCKS and tags["headers"].get("tok", 0) == blocks,
+          f"{label}: TAG_TOK on every block's header stream ({tags['headers']})")
+    check(c_counts[ck.TOK_ENCODE] == want["tok_encodes"] == blocks,
+          f"{label}: one tokenizer encode a block ({c_counts[ck.TOK_ENCODE]})")
+    check(d_counts[ck.TOK_DECODE] == want["tok_streams"] and c_counts[ck.TOK_DECODE] == 0
+          and d_counts[ck.TOK_ENCODE] == 0, f"{label}: one tokenizer decode a TAG_TOK stream")
+    check(c_counts[ck.HIST256] == want["estimates"] + c_counts[ck.RANS_ENCODE]
+          and d_counts[ck.HIST256] == 0,
+          f"{label}: one histogram an estimate or rANS table ({c_counts[ck.HIST256]})")
+    cpu, cpu_s = cpu_ref.result()
+    check(comp == cpu, f"{label}: the card's container equals the CPU's")
+    mb = len(data) / 1e6
+    print(f"phase=tokens run={label} input_bytes={len(data)} container_bytes={len(comp)} "
+          f"blocks={blocks} tags={json.dumps(tags, sort_keys=True)} compress_s={t_c:.4f} "
+          f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
+          f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} round_trip=true "
+          f"byte_identical_to_cpu=true cpu_reference_s={cpu_s:.1f}")
+    return {"compress": c_counts, "decompress": d_counts}
+
+
+def phase_tokens(ft, ck, args, cpu_ref: CpuReference) -> dict:
+    """fq_hist256, fq_tok_encode and fq_tok_decode: their edges and faults
+    against the plain versions, the golden v3 container decoded on the card,
+    their times at a v3 block's shapes, and the ordered-name v3 round trip."""
+    from fastqpacker_tpu_torch.ops import rans, tokenize
+    from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
+
+    ti = load_tests_module("torch_tokens_inputs")
+    edges = tokens_edges(ck, rans, tokenize, ti)
+    golden = Path(__file__).resolve().parent.joinpath(GOLDEN_TOK).read_bytes()
+    ck.reset_launches()
+    back = ft.decompress_bytes(golden, device=DEV)
+    counts = ck.launches.as_dict()
+    check(hashlib.sha256(back).hexdigest() == GOLDEN_TOK_SHA256 and counts[ck.TOK_DECODE] == 1,
+          f"{GOLDEN_TOK}: decoded on the card to its FASTQ, its TAG_TOK stream by the kernel")
+    print(f"phase=tokens golden={GOLDEN_TOK} output_bytes={len(back)} "
+          f"tok_decode_launches={counts[ck.TOK_DECODE]} sha256_equal=true")
+    data = ordered_illumina_fastq(TOKEN_BLOCKS * BLOCK_RECORDS, seed=args.seed + 19)
+    times = tokens_timed(ft, ck, rans, tokenize, data, args.seed + 19)
+    run = tokens_round_trip(ft, ck, data, cpu_ref)
+    return {"edges": edges, "times": times, "run": run}
+
+
 # the per-stage breakdowns phase e2e prints: format -> --mb (v2: a few
 # blocks; v3: two 100,000-record blocks; mesh: one)
 STAGE_RUNS = {"v2": 32, "v3": 54, "mesh": 35}
@@ -2308,6 +2709,16 @@ def phase_mesh(ft, ck, args) -> dict:
     check(d_counts[ck.WCTX_LAYOUT] == d_counts[ck.WCTX_UNLAYOUT] == n_wctx
           and d_counts[ck.QCTX_PREPARE] == d_counts[ck.SCTX_PREPARE] == 0,
           f"{label}: one start-matrix layout and one unlayout per TAG_WCTX stream")
+    # the plan estimates each quality stream's order-0 size from its
+    # histogram, and each rANS job's table is counted on its device; the
+    # tokenizer where the header gate lets it run
+    want = stream_counts(comp, ft, READ_LEN)
+    check(c_counts[ck.HIST256] == want["qual_estimates"] + c_counts[ck.RANS_ENCODE]
+          and d_counts[ck.HIST256] == 0,
+          f"{label}: one fq_hist256 a quality estimate or rANS table ({c_counts[ck.HIST256]})")
+    check(c_counts[ck.TOK_ENCODE] == want["tok_encodes"]
+          and d_counts[ck.TOK_DECODE] == want["tok_streams"],
+          f"{label}: the tokenizer launches follow the header tags ({want})")
 
     ck.reset_launches()
     t0 = time.perf_counter()
@@ -2907,6 +3318,9 @@ def main() -> int:
     ap.add_argument("--mesh-blocks", type=int, default=4)
     ap.add_argument("--varlen-mb", type=float, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("all", "tokens"), default="all",
+                    help="tokens: the build and phase=tokens alone (the three kernels' "
+                         "line with the ordered-name run's launches)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2941,6 +3355,45 @@ def main() -> int:
             print(f"phase=build {name}: {entry_label(row.pop('entry'))} "
                   f"{json.dumps(row, sort_keys=True)}")
 
+    # the CPU's container of phase tokens' corpus, made while the card works
+    tokens_dir = Path(__file__).resolve().parent / "fastqpacker_tpu_torch" / "_build" / "tokens"
+    tokens_dir.mkdir(parents=True, exist_ok=True)
+    cpu_ref = CpuReference(TOKEN_BLOCKS * BLOCK_RECORDS, args.seed + 19, tokens_dir)
+    try:
+        if args.phase == "tokens":
+            return tokens_only(args, ft, ck, kind, count, smi, cpu_ref)
+        return run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx,
+                          synth_fastq, kind, count, smi, cpu_ref)
+    finally:
+        cpu_ref.stop()
+        shutil.rmtree(tokens_dir, ignore_errors=True)
+
+
+def tokens_only(args, ft, ck, kind, count, smi, cpu_ref) -> int:
+    """``--phase tokens``: phase tokens alone; each of its kernels' entries
+    takes its launches from the ordered-name v3 run."""
+    tokens = phase_tokens(ft, ck, args, cpu_ref)
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for name, key, direction in ((ck.HIST256, ("hist256", "qual"), "compress"),
+                                 (ck.TOK_ENCODE, ("tok_encode", "headers"), "compress"),
+                                 (ck.TOK_DECODE, ("tok_decode", "headers"), "decompress")):
+        *times, extra = tokens["times"][key]
+        extra = dict(extra)
+        launches = tokens["run"][direction][name]
+        check(launches > 0, f"{name} launched on the ordered-name run")
+        source, replaces = KERNELS[name]
+        kernels.append({"name": name, "route": "cuda", "source": CSRC + source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": extra.pop("err"), **dict(zip(fields, times)), **extra})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, synth_fastq,
+               kind, count, smi, cpu_ref) -> int:
     rng = np.random.default_rng(args.seed)
     kern = phase_kernels(ck, devops, refops, rng)
     kern_rans = phase_rans(ck, rans, rng, rans_decode_registers(build.builds["rans_codec"].log))
@@ -2981,6 +3434,7 @@ def main() -> int:
 
     mesh_run = phase_mesh(ft, ck, args)
     phase_stages(args)
+    tokens = phase_tokens(ft, ck, args, cpu_ref)
 
     mesh_data = mesh_run.pop("data")
     surfaces = phase_surfaces(ft, ck, {
@@ -3130,10 +3584,34 @@ def main() -> int:
                         by_shape=by_shape)
         rows.append((name, mesh_run[direction][name], kern_ctx["errs"][name],
                      (*times[:5], None), more))
+    # the byte histogram: the count of the v3 run (the v3 block's estimates
+    # and rANS tables), the tokens and mesh runs beside; times at the v3
+    # block's quality stream, the sequence stream's beside. The tokenizer:
+    # the counts of the ordered-name v3 run, whose header streams are TAG_TOK
+    tt, trun = tokens["times"], tokens["run"]
+    for name, key, direction in ((ck.HIST256, ("hist256", "qual"), "compress"),
+                                 (ck.TOK_ENCODE, ("tok_encode", "headers"), "compress"),
+                                 (ck.TOK_DECODE, ("tok_decode", "headers"), "decompress")):
+        kms, pms, bound_ms, bound_by, lms, extra = tt[key]
+        extra = dict(extra)
+        err = extra.pop("err")
+        more = {**extra, "edge_cases_checked": tokens["edges"],
+                "launches_v3": {d: v3_launches[d][name] for d in ("compress", "decompress")},
+                "launches_tokens": {d: trun[d][name] for d in ("compress", "decompress")},
+                "launches_mesh": {d: mesh_run[d][name] for d in ("compress", "decompress")}}
+        if name == ck.HIST256:
+            seq = tt[("hist256", "seq")]
+            more["seq_stream"] = {**dict(zip(fields, seq[:5])),
+                                  **{k: v for k, v in seq[5].items() if k != "err"}}
+            launches = v3_launches[direction][name]
+        else:
+            launches = trun[direction][name]
+        rows.append((name, launches, err, (kms, pms, bound_ms, bound_by, lms, None), more))
     for row in rows[:6]:  # the earlier kernels run on the mesh path too
         name = row[0]
         direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"
         row[4]["launches_mesh"] = mesh_run[direction][name]
+    check({row[0] for row in rows} == set(KERNELS), "every kernel has its row")
     kernels = []
     for name, launches, err, (kms, pms, bound_ms, bound_by, lms, steps), extra in rows:
         check(launches > 0, f"{name} launched on a main path")

@@ -105,7 +105,25 @@ SIGNATURES = {
         # dst, fault, ticket, status, epoch, stream
         "fq_wctx_unlayout": [_P, _P, _L, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _L, _P],
     },
+    "hist256": {
+        # data (any alignment), n, ctas, partials, ticket, out, stream
+        "fq_hist256": [_P, _L, _I, _P, _P, _P, _P],
+    },
+    "tokens": {
+        # data (any alignment), n, count, starts, chain_info, out, info,
+        # ticket, status, epoch, stream
+        "fq_tok_encode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
+        # data, n, start, count, ops, rec, recstart, tok0, tok1, place, info,
+        # ticket, status, epoch, stream
+        "fq_tok_decode": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+        # the decode's second call: its first call's arguments, out, stream
+        "fq_tok_decode_write": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
+
+# The second call of a kernel whose wrapper calls its library twice, with a
+# host read between (the first call's name is the one counted).
+SECOND_CALLS = {"fq_tok_decode_write": "fq_tok_decode"}
 
 # Exported functions that launch nothing (each returns a cudaError_t too).
 QUERIES = {
@@ -124,6 +142,18 @@ QUERIES = {
     "wctx_codec": {
         # lanes, contexts, width, out (four int32)
         "fq_wctx_decode_geometry": [_I, _I, _I, _P],
+    },
+    "hist256": {
+        # n, misalignment (data address % 16), SMs -> CTAs of a launch
+        "fq_hist256_ctas": [_L, _I, _I],
+    },
+    "tokens": {
+        # n, count -> tiles of status words a call takes at most
+        "fq_tok_tiles": [_L, _L],
+        # count -> pointer-jumping rounds of a decode
+        "fq_tok_rounds": [_L],
+        # bytes of a token's state
+        "fq_tok_state_bytes": [],
     },
 }
 

@@ -23,12 +23,15 @@ runtime; ``wctx_layout`` replaces the host passes ``start_matrix``,
 ``fastqpacker_tpu/ops/wctx.py``, and ``wctx_unlayout`` its ``from_matrix``
 and present map, then ``pack_stream`` of ``fastqpacker_tpu/ops/seqctx.py`` or
 the quality delta transform (``_raw_to_delta``) of
-``fastqpacker_tpu/pipeline/native.py``.
+``fastqpacker_tpu/pipeline/native.py``. Byte histogram
+(``csrc/hist256.cu``): ``hist256`` replaces the runtime's ``fq_hist256``.
+Header tokenizer (``csrc/tokens.cu``): ``tok_encode`` and ``tok_decode``
+replace its ``fq_tok_encode`` and ``fq_tok_decode``.
 
 Each wrapper checks its tensors, allocates the outputs on their device and
 launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
 version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`, :mod:`.wctx`,
-:mod:`.records`); a CUDA
+:mod:`.records`, :mod:`.ctxprep`, :mod:`.tokenize`); a CUDA
 tensor launches the kernel or raises.
 
 ``launches`` counts kernel launches per kernel, so a run can show that its
@@ -48,8 +51,8 @@ from . import reference as refops
 from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import MAX_LANES as RANS_MAX_LANES
-from .rans import RANS_L, rans_compact_plain, rans_decode_plain, rans_encode_plain
-from . import ctxprep, records
+from .rans import RANS_L, hist256_plain, rans_compact_plain, rans_decode_plain, rans_encode_plain
+from . import ctxprep, records, tokenize
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
 
@@ -69,6 +72,10 @@ QCTX_PREPARE = "fq_qctx_prepare"
 SCTX_PREPARE = "fq_sctx_prepare"
 WCTX_LAYOUT = "fq_wctx_layout"
 WCTX_UNLAYOUT = "fq_wctx_unlayout"
+HIST256 = "fq_hist256"
+TOK_ENCODE = "fq_tok_encode"
+TOK_DECODE = "fq_tok_decode"
+TOK_DECODE_WRITE = "fq_tok_decode_write"
 
 # which library (csrc/<name>.cu) exports each launcher
 _LIBRARY = {
@@ -102,7 +109,9 @@ class LaunchCounts:
             return dict(self._counts)
 
 
-launches = LaunchCounts(_LIBRARY)
+# one count per kernel: a wrapper's second call of its library is not counted
+_UNCOUNTED = frozenset(build.SECOND_CALLS)
+launches = LaunchCounts(fn for fn in _LIBRARY if fn not in _UNCOUNTED)
 
 
 def reset_launches() -> None:
@@ -140,7 +149,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
         rc = getattr(lib, name)(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError_t {rc}")
-    launches.bump(name)
+    if name not in _UNCOUNTED:
+        launches.bump(name)
 
 
 def _plain_or_cuda(dev: torch.device) -> bool:
@@ -567,10 +577,11 @@ _chained: dict[tuple[int, int], _Chained] = {}
 _chained_lock = threading.Lock()
 
 
-def _chained_state(dev: torch.device, tiles: int) -> tuple[_Chained, int]:
-    """This stream's ticket and status words for ``tiles`` tiles, and a
-    fresh epoch. A larger launch gets a larger status buffer, zeroed on this
-    stream before the launch."""
+def _chained_state(dev: torch.device, tiles: int, epochs: int = 1) -> tuple[_Chained, int]:
+    """This stream's ticket and status words for ``tiles`` tiles, and the
+    first of ``epochs`` fresh epochs (a call that launches several chained
+    kernels takes one each). A larger launch gets a larger status buffer,
+    zeroed on this stream before the launch."""
     with torch.cuda.device(dev):
         key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
         with _chained_lock:
@@ -580,8 +591,8 @@ def _chained_state(dev: torch.device, tiles: int) -> tuple[_Chained, int]:
             elif st.status.numel() < tiles * records.STATUS_WORDS:
                 st.status = torch.zeros((tiles * 2 * records.STATUS_WORDS,), dtype=torch.int64,
                                         device=dev)
-            st.epoch += 1
-            return st, st.epoch
+            st.epoch += epochs
+            return st, st.epoch - epochs + 1
 
 
 def _check_1d(name: str, t: torch.Tensor, dtype, dev) -> None:
@@ -908,3 +919,161 @@ def wctx_unlayout(
     _launch(WCTX_UNLAYOUT, dev, mat, bounds, nrec, lanes_tab, lanes, steps, present,
             present.numel(), mode, dst, fault, st.ticket, st.status, epoch)
     return dst, fault
+
+
+# ---------------------------------------------------------------------------
+# the runtime's byte histogram and header tokenizer
+# ---------------------------------------------------------------------------
+
+
+def _check_bytes(name: str, t: torch.Tensor, dev) -> int:
+    """A contiguous 1-D uint8 tensor (a view at any byte offset) -> its
+    length."""
+    _check_1d(name, t, torch.uint8, dev)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return t.numel()
+
+
+def hist256(data: torch.Tensor) -> torch.Tensor:
+    """The 256 byte counts of an (n,) uint8 tensor, a view at any byte
+    offset -> (256,) int64; see :func:`..ops.rans.hist256_plain`. One launch
+    (its last CTA adds every CTA's partials)."""
+    dev = data.device
+    n = _check_bytes("data", data, dev)
+    if _plain_or_cuda(dev):
+        return hist256_plain(data)
+    lib = build.load(_LIBRARY[HIST256])
+    ptr = data.data_ptr() if n else 0
+    ctas = lib.fq_hist256_ctas(n, ptr % 16, _sm_count(dev))
+    partials = torch.empty((ctas * 256,), dtype=torch.int64, device=dev)
+    out = torch.empty((256,), dtype=torch.int64, device=dev)
+    st, _ = _chained_state(dev, 1)
+    _launch(HIST256, dev, ptr, n, ctas, partials, st.ticket, out)
+    return out
+
+
+_TOK_LIMIT = (1 << 31) - 2  # stream bytes a call takes (int32 positions)
+
+
+def _tok_limit(name: str, n: int) -> None:
+    if n > _TOK_LIMIT:  # not a malformed stream: no ValueError
+        raise RuntimeError(f"{name}: {n} bytes (at most {_TOK_LIMIT})")
+
+
+def tok_encode(stream: torch.Tensor, count: int) -> torch.Tensor:
+    """The tokenized form of the u16-length-prefixed header stream ``stream``
+    ((n,) uint8, a view at any byte offset) of ``count`` records -> uint8
+    tensor on its device; see :func:`..ops.tokenize.tok_encode_plain`. A
+    malformed stream raises ``ValueError`` with the plain version's string.
+    One call of two launches (the record starts, the ops), then the fault
+    and size read back."""
+    dev = stream.device
+    n = _check_bytes("stream", stream, dev)
+    if count < 0:
+        raise ValueError(f"count must be >= 0, got {count}")
+    if _plain_or_cuda(dev):
+        return tokenize.tok_encode_plain(stream, count)
+    _tok_limit(TOK_ENCODE, n)
+    if count == 0 or 2 * count > n:
+        # no chain to walk: a record takes two bytes at least
+        if count == 0 and n == 0:
+            return torch.zeros((1,), dtype=torch.uint8, device=dev)  # varint(0)
+        raise ValueError(tokenize.TOK_ENCODE_FAULTS[1 if count else 2])
+    out, info = tok_encode_launch(stream, count)
+    fault, size = info[tokenize.TOK_INFO_FAULT : tokenize.TOK_INFO_SIZE + 1].tolist()
+    if fault:
+        raise ValueError(tokenize.TOK_ENCODE_FAULTS[fault])
+    return out[:size]
+
+
+def tok_encode_launch(stream: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tok_encode`'s launch on a CUDA tensor (1 <= count <= n / 2),
+    read back nothing: -> (out, its ``encode_bound`` bytes; info, int64 with
+    the fault and the size at ``tokenize.TOK_INFO_FAULT`` / ``_SIZE``)."""
+    dev, n = stream.device, stream.numel()
+    lib = build.load(_LIBRARY[TOK_ENCODE])
+    starts = torch.empty((count + 1,), dtype=torch.int32, device=dev)
+    chain_info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
+    out = torch.empty((tokenize.encode_bound(n, count),), dtype=torch.uint8, device=dev)
+    info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
+    st, epoch = _chained_state(dev, lib.fq_tok_tiles(n, count), epochs=2)
+    _launch(TOK_ENCODE, dev, stream.data_ptr(), n, count, starts, chain_info, out, info,
+            st.ticket, st.status, epoch)
+    return out, info
+
+
+def tok_decode(data: torch.Tensor, count: int) -> torch.Tensor:
+    """The u16-length-prefixed header stream of ``count`` records that the
+    tokenized stream ``data`` ((m,) uint8) codes -> uint8 tensor on its
+    device; see :func:`..ops.tokenize.tok_decode_plain`. A corrupt stream
+    raises ``ValueError`` with the plain version's string for its first
+    fault in stream order. The declared size (the leading varint) is read on
+    the host; the output is sized from the decoded lengths. Two calls: the
+    op chain, the tokens and their sizes; then, read back and with no fault,
+    the write."""
+    dev = data.device
+    m = _check_bytes("data", data, dev)
+    if count < 0:
+        raise ValueError(f"count must be >= 0, got {count}")
+    if _plain_or_cuda(dev):
+        return tokenize.tok_decode_plain(data, count)
+    _tok_limit(TOK_DECODE, m)
+    total, start = tokenize._read_varint(data[:10].cpu().numpy().tobytes(), 0)
+    if count == 0:
+        if total != 0:
+            raise ValueError(tokenize.TOK_FAULTS[9])
+        return torch.empty((0,), dtype=torch.uint8, device=dev)
+    if start == m:
+        raise ValueError(tokenize.TOK_FAULTS[2])
+    call = tok_decode_launch(data, count, start)
+    key, size = call.info[tokenize.TOK_INFO_FAULT : tokenize.TOK_INFO_SIZE + 1].tolist()
+    if key != tokenize.TOK_NO_FAULT:
+        code, pos = key & 15, key >> 4
+        if code not in tokenize.TOK_FAULTS:
+            raise RuntimeError(f"{TOK_DECODE}: internal fault {code} at {pos}")
+        op = int(data[pos].item()) if code == 7 else 0
+        raise ValueError(tokenize.TOK_FAULTS[code].format(op=op))
+    if size != total:
+        raise ValueError(tokenize.TOK_FAULTS[9])
+    return tok_decode_write(call, size)
+
+
+class TokDecodeCall(NamedTuple):
+    """A decode's first call: its arguments (the second call takes them
+    again) and its info (int64: the first fault's position * 16 + code, or
+    ``tokenize.TOK_NO_FAULT``, and the output size, at
+    ``tokenize.TOK_INFO_FAULT`` / ``_SIZE``)."""
+
+    args: tuple
+    info: torch.Tensor
+
+
+def tok_decode_launch(data: torch.Tensor, count: int, start: int) -> TokDecodeCall:
+    """:func:`tok_decode`'s first call on a CUDA tensor whose ops start at
+    ``start`` (after the declared size; < m), count >= 1, read back
+    nothing."""
+    dev, m = data.device, data.numel()
+    # a record ends at an op byte: past m - start records, the chain runs out
+    # (or faults first) whatever the count
+    cap = m - start
+    count = min(count, cap + 1)
+    lib = build.load(_LIBRARY[TOK_DECODE])
+    ops = torch.empty((cap,), dtype=torch.int32, device=dev)
+    rec = torch.empty((cap,), dtype=torch.int32, device=dev)
+    recstart = torch.empty((count + 2,), dtype=torch.int32, device=dev)
+    toks = torch.empty((2, cap * lib.fq_tok_state_bytes()), dtype=torch.uint8, device=dev)
+    place = torch.empty((cap,), dtype=torch.int64, device=dev)
+    info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
+    st, epoch = _chained_state(dev, lib.fq_tok_tiles(m, count), epochs=3)
+    args = (data.data_ptr(), m, start, count, ops, rec, recstart, toks[0], toks[1], place, info)
+    _launch(TOK_DECODE, dev, *args, st.ticket, st.status, epoch)
+    return TokDecodeCall(args, info)
+
+
+def tok_decode_write(call: TokDecodeCall, size: int) -> torch.Tensor:
+    """A decode's second call, after a first that found no fault: the
+    ``size`` output bytes (the first call's size)."""
+    out = torch.empty((size,), dtype=torch.uint8, device=call.info.device)
+    _launch(TOK_DECODE_WRITE, call.info.device, *call.args, out)
+    return out

@@ -269,6 +269,21 @@ def rans_decode_plain(
     return out.reshape(-1), base
 
 
+def hist256_plain(data: torch.Tensor) -> torch.Tensor:
+    """The 256 counts of the bytes of an (n,) uint8 CPU tensor, int64: the
+    plain version of ``fq_hist256`` (``csrc/hist256.cu``, which replaces
+    the JAX runtime's ``fq_hist256``)."""
+    return torch.bincount(data, minlength=256)
+
+
+def histogram(data: torch.Tensor) -> np.ndarray:
+    """The (256,) int64 host counts of a uint8 tensor, counted where it lies
+    (``fq_hist256`` on the card, :func:`hist256_plain` on the CPU)."""
+    from . import cuda_kernels
+
+    return cuda_kernels.hist256(data).cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # Host-facing stream API
 # ---------------------------------------------------------------------------
@@ -294,31 +309,39 @@ def encode_stream(
         raise ValueError(f"lanes must be a power of two up to {MAX_LANES}")
     steps = -(-n // N)
 
-    hist = np.bincount(raw, minlength=256).astype(np.int64)
+    # the table from the copy the encode reads: the stream goes up once
+    data_d = to_device(dev, raw)
+    hist = histogram(data_d)
     pad_sym = int(np.argmax(hist))  # before the padding is counted
     hist[pad_sym] += steps * N - n
     freq = normalize_freqs(hist)
     return assemble_payload(
-        n, N, freq, *fetch_encoded(launch_encode(dev, raw, N, pad_sym, freq))
+        n, N, freq, *fetch_encoded(launch_encode(dev, data_d, N, pad_sym, freq))
     )
 
 
 def launch_encode(
-    dev: torch.device, raw: np.ndarray, lanes: int, pad_sym: int,
+    dev: torch.device, raw, lanes: int, pad_sym: int,
     freq: np.ndarray,
 ):
-    """Enqueue the encode and word compaction of ``raw`` with a given table
-    (``freq`` (256,) summing to PROB_SCALE, the counts of the ``pad_sym``
-    cells that fill the last row included) on ``dev``'s current stream.
-    Returns the device tensors that :func:`fetch_encoded` reads."""
+    """Enqueue the encode and word compaction of ``raw`` (host bytes, or a
+    uint8 tensor on ``dev``) with a given table (``freq`` (256,) summing to
+    PROB_SCALE, the counts of the ``pad_sym`` cells that fill the last row
+    included) on ``dev``'s current stream. Returns the device tensors that
+    :func:`fetch_encoded` reads."""
     from . import cuda_kernels
 
     steps = -(-len(raw) // lanes)
     freq_cum = np.stack(
         [freq.astype(np.int32), cumulative(freq).astype(np.int32)]
     )
+    if isinstance(raw, torch.Tensor):
+        if raw.device.type == "cuda":  # made on another stream, read on this one
+            raw.record_stream(torch.cuda.current_stream(raw.device))
+    else:
+        raw = to_device(dev, raw)
     words, flags, states = cuda_kernels.rans_encode(
-        to_device(dev, raw), steps, lanes, pad_sym, to_device(dev, freq_cum)
+        raw, steps, lanes, pad_sym, to_device(dev, freq_cum)
     )
     flat, total = cuda_kernels.rans_compact(words, flags)
     return flat, total, states

@@ -35,10 +35,21 @@ Numeric eligibility: all-ASCII-digits and <= 18 digits (fits int64).
 The last record's tokens become "prev" for the next record; the first
 record has no prev, so all its tokens are literals.
 
-The port's copy of ``fastqpacker_tpu/ops/tokenize.py`` (pure Python).
+The port's copy of ``fastqpacker_tpu/ops/tokenize.py``: its pure Python is
+:func:`encode_plain` / :func:`decode_plain` here, the specification of the
+transform and the plain versions of the card's kernels ``fq_tok_encode`` /
+``fq_tok_decode`` (``csrc/tokens.cu``, wrappers ``cuda_kernels.tok_encode`` /
+``tok_decode``). :func:`encode` and :func:`decode` run on a device: a tensor
+where it lies, host bytes on ``device`` (default: the CUDA card); the CPU
+takes the plain versions.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device, to_device
 
 OP_END = 0x00
 OP_MATCH = 0x01
@@ -98,7 +109,7 @@ def _is_numeric(tok: bytes) -> bool:
     )
 
 
-def encode(stream: bytes, count: int) -> bytes:
+def encode_plain(stream: bytes, count: int) -> bytes:
     """u16-length-prefixed headers stream -> tokenized stream."""
     out = bytearray()
     _write_varint(out, len(stream))
@@ -142,7 +153,7 @@ def encode(stream: bytes, count: int) -> bytes:
     return bytes(out)
 
 
-def decode(data: bytes, count: int) -> bytes:
+def decode_plain(data: bytes, count: int) -> bytes:
     """Tokenized stream -> the original u16-length-prefixed headers stream."""
     total, off = _read_varint(data, 0)
     out = bytearray()
@@ -197,3 +208,63 @@ def decode(data: bytes, count: int) -> bytes:
 def encode_bound(stream_len: int, count: int) -> int:
     """Worst-case output size: every byte its own literal token."""
     return 10 + 3 * stream_len + count + 16
+
+
+# The decode's faults by the code the kernel reports (csrc/tokens.cu
+# kFault*), each the plain version's string; 7 takes the op byte.
+TOK_FAULTS = {
+    1: "truncated varint in tokenized header data",
+    2: "truncated tokenized header data",
+    3: "header token match without predecessor",
+    4: "header token delta without numeric predecessor",
+    5: "negative header token value",
+    6: "header token wider than its field",
+    7: "unknown header token op: {op}",
+    8: "header exceeds 65535 bytes",
+    9: "tokenized header size mismatch",
+}
+TOK_NO_FAULT = (1 << 63) - 1
+# the kernels' info slots (csrc/tokens.cu kInfo*)
+TOK_INFO_NODES, TOK_INFO_EXIT, TOK_INFO_ENDS, TOK_INFO_FAULT, TOK_INFO_SIZE = range(5)
+TOK_INFO_SLOTS = 8
+# the encode's faults
+TOK_ENCODE_FAULTS = {1: "truncated header data", 2: "trailing bytes after last header record"}
+
+
+def _tensor(b: bytes) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(b, np.uint8).copy())
+
+
+def tok_encode_plain(stream: torch.Tensor, count: int) -> torch.Tensor:
+    """:func:`encode_plain` of a (n,) uint8 CPU tensor -> uint8 tensor."""
+    return _tensor(encode_plain(stream.numpy().tobytes(), count))
+
+
+def tok_decode_plain(data: torch.Tensor, count: int) -> torch.Tensor:
+    """:func:`decode_plain` of a (n,) uint8 CPU tensor -> uint8 tensor."""
+    return _tensor(decode_plain(data.numpy().tobytes(), count))
+
+
+def _on_device(data, device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data
+    return to_device(resolve_device(device), np.frombuffer(data, np.uint8))
+
+
+def encode(stream, count: int, device=None) -> bytes:
+    """u16-length-prefixed headers stream -> tokenized stream, on a device:
+    ``stream`` a (n,) uint8 tensor (where it lies) or host bytes (copied to
+    ``device``, default the CUDA card). Raises ``ValueError`` with the plain
+    version's string for a malformed stream."""
+    from . import cuda_kernels
+
+    return cuda_kernels.tok_encode(_on_device(stream, device), count).cpu().numpy().tobytes()
+
+
+def decode(data, count: int, device=None) -> bytes:
+    """Tokenized stream -> the u16-length-prefixed headers stream, on a
+    device, as :func:`encode`. Raises ``ValueError`` with the plain
+    version's string (the first fault in stream order)."""
+    from . import cuda_kernels
+
+    return cuda_kernels.tok_decode(_on_device(data, device), count).cpu().numpy().tobytes()

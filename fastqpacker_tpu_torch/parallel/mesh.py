@@ -268,12 +268,15 @@ def encode_blocks_parallel(
 
 
 def entropy_table(
-    streams: np.ndarray,
+    streams,
     pad_sym: int | None = None,
     raw_lens: np.ndarray | None = None,
     lanes: int = ENTROPY_LANES,
 ):
-    """Group-shared rANS table over ``(D, M)`` per-device streams.
+    """Group-shared rANS table over ``(D, M)`` per-device streams: a host
+    array, or D uint8 tensors (stream ``i`` of ``raw_lens[i]`` bytes, or
+    M), each counted where it lies (one ``fq_hist256`` a stream on a card;
+    the counts are summed exactly on the host).
 
     The per-block pipeline builds a table per stream; the device-list
     pipeline shares one table per group (as the reference fixes the
@@ -282,21 +285,23 @@ def entropy_table(
     ``i`` pads only to ``ceil(raw_lens[i]/N)*N``; otherwise every stream
     pads to ``ceil(M/N)*N``. Returns (freq_cum (2, 256) u32, pad_sym).
     """
-    d, m = streams.shape
+    if isinstance(streams, np.ndarray):
+        streams = list(torch.from_numpy(np.ascontiguousarray(streams, np.uint8)))
+    d = len(streams)
+    m = max((t.numel() for t in streams), default=0)
     n_lanes = lanes
     if raw_lens is None:
+        lens = np.full(d, m, np.int64)
         steps = -(-m // n_lanes)
         pad_count = (steps * n_lanes - m) * d
-        hist = np.bincount(
-            streams.reshape(-1), minlength=256
-        ).astype(np.int64)
     else:
         lens = np.asarray(raw_lens, np.int64)
         coded = -(-lens // n_lanes) * n_lanes
         pad_count = int((coded - lens).sum())
-        hist = np.zeros(256, np.int64)
-        for i in range(d):
-            hist += np.bincount(streams[i, : lens[i]], minlength=256)
+    hist = np.zeros(256, np.int64)
+    for i in range(d):
+        if lens[i]:
+            hist += rans.histogram(streams[i][: lens[i]])
     if pad_sym is None:
         pad_sym = int(np.argmax(hist))
     hist[pad_sym] += pad_count
@@ -343,16 +348,15 @@ def entropy_encode_streams(
 
     # lane count scales with the longest stream like rans._pick_lanes
     N = rans._pick_lanes(int(lens.max()))
-    batch = np.zeros((d, int(lens.max())), np.uint8)
-    for i, r in enumerate(rows):
-        batch[i, : len(r)] = r
-    freq_cum, pad_sym = entropy_table(batch, raw_lens=lens, lanes=N)
-    del batch
+    # each stream goes up to its device once: the table is counted there
+    # (one fq_hist256 a stream) and the encode reads the same copy
+    on_dev = for_each_device(mesh, devops.to_device, rows)
+    freq_cum, pad_sym = entropy_table(on_dev, raw_lens=lens, lanes=N)
     freq = freq_cum[0].astype(np.uint16)
 
     launched = for_each_device(
         mesh, lambda dev, r: _Launched(dev, rans.launch_encode, r, N, pad_sym, freq),
-        [r if len(r) else None for r in rows],
+        [r if len(r) else None for r in on_dev],
     )
 
     def finish() -> list[bytes]:

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -212,7 +212,11 @@ def runtime_walk(body, version: int) -> bool:
 
 @dataclass
 class RawStreams:
-    """Uncompressed per-block streams in wire order."""
+    """Uncompressed per-block streams in wire order. ``device_buffer`` and
+    ``device_offsets``: where the stream build left the six streams on the
+    block's device (seq, qual, headers, plus, npos, lengths back to back;
+    seven offsets), so a pass that reads a stream on the device reads it
+    there, with no second copy up."""
 
     seq: bytes
     qual: bytes
@@ -223,6 +227,13 @@ class RawStreams:
     num_records: int
     original_seq_size: int
     original_qual_size: int
+    device_buffer: torch.Tensor = field(compare=False, repr=False)
+    device_offsets: tuple = field(compare=False, repr=False)
+
+    def device_view(self, i: int) -> torch.Tensor:
+        """Stream ``i`` of the v2+ wire order (0 seq, 1 qual, 2 headers) as
+        a view of the device buffer."""
+        return self.device_buffer[self.device_offsets[i] : self.device_offsets[i + 1]]
 
     def ordered(self, version: int) -> list[bytes]:
         if version == container.VERSION_1:
@@ -319,7 +330,8 @@ def _check_overflow(block: RecordBlock) -> None:
 
 class PendingStreams:
     """One block's raw streams on their way to the host: the buffer the
-    stream build wrote, copied back after the work enqueued before it.
+    stream build wrote, copied back after the work enqueued before it (the
+    device buffer is kept for the passes that read a stream where it lies).
     :meth:`result` waits for the copy."""
 
     def __init__(self, block: RecordBlock, sizes: list[int], buf: torch.Tensor,
@@ -327,6 +339,7 @@ class PendingStreams:
         self.n = block.n
         self.bases = block.total_bases
         self.sizes = sizes
+        self.device_buffer = buf
         cuda = buf.device.type == "cuda"
         self.buf = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=cuda)
         self.info = torch.empty(info.shape, dtype=info.dtype, pin_memory=cuda)
@@ -346,12 +359,13 @@ class PendingStreams:
                 f"stream build disagrees with the scan: npos {npos_bytes} / "
                 f"{self.sizes[4]} bytes, seq {seq_bytes} / {self.sizes[0]}")
         host = self.buf.numpy()
-        parts, at = [], 0
+        parts, offsets = [], [0]
         for size in self.sizes:
-            parts.append(host[at : at + size].tobytes())
-            at += size
+            parts.append(host[offsets[-1] : offsets[-1] + size].tobytes())
+            offsets.append(offsets[-1] + size)
         return RawStreams(*parts, num_records=self.n, original_seq_size=self.bases,
-                          original_qual_size=self.bases)
+                          original_qual_size=self.bases, device_buffer=self.device_buffer,
+                          device_offsets=tuple(offsets))
 
 
 def encoded_to_raw_streams(

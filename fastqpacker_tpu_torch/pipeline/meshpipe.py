@@ -109,13 +109,14 @@ def _plan_seq(ordereds, lengths_l, codec, seq_dict, devs):
     return infos, best_k
 
 
-def _plan_qual(ordereds, lengths_l, codec, devs):
+def _plan_qual(ordereds, views, lengths_l, codec, devs):
     """Per-block quality-slot pick: device context coder (order-1 and
     order-2 models, like host qctx) vs device order-0 rANS vs host
     adaptive zstd, by estimated size (mirrors
     native._encode_tagged_qual). Block i's prepare pass runs on ``devs[i]``
-    (``fq_qctx_prepare``), where its raw qualities stay. Returns (infos,
-    round qual order)."""
+    (``fq_qctx_prepare``), where its raw qualities stay; its order-0
+    histogram on ``views[i]``, the stream where the stream build left it.
+    Returns (infos, round qual order)."""
     infos = []
     for i, (o, lens) in enumerate(zip(ordereds, lengths_l)):
         q = o[1]
@@ -171,7 +172,7 @@ def _plan_qual(ordereds, lengths_l, codec, devs):
                             info["choice"] = "host"
             except qualctx.QctxError:
                 pass
-            est_r0 = native._rans_size_estimate(q)
+            est_r0 = native._rans_size_estimate(views[i])
             if est_r0 < bar:
                 info["choice"] = "rans"
         infos.append(info)
@@ -203,7 +204,9 @@ def _plan_round(raws, mesh, seq_dict=None):
         np.frombuffer(o[5], "<u4").astype(np.int64) for o in ordereds
     ]
     seq_infos, seq_k = _plan_seq(ordereds, lengths_l, codec, seq_dict, mesh)
-    qual_infos, qual_order = _plan_qual(ordereds, lengths_l, codec, mesh)
+    qual_infos, qual_order = _plan_qual(
+        ordereds, [raw.device_view(1) for raw in raws], lengths_l, codec, mesh
+    )
     crcs = [native._crc_streams(o, dev) for o in ordereds]
     return {
         "raws": raws,
@@ -336,7 +339,7 @@ def _finish_round(plan) -> list[bytes]:
         gate = max(4096, (len(comp[0]) + len(comp[1])) >> 7)
         comp.append(
             native._encode_tagged_headers(
-                ordered[2], raw.num_records, codec, gate
+                ordered[2], raw.device_view(2), raw.num_records, codec, gate
             )
         )
         for s in ordered[3:]:

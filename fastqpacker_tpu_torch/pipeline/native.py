@@ -63,22 +63,21 @@ TAG_SLDM = container.TAG_SLDM
 TAG_WCTX = container.TAG_WCTX
 
 
-def _rans_size_estimate(s: bytes) -> int:
+def _rans_size_estimate(view: torch.Tensor) -> int:
     """Exact order-0 rANS output size from the histogram (pre-encode).
 
     rANS emits sum(count_k * log2(PROB_SCALE / freq_k)) bits to within
     lane-padding noise; adding the table/state overhead gives a faithful
-    estimate without running the coder.
+    estimate without running the coder. The histogram is ``fq_hist256``'s,
+    on ``view``: the stream where the stream build left it.
     """
-    hist = np.bincount(np.frombuffer(s, np.uint8), minlength=256).astype(
-        np.int64
-    )
+    hist = rans.histogram(view)
     freq = rans.normalize_freqs(hist.copy()).astype(np.float64)
     nz = hist > 0
     bits = float(
         np.sum(hist[nz] * (np.log2(rans.PROB_SCALE) - np.log2(freq[nz])))
     )
-    lanes = rans._pick_lanes(len(s))
+    lanes = rans._pick_lanes(view.numel())
     overhead = 8 + 512 + 4 * lanes + 4  # header + freqs + states + total
     return int(bits / 8) + overhead
 
@@ -143,6 +142,7 @@ class PickMemo:
 
 def _encode_tagged_seq(
     s: bytes,
+    view: torch.Tensor,
     lengths: np.ndarray,
     codec,
     dev: torch.device,
@@ -151,7 +151,8 @@ def _encode_tagged_seq(
     memo: "PickMemo | None" = None,
 ) -> bytes:
     """Sequence-stream pick: zstd vs order-0 rANS vs order-k context
-    model over the unpacked bases, by estimated-then-verified size.
+    model over the unpacked bases, by estimated-then-verified size
+    (``view``: the stream on the device, for its histogram).
 
     The 2-bit pack makes packed bytes near-uniform, so the order-0
     candidates floor at ~2 bits/base; the context model is the only one
@@ -163,7 +164,7 @@ def _encode_tagged_seq(
     z = _zstd_candidate(codec, s)
     if len(s) < RANS_MIN_BYTES:
         return bytes([TAG_ZSTD]) + z
-    r0 = _rans_size_estimate(s)
+    r0 = _rans_size_estimate(view)
     bar = min(len(z), r0)
     margin = 1.0 if max_ratio else SCTX_WIN_MARGIN
     s_arr = np.frombuffer(s, np.uint8)
@@ -222,9 +223,11 @@ def _encode_tagged_seq(
 
 
 def _encode_tagged_headers(
-    s: bytes, count: int, codec, cost_gate: int = 0
+    s: bytes, view: torch.Tensor, count: int, codec, cost_gate: int = 0
 ) -> bytes:
     """Header stream pick: token-delta transform vs raw, both zstd-coded.
+    The transform runs where ``view``, the stream the stream build left on
+    the device, lies (``fq_tok_encode``).
 
     The transform wins whenever headers share structure between records
     (the overwhelmingly common case); degenerate inputs (every header
@@ -241,7 +244,9 @@ def _encode_tagged_headers(
     if cost_gate and len(z) <= cost_gate and len(s) > (256 << 10):
         return bytes([TAG_ZSTD]) + z
     try:
-        tok = tokenize.encode(s, count)
+        # a malformed stream falls back to zstd; a kernel that fails to build
+        # or launch raises RuntimeError
+        tok = tokenize.encode(view, count)
     except ValueError:
         return bytes([TAG_ZSTD]) + z
     zt = _zstd_candidate(codec, tok)
@@ -270,7 +275,7 @@ def _decode_tagged(
         return codec.decompress(payload)
     if tag == TAG_TOK:
         try:
-            return tokenize.decode(codec.decompress(payload), count)
+            return tokenize.decode(codec.decompress(payload), count, device=dev)
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     if tag == TAG_QCTX:
@@ -315,10 +320,12 @@ def _decode_tagged(
 
 
 def _encode_tagged_qual(
-    s: bytes, lengths: np.ndarray, codec, order1: bool, dev: torch.device
+    s: bytes, view: torch.Tensor, lengths: np.ndarray, codec, order1: bool,
+    dev: torch.device,
 ) -> bytes:
     """Quality-stream pick: zstd vs order-0 rANS vs order-1 context
-    model, by estimated-then-verified size.
+    model, by estimated-then-verified size (``view``: the stream on the
+    device, for its histogram).
 
     The order-1 candidate is always allowed to replace a would-be order-0
     rANS pick (it is then both smaller and faster to decode on host);
@@ -328,7 +335,7 @@ def _encode_tagged_qual(
     z = _zstd_candidate(codec, s)
     if len(s) < RANS_MIN_BYTES:
         return bytes([TAG_ZSTD]) + z
-    r0 = _rans_size_estimate(s)
+    r0 = _rans_size_estimate(view)
     bar = min(len(z), r0)
     # The context model may also replace a winning zstd when it beats it
     # by the same margin policy as the seq pick (SCTX_WIN_MARGIN) —
@@ -473,13 +480,15 @@ def encode_block_native(
         if i == 1 and policy == "rans":
             lengths = np.frombuffer(ordered[5], "<u4").astype(np.int64)
             comp.append(
-                _encode_tagged_qual(s, lengths, codec, order1_qual, dev)
+                _encode_tagged_qual(s, raw.device_view(1), lengths, codec,
+                                    order1_qual, dev)
             )
         elif policy == "seq":
             lengths = np.frombuffer(ordered[5], "<u4").astype(np.int64)
             comp.append(
                 _encode_tagged_seq(
-                    s, lengths, codec, dev, order1_qual, seq_dict, memo
+                    s, raw.device_view(0), lengths, codec, dev, order1_qual,
+                    seq_dict, memo,
                 )
             )
         elif policy == "tok":
@@ -494,7 +503,8 @@ def encode_block_native(
                 else max(4096, (len(comp[0]) + len(comp[1])) >> 7)
             )
             comp.append(
-                _encode_tagged_headers(s, raw.num_records, codec, gate)
+                _encode_tagged_headers(s, raw.device_view(2), raw.num_records,
+                                       codec, gate)
             )
         else:
             comp.append(_zstd_candidate(codec, s))

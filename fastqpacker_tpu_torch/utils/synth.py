@@ -22,7 +22,9 @@ streams, so the ``--mesh`` path codes them ``TAG_WCTX``.
 
 :func:`illumina_fastq` writes a block of records whose read names vary in
 width as real Illumina names do, so that a header stream is not one record
-length throughout.
+length throughout. :func:`ordered_illumina_fastq` writes names in the order
+bcl2fastq writes one lane (tiles in order, y ascending within a tile), on
+which FQZ v3 picks the header tokenizer (``TAG_TOK``).
 """
 
 from __future__ import annotations
@@ -164,6 +166,43 @@ def illumina_fastq(records: int, read_len: int = 151, seed: int = 0) -> bytes:
         f"@A00953:{217 + seed % 100}:HFWLKDSXY:{lane}:{t}:{x}:{y} {rd}:N:0:{index}\n".encode()
         for lane, (t, x, y), rd in zip(lanes.tolist(), coords.tolist(), reads.tolist())
     ]
+    return _records(rng, names, read_len)
+
+
+# records per tile of ordered_illumina_fastq, and its tiles in the order a
+# NovaSeq flow cell lane is written: surface, swath, tile
+_TILE_RECORDS = 4000
+_TILES = [s * 1000 + w * 100 + t for s in (1, 2) for w in (1, 2, 3, 4) for t in range(1, 79)]
+
+
+def ordered_illumina_fastq(records: int, read_len: int = 151, seed: int = 0) -> bytes:
+    """``records`` records of one lane with read names in instrument order,
+    ``@<instrument>:<run>:<flowcell>:<lane>:<tile>:<x>:<y> <read>:N:0:<index>``
+    as bcl2fastq writes a lane: tiles in order (1101, 1102, ...; 4,000
+    records each), y ascending within a tile (steps of 0-8 from 1,000), x
+    random of 4-5 digits (1,000-32,999), read 1, one index; bases and
+    qualities as :func:`illumina_fastq`'s, all reproducible from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = records
+    k = np.arange(n)
+    tiles = np.array(_TILES, np.int64)[(k // _TILE_RECORDS) % len(_TILES)]
+    steps = rng.integers(0, 9, size=n)
+    first = k % _TILE_RECORDS == 0
+    ys = np.cumsum(steps)
+    ys = 1000 + ys - np.maximum.accumulate(np.where(first, ys, 0))
+    xs = rng.integers(1000, 33000, size=n)
+    index = "".join("ACGT"[j] for j in rng.integers(0, 4, size=8))
+    names = [
+        f"@A00953:{217 + seed % 100}:HFWLKDSXY:1:{t}:{x}:{y} 1:N:0:{index}\n".encode()
+        for t, x, y in zip(tiles.tolist(), xs.tolist(), ys.tolist())
+    ]
+    return _records(rng, names, read_len)
+
+
+def _records(rng: np.random.Generator, names: list, read_len: int) -> bytes:
+    """FASTQ records of the header lines ``names``: IID bases with about
+    0.1% N and qualities tiled from the default pool."""
+    n = len(names)
     seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)]
     nn = max(1, n * read_len // 1000)
     seq[rng.integers(0, n, nn), rng.integers(0, read_len, nn)] = ord("N")

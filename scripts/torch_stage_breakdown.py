@@ -20,7 +20,11 @@ stages wrapped in timers, on data whose quality streams are coded with
 order-0 rANS: CRC32, zstd candidates, pick estimates, rANS encode and
 decode (with their copies), the context prepare passes (the kernels
 ``c.qctx_prepare`` and ``c.sctx_prepare``, and the calls around them with
-their copies), and the context coders and tokenizer when they run.
+their copies), and the context coders and tokenizer when they run; ``--corpus ordered``
+runs it on names in instrument order (``utils/synth.py``
+``ordered_illumina_fastq``), whose header streams the tokenizer codes
+(``c.tok_encode``, ``d.tok_decode`` and their kernels). Every order-0
+histogram of the v3 and mesh picks is ``fq_hist256`` (``*.hist256.kernel``).
 ``--format mesh`` does the same for the ``--mesh`` path
 (``pipeline/meshpipe.py`` on a one-device list) on whole 100,000-record
 blocks of the context-model corpus, one round at a time: the plan (the
@@ -32,7 +36,7 @@ the wire bytes). A stage named ``x(incl. ...)`` contains the stages named
 ``x.*``.
 
 Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3|mesh] [--mb 64]
-                                                [--seed 0]
+                                                [--seed 0] [--corpus walk|ordered]
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from fastqpacker_tpu_torch.ops import records as recops  # noqa: E402
 from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser  # noqa: E402
 from fastqpacker_tpu_torch.pipeline import api  # noqa: E402
 from fastqpacker_tpu_torch.pipeline import blocks as blockcodec  # noqa: E402
-from fastqpacker_tpu_torch.utils.synth import synth_fastq  # noqa: E402
+from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq, synth_fastq  # noqa: E402
 
 
 class Clock:
@@ -153,6 +157,9 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "rans_compact", "rans_encode.compact_kernel"),
         (cuda_kernels, "rans_decode", "rans_decode.kernel"),
         (cuda_kernels, "crc32_chunks", "crc32.kernel"),
+        (cuda_kernels, "hist256", "hist256.kernel"),
+        (cuda_kernels, "tok_encode", "tok_encode.kernels(incl. read-back)"),
+        (cuda_kernels, "tok_decode", "tok_decode.kernels(incl. read-backs)"),
         (cuda_kernels, "qctx_prepare", "qctx_prepare"),
         (cuda_kernels, "sctx_prepare", "sctx_prepare"),
         (cuda_kernels, "wctx_layout", "wctx_layout"),
@@ -249,6 +256,9 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "rans_compact", "compact.kernel"),
         (cuda_kernels, "wctx_decode", "wctx_decode.kernel"),
         (cuda_kernels, "rans_decode", "rans_decode.kernel"),
+        (cuda_kernels, "hist256", "hist256.kernel"),
+        (cuda_kernels, "tok_encode", "tok_encode.kernels(incl. read-back)"),
+        (cuda_kernels, "tok_decode", "tok_decode.kernels(incl. read-backs)"),
         (cuda_kernels, "qctx_prepare", "qctx_prepare"),
         (cuda_kernels, "sctx_prepare", "sctx_prepare"),
         (cuda_kernels, "wctx_layout", "wctx_layout"),
@@ -314,6 +324,9 @@ def main() -> int:
     ap.add_argument("--format", choices=["v2", "v3", "mesh"], default="v2", dest="fmt")
     ap.add_argument("--mb", type=float, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--corpus", choices=["walk", "ordered"], default="walk",
+                    help="v3: walk qualities (every quality stream TAG_RANS) or names in "
+                         "instrument order (every header stream TAG_TOK)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stage_breakdown: no CUDA device", file=sys.stderr)
@@ -340,10 +353,15 @@ def main() -> int:
         }))
         return 0
     if args.fmt == "v3":
-        data = synth_fastq(args.mb, seed=args.seed, qual_model="walk")
+        if args.corpus == "ordered":
+            one = len(ordered_illumina_fastq(1000, seed=args.seed)) / 1000
+            data = ordered_illumina_fastq(int(args.mb * (1 << 20) / one), seed=args.seed)
+        else:
+            data = synth_fastq(args.mb, seed=args.seed, qual_model="walk")
         ms, n, block_records = breakdown_v3(data, dev)
         print(json.dumps({
             "format": "v3",
+            "corpus": args.corpus,
             "device": torch.cuda.get_device_name(0),
             "nvidia_smi": smi_line(),
             "input_bytes": len(data),

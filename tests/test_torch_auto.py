@@ -22,6 +22,7 @@ from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.pipeline import auto as pauto
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 
 @pytest.fixture

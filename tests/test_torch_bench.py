@@ -31,6 +31,7 @@ from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.ops import wctx as pwctx
 from fastqpacker_tpu_torch.utils import profiling as pprofiling
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 
 def _runtime_built() -> bool:

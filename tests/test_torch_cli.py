@@ -18,6 +18,7 @@ import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu_torch.cli import fqpack as port_cli
 from fastqpacker_tpu_torch.format import container as C
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 ENV = {

@@ -16,6 +16,7 @@ import torch
 from fastqpacker_tpu.ops import crc32 as jcrc
 from fastqpacker_tpu_torch.ops import crc32 as tcrc
 from fastqpacker_tpu_torch.ops import cuda_kernels
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 C = tcrc.CHUNK
 M = tcrc.MIN_DEVICE_BYTES

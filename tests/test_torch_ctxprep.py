@@ -33,6 +33,7 @@ from torch_ctxprep_inputs import (LL, LT, S, T, layout_edge_cases, layout_stream
                                   sctx_prepare_edge_cases, sctx_prepare_stream,
                                   unlayout_edge_cases, unlayout_stream)
 from torch_wctx_inputs import MODELS, one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

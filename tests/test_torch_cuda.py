@@ -2274,3 +2274,150 @@ def test_ctxprep_failing_build_raises_and_never_runs_the_plain_version(cuda, mon
     tab = torch.from_numpy(ctxprep.lane_layout(lengths, 256)[0]).to(cuda)
     with pytest.raises(RuntimeError, match="nvcc failed to build ctxprep.cu"):
         cuda_kernels.wctx_layout(None, bounds, tab, 20, 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# the runtime's byte histogram and header tokenizer (csrc/hist256.cu,
+# csrc/tokens.cu)
+# ---------------------------------------------------------------------------
+
+from torch_tokens_inputs import (decode_fault_cases, header_edge_cases,  # noqa: E402
+                                 hist_edge_cases, stream_of)
+
+HIST_CASES = hist_edge_cases()
+TOK_HEADERS = header_edge_cases()
+TOK_FAULTS = decode_fault_cases()
+
+
+def _on(cuda, b: bytes, off: int = 0) -> torch.Tensor:
+    """``b`` on the card as a view that starts ``off`` bytes into its buffer."""
+    buf = torch.from_numpy(np.frombuffer(b"\x5a" * off + b + b"\x5a", np.uint8).copy()).to(cuda)
+    return buf[off : off + len(b)]
+
+
+@pytest.mark.parametrize("case", sorted(HIST_CASES))
+def test_hist256_matches_plain(case, cuda):
+    """Lengths 0, 1, 15, 16, 17 and several CTAs, views at offsets 1-15,
+    one-symbol, 256-symbol and skewed streams: one launch, counts equal to
+    the plain version's."""
+    buf, off, n = HIST_CASES[case]
+    t = _on(cuda, buf[off : off + n], off % 16)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.hist256(t)
+    assert cuda_kernels.launches.as_dict()[cuda_kernels.HIST256] == 1
+    assert torch.equal(got.cpu(), port_rans.hist256_plain(t.cpu()))
+
+
+@pytest.mark.parametrize("case", sorted(TOK_HEADERS))
+def test_tok_encode_and_decode_match_plain(case, cuda):
+    """Every header edge and corpus: the tokenized bytes of a view at an odd
+    offset equal the plain version's, and decode back to the stream, one
+    launch of each wrapper a call."""
+    from fastqpacker_tpu_torch.ops import tokenize
+
+    headers = TOK_HEADERS[case]
+    s = stream_of(headers)
+    view = _on(cuda, s, 3)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.tok_encode(view, len(headers))
+    want = tokenize.tok_encode_plain(view.cpu(), len(headers))
+    assert torch.equal(got.cpu(), want)
+    back = cuda_kernels.tok_decode(_on(cuda, want.numpy().tobytes()), len(headers))
+    assert back.cpu().numpy().tobytes() == s
+    counts = cuda_kernels.launches.as_dict()
+    launched = 1 if headers else 0
+    assert counts[cuda_kernels.TOK_ENCODE] == counts[cuda_kernels.TOK_DECODE] == launched
+
+
+@pytest.mark.parametrize("case", sorted(TOK_FAULTS))
+def test_tok_decode_faults_match_plain(case, cuda):
+    """Each decode fault raises the plain version's string on the card (the
+    first in stream order); the streams whose bytes past the last record
+    would fault decode as on the CPU."""
+    from fastqpacker_tpu_torch.ops import tokenize
+
+    data, count = TOK_FAULTS[case]
+    try:
+        want = tokenize.decode_plain(data, count)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            cuda_kernels.tok_decode(_on(cuda, data), count)
+        assert str(got.value) == str(e)
+    else:
+        assert cuda_kernels.tok_decode(_on(cuda, data), count).cpu().numpy().tobytes() == want
+
+
+@pytest.mark.parametrize("stream,count", [
+    (stream_of([b"a", b"b"]), 3), (stream_of([b"a", b"b"])[:-1], 2),
+    (stream_of([b"a", b"b"]) + b"\x00", 2), (stream_of([b"a", b"b"]), 1),
+    (stream_of([b"a" * 300, b"b"])[:-5], 2), (b"\x05", 1),
+])
+def test_tok_encode_faults_match_plain(stream, count, cuda):
+    from fastqpacker_tpu_torch.ops import tokenize
+
+    with pytest.raises(ValueError) as want:
+        tokenize.encode_plain(stream, count)
+    with pytest.raises(ValueError) as got:
+        cuda_kernels.tok_encode(_on(cuda, stream, 5), count)
+    assert str(got.value) == str(want.value)
+
+
+def test_tokens_v3_container_equals_the_cpu_with_launches_by_tag(cuda):
+    """Names in instrument order, three v3 blocks: the card's container
+    equals the CPU's, every header stream is ``TAG_TOK``; one tokenizer
+    encode a block, one decode a ``TAG_TOK`` stream, and one histogram an
+    estimate or rANS table."""
+    from fastqpacker_tpu_torch.pipeline import native
+    from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
+
+    data = ordered_illumina_fastq(15_000, seed=7)
+    v3 = tfq.Options(version=3, workers=1, block_size=5000)
+    cuda_kernels.reset_launches()
+    comp = tfq.compress_bytes(data, v3, device=cuda)
+    c = cuda_kernels.launches.as_dict()
+    assert comp == tfq.compress_bytes(data, v3, device="cpu")
+    r = io.BytesIO(comp)
+    fh = tfq.container.read_file_header(r)
+    tags = []
+    while (hdr := tfq.container.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(tfq.container.VERSION_2)
+        payload = r.read(sum(sizes))
+        tags.append((payload[0], payload[sizes[0]], payload[sizes[0] + sizes[1]]))
+    assert [t[2] for t in tags] == [native.TAG_TOK] * 3
+    n_rans = sum((t[0] == native.TAG_RANS) + (t[1] == native.TAG_RANS) for t in tags)
+    assert c[cuda_kernels.TOK_ENCODE] == 3
+    # a 5,000-record block's sequence (190,000 B) and quality (755,000 B)
+    # streams are both estimated
+    assert c[cuda_kernels.HIST256] == 2 * 3 + n_rans
+    cuda_kernels.reset_launches()
+    assert tfq.decompress_bytes(comp, device=cuda) == data
+    d = cuda_kernels.launches.as_dict()
+    assert d[cuda_kernels.TOK_DECODE] == 3 and d[cuda_kernels.TOK_ENCODE] == 0
+    assert d[cuda_kernels.HIST256] == 0
+
+
+def test_tokens_failing_build_raises_and_never_runs_the_plain_version(cuda, monkeypatch):
+    """No fallback: when the tokenizer's or the histogram's library does not
+    build, a CUDA tensor raises RuntimeError (which the v3 header pick does
+    not catch); nothing runs the plain versions in their place."""
+    from fastqpacker_tpu_torch.entropy import zstd
+    from fastqpacker_tpu_torch.ops import build, tokenize
+    from fastqpacker_tpu_torch.pipeline import native
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed to build {name}.cu")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "_libs", {k: v for k, v in build._libs.items()
+                                         if k not in ("tokens", "hist256")})
+    monkeypatch.setattr(build, "_compile", fail)
+    monkeypatch.setattr(tokenize, "encode_plain", plain)
+    monkeypatch.setattr(tokenize, "decode_plain", plain)
+    monkeypatch.setattr(cuda_kernels, "hist256_plain", plain)
+    s = stream_of([b"r:1", b"r:2"])
+    with pytest.raises(RuntimeError, match="nvcc failed to build tokens.cu"):
+        native._encode_tagged_headers(s, _on(cuda, s), 2, zstd.get_codec())
+    with pytest.raises(RuntimeError, match="nvcc failed to build hist256.cu"):
+        native._rans_size_estimate(_on(cuda, bytes(20000), 3))

@@ -27,6 +27,7 @@ from fastqpacker_tpu_torch.parallel import mesh as pmesh
 from fastqpacker_tpu_torch.pipeline import api as port_api
 from fastqpacker_tpu_torch.pipeline import meshpipe as pmeshpipe
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "testdata" / "golden"

@@ -88,9 +88,9 @@ def test_the_mesh_slice_modules_are_in_the_package():
     assert (REPO / "fastqpacker_tpu_torch" / "csrc" / "wctx_codec.cu").is_file()
     assert set(build.SIGNATURES["wctx_codec"]) == {"fq_wctx_encode", "fq_wctx_decode"}
     assert {"fq_wctx_encode", "fq_wctx_decode"} <= set(cuda_kernels.launches.as_dict())
-    # the eight kernels of the three paths, the four block stages and the
-    # four context-model passes
-    assert len(cuda_kernels.launches.as_dict()) == 16
+    # the eight kernels of the three paths, the four block stages, the
+    # four context-model passes, the byte histogram and the tokenizer's two
+    assert len(cuda_kernels.launches.as_dict()) == 19
 
 
 def test_the_block_stage_modules_are_in_the_package():
@@ -142,6 +142,35 @@ def test_the_context_pass_modules_are_in_the_package():
     passes = {"fq_qctx_prepare", "fq_sctx_prepare", "fq_wctx_layout", "fq_wctx_unlayout"}
     assert set(build.SIGNATURES["ctxprep"]) == passes
     assert passes <= set(cuda_kernels.launches.as_dict())
+
+
+def test_the_histogram_and_tokenizer_kernels_are_in_the_package():
+    """The runtime's byte histogram (``csrc/hist256.cu``) and header
+    tokenizer (``csrc/tokens.cu``) exist under the port, the modules that
+    route through them import neither JAX nor the JAX package, and their
+    launchers are registered with the build (the decode's second call
+    uncounted)."""
+    import importlib
+
+    from fastqpacker_tpu_torch.ops import build, cuda_kernels
+
+    for name in ("ops.rans", "ops.tokenize", "ops.cuda_kernels", "pipeline.blocks",
+                 "pipeline.native", "pipeline.meshpipe", "parallel.mesh", "utils.synth"):
+        mod = importlib.import_module(f"fastqpacker_tpu_torch.{name}")
+        assert "fastqpacker_tpu_torch" in mod.__file__
+        for line in Path(mod.__file__).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "fastqpacker_tpu.")), line
+                assert words[1] != "fastqpacker_tpu", line
+    for src in ("hist256.cu", "tokens.cu"):
+        assert (REPO / "fastqpacker_tpu_torch" / "csrc" / src).is_file()
+    assert set(build.SIGNATURES["hist256"]) == {"fq_hist256"}
+    assert set(build.SIGNATURES["tokens"]) == {"fq_tok_encode", "fq_tok_decode",
+                                               "fq_tok_decode_write"}
+    counted = set(cuda_kernels.launches.as_dict())
+    assert {"fq_hist256", "fq_tok_encode", "fq_tok_decode"} <= counted
+    assert "fq_tok_decode_write" not in counted
 
 
 def test_the_cli_surface_modules_are_in_the_package():

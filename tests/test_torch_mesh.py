@@ -33,6 +33,7 @@ from fastqpacker_tpu_torch.parallel import mesh as pmesh
 from fastqpacker_tpu_torch.pipeline import meshpipe as pmeshpipe
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 C = tfq.container
 BLOCK = 1800

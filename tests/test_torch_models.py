@@ -18,6 +18,7 @@ from fastqpacker_tpu_torch.pipeline import api as papi
 from fastqpacker_tpu_torch.pipeline import native as pnative
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 NAMES = sorted(jmodels.REGISTRY)
 

@@ -16,6 +16,7 @@ from fastqpacker_tpu_torch.format import container as C
 from fastqpacker_tpu_torch.parallel import multihost as pmh
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

@@ -22,6 +22,7 @@ import fastqpacker_tpu as jfq
 import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu.parallel import multihost as jmh
 from fastqpacker_tpu_torch.parallel import multihost as pmh
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 

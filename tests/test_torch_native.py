@@ -25,6 +25,7 @@ from fastqpacker_tpu.pipeline import native as jax_native
 from fastqpacker_tpu_torch.pipeline import api as port_api
 from fastqpacker_tpu_torch.pipeline import native as port_native
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "testdata" / "golden"

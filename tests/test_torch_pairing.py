@@ -26,6 +26,7 @@ from fastqpacker_tpu.pipeline import api as jax_api
 from fastqpacker_tpu.utils import pairing as jax_pairing
 from fastqpacker_tpu_torch.pipeline import api as port_api
 from fastqpacker_tpu_torch.utils import pairing
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 ENV = {**os.environ, "FQZ_FORCE_CPU": "1", "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO)}

@@ -20,6 +20,7 @@ from fastqpacker_tpu.ops import reference as refops
 from fastqpacker_tpu.parallel import mesh as jmesh
 from fastqpacker_tpu_torch.parallel import mesh as pmesh
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 D = 8
 
@@ -207,6 +208,8 @@ def test_threaded_stream_apis_give_the_same_payloads(monkeypatch, one_torch_thre
     assert got == want
     assert pmesh.entropy_decode_streams(got[0], mesh) == streams
     flats = pmesh.wctx_decode_streams(got[1], lens, mesh)
-    assert threaded == [4] * 6  # launch + fetch of both encodes, both decodes
+    # the order-0 encode's upload (its table is counted where the streams
+    # lie), launch + fetch of both encodes, both decodes
+    assert threaded == [4] * 7
     for flat, (syms, _, _) in zip(flats, jobs):
         np.testing.assert_array_equal(flat, syms)

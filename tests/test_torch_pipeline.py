@@ -18,6 +18,7 @@ import fastqpacker_tpu_torch as tfq
 from fastqpacker_tpu.pipeline import auto as jax_auto
 from fastqpacker_tpu.pipeline import device as jax_device_pipe
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 GOLDEN = Path(__file__).parent / "testdata" / "golden"
 

@@ -26,6 +26,7 @@ from fastqpacker_tpu_torch.parallel import mesh as pmesh
 from fastqpacker_tpu_torch.pipeline import meshpipe as pmeshpipe
 from fastqpacker_tpu_torch.pipeline import ranges as port_ranges
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 ENV = {**os.environ, "FQZ_FORCE_CPU": "1", "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO)}

@@ -21,6 +21,7 @@ import torch
 from fastqpacker_tpu.ops import rans as jrans
 from fastqpacker_tpu_torch.ops import cuda_kernels
 from fastqpacker_tpu_torch.ops import rans as trans
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -32,6 +32,8 @@ from fastqpacker_tpu_torch.pipeline import blocks as pblocks
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
 
 import torch_records_inputs as ri
+from torch_jax_runtime import ensure as ensure_jax_runtime
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 C = tfq.container
 FIELDS = ("seq", "qual", "headers", "plus", "npos", "lengths")
@@ -41,8 +43,9 @@ SETTINGS = settings(max_examples=30, deadline=None, derandomize=True,
 
 @pytest.fixture(scope="module", autouse=True)
 def _runtime():
-    """The JAX package's C++ runtime is the reference of these stages."""
-    assert bindings.available()
+    """The JAX package's C++ runtime is the reference of these stages (loaded
+    again if this process met it while another was building it)."""
+    assert ensure_jax_runtime()
 
 
 @st.composite

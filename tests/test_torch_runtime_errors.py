@@ -32,6 +32,7 @@ from fastqpacker_tpu_torch.pipeline import meshpipe as pmeshpipe
 from fastqpacker_tpu_torch.pipeline.blocks import RUNTIME_STREAM_ERRORS
 from fastqpacker_tpu_torch.utils.synth import synth_fastq
 from test_torch_inspect import _coverage, _ctx_fastq, _markov
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 # the JAX CLI's per-block rANS decoder is pinned to its host twin, as

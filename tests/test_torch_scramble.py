@@ -26,6 +26,7 @@ from fastqpacker_tpu_torch.cli import fqscramble as port_scramble
 from fastqpacker_tpu_torch.parser import fastq as port_fastq
 from fastqpacker_tpu_torch.utils import gopcg
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN_FQ = (REPO / "tests" / "testdata" / "golden" / "golden.fq").read_bytes()

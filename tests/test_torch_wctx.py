@@ -23,6 +23,7 @@ from fastqpacker_tpu.ops import wctx as jwctx
 from fastqpacker_tpu.runtime import bindings
 from fastqpacker_tpu_torch.ops import wctx as pwctx
 from torch_wctx_inputs import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

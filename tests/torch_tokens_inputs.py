@@ -1,0 +1,174 @@
+"""Seeded inputs for the byte histogram and the header tokenizer
+(``test_torch_hist256.py`` and ``test_torch_tokens.py`` on the CPU,
+``test_torch_cuda.py`` and ``chip_smoke.py``'s ``phase=tokens`` on the card).
+
+:func:`hist_edge_cases`: streams of 0, 1, 15, 16 and 17 bytes, views that
+start at each of the offsets 1-15 of a buffer, one-symbol and 256-symbol
+streams, and streams that span several CTAs.
+
+:func:`header_edge_cases`: header lists (each record's name without '@'):
+no record, empty headers, tokens of 18 and 19 digits, leading zeros
+(DELTA_PAD), a token count that changes between records, record counts
+around the encode's tiles of 256 records, headers across the chain's tiles
+of 16,384 bytes, the longest header, and the three corpora (SIM names,
+Illumina names of random width, names in instrument order).
+
+:func:`decode_fault_cases`: tokenized streams that the plain decoder
+refuses, one or more for each of its nine strings, and streams whose bytes
+after the last record would fault but are never read.
+"""
+
+import numpy as np
+
+from fastqpacker_tpu_torch.utils import synth
+
+OP_END, OP_MATCH, OP_DELTA, OP_PAD, OP_LIT = 0, 1, 2, 3, 4
+ENCODE_TILE_RECORDS = 256  # csrc/tokens.cu kEncRecords
+CHAIN_TILE = 16384  # csrc/tokens.cu kChainTile
+
+
+def varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def zigzag(v: int) -> int:
+    return 2 * v if v >= 0 else -2 * v - 1
+
+
+def stream_of(headers) -> bytes:
+    """The u16-length-prefixed header stream of ``headers``."""
+    return b"".join(len(h).to_bytes(2, "little") + h for h in headers)
+
+
+def headers_of(fastq: bytes) -> list:
+    """The header lines of a FASTQ text, '@' stripped."""
+    return [line[1:] for line in fastq.split(b"\n")[0::4] if line]
+
+
+def hist_edge_cases() -> dict:
+    """name -> (buffer bytes, view offset, view length)."""
+    rng = np.random.default_rng(41)
+    buf = rng.integers(0, 256, size=(1 << 20) + 64, dtype=np.uint8).tobytes()
+    cases = {}
+    for n in (0, 1, 15, 16, 17, 4095, 65537, (1 << 20) + 3):
+        cases[f"len{n}"] = (buf, 0, n)
+    for off in range(1, 16):
+        cases[f"off{off}_len1000"] = (buf, off, 1000)
+    for off in (1, 7, 15):
+        cases[f"off{off}_len300001"] = (buf, off, 300_001)
+        cases[f"off{off}_len14"] = (buf, off, 14)
+    cases["one_symbol"] = (bytes([7]) * 200_003, 0, 200_003)
+    cases["one_symbol_off3"] = (bytes([0]) * 100_000, 3, 99_990)
+    cases["all_256"] = (bytes(range(256)) * 1000, 5, 255_990)
+    # quality deltas: nearly all one symbol, a few others
+    skew = rng.choice(np.array([0, 1, 255, 2, 254], np.uint8), p=[0.9, 0.04, 0.04, 0.01, 0.01],
+                      size=500_009).astype(np.uint8).tobytes()
+    cases["skewed_off9"] = (skew, 9, 500_000)
+    return cases
+
+
+def header_edge_cases() -> dict:
+    """name -> list of headers (bytes)."""
+    rng = np.random.default_rng(43)
+    cases = {
+        "count0": [],
+        "one_empty": [b""],
+        "empty_headers": [b"", b"", b""],
+        "empty_between": [b"r:1", b"", b"r:2", b""],
+        "no_digits": [b"plain text no digits"] * 3,
+        "all_match": [b"a1b2c3"] * 5,
+        "plus_one": [b"read.%d" % i for i in range(1, 40)],
+        "pad": [b"read.%04d" % i for i in range(990, 1010)],
+        "pad_to_plain": [b"x.0001", b"x.10002", b"x.0003", b"x.7", b"x.007"],
+        "natural_growth": [b"x.9", b"x.10", b"x.99", b"x.100", b"x.9"],
+        "digits18": [b"id " + b"9" * 18 + b" x", b"id " + b"1" * 18 + b" x",
+                     b"id " + b"0" * 18 + b" x"],
+        "digits19": [b"id " + b"9" * 19 + b" x", b"id " + b"9" * 18 + b"8 x",
+                     b"id " + b"1" * 19 + b" x"],
+        "digits18_19": [b"a" + b"5" * 18, b"a" + b"5" * 19, b"a" + b"4" * 18],
+        "leading_zeros": [b"007", b"7", b"0", b"00", b"000", b"0100", b"0099"],
+        "token_count_changes": [b"a:1:2", b"a:1", b"a:1:2:3", b"", b"b", b"a:1:2:3:4:5"],
+        "binary": [b"\xff\xfe binary \x00 bytes 7", b"\xff\xfe binary \x00 bytes 8"],
+        "one_digit_runs": [bytes([0x30 + (i % 10)]) * 3 for i in range(30)],
+        "negative_deltas": [b"t:%d" % (10**17 - 7 * i) for i in range(50)],
+        "longest": [b"h" * 65535, b"h" * 65534 + b"1", b"1" + b"h" * 65534],
+    }
+    for n in (15, 16, 17, 255, 256, 257, 513):
+        cases[f"records{n}"] = [b"A1:%d:%d" % (i // 7, i) for i in range(n)]
+    # headers across the chain's tiles: records of ~3-20 KB
+    lens = rng.integers(3000, 20000, size=12)
+    cases["chain_tiles"] = [b"x" * int(k - 6) + b":%05d" % i for i, k in enumerate(lens)]
+    for name, fn in (("sim", synth.synth_fastq), ("illumina", synth.illumina_fastq),
+                     ("ordered", synth.ordered_illumina_fastq)):
+        if fn is synth.synth_fastq:
+            text = fn(0.05, seed=3)
+        else:
+            text = fn(600, seed=3)
+        cases[f"corpus_{name}"] = headers_of(text)
+    return cases
+
+
+def _lit(b: bytes) -> bytes:
+    return bytes([OP_LIT]) + varint(len(b)) + b
+
+
+def _tok(records, total=None) -> bytes:
+    """A tokenized stream of op lists (each record's ops, OP_END added);
+    ``total`` the declared size (default: computed by the caller)."""
+    body = b"".join(b"".join(ops) + bytes([OP_END]) for ops in records)
+    return varint(0 if total is None else total) + body
+
+
+def decode_fault_cases() -> dict:
+    """name -> (tokenized bytes, count). Each one's plain decode raises (or,
+    for the ``ok_`` cases, returns)."""
+    d = bytes([OP_DELTA])
+    p = bytes([OP_PAD])
+    m = bytes([OP_MATCH])
+    cases = {
+        "varint_total": (b"\x80", 1),
+        "varint_total_11_bytes": (b"\xff" * 10 + b"\x01", 1),
+        "varint_delta": (varint(8) + _lit(b"5") + bytes([OP_END]) + d + b"\x80", 2),
+        "varint_lit": (varint(4) + bytes([OP_LIT]) + b"\xff\xff", 1),
+        "varint_delta_10th_continues": (
+            varint(8) + _lit(b"5") + bytes([OP_END]) + d + b"\xff" * 10 + b"\x00", 2),
+        "trunc_no_ops": (varint(3), 1),
+        "trunc_no_end": (varint(3) + _lit(b"a"), 1),
+        "trunc_lit": (varint(3) + bytes([OP_LIT]) + varint(50) + b"abc", 1),
+        "trunc_records": (_tok([[_lit(b"a")], [m]], 6), 3),
+        "match_first": (_tok([[m]], 2), 1),
+        "match_past_pred": (_tok([[_lit(b"a")], [m, m]], 6), 2),
+        "delta_first": (_tok([[d + varint(2)]], 2), 1),
+        "delta_non_numeric": (_tok([[_lit(b"ab")], [d + varint(2)]], 6), 2),
+        "delta_19_digits": (_tok([[_lit(b"1" * 19)], [d + varint(2)]], 42), 2),
+        "delta_empty_pred": (_tok([[_lit(b"")], [d + varint(2)]], 4), 2),
+        "delta_past_pred": (_tok([[_lit(b"1")], [m, d + varint(2)]], 6), 2),
+        "negative": (_tok([[_lit(b"5")], [d + varint(zigzag(-10))]], 6), 2),
+        "negative_after_chain": (
+            _tok([[_lit(b"100")]] + [[d + varint(zigzag(-30))]] * 5, 20), 6),
+        "wider": (_tok([[_lit(b"05")], [p + varint(zigzag(200))]], 8), 2),
+        "wider_after_chain": (
+            _tok([[_lit(b"0001")]] + [[p + varint(zigzag(4000))]] * 3, 24), 4),
+        "unknown_op": (_tok([[b"\x09"]], 2), 1),
+        "unknown_op_255": (_tok([[_lit(b"a")], [b"\xff"]], 6), 2),
+        "header_too_long": (_tok([[_lit(b"h" * 40000)], [m, _lit(b"g" * 30000)]], 110004), 2),
+        "size_mismatch": (_tok([[_lit(b"abc")]], 4), 1),
+        "size_mismatch_huge_total": (varint(1 << 62) + _lit(b"abc") + bytes([OP_END]), 1),
+        "size_mismatch_count0": (varint(7), 0),
+        "first_of_two_faults": (_tok([[_lit(b"ab")], [d + varint(2), b"\x09"]], 6), 2),
+        "ok_fault_after_last_record": (_tok([[_lit(b"ab")]], 4) + b"\x09\x80", 1),
+        "delta_2_70": (
+            _tok([[_lit(b"7")], [d + b"\xfe" + b"\xff" * 8 + b"\x7f"],
+                  [d + varint(2)]], 0), 3),
+        "ok_delta_2_70": (
+            _tok([[_lit(b"7")], [d + b"\xfe" + b"\xff" * 8 + b"\x7f"]],
+                 3 + 2 + len(str(7 + (((1 << 70) - 2) >> 1)))), 2),
+        "ok_trailing_garbage": (_tok([[_lit(b"ab")]], 4) + b"\x09\x80\xff", 1),
+        "ok_count0": (varint(0) + b"\x09", 0),
+    }
+    return cases
