@@ -171,14 +171,18 @@ Phases, each fatal on failure:
    ``csrc/hist256.cu``, ``csrc/tokens.cu``): ``fq_hist256`` against its plain
    version at lengths 0, 1, 15, 16, 17 and past several CTAs, on views at
    each offset 1-15, one-symbol, 256-symbol and skewed streams;
-   ``fq_tok_encode`` and ``fq_tok_decode`` on every header edge of
-   ``tests/torch_tokens_inputs.py`` (count 0, empty headers, tokens of 18 and
-   19 digits, leading zeros, token counts that change, records around the
-   tiles, the three name corpora), byte-equal, each decode fault's string
-   equal to the CPU's; ``tests/testdata/golden/golden_ctx_v3.fqz`` decoded on
-   the card; the three timed at a v3 block's streams where the stream build
-   left them (the histogram beside ``torch.bincount``, printed only), with
-   device operations and host microseconds of one wrapper call; a v3 round
+   ``fq_tok_encode`` (from the header lengths and from the bare stream) and
+   ``fq_tok_decode`` on every header edge of ``tests/torch_tokens_inputs.py``
+   (count 0, empty headers, tokens of 18 and 19 digits, leading zeros, token
+   counts that change, records around and across the tiles, records wider
+   than a tile's columns, literals across the chain's tiles, the three name
+   corpora), byte-equal, each decode fault's string equal to the CPU's;
+   ``tests/testdata/golden/golden_ctx_v3.fqz`` decoded on the card; the three
+   timed at a v3 block's streams where the stream build left them (the
+   histogram beside ``torch.bincount``, printed only; the encode by both
+   routes), with device operations (the decode's 4 at 100,000 and at 1,000
+   records), each tokenizer kernel's device microseconds and host
+   microseconds of one wrapper call; a v3 round
    trip of 3 blocks x 100,000 names in instrument order, its container equal
    to the CPU's (made by a subprocess started before the first phase),
    ``TAG_TOK`` on every header stream and the launches following the tags.
@@ -1815,8 +1819,8 @@ def tokens_edges(ck, rans, tokenize, ti) -> dict:
     back through the decode; each decode fault (string) and stream whose
     bytes past its last record would fault; the encode's faults. Returns the
     cases held per kernel."""
-    held = {"hist256": 0, "tok_encode": 0, "tok_decode": 0, "decode_faults": 0,
-            "encode_faults": 0}
+    held = {"hist256": 0, "tok_encode": 0, "tok_encode_lengths": 0, "tok_decode": 0,
+            "decode_faults": 0, "encode_faults": 0}
     for case, (buf, off, n) in sorted(ti.hist_edge_cases().items()):
         t = on_card(buf[off : off + n], off % 16)
         check(torch.equal(ck.hist256(t).cpu(), rans.hist256_plain(t.cpu())),
@@ -1828,6 +1832,11 @@ def tokens_edges(ck, rans, tokenize, ti) -> dict:
         want = tokenize.tok_encode_plain(view.cpu(), len(headers))
         check(torch.equal(ck.tok_encode(view, len(headers)).cpu(), want),
               f"tok_encode edge {case}: kernel == plain")
+        if headers:  # the compress path's route: the record starts from the header lengths
+            lens = torch.tensor([len(h) for h in headers], dtype=torch.int64, device=DEV)
+            check(torch.equal(ck.tok_encode(view, len(headers), lens).cpu(), want),
+                  f"tok_encode edge {case} from the header lengths: kernel == plain")
+            held["tok_encode_lengths"] += 1
         back = ck.tok_decode(on_card(want.numpy().tobytes()), len(headers))
         check(back.cpu().numpy().tobytes() == s, f"tok_decode edge {case}: the stream back")
         held["tok_encode"] += 1
@@ -1878,28 +1887,54 @@ def tokens_block(data: bytes):
 
 
 # the device operations of one call of each of phase tokens' wrappers, in a
-# process of its own (the profiler of a long process can miss kernels)
+# process of its own (the profiler of a long process can miss kernels), and
+# each kernel's device microseconds a call; the decode also at a small count
 _TOKENS_OPS = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
+import torch
 from fastqpacker_tpu_torch.ops import cuda_kernels as ck
 from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
 raw = cs.tokens_block(ordered_illumina_fastq(cs.BLOCK_RECORDS, seed=int(sys.argv[2])))
 n = raw.num_records
-tok = ck.tok_encode(raw.device_view(2), n)
-print(json.dumps({
-    "hist256_qual": cs.device_ops(lambda: ck.hist256(raw.device_view(1))),
-    "hist256_seq": cs.device_ops(lambda: ck.hist256(raw.device_view(0))),
-    "tok_encode": cs.device_ops(lambda: ck.tok_encode(raw.device_view(2), n)),
-    "tok_decode": cs.device_ops(lambda: ck.tok_decode(tok, n)),
-}))
+view, lens = raw.device_view(2), raw.header_lengths
+tok = ck.tok_encode(view, n, lens)
+small = 1000
+tok_small = ck.tok_encode(view[: int(lens[:small].sum()) + 2 * small], small, lens[:small])
+calls = {
+    "hist256_qual": lambda: ck.hist256(raw.device_view(1)),
+    "hist256_seq": lambda: ck.hist256(raw.device_view(0)),
+    "tok_encode": lambda: ck.tok_encode(view, n, lens),
+    "tok_encode_bare": lambda: ck.tok_encode(view, n),
+    "tok_decode": lambda: ck.tok_decode(tok, n),
+    "tok_decode_small": lambda: ck.tok_decode(tok_small, small),
+}
+out = {name: cs.device_ops(fn) for name, fn in calls.items()}
+out["split_us"] = {name: cs.split_us(calls[name]) for name in
+                   ("tok_encode", "tok_encode_bare", "tok_decode")}
+print(json.dumps(out))
 """
+
+
+def split_us(fn, calls: int = 10) -> dict:
+    """Device microseconds and launches per call of each kernel and copy
+    one call of ``fn`` runs (``torch.profiler``)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].strip():
+            {"us": round(e.device_time_total / calls, 3), "launches": e.count / calls}
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
 def tokens_device_ops(seed: int) -> dict:
     """Route -> the device operations (``torch.profiler``) of one wrapper
-    call at a v3 block of ordered names, counted in a process of its own."""
+    call at a v3 block of ordered names, counted in a process of its own;
+    ``split_us``: the tokenizer's kernels' device microseconds a call."""
     proc = subprocess.run([sys.executable, "-c", _TOKENS_OPS,
                            str(Path(__file__).resolve().parent), str(seed)],
                           capture_output=True, text=True, timeout=600)
@@ -1911,14 +1946,17 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
     """The three kernels at a v3 block's shapes, on the block's streams where
     the stream build left them (the first 100,000 records of the ordered
     corpus): the histogram of the quality (15.1 MB) and sequence (3.8 MB)
-    streams, the tokenizer on the header stream both ways. Each kernel's
-    device time over inputs rotated past the L2 (for the tokenizer its
-    launches alone: the wrapper reads the fault and the size back), its
-    bound, its plain version's (on the card for the histogram, a bincount;
-    Python on the host for the tokenizer), ``torch.bincount`` of the same
-    bytes for the histogram (printed only: the port never calls it), device
-    operations (``torch.profiler``) and host microseconds of one wrapper
-    call (a process of its own counts the operations)."""
+    streams, the tokenizer on the header stream both ways (the encode from
+    the block's header lengths, as the compress path calls it, and from the
+    bare stream beside it). Each kernel's device time over inputs rotated
+    past the L2 (for the tokenizer its launches alone: the wrapper reads the
+    fault and the size back), its bound, its plain version's (on the card
+    for the histogram, a bincount; Python on the host for the tokenizer),
+    ``torch.bincount`` of the same bytes for the histogram (printed only: the
+    port never calls it), device operations (``torch.profiler``; the decode
+    at 1,000 records too: the same count) and each tokenizer kernel's
+    device microseconds a call, and host microseconds of one wrapper call
+    (a process of its own counts the operations)."""
     raw = tokens_block(data)
     all_ops = tokens_device_ops(seed)
     rows = {}
@@ -1943,7 +1981,7 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
         check(len(ops) == 1, f"hist256: one device operation a call, got {ops}")
         del sets
     count = raw.num_records
-    view = raw.device_view(2)
+    view, lens = raw.device_view(2), raw.header_lengths
     n = view.numel()
     t0 = time.perf_counter()
     tok_h = tokenize.encode_plain(raw.headers, count)
@@ -1951,34 +1989,56 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
     t0 = time.perf_counter()
     check(tokenize.decode_plain(tok_h, count) == raw.headers, "plain tokenizer round trip")
     dec_plain_ms = (time.perf_counter() - t0) * 1e3
-    got = ck.tok_encode(view, count)
-    check(got.numel() == len(tok_h), "the tokenized header stream's length == plain")
-    enc_err = max_err(got.cpu(), torch.from_numpy(np.frombuffer(tok_h, np.uint8).copy()))
+    want = torch.from_numpy(np.frombuffer(tok_h, np.uint8).copy())
+    got = ck.tok_encode(view, count, lens)
+    bare = ck.tok_encode(view, count)
+    check(got.numel() == bare.numel() == len(tok_h),
+          "the tokenized header stream's length == plain (both routes)")
+    enc_err = max(max_err(got.cpu(), want), max_err(bare.cpu(), want))
     tok = on_card(tok_h)
     back = ck.tok_decode(tok, count)
     check(back.numel() == len(raw.headers), "the decoded header stream's length == plain")
     dec_err = max_err(back.cpu(), torch.from_numpy(np.frombuffer(raw.headers, np.uint8).copy()))
     check(enc_err == 0 and dec_err == 0, "the tokenizer on the block's header stream == plain")
-    total, start = tokenize._read_varint(tok_h, 0)
     m = len(tok_h)
+    split = all_ops["split_us"]
+    for key, name in (("tok_encode", "lengths"), ("tok_encode_bare", "bare"),
+                      ("tok_decode", "decode")):
+        print(f"phase=tokens split route={name} records={count} "
+              f"split_us={json.dumps(split[key], sort_keys=True)}")
+    ops_big, ops_small = all_ops["tok_decode"], all_ops["tok_decode_small"]
+    print(f"phase=tokens kernel={ck.TOK_DECODE} device_ops_per_call={len(ops_big)} "
+          f"records={count} device_ops_per_call_at_1000={len(ops_small)}")
+    check(len(ops_big) == len(ops_small) == 4,
+          f"tok_decode: 4 device operations a call at any count ({ops_big} / {ops_small})")
+    check(len(all_ops["tok_encode"]) == 2,
+          f"tok_encode from the header lengths: 1 kernel and the read-back ({all_ops['tok_encode']})")
 
     def dec_launches(t):
-        ck.tok_decode_write(ck.tok_decode_launch(t, count, start), total)
+        call = ck.tok_decode_launch(t, count)
+        return ck.tok_decode_write(call, len(raw.headers))
 
     k = max(2, -(-150_000_000 // n))
     enc_sets = retile(view, k)
-    kms = gpu_ms(lambda t: ck.tok_encode_launch(t, count), enc_sets, 10)
+    kms = gpu_ms(lambda t: ck.tok_encode_launch(t, count, lens), enc_sets, 10)
+    bare_ms = gpu_ms(lambda t: ck.tok_encode_launch(t, count), enc_sets, 10)
     ops = all_ops["tok_encode"]
-    hus = host_us(ck.tok_encode, (view, count))
+    hus = host_us(ck.tok_encode, (view, count, lens))
+    bare_hus = host_us(ck.tok_encode, (view, count))
     rows[("tok_encode", "headers")] = (
-        *report(ck.TOK_ENCODE, f"headers={count} bytes={n} out={m}", kms, enc_plain_ms, None,
-                n + m, 0, enc_err),
+        *report(ck.TOK_ENCODE, f"headers={count} bytes={n} out={m} route=lengths", kms,
+                enc_plain_ms, None, n + 8 * count + m, 0, enc_err),
         {"err": enc_err, "bytes": n, "records": count, "out_bytes": m,
-         "device_ops_per_call": len(ops),
-         "device_ops": ops, "host_us_per_call": hus,
+         "device_ops_per_call": len(ops), "device_ops": ops, "host_us_per_call": hus,
+         "split_us": split["tok_encode"],
+         "bare_stream": {"ms": bare_ms, "bound_ms": bound(n + m, 0)[0],
+                         "device_ops_per_call": len(all_ops["tok_encode_bare"]),
+                         "host_us_per_call": bare_hus, "split_us": split["tok_encode_bare"]},
          "plain_ms_clock": "host (the plain version is Python on the CPU)"})
-    print(f"phase=tokens kernel={ck.TOK_ENCODE} device_ops_per_call={len(ops)} "
+    print(f"phase=tokens kernel={ck.TOK_ENCODE} route=lengths device_ops_per_call={len(ops)} "
           f"ops={json.dumps(ops)} host_us_per_call={hus:.1f}")
+    print(f"phase=tokens kernel={ck.TOK_ENCODE} route=bare kernel_ms={bare_ms:.6f} "
+          f"device_ops_per_call={len(all_ops['tok_encode_bare'])} host_us_per_call={bare_hus:.1f}")
     del enc_sets
     dec_sets = retile(tok, max(2, -(-150_000_000 // (m + n))))
     kms = gpu_ms(dec_launches, dec_sets, 10)
@@ -1988,8 +2048,8 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
         *report(ck.TOK_DECODE, f"headers={count} bytes={m} out={n}", kms, dec_plain_ms, None,
                 m + n, 0, dec_err),
         {"err": dec_err, "bytes": m, "records": count, "out_bytes": n,
-         "device_ops_per_call": len(ops),
-         "device_ops": ops, "host_us_per_call": hus,
+         "device_ops_per_call": len(ops), "device_ops_per_call_at_1000": len(ops_small),
+         "device_ops": ops, "host_us_per_call": hus, "split_us": split["tok_decode"],
          "plain_ms_clock": "host (the plain version is Python on the CPU)"})
     print(f"phase=tokens kernel={ck.TOK_DECODE} device_ops_per_call={len(ops)} "
           f"ops={json.dumps(ops)} host_us_per_call={hus:.1f}")

@@ -110,14 +110,14 @@ SIGNATURES = {
         "fq_hist256": [_P, _L, _I, _P, _P, _P, _P],
     },
     "tokens": {
-        # data (any alignment), n, count, starts, chain_info, out, info,
+        # data (any alignment), n, count, lens (or 0), lens stride, starts,
+        # chain_info, maps, out, info, ticket, status, epoch, stream
+        "fq_tok_encode": [_P, _L, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+        # data, n, count, ops, recstart, maps, fin, agg, rbase, info,
         # ticket, status, epoch, stream
-        "fq_tok_encode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
-        # data, n, start, count, ops, rec, recstart, tok0, tok1, place, info,
-        # ticket, status, epoch, stream
-        "fq_tok_decode": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
-        # the decode's second call: its first call's arguments, out, stream
-        "fq_tok_decode_write": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "fq_tok_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+        # the decode's second call: data .. info of its first call, out, stream
+        "fq_tok_decode_write": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 
@@ -150,10 +150,11 @@ QUERIES = {
     "tokens": {
         # n, count -> tiles of status words a call takes at most
         "fq_tok_tiles": [_L, _L],
-        # count -> pointer-jumping rounds of a decode
-        "fq_tok_rounds": [_L],
-        # bytes of a token's state
+        # n -> u64 words of a chain's tile maps
+        "fq_tok_map_words": [_L],
+        # bytes of a token's state, of a column's aggregate
         "fq_tok_state_bytes": [],
+        "fq_tok_agg_bytes": [],
     },
 }
 

@@ -961,17 +961,27 @@ def _tok_limit(name: str, n: int) -> None:
         raise RuntimeError(f"{name}: {n} bytes (at most {_TOK_LIMIT})")
 
 
-def tok_encode(stream: torch.Tensor, count: int) -> torch.Tensor:
+def tok_encode(stream: torch.Tensor, count: int,
+               lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The tokenized form of the u16-length-prefixed header stream ``stream``
     ((n,) uint8, a view at any byte offset) of ``count`` records -> uint8
     tensor on its device; see :func:`..ops.tokenize.tok_encode_plain`. A
     malformed stream raises ``ValueError`` with the plain version's string.
-    One call of two launches (the record starts, the ops), then the fault
-    and size read back."""
+    ``lengths``: the records' header lengths on the card (1-D int64, any
+    stride: the record scan's column), for a stream the stream build wrote
+    from them; the kernel then takes the record starts from their sum and
+    launches once, and lengths that are not the stream's raise
+    ``RuntimeError``. Without them the record starts come from the stream
+    (the chain kernel, then the encode). Then the fault and the size are
+    read back. The plain version reads only the stream."""
     dev = stream.device
     n = _check_bytes("stream", stream, dev)
     if count < 0:
         raise ValueError(f"count must be >= 0, got {count}")
+    if lengths is not None:
+        _check_1d("lengths", lengths, torch.int64, dev)
+        if lengths.numel() != count:
+            raise ValueError(f"lengths: {lengths.numel()} records, count {count}")
     if _plain_or_cuda(dev):
         return tokenize.tok_encode_plain(stream, count)
     _tok_limit(TOK_ENCODE, n)
@@ -980,38 +990,51 @@ def tok_encode(stream: torch.Tensor, count: int) -> torch.Tensor:
         if count == 0 and n == 0:
             return torch.zeros((1,), dtype=torch.uint8, device=dev)  # varint(0)
         raise ValueError(tokenize.TOK_ENCODE_FAULTS[1 if count else 2])
-    out, info = tok_encode_launch(stream, count)
+    out, info = tok_encode_launch(stream, count, lengths)
     fault, size = info[tokenize.TOK_INFO_FAULT : tokenize.TOK_INFO_SIZE + 1].tolist()
+    if fault == tokenize.TOK_ENCODE_LENGTHS:
+        raise RuntimeError(f"{TOK_ENCODE}: the header lengths are not the stream's")
     if fault:
         raise ValueError(tokenize.TOK_ENCODE_FAULTS[fault])
     return out[:size]
 
 
-def tok_encode_launch(stream: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`tok_encode`'s launch on a CUDA tensor (1 <= count <= n / 2),
+def tok_encode_launch(stream: torch.Tensor, count: int, lengths: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tok_encode`'s launches on a CUDA tensor (1 <= count <= n / 2),
     read back nothing: -> (out, its ``encode_bound`` bytes; info, int64 with
-    the fault and the size at ``tokenize.TOK_INFO_FAULT`` / ``_SIZE``)."""
+    the fault and the size at ``tokenize.TOK_INFO_FAULT`` / ``_SIZE``). One
+    launch with ``lengths``, two without."""
     dev, n = stream.device, stream.numel()
     lib = build.load(_LIBRARY[TOK_ENCODE])
-    starts = torch.empty((count + 1,), dtype=torch.int32, device=dev)
-    chain_info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
+    if lengths is None:
+        starts = torch.empty((count + 1,), dtype=torch.int32, device=dev)
+        maps = torch.empty((lib.fq_tok_map_words(n),), dtype=torch.int64, device=dev)
+        chain_info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
+        scratch = (starts.data_ptr(), chain_info.data_ptr(), maps.data_ptr())
+    else:
+        scratch = (0, 0, 0)
     out = torch.empty((tokenize.encode_bound(n, count),), dtype=torch.uint8, device=dev)
     info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
     st, epoch = _chained_state(dev, lib.fq_tok_tiles(n, count), epochs=2)
-    _launch(TOK_ENCODE, dev, stream.data_ptr(), n, count, starts, chain_info, out, info,
+    _launch(TOK_ENCODE, dev, stream.data_ptr(), n, count,
+            0 if lengths is None else lengths.data_ptr(),
+            0 if lengths is None else lengths.stride(0), *scratch, out, info,
             st.ticket, st.status, epoch)
     return out, info
 
 
 def tok_decode(data: torch.Tensor, count: int) -> torch.Tensor:
     """The u16-length-prefixed header stream of ``count`` records that the
-    tokenized stream ``data`` ((m,) uint8) codes -> uint8 tensor on its
-    device; see :func:`..ops.tokenize.tok_decode_plain`. A corrupt stream
-    raises ``ValueError`` with the plain version's string for its first
-    fault in stream order. The declared size (the leading varint) is read on
-    the host; the output is sized from the decoded lengths. Two calls: the
-    op chain, the tokens and their sizes; then, read back and with no fault,
-    the write."""
+    tokenized stream ``data`` ((m,) uint8, a view at any byte offset)
+    codes -> uint8 tensor on its device; see
+    :func:`..ops.tokenize.tok_decode_plain`. A corrupt stream raises
+    ``ValueError`` with the plain version's string for its first fault in
+    stream order. The declared size (the leading varint) is read on the
+    card (for count 0, with nothing to launch, on the host); the output is
+    sized from the decoded lengths. Two calls: the op chain and the resolve
+    (two launches); then, with the fault and the size read back and no
+    fault, the write (one launch)."""
     dev = data.device
     m = _check_bytes("data", data, dev)
     if count < 0:
@@ -1019,22 +1042,24 @@ def tok_decode(data: torch.Tensor, count: int) -> torch.Tensor:
     if _plain_or_cuda(dev):
         return tokenize.tok_decode_plain(data, count)
     _tok_limit(TOK_DECODE, m)
-    total, start = tokenize._read_varint(data[:10].cpu().numpy().tobytes(), 0)
     if count == 0:
+        # no record to decode, no launch: the declared size alone decides
+        total, _ = tokenize._read_varint(data[:10].cpu().numpy().tobytes(), 0)
         if total != 0:
             raise ValueError(tokenize.TOK_FAULTS[9])
         return torch.empty((0,), dtype=torch.uint8, device=dev)
-    if start == m:
-        raise ValueError(tokenize.TOK_FAULTS[2])
-    call = tok_decode_launch(data, count, start)
-    key, size = call.info[tokenize.TOK_INFO_FAULT : tokenize.TOK_INFO_SIZE + 1].tolist()
+    if m == 0:
+        raise ValueError(tokenize.TOK_FAULTS[1])  # no varint of the declared size
+    call = tok_decode_launch(data, count)
+    key, size, mismatch = call.info[
+        tokenize.TOK_INFO_FAULT : tokenize.TOK_INFO_MISMATCH + 1].tolist()
     if key != tokenize.TOK_NO_FAULT:
         code, pos = key & 15, key >> 4
         if code not in tokenize.TOK_FAULTS:
             raise RuntimeError(f"{TOK_DECODE}: internal fault {code} at {pos}")
         op = int(data[pos].item()) if code == 7 else 0
         raise ValueError(tokenize.TOK_FAULTS[code].format(op=op))
-    if size != total:
+    if mismatch:
         raise ValueError(tokenize.TOK_FAULTS[9])
     return tok_decode_write(call, size)
 
@@ -1042,31 +1067,31 @@ def tok_decode(data: torch.Tensor, count: int) -> torch.Tensor:
 class TokDecodeCall(NamedTuple):
     """A decode's first call: its arguments (the second call takes them
     again) and its info (int64: the first fault's position * 16 + code, or
-    ``tokenize.TOK_NO_FAULT``, and the output size, at
-    ``tokenize.TOK_INFO_FAULT`` / ``_SIZE``)."""
+    ``tokenize.TOK_NO_FAULT``, the output size and whether it differs from
+    the declared total, at ``tokenize.TOK_INFO_FAULT`` / ``_SIZE`` /
+    ``_MISMATCH``)."""
 
     args: tuple
     info: torch.Tensor
 
 
-def tok_decode_launch(data: torch.Tensor, count: int, start: int) -> TokDecodeCall:
-    """:func:`tok_decode`'s first call on a CUDA tensor whose ops start at
-    ``start`` (after the declared size; < m), count >= 1, read back
-    nothing."""
+def tok_decode_launch(data: torch.Tensor, count: int) -> TokDecodeCall:
+    """:func:`tok_decode`'s first call on a CUDA tensor of m >= 1 bytes
+    (count >= 0), read back nothing."""
     dev, m = data.device, data.numel()
-    # a record ends at an op byte: past m - start records, the chain runs out
-    # (or faults first) whatever the count
-    cap = m - start
-    count = min(count, cap + 1)
+    # a record ends at an op byte: past m records the chain runs out (or
+    # faults first) whatever the count
+    count = min(count, m)
     lib = build.load(_LIBRARY[TOK_DECODE])
-    ops = torch.empty((cap,), dtype=torch.int32, device=dev)
-    rec = torch.empty((cap,), dtype=torch.int32, device=dev)
+    ops = torch.empty((m,), dtype=torch.int32, device=dev)
     recstart = torch.empty((count + 2,), dtype=torch.int32, device=dev)
-    toks = torch.empty((2, cap * lib.fq_tok_state_bytes()), dtype=torch.uint8, device=dev)
-    place = torch.empty((cap,), dtype=torch.int64, device=dev)
+    maps = torch.empty((lib.fq_tok_map_words(m),), dtype=torch.int64, device=dev)
+    fin = torch.empty((m * lib.fq_tok_state_bytes(),), dtype=torch.uint8, device=dev)
+    agg = torch.empty((m * lib.fq_tok_agg_bytes(),), dtype=torch.uint8, device=dev)
+    rbase = torch.empty((count + 1,), dtype=torch.int64, device=dev)
     info = torch.empty((tokenize.TOK_INFO_SLOTS,), dtype=torch.int64, device=dev)
-    st, epoch = _chained_state(dev, lib.fq_tok_tiles(m, count), epochs=3)
-    args = (data.data_ptr(), m, start, count, ops, rec, recstart, toks[0], toks[1], place, info)
+    st, epoch = _chained_state(dev, lib.fq_tok_tiles(m, count), epochs=2)
+    args = (data.data_ptr(), m, count, ops, recstart, maps, fin, agg, rbase, info)
     _launch(TOK_DECODE, dev, *args, st.ticket, st.status, epoch)
     return TokDecodeCall(args, info)
 
@@ -1075,5 +1100,6 @@ def tok_decode_write(call: TokDecodeCall, size: int) -> torch.Tensor:
     """A decode's second call, after a first that found no fault: the
     ``size`` output bytes (the first call's size)."""
     out = torch.empty((size,), dtype=torch.uint8, device=call.info.device)
-    _launch(TOK_DECODE_WRITE, call.info.device, *call.args, out)
+    if size:
+        _launch(TOK_DECODE_WRITE, call.info.device, *call.args, out)
     return out

@@ -225,10 +225,13 @@ TOK_FAULTS = {
 }
 TOK_NO_FAULT = (1 << 63) - 1
 # the kernels' info slots (csrc/tokens.cu kInfo*)
-TOK_INFO_NODES, TOK_INFO_EXIT, TOK_INFO_ENDS, TOK_INFO_FAULT, TOK_INFO_SIZE = range(5)
+(TOK_INFO_NODES, TOK_INFO_EXIT, TOK_INFO_ENDS, TOK_INFO_FAULT, TOK_INFO_SIZE,
+ TOK_INFO_MISMATCH) = range(6)
 TOK_INFO_SLOTS = 8
-# the encode's faults
+# the encode's faults; TOK_ENCODE_LENGTHS: the header lengths given are not
+# the stream's (not a malformed stream: the wrapper raises RuntimeError)
 TOK_ENCODE_FAULTS = {1: "truncated header data", 2: "trailing bytes after last header record"}
+TOK_ENCODE_LENGTHS = 3
 
 
 def _tensor(b: bytes) -> torch.Tensor:
@@ -251,14 +254,18 @@ def _on_device(data, device) -> torch.Tensor:
     return to_device(resolve_device(device), np.frombuffer(data, np.uint8))
 
 
-def encode(stream, count: int, device=None) -> bytes:
+def encode(stream, count: int, device=None, lengths=None) -> bytes:
     """u16-length-prefixed headers stream -> tokenized stream, on a device:
     ``stream`` a (n,) uint8 tensor (where it lies) or host bytes (copied to
-    ``device``, default the CUDA card). Raises ``ValueError`` with the plain
-    version's string for a malformed stream."""
+    ``device``, default the CUDA card); ``lengths``, the records' header
+    lengths beside a tensor the stream build wrote (1-D int64 on its
+    device), spares the card the walk of the record chain. Raises
+    ``ValueError`` with the plain version's string for a malformed
+    stream."""
     from . import cuda_kernels
 
-    return cuda_kernels.tok_encode(_on_device(stream, device), count).cpu().numpy().tobytes()
+    t = _on_device(stream, device)
+    return cuda_kernels.tok_encode(t, count, lengths).cpu().numpy().tobytes()
 
 
 def decode(data, count: int, device=None) -> bytes:

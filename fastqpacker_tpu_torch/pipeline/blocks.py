@@ -216,7 +216,10 @@ class RawStreams:
     ``device_offsets``: where the stream build left the six streams on the
     block's device (seq, qual, headers, plus, npos, lengths back to back;
     seven offsets), so a pass that reads a stream on the device reads it
-    there, with no second copy up."""
+    there, with no second copy up. ``header_lengths``: the records' header
+    lengths the header stream was built from (a column of the record
+    scan's offsets on that device), which the tokenizer takes its record
+    starts from."""
 
     seq: bytes
     qual: bytes
@@ -229,6 +232,7 @@ class RawStreams:
     original_qual_size: int
     device_buffer: torch.Tensor = field(compare=False, repr=False)
     device_offsets: tuple = field(compare=False, repr=False)
+    header_lengths: torch.Tensor | None = field(default=None, compare=False, repr=False)
 
     def device_view(self, i: int) -> torch.Tensor:
         """Stream ``i`` of the v2+ wire order (0 seq, 1 qual, 2 headers) as
@@ -340,6 +344,7 @@ class PendingStreams:
         self.bases = block.total_bases
         self.sizes = sizes
         self.device_buffer = buf
+        self.header_lengths = block.dev_offsets[:, 1]
         cuda = buf.device.type == "cuda"
         self.buf = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=cuda)
         self.info = torch.empty(info.shape, dtype=info.dtype, pin_memory=cuda)
@@ -365,7 +370,7 @@ class PendingStreams:
             offsets.append(offsets[-1] + size)
         return RawStreams(*parts, num_records=self.n, original_seq_size=self.bases,
                           original_qual_size=self.bases, device_buffer=self.device_buffer,
-                          device_offsets=tuple(offsets))
+                          device_offsets=tuple(offsets), header_lengths=self.header_lengths)
 
 
 def encoded_to_raw_streams(

@@ -339,7 +339,8 @@ def _finish_round(plan) -> list[bytes]:
         gate = max(4096, (len(comp[0]) + len(comp[1])) >> 7)
         comp.append(
             native._encode_tagged_headers(
-                ordered[2], raw.device_view(2), raw.num_records, codec, gate
+                ordered[2], raw.device_view(2), raw.num_records, codec, gate,
+                raw.header_lengths,
             )
         )
         for s in ordered[3:]:

@@ -223,11 +223,13 @@ def _encode_tagged_seq(
 
 
 def _encode_tagged_headers(
-    s: bytes, view: torch.Tensor, count: int, codec, cost_gate: int = 0
+    s: bytes, view: torch.Tensor, count: int, codec, cost_gate: int = 0,
+    lengths: torch.Tensor | None = None,
 ) -> bytes:
     """Header stream pick: token-delta transform vs raw, both zstd-coded.
     The transform runs where ``view``, the stream the stream build left on
-    the device, lies (``fq_tok_encode``).
+    the device, lies (``fq_tok_encode``), its record starts from
+    ``lengths``, the header lengths it was built from, when given.
 
     The transform wins whenever headers share structure between records
     (the overwhelmingly common case); degenerate inputs (every header
@@ -246,7 +248,7 @@ def _encode_tagged_headers(
     try:
         # a malformed stream falls back to zstd; a kernel that fails to build
         # or launch raises RuntimeError
-        tok = tokenize.encode(view, count)
+        tok = tokenize.encode(view, count, lengths=lengths)
     except ValueError:
         return bytes([TAG_ZSTD]) + z
     zt = _zstd_candidate(codec, tok)
@@ -504,7 +506,7 @@ def encode_block_native(
             )
             comp.append(
                 _encode_tagged_headers(s, raw.device_view(2), raw.num_records,
-                                       codec, gate)
+                                       codec, gate, raw.header_lengths)
             )
         else:
             comp.append(_zstd_candidate(codec, s))

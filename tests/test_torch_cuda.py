@@ -2421,3 +2421,53 @@ def test_tokens_failing_build_raises_and_never_runs_the_plain_version(cuda, monk
         native._encode_tagged_headers(s, _on(cuda, s), 2, zstd.get_codec())
     with pytest.raises(RuntimeError, match="nvcc failed to build hist256.cu"):
         native._rans_size_estimate(_on(cuda, bytes(20000), 3))
+
+
+@pytest.mark.parametrize("case", sorted(k for k, v in TOK_HEADERS.items() if v))
+def test_tok_encode_from_header_lengths_equals_the_bare_stream(case, cuda):
+    """The compress path's route (the record starts from the header lengths
+    the stream was built from, one launch) and the bare stream's (the
+    record chain, then the encode) give the plain version's bytes, one
+    counted launch a call."""
+    from fastqpacker_tpu_torch.ops import tokenize
+
+    headers = TOK_HEADERS[case]
+    view = _on(cuda, stream_of(headers), 3)
+    # a column of an (n, 2) tensor, as the lengths are a column of the scan's offsets
+    lengths = torch.tensor([[7, len(h)] for h in headers], dtype=torch.int64, device=cuda)[:, 1]
+    want = tokenize.tok_encode_plain(view.cpu(), len(headers))
+    cuda_kernels.reset_launches()
+    assert torch.equal(cuda_kernels.tok_encode(view, len(headers), lengths).cpu(), want)
+    assert torch.equal(cuda_kernels.tok_encode(view, len(headers)).cpu(), want)
+    assert cuda_kernels.launches.as_dict()[cuda_kernels.TOK_ENCODE] == 2
+
+
+def test_tok_encode_refuses_lengths_that_are_not_the_streams(cuda):
+    """Header lengths that do not add up to the stream are a fault of the
+    caller, not of the stream: RuntimeError, which the v3 header pick does
+    not turn into zstd."""
+    headers = [b"r:%d" % i for i in range(300)]
+    view = _on(cuda, stream_of(headers), 1)
+    for lens in ([len(h) for h in headers[:-1]] + [len(headers[-1]) + 1],
+                 [len(h) for h in headers[:-1]] + [70000],
+                 [len(h) - 1 for h in headers]):
+        with pytest.raises(RuntimeError, match="header lengths"):
+            cuda_kernels.tok_encode(view, len(headers),
+                                    torch.tensor(lens, dtype=torch.int64, device=cuda))
+
+
+def test_tok_decode_device_operations_do_not_grow_with_count(cuda):
+    """A decode runs the same 4 device operations at 1,000 and 100,000
+    records (the chain, the resolve, the read-back, the write): no launch a
+    round; the encode from header lengths one kernel and its read-back, a
+    bare stream's the chain too. Counted in a process of its own
+    (``scripts/tokens_ab.py --ops-only``): in a long process the profiler
+    can miss kernels."""
+    want = {"decode": 4, "encode_lengths": 2, "encode": 3}
+    for records in (1000, 100_000):
+        cmd = [sys.executable, str(REPO / "scripts" / "tokens_ab.py"), "--root", str(REPO),
+               "--ops-only", "--records", str(records)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
+        assert {c["route"]: c["device_ops_per_call"] for c in cases} == want, cases

@@ -27,6 +27,7 @@ from fastqpacker_tpu_torch.ops import cuda_kernels
 from fastqpacker_tpu_torch.ops import tokenize as ttok
 from fastqpacker_tpu_torch.pipeline import native as tnative
 from fastqpacker_tpu_torch.utils import synth
+import torch_tokens_inputs
 from torch_tokens_inputs import decode_fault_cases, header_edge_cases, headers_of, stream_of
 from torch_jax_runtime import jax_runtime_loaded  # noqa: F401  (autouse)
 
@@ -37,6 +38,21 @@ FAULTS = decode_fault_cases()
 
 def _t(b: bytes) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(b, np.uint8).copy())
+
+
+@pytest.mark.parametrize("name,const", [
+    ("ENCODE_TILE_RECORDS", "kEncRecords"), ("TILE_RECORDS", "kTokRecords"),
+    ("TILE_COLUMNS", "kTokCols"), ("CHAIN_TILE", "kChainTile"), ("CHAIN_WINDOW", "kWindow"),
+])
+def test_edge_inputs_follow_the_kernel_tiling(name, const):
+    """The edges are cut at the kernels' tiles: the sizes they are cut at
+    equal the constants of ``csrc/tokens.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ttok.__file__).parent.parent / "csrc" / "tokens.cu").read_text()
+    m = re.search(rf"constexpr int {const} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(torch_tokens_inputs, name)
 
 
 @pytest.mark.parametrize("case", sorted(HEADERS))

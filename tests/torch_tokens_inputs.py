@@ -9,13 +9,21 @@ streams, and streams that span several CTAs.
 :func:`header_edge_cases`: header lists (each record's name without '@'):
 no record, empty headers, tokens of 18 and 19 digits, leading zeros
 (DELTA_PAD), a token count that changes between records, record counts
-around the encode's tiles of 256 records, headers across the chain's tiles
-of 16,384 bytes, the longest header, and the three corpora (SIM names,
-Illumina names of random width, names in instrument order).
+around the kernels' tiles of 128 records, headers across the chain's tiles
+of 8,192 bytes, the longest header, and the three corpora (SIM names,
+Illumina names of random width, names in instrument order). Cut to the
+kernels' tiling: columns of MATCH / DELTA / DELTA_PAD through five record
+tiles back to one literal, token counts that change on a tile's first and
+last record, records of more tokens than a tile stages at a time (24
+columns), 18-digit values that swing by ~10^18 from record to record, and
+literals longer than the chain's window (64 bytes) across its tiles.
 
 :func:`decode_fault_cases`: tokenized streams that the plain decoder
 refuses, one or more for each of its nine strings, and streams whose bytes
-after the last record would fault but are never read.
+after the last record would fault but are never read; and, across record
+tiles, two faults in different tiles (the first in stream order wins),
+faults deep in a column, a value past 2^64 matched down five tiles, and a
+count below the chain's records.
 """
 
 import numpy as np
@@ -24,7 +32,10 @@ from fastqpacker_tpu_torch.utils import synth
 
 OP_END, OP_MATCH, OP_DELTA, OP_PAD, OP_LIT = 0, 1, 2, 3, 4
 ENCODE_TILE_RECORDS = 256  # csrc/tokens.cu kEncRecords
-CHAIN_TILE = 16384  # csrc/tokens.cu kChainTile
+TILE_RECORDS = 128  # csrc/tokens.cu kTokRecords: the resolve's and write's tiles
+TILE_COLUMNS = 24  # kTokCols: the columns a resolve tile stages at a time
+CHAIN_TILE = 8192  # kChainTile
+CHAIN_WINDOW = 64  # kWindow: the candidate entries a chain tile publishes
 
 
 def varint(v: int) -> bytes:
@@ -98,8 +109,27 @@ def header_edge_cases() -> dict:
         "negative_deltas": [b"t:%d" % (10**17 - 7 * i) for i in range(50)],
         "longest": [b"h" * 65535, b"h" * 65534 + b"1", b"1" + b"h" * 65534],
     }
-    for n in (15, 16, 17, 255, 256, 257, 513):
+    for n in (15, 16, 17, 127, 128, 129, 255, 256, 257, 513):
         cases[f"records{n}"] = [b"A1:%d:%d" % (i // 7, i) for i in range(n)]
+    r = TILE_RECORDS
+    cases["columns_5_tiles"] = [b"run7:A:%d:%06d x" % (1000 + 3 * i, 2 * i)
+                                for i in range(5 * r + 3)]
+    heads = []
+    for i in range(4 * r + 1):
+        j = i % r
+        heads.append(b"a:%d:%d:x" % (i, i) if j == 0 else b"a:%d" % i if j == r - 1
+                     else b"a" if j == 1 else b"a:%d:q" % i)
+    cases["token_counts_at_tile_edges"] = heads
+    # 79 and 160 tokens a record: several chunks of TILE_COLUMNS columns
+    cases["wide_records"] = [b":".join(b"%d" % (i + j) for j in range(40))
+                             for i in range(2 * r + 5)]
+    cases["wider_records"] = [b"-".join(b"f%d" % ((i * j) % 97) for j in range(80))
+                              for i in range(r + 7)]
+    cases["digits18_swing"] = [
+        b"v" + (b"9" * 18 if i % 2 else b"1" + b"0" * 17) + b".%018d" % (i * 7919 * 10**9)
+        for i in range(3 * r)]
+    letters = rng.integers(ord("a"), ord("z") + 1, size=(320, 200), dtype=np.uint8)
+    cases["long_literals_across_chain_tiles"] = [b"ID_" + bytes(row) for row in letters]
     # headers across the chain's tiles: records of ~3-20 KB
     lens = rng.integers(3000, 20000, size=12)
     cases["chain_tiles"] = [b"x" * int(k - 6) + b":%05d" % i for i, k in enumerate(lens)]
@@ -171,4 +201,39 @@ def decode_fault_cases() -> dict:
         "ok_trailing_garbage": (_tok([[_lit(b"ab")]], 4) + b"\x09\x80\xff", 1),
         "ok_count0": (varint(0) + b"\x09", 0),
     }
+    # across the record tiles: "id:5", "id:6", ... (a MATCH and a DELTA a
+    # record), with faults put in
+    r = TILE_RECORDS
+    one = d + varint(zigzag(1))
+
+    def column(count, bad=None):
+        recs = [[_lit(b"id:"), _lit(b"5")]] + [[m, one] for _ in range(count - 1)]
+        for k, ops in (bad or {}).items():
+            recs[k] = ops
+        return _tok(recs)
+
+    cases["two_faults_in_two_tiles"] = (column(3 * r, {r + 12: [m, m, m], 2 * r + 44: [m, b"\x09"]}),
+                                        3 * r)
+    cases["two_faults_in_two_tiles_other_codes"] = (
+        column(3 * r, {r + 12: [m, b"\x0a"], 2 * r + 44: [m, d + varint(zigzag(-10**6))]}), 3 * r)
+    cases["long_header_then_op_fault"] = (
+        _tok([[_lit(b"h" * 40000)], [m, _lit(b"g" * 30000)]] + [[m]] * (2 * r) + [[b"\x09"]]),
+        2 * r + 3)
+    cases["negative_deep_in_a_column"] = (
+        _tok([[_lit(b"1000")]] + [[d + varint(zigzag(-1))]] * 1001), 1002)
+    cases["wider_deep_in_a_column"] = (
+        _tok([[_lit(b"0000")]] + [[p + varint(zigzag(7))]] * 1500), 1501)
+    cases["trunc_records_over_tiles"] = (_tok([[_lit(b"a")]] + [[m]] * (3 * r - 1)), 3 * r + 7)
+    big = d + b"\xfe" + b"\xff" * 8 + b"\x7f"  # + (2^70 - 2) / 2
+    wide = len(str(7 + (((1 << 70) - 2) >> 1)))
+    cases["ok_value_past_2_64_down_5_tiles"] = (
+        _tok([[_lit(b"7")], [big]] + [[m]] * (5 * r), 3 + (5 * r + 1) * (2 + wide)), 5 * r + 2)
+    cases["value_past_2_64_then_delta"] = (
+        _tok([[_lit(b"7")], [big]] + [[m]] * (5 * r) + [[one]]), 5 * r + 3)
+    # count below the chain's records: the rest is never read, a fault there
+    # neither
+    heads = [b"id:%d" % (5 + i) for i in range(5 * r)]
+    body = column(5 * r, {4 * r + 9: [b"\x09"]})[1:]  # no varint(0)
+    cases["ok_count_below_the_chain"] = (varint(len(stream_of(heads[: 3 * r + 1]))) + body,
+                                         3 * r + 1)
     return cases
