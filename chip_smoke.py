@@ -170,24 +170,27 @@ Phases, each fatal on failure:
 13. the runtime's byte histogram and header tokenizer (``phase=tokens``,
    ``csrc/hist256.cu``, ``csrc/tokens.cu``): ``fq_hist256`` against its plain
    version at lengths 0, 1, 15, 16, 17 and past several CTAs, on views at
-   each offset 1-15, one-symbol, 256-symbol and skewed streams;
-   ``fq_tok_encode`` (from the header lengths and from the bare stream) and
-   ``fq_tok_decode`` on every header edge of ``tests/torch_tokens_inputs.py``
-   (count 0, empty headers, tokens of 18 and 19 digits, leading zeros, token
+   each offset 1-15, one-symbol, 256-symbol and skewed streams, two bytes in
+   turn, walk deltas, uniform bytes, a wave and the shortest stream that fills
+   its grid, less or more one; ``fq_tok_encode`` (from the header lengths and
+   from the bare stream) and ``fq_tok_decode`` on every header edge of
+   ``tests/torch_tokens_inputs.py`` (count 0, empty headers, tokens of 18 and 19 digits, leading zeros, token
    counts that change, records around and across the tiles, records wider
    than a tile's columns, literals across the chain's tiles, the three name
    corpora), byte-equal, each decode fault's string equal to the CPU's;
    ``tests/testdata/golden/golden_ctx_v3.fqz`` decoded on the card; the three
    timed at a v3 block's streams where the stream build left them (the
-   histogram beside ``torch.bincount``, printed only; the encode by both
-   routes), with device operations (the decode's 4 at 100,000 and at 1,000
+   histogram beside ``torch.bincount``, printed only, also at the walk151
+   block's streams and 15.1 MB of two bytes in turn, walk deltas, uniform
+   bytes and one byte; the encode by both routes), with device operations (the decode's 4 at 100,000 and at 1,000
    records), each tokenizer kernel's device microseconds and host
    microseconds of one wrapper call; a v3 round
    trip of 3 blocks x 100,000 names in instrument order, its container equal
    to the CPU's (made by a subprocess started before the first phase),
    ``TAG_TOK`` on every header stream and the launches following the tags.
-   Phases 5 and 9 hold their ``fq_hist256`` launches (one an estimate or a
-   rANS table) and their tokenizer launches. ``--phase tokens`` runs the
+   Phases 5 and 9 hold their ``fq_hist256`` launches (one an estimate, none
+   for a rANS table, which takes the estimate's counts; on ``--mesh`` one a
+   quality estimate or a rANS table) and their tokenizer launches. ``--phase tokens`` runs the
    build and this phase alone.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
@@ -902,13 +905,13 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
           and all(d_counts[k] == 0 for k in (ck.QCTX_PREPARE, ck.SCTX_PREPARE,
                                               ck.WCTX_LAYOUT, ck.WCTX_UNLAYOUT)),
           f"{label}: no lane pass without a TAG_WCTX stream, no prepare on decompress")
-    # every order-0 histogram on the card: one a size estimate, one a rANS
-    # table; the tokenizer where the header gate lets it run, its decode per
-    # TAG_TOK stream
+    # every order-0 histogram on the card: one a size estimate, whose counts
+    # a stream that picks rANS takes its table from; the tokenizer where the
+    # header gate lets it run, its decode per TAG_TOK stream
     want = stream_counts(comp, ft, READ_LEN)
-    check(c_counts[ck.HIST256] == want["estimates"] + c_counts[ck.RANS_ENCODE]
-          and d_counts[ck.HIST256] == 0,
-          f"{label}: one fq_hist256 an estimate or rANS table ({c_counts[ck.HIST256]}, {want})")
+    check(c_counts[ck.HIST256] == want["estimates"] and d_counts[ck.HIST256] == 0,
+          f"{label}: one fq_hist256 an estimate, none for a rANS table "
+          f"({c_counts[ck.HIST256]}, {want})")
     check(c_counts[ck.TOK_ENCODE] == want["tok_encodes"]
           and d_counts[ck.TOK_DECODE] == want["tok_streams"],
           f"{label}: the tokenizer launches follow the header tags ({want})")
@@ -1886,6 +1889,42 @@ def tokens_block(data: bytes):
     return blockcodec.block_to_raw_streams(blk, 33, wide_npos=True)
 
 
+HIST_STREAMS = ("walk_qual", "walk_seq", "ordered_qual", "ordered_seq", "alternating",
+                "walk_deltas", "uniform", "one_symbol")
+
+
+def hist_streams(names, seed: int) -> dict:
+    """name -> a uint8 view on the card: the quality (15.1 MB) and sequence
+    (3.8 MB) streams of the first 100,000-record v3 block of the walk151
+    corpus (``synth_fastq(40, seed=seed + 4, qual_model="walk")``, the v3
+    main path's fixture) and of the ordered-name corpus
+    (``ordered_illumina_fastq(100000, seed=seed + 19)``), where the stream
+    build left them; and QUAL_STREAM bytes of two bytes in turn (every byte
+    a new run, all lanes on two slots), of the walk model's quality steps
+    (72% zeros in short runs), of uniform bytes and of one byte."""
+    from fastqpacker_tpu_torch.utils import synth
+
+    out = {}
+    if {"walk_qual", "walk_seq"} & set(names):
+        raw = tokens_block(synth.synth_fastq(40, seed=seed + 4, qual_model="walk"))
+        out["walk_qual"], out["walk_seq"] = raw.device_view(1), raw.device_view(0)
+    if {"ordered_qual", "ordered_seq"} & set(names):
+        raw = tokens_block(synth.ordered_illumina_fastq(BLOCK_RECORDS, seed=seed + 19))
+        out["ordered_qual"], out["ordered_seq"] = raw.device_view(1), raw.device_view(0)
+    rng = np.random.default_rng(seed + 21)
+    n = QUAL_STREAM
+    made = {
+        "alternating": lambda: np.tile(np.array([3, 200], np.uint8), n // 2 + 1)[:n],
+        "walk_deltas": lambda: synth.walk_steps(rng, n).view(np.uint8),
+        "uniform": lambda: rng.integers(0, 256, n, dtype=np.uint8),
+        "one_symbol": lambda: np.full(n, 77, np.uint8),
+    }
+    for name, fn in made.items():
+        if name in names:
+            out[name] = torch.from_numpy(np.ascontiguousarray(fn())).to(DEV)
+    return {k: out[k] for k in names}
+
+
 # the device operations of one call of each of phase tokens' wrappers, in a
 # process of its own (the profiler of a long process can miss kernels), and
 # each kernel's device microseconds a call; the decode also at a small count
@@ -1946,9 +1985,11 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
     """The three kernels at a v3 block's shapes, on the block's streams where
     the stream build left them (the first 100,000 records of the ordered
     corpus): the histogram of the quality (15.1 MB) and sequence (3.8 MB)
-    streams, the tokenizer on the header stream both ways (the encode from
-    the block's header lengths, as the compress path calls it, and from the
-    bare stream beside it). Each kernel's device time over inputs rotated
+    streams (and, under ``("hist256", "by_stream")``, of the walk151 block's
+    streams and the adversarial streams of :func:`hist_streams`), the
+    tokenizer on the header stream both ways (the encode from the block's
+    header lengths, as the compress path calls it, and from the bare stream
+    beside it). Each kernel's device time over inputs rotated
     past the L2 (for the tokenizer its launches alone: the wrapper reads the
     fault and the size back), its bound, its plain version's (on the card
     for the histogram, a bincount; Python on the host for the tokenizer),
@@ -1980,6 +2021,23 @@ def tokens_timed(ft, ck, rans, tokenize, data: bytes, seed: int) -> dict:
               f"(printed only)")
         check(len(ops) == 1, f"hist256: one device operation a call, got {ops}")
         del sets
+    by_stream = {}
+    for label, view in hist_streams([k for k in HIST_STREAMS if not k.startswith("ordered")],
+                                    seed - 19).items():
+        n = view.numel()
+        sets = retile(view, max(2, -(-150_000_000 // n)))
+        kms = gpu_ms(ck.hist256, sets, 50)
+        lms = gpu_ms(lambda t: torch.bincount(t, minlength=256), sets, 10)
+        err = max_err(ck.hist256(view), torch.bincount(view, minlength=256))
+        check(err == 0, f"hist256 on {label}: kernel == plain")
+        bms = bound(n + 256 * 8, 0)[0]
+        by_stream[label] = {"ms": kms, "bound_ms": bms, "library_ms": lms, "bytes": n,
+                            "host_us_per_call": host_us(ck.hist256, (view,)), "err": err}
+        print(f"phase=tokens kernel={ck.HIST256} stream={label} bytes={n} kernel_ms={kms:.6f} "
+              f"bound_us={bms * 1e3:.3f} roofline_share={bms / kms:.4f} "
+              f"torch_bincount_ms={lms:.6f} (printed only) max_abs_err={err}")
+        del sets, view
+    rows[("hist256", "qual")][5]["by_stream"] = by_stream
     count = raw.num_records
     view, lens = raw.device_view(2), raw.header_lengths
     n = view.numel()
@@ -2094,7 +2152,7 @@ def tokens_round_trip(ft, ck, data: bytes, cpu_ref: CpuReference) -> dict:
     equal to the CPU's, TAG_TOK on every block's header stream, and the
     launches following the tags (one fq_tok_encode a block the header gate
     lets through, one fq_tok_decode a TAG_TOK stream, one fq_hist256 an
-    estimate or a rANS table)."""
+    estimate and none for a rANS table)."""
     opts = ft.Options(version=ft.container.VERSION_3_NATIVE, workers=1)
     label = f"ordered151_v3_{TOKEN_BLOCKS}x{BLOCK_RECORDS}"
     torch.cuda.synchronize()
@@ -2119,9 +2177,8 @@ def tokens_round_trip(ft, ck, data: bytes, cpu_ref: CpuReference) -> dict:
           f"{label}: one tokenizer encode a block ({c_counts[ck.TOK_ENCODE]})")
     check(d_counts[ck.TOK_DECODE] == want["tok_streams"] and c_counts[ck.TOK_DECODE] == 0
           and d_counts[ck.TOK_ENCODE] == 0, f"{label}: one tokenizer decode a TAG_TOK stream")
-    check(c_counts[ck.HIST256] == want["estimates"] + c_counts[ck.RANS_ENCODE]
-          and d_counts[ck.HIST256] == 0,
-          f"{label}: one histogram an estimate or rANS table ({c_counts[ck.HIST256]})")
+    check(c_counts[ck.HIST256] == want["estimates"] and d_counts[ck.HIST256] == 0,
+          f"{label}: one histogram an estimate, none for a rANS table ({c_counts[ck.HIST256]})")
     cpu, cpu_s = cpu_ref.result()
     check(comp == cpu, f"{label}: the card's container equals the CPU's")
     mb = len(data) / 1e6
@@ -3644,9 +3701,9 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
                         by_shape=by_shape)
         rows.append((name, mesh_run[direction][name], kern_ctx["errs"][name],
                      (*times[:5], None), more))
-    # the byte histogram: the count of the v3 run (the v3 block's estimates
-    # and rANS tables), the tokens and mesh runs beside; times at the v3
-    # block's quality stream, the sequence stream's beside. The tokenizer:
+    # the byte histogram: the count of the v3 run (the v3 block's
+    # estimates), the tokens and mesh runs beside; times at the v3 block's
+    # quality stream, the sequence stream's and the others' beside. The tokenizer:
     # the counts of the ordered-name v3 run, whose header streams are TAG_TOK
     tt, trun = tokens["times"], tokens["run"]
     for name, key, direction in ((ck.HIST256, ("hist256", "qual"), "compress"),

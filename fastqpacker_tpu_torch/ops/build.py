@@ -106,8 +106,8 @@ SIGNATURES = {
         "fq_wctx_unlayout": [_P, _P, _L, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _L, _P],
     },
     "hist256": {
-        # data (any alignment), n, ctas, partials, ticket, out, stream
-        "fq_hist256": [_P, _L, _I, _P, _P, _P, _P],
+        # data (any alignment), n, ctas, acc, out, stream
+        "fq_hist256": [_P, _L, _I, _P, _P, _P],
     },
     "tokens": {
         # data (any alignment), n, count, lens (or 0), lens stride, starts,

@@ -561,15 +561,17 @@ class _Chained:
     """The ticket word and status words of the launches whose tiles wait
     on each other or count who finishes last (the scan, the back-to-back
     gather, the stream build, the assembly, the qctx prepare, the unlayout's
-    fault flag), one per (device,
+    fault flag), and the histogram's 256 u64 sums, one per (device,
     CUDA stream): launches on one stream run in order, so they share them.
     The ticket is left at 0 by every launch; the status words are zeroed once
     and never cleared, and each launch takes an epoch of its own, so a word
-    of an earlier launch reads as not ready."""
+    of an earlier launch reads as not ready. The sums (``acc``) are zeroed
+    once; the CTA that finishes a bin zeroes it again."""
 
     def __init__(self, dev: torch.device, tiles: int):
         self.ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.status = torch.zeros((tiles * records.STATUS_WORDS,), dtype=torch.int64, device=dev)
+        self.acc = torch.zeros((256,), dtype=torch.int64, device=dev)
         self.epoch = 0
 
 
@@ -938,7 +940,8 @@ def _check_bytes(name: str, t: torch.Tensor, dev) -> int:
 def hist256(data: torch.Tensor) -> torch.Tensor:
     """The 256 byte counts of an (n,) uint8 tensor, a view at any byte
     offset -> (256,) int64; see :func:`..ops.rans.hist256_plain`. One launch
-    (its last CTA adds every CTA's partials)."""
+    (its CTAs add into this stream's accumulator, ``_Chained.acc``; the last
+    to add to a bin writes it out and leaves it at 0)."""
     dev = data.device
     n = _check_bytes("data", data, dev)
     if _plain_or_cuda(dev):
@@ -946,10 +949,9 @@ def hist256(data: torch.Tensor) -> torch.Tensor:
     lib = build.load(_LIBRARY[HIST256])
     ptr = data.data_ptr() if n else 0
     ctas = lib.fq_hist256_ctas(n, ptr % 16, _sm_count(dev))
-    partials = torch.empty((ctas * 256,), dtype=torch.int64, device=dev)
     out = torch.empty((256,), dtype=torch.int64, device=dev)
     st, _ = _chained_state(dev, 1)
-    _launch(HIST256, dev, ptr, n, ctas, partials, st.ticket, out)
+    _launch(HIST256, dev, ptr, n, ctas, st.acc, out)
     return out
 
 

@@ -296,12 +296,22 @@ def _as_u8(data) -> np.ndarray:
 
 
 def encode_stream(
-    data: bytes | np.ndarray, lanes: int | None = None, device=None
+    data: bytes | np.ndarray, lanes: int | None = None, device=None,
+    view: torch.Tensor | None = None, hist: np.ndarray | None = None,
 ) -> bytes:
-    """rANS-encode one byte stream on ``device`` (default: the CUDA card)."""
+    """rANS-encode one byte stream on ``device`` (default: the CUDA card).
+
+    ``view`` and ``hist``: the same bytes already on ``device`` and their
+    (256,) counts (the v3 pick's estimate made both); given together, the
+    stream is neither uploaded nor counted again."""
     dev = resolve_device(device)
     raw = _as_u8(data)
     n = len(raw)
+    if (view is None) != (hist is None):
+        raise ValueError("view and hist come together")
+    if view is not None and (view.numel() != n or np.shape(hist) != (256,)):
+        raise ValueError(f"view: {view.numel()} bytes for a stream of {n}, "
+                         f"hist of shape {np.shape(hist)}")
     if n == 0:
         return struct.pack(HEADER_FMT, 0, 0)
     N = lanes or _pick_lanes(n)
@@ -309,14 +319,17 @@ def encode_stream(
         raise ValueError(f"lanes must be a power of two up to {MAX_LANES}")
     steps = -(-n // N)
 
-    # the table from the copy the encode reads: the stream goes up once
-    data_d = to_device(dev, raw)
-    hist = histogram(data_d)
+    if view is None:
+        # the table from the copy the encode reads: the stream goes up once
+        view = to_device(dev, raw)
+        hist = histogram(view)
+    else:
+        hist = np.array(hist, dtype=np.int64)
     pad_sym = int(np.argmax(hist))  # before the padding is counted
     hist[pad_sym] += steps * N - n
     freq = normalize_freqs(hist)
     return assemble_payload(
-        n, N, freq, *fetch_encoded(launch_encode(dev, data_d, N, pad_sym, freq))
+        n, N, freq, *fetch_encoded(launch_encode(dev, view, N, pad_sym, freq))
     )
 
 
@@ -325,9 +338,9 @@ def launch_encode(
     freq: np.ndarray,
 ):
     """Enqueue the encode and word compaction of ``raw`` (host bytes, or a
-    uint8 tensor on ``dev``) with a given table (``freq`` (256,) summing to
-    PROB_SCALE, the counts of the ``pad_sym`` cells that fill the last row
-    included) on ``dev``'s current stream. Returns the device tensors that
+    uint8 tensor on ``dev`` at any byte offset) with a given table
+    (``freq`` (256,) summing to PROB_SCALE, the counts of the ``pad_sym``
+    cells that fill the last row included) on ``dev``'s current stream. Returns the device tensors that
     :func:`fetch_encoded` reads."""
     from . import cuda_kernels
 
@@ -338,6 +351,8 @@ def launch_encode(
     if isinstance(raw, torch.Tensor):
         if raw.device.type == "cuda":  # made on another stream, read on this one
             raw.record_stream(torch.cuda.current_stream(raw.device))
+            if raw.data_ptr() % 16:  # the encode stages 16-byte units: an aligned copy
+                raw = raw.clone()
     else:
         raw = to_device(dev, raw)
     words, flags, states = cuda_kernels.rans_encode(

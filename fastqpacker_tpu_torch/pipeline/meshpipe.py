@@ -172,7 +172,7 @@ def _plan_qual(ordereds, views, lengths_l, codec, devs):
                             info["choice"] = "host"
             except qualctx.QctxError:
                 pass
-            est_r0 = native._rans_size_estimate(views[i])
+            est_r0, _ = native._rans_size_estimate(views[i])
             if est_r0 < bar:
                 info["choice"] = "rans"
         infos.append(info)

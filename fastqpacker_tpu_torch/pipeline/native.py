@@ -63,13 +63,16 @@ TAG_SLDM = container.TAG_SLDM
 TAG_WCTX = container.TAG_WCTX
 
 
-def _rans_size_estimate(view: torch.Tensor) -> int:
-    """Exact order-0 rANS output size from the histogram (pre-encode).
+def _rans_size_estimate(view: torch.Tensor) -> tuple[int, np.ndarray]:
+    """Exact order-0 rANS output size from the histogram (pre-encode), and
+    the histogram.
 
     rANS emits sum(count_k * log2(PROB_SCALE / freq_k)) bits to within
     lane-padding noise; adding the table/state overhead gives a faithful
     estimate without running the coder. The histogram is ``fq_hist256``'s,
-    on ``view``: the stream where the stream build left it.
+    on ``view``: the stream where the stream build left it. It is handed
+    back so that a stream that picks rANS builds its table from it
+    (``rans.encode_stream(..., view=, hist=)``) and is not counted again.
     """
     hist = rans.histogram(view)
     freq = rans.normalize_freqs(hist.copy()).astype(np.float64)
@@ -79,7 +82,7 @@ def _rans_size_estimate(view: torch.Tensor) -> int:
     )
     lanes = rans._pick_lanes(view.numel())
     overhead = 8 + 512 + 4 * lanes + 4  # header + freqs + states + total
-    return int(bits / 8) + overhead
+    return int(bits / 8) + overhead, hist
 
 
 def _zstd_candidate(codec, s) -> bytes:
@@ -164,7 +167,7 @@ def _encode_tagged_seq(
     z = _zstd_candidate(codec, s)
     if len(s) < RANS_MIN_BYTES:
         return bytes([TAG_ZSTD]) + z
-    r0 = _rans_size_estimate(view)
+    r0, hist0 = _rans_size_estimate(view)
     bar = min(len(z), r0)
     margin = 1.0 if max_ratio else SCTX_WIN_MARGIN
     s_arr = np.frombuffer(s, np.uint8)
@@ -216,7 +219,7 @@ def _encode_tagged_seq(
     if best is not None:
         return best
     if r0 < len(z):
-        r = rans.encode_stream(s, device=dev)
+        r = rans.encode_stream(s, device=dev, view=view, hist=hist0)
         if len(r) < len(z):
             return bytes([TAG_RANS]) + r
     return bytes([TAG_ZSTD]) + z
@@ -337,7 +340,7 @@ def _encode_tagged_qual(
     z = _zstd_candidate(codec, s)
     if len(s) < RANS_MIN_BYTES:
         return bytes([TAG_ZSTD]) + z
-    r0 = _rans_size_estimate(view)
+    r0, hist0 = _rans_size_estimate(view)
     bar = min(len(z), r0)
     # The context model may also replace a winning zstd when it beats it
     # by the same margin policy as the seq pick (SCTX_WIN_MARGIN) —
@@ -360,7 +363,7 @@ def _encode_tagged_qual(
             if len(q) < bar:
                 return bytes([TAG_QCTX]) + q
     if r0 < len(z):
-        r = rans.encode_stream(s, device=dev)
+        r = rans.encode_stream(s, device=dev, view=view, hist=hist0)
         if len(r) < len(z):
             return bytes([TAG_RANS]) + r
     return bytes([TAG_ZSTD]) + z

@@ -4,7 +4,12 @@
 
 :func:`hist_edge_cases`: streams of 0, 1, 15, 16 and 17 bytes, views that
 start at each of the offsets 1-15 of a buffer, one-symbol and 256-symbol
-streams, and streams that span several CTAs.
+streams, and streams that span several CTAs; cut to the kernel's grid: two
+bytes in turn (every byte a new run, every lane on two slots), the walk
+model's quality steps (72% zeros in short runs), uniform bytes, and lengths
+of one wave (a unit a thread of a full grid on an H100's 132 SMs: one step of
+the grid's loop) and of the shortest stream that fills the grid (kMinUnits
+waves) less or more one, at offsets 0 and 9.
 
 :func:`header_edge_cases`: header lists (each record's name without '@'):
 no record, empty headers, tokens of 18 and 19 digits, leading zeros
@@ -36,6 +41,19 @@ TILE_RECORDS = 128  # csrc/tokens.cu kTokRecords: the resolve's and write's tile
 TILE_COLUMNS = 24  # kTokCols: the columns a resolve tile stages at a time
 CHAIN_TILE = 8192  # kChainTile
 CHAIN_WINDOW = 64  # kWindow: the candidate entries a chain tile publishes
+HIST_THREADS = 512  # csrc/hist256.cu kThreads: a CTA's threads
+HIST_CTAS_PER_SM = 2  # kCtasPerSm: the CTAs of a full wave, an SM
+HIST_MIN_UNITS = 4  # kMinUnits: units a thread takes before the grid adds a CTA
+HIST_FLUSH_UNITS = 4000  # kFlushUnits: units a column (every warp of a CTA) counts between flushes
+H100_SMS = 132
+
+
+def hist_flush_bytes(sms: int) -> int:
+    """Bytes past which every thread of a full wave on ``sms`` SMs has
+    flushed its column at least once (two units a thread more)."""
+    per_thread = HIST_FLUSH_UNITS // (HIST_THREADS // 32)
+    threads = sms * HIST_CTAS_PER_SM * HIST_THREADS
+    return threads * 16 * (per_thread + 2) + 21
 
 
 def varint(v: int) -> bytes:
@@ -80,6 +98,17 @@ def hist_edge_cases() -> dict:
     skew = rng.choice(np.array([0, 1, 255, 2, 254], np.uint8), p=[0.9, 0.04, 0.04, 0.01, 0.01],
                       size=500_009).astype(np.uint8).tobytes()
     cases["skewed_off9"] = (skew, 9, 500_000)
+    cases["alternating_two"] = (bytes([3, 200]) * 150_001, 0, 300_002)
+    walk = synth.walk_steps(rng, 600_011).view(np.uint8).tobytes()
+    cases["walk_deltas_off5"] = (walk, 5, 600_000)
+    wave = H100_SMS * HIST_CTAS_PER_SM * HIST_THREADS * 16
+    full = wave * HIST_MIN_UNITS
+    big = rng.integers(0, 256, size=full + 32, dtype=np.uint8).tobytes()
+    cases["uniform_off11"] = (big, 11, 2_000_003)
+    for name, n in (("wave", wave), ("full_grid", full)):
+        for d in (-1, 0, 1):
+            for off in (0, 9):
+                cases[f"{name}{d:+d}_off{off}"] = (big, off, n + d)
     return cases
 
 
