@@ -191,13 +191,33 @@ Phases, each fatal on failure:
    Phases 5 and 9 hold their ``fq_hist256`` launches (one an estimate, none
    for a rANS table, which takes the estimate's counts; on ``--mesh`` one a
    quality estimate or a rANS table) and their tokenizer launches. ``--phase tokens`` runs the
-   build and this phase alone.
+   build and this phase alone;
+14. the runtime's context coders (``phase=ctxcoder``, ``csrc/ctxcoder.cu``):
+   ``fq_qctx_encode``, ``fq_qctx_decode``, ``fq_sctx_encode`` and ``fq_sctx_decode`` against
+   their plain versions (the Python walks), byte-equal, on every case of
+   ``tests/torch_ctxcoder_inputs.py`` (the JAX coder tests' cases, chunks with no record, one
+   symbol, a binned stream) at qctx models 0 and 1 (both decode check modes) and sctx orders 2,
+   4 and 6; each decode fault's string on the card equal to the CPU's, and an encode table with
+   no frequency for a present symbol; ``golden_ctx_v3.fqz`` decoded on the card (one qctx, sctx
+   and tokenizer decode); the device operations of one wrapper call (``scripts/ctxcoder_ab.py
+   --ops-only``: 1 / 2 / 1 / 1); each kernel held against its plain version on the first
+   10,000 records of a 100,000 x 151 block of the context-model corpus and timed at the whole
+   block (the model and order the v3 pick takes) beside its bound, its µs a step of its longest
+   chain and the host µs of a wrapper call, and the qctx pair at a binned 15.1 M-symbol quality
+   stream (scarce words); then ``markov151_v3_4x100000``: a v3 round trip of 4 blocks of that
+   corpus at the default block size, ``TAG_SCTX`` / ``TAG_QCTX`` on every block, the launches
+   following the tags (an encode at least and one compaction an encode, one decode a stream),
+   the first block equal to the CPU's container of its records (made by a subprocess started
+   before the first phase), MB/s each way. Phases 5 and 9 hold the context coders' launches
+   against their tags, phase 10 runs ``info``, ``check`` and ``cat`` on this container too.
+   ``--phase ctxcoder`` runs the build and this phase alone.
 
+Each phase of the whole run prints the run's seconds so far (``phase=time``).
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--mb 96] [--varlen-mb 16] [--mesh-blocks 4] [--seed 0]
-                             [--phase all|tokens]
+                             [--phase all|tokens|ctxcoder]
 """
 
 from __future__ import annotations
@@ -251,6 +271,11 @@ KERNELS = {
     "fq_hist256": ("hist256.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:493"),
     "fq_tok_encode": ("tokens.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1355"),
     "fq_tok_decode": ("tokens.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1445"),
+    # the runtime's context coders (TAG_QCTX, TAG_SCTX)
+    "fq_qctx_encode": ("ctxcoder.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1654"),
+    "fq_qctx_decode": ("ctxcoder.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:1855"),
+    "fq_sctx_encode": ("ctxcoder.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:2116"),
+    "fq_sctx_decode": ("ctxcoder.cu", "fastqpacker_tpu/runtime/fqruntime.cpp:2343"),
 }
 QUAL_STREAM = 100_000 * 151  # bytes of a v3 block's quality stream
 SEQ_STREAM = 100_000 * 38  # ... and of its packed sequence stream
@@ -333,11 +358,13 @@ def dense_inputs(rng, r, l, alphabet=b"ACGT", n_rate=0.001, full_len=None,
 # ---------------------------------------------------------------------------
 
 
-def gpu_ms(fn, arg_sets, iters: int) -> float:
+def gpu_ms(fn, arg_sets, iters: int, warm: bool = True) -> float:
     """Mean device ms per call of ``fn(*args)``, rotating over
     ``arg_sets``. The calls are queued behind a sleep kernel, so the
-    events time the device's back-to-back work, not the host's enqueue."""
-    for args in arg_sets:  # warm up
+    events time the device's back-to-back work, not the host's enqueue.
+    ``warm=False``: ``fn`` has just run at these shapes, so no warm-up
+    call (a plain version that takes seconds)."""
+    for args in arg_sets if warm else ():  # warm up
         fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -883,8 +910,9 @@ def round_trip_v3(ft, ck, data: bytes, label: str) -> dict:
     n_rans = tags["seq"].get("rans", 0) + tags["qual"].get("rans", 0)
     check(tags["qual"].get("rans", 0) == blocks > 0,
           f"{label}: every block's quality stream is TAG_RANS")
-    check(c_counts[ck.RANS_ENCODE] == c_counts[ck.RANS_COMPACT] == n_rans,
-          f"{label}: one rANS encode and compact launch per TAG_RANS stream")
+    check(c_counts[ck.RANS_ENCODE] == n_rans,
+          f"{label}: one rANS encode launch per TAG_RANS stream")
+    check_ctx_launches(ck, label, tags, c_counts, d_counts)
     check(d_counts[ck.RANS_DECODE] == n_rans,
           f"{label}: one rANS decode launch per TAG_RANS stream")
     check(c_counts[ck.RANS_DECODE] == 0 and d_counts[ck.RANS_ENCODE] == 0,
@@ -1080,16 +1108,16 @@ def rotate(args: tuple, nbytes: int) -> list:
             for _ in range(k)]
 
 
-def host_us(fn, args) -> float:
-    """Host microseconds per wrapper call: the enqueue of RECORD_HOST_CALLS
-    calls on the host clock, with no synchronisation between them."""
+def host_us(fn, args, calls: int = RECORD_HOST_CALLS) -> float:
+    """Host microseconds per wrapper call: the enqueue of ``calls`` calls on
+    the host clock, with no synchronisation between them."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(RECORD_HOST_CALLS):
+    for _ in range(calls):
         fn(*args)
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return t / RECORD_HOST_CALLS * 1e6
+    return t / calls * 1e6
 
 
 def nested_pad(data: torch.Tensor, offsets: torch.Tensor, rows: int, width: int):
@@ -1461,14 +1489,16 @@ CTX_TIMED = (1, 1)
 CTX_MODELS = [(0, 2), (0, 4), (0, 6), (1, 0), (1, 1)]  # seq orders 2/4/6, qual 0/1
 
 
-def corpus_block(data: bytes):
+def corpus_block(data: bytes, records: int | None = None):
     """The seq (packed rows) and qual (deltas) streams and the lengths of
-    the first 100,000-record block of ``data``, built on the card."""
+    the first block of ``data``, built on the card: ``records`` records
+    (default: BLOCK_RECORDS, read at the call)."""
     from fastqpacker_tpu_torch.parser.fastq import FastqStreamParser
     from fastqpacker_tpu_torch.pipeline import blocks as blockcodec
 
-    blk = next(FastqStreamParser(io.BytesIO(data), block_size=BLOCK_RECORDS, device=DEV).blocks())
-    check(blk.n == BLOCK_RECORDS, f"corpus block of {blk.n} records")
+    records = records or BLOCK_RECORDS
+    blk = next(FastqStreamParser(io.BytesIO(data), block_size=records, device=DEV).blocks())
+    check(blk.n == records, f"corpus block of {blk.n} records")
     raw = blockcodec.block_to_raw_streams(blk, 33, wide_npos=True)
     return (np.frombuffer(raw.seq, np.uint8), np.frombuffer(raw.qual, np.uint8),
             np.frombuffer(raw.lengths, "<u4").astype(np.int64))
@@ -1750,32 +1780,46 @@ GOLDEN_TOK = "tests/testdata/golden/golden_ctx_v3.fqz"
 # tests decode it to)
 GOLDEN_TOK_SHA256 = "173eef211411531f4ccf343a983fe62ed4756ccd8254e230aae710e655dea76a"
 
-# the CPU's v3 container of the ordered-name corpus, made in a process of its
-# own while the card runs the other phases (one worker: the probe memo
-# depends on order)
+# the CPU's v3 container of a corpus, made in a process of its own while the
+# card runs the other phases (one worker: the probe memo depends on order):
+# the ordered-name corpus of phase tokens, or the first block of the
+# context-model corpus of phase ctxcoder (its Python walks take a minute)
 _CPU_REFERENCE = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(2)
 import fastqpacker_tpu_torch as ft
-from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
-data = ordered_illumina_fastq(int(sys.argv[2]), seed=int(sys.argv[3]))
-opts = ft.Options(version=ft.container.VERSION_3_NATIVE, workers=1)
-open(sys.argv[4], "wb").write(ft.compress_bytes(data, opts, device="cpu"))
+corpus, records, seed, out = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+keep, block = int(sys.argv[6]), int(sys.argv[7])
+if corpus == "ordered":
+    from fastqpacker_tpu_torch.utils.synth import ordered_illumina_fastq
+    data = ordered_illumina_fastq(records, seed=seed)
+else:
+    import chip_smoke
+    data = chip_smoke.context_corpus(records, seed)
+if keep:  # the first records only
+    at = -1
+    for _ in range(4 * keep):
+        at = data.index(b"\n", at + 1)
+    data = data[: at + 1]
+opts = ft.Options(version=ft.container.VERSION_3_NATIVE, block_size=block, workers=1)
+open(out, "wb").write(ft.compress_bytes(data, opts, device="cpu"))
 """
 
 
 class CpuReference:
-    """The CPU's container of the ordered-name corpus, from a subprocess
+    """The CPU's container of ``corpus`` ("ordered": the ordered-name
+    corpus; "context": the context-model corpus) of ``records`` records, or
+    of its first ``keep``, at blocks of BLOCK_RECORDS, from a subprocess
     started at once; :meth:`result` waits for it, :meth:`stop` ends it."""
 
-    def __init__(self, records: int, seed: int, workdir: Path):
-        self.path = workdir / "tokens_cpu.fqz"
+    def __init__(self, corpus: str, records: int, seed: int, workdir: Path, keep: int = 0):
+        self.path = workdir / f"{corpus}_cpu.fqz"
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _CPU_REFERENCE, str(Path(__file__).resolve().parent),
-             str(records), str(seed), str(self.path)],
+             corpus, str(records), str(seed), str(self.path), str(keep), str(BLOCK_RECORDS)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def result(self) -> tuple[bytes, float]:
@@ -2200,18 +2244,377 @@ def phase_tokens(ft, ck, args, cpu_ref: CpuReference) -> dict:
 
     ti = load_tests_module("torch_tokens_inputs")
     edges = tokens_edges(ck, rans, tokenize, ti)
-    golden = Path(__file__).resolve().parent.joinpath(GOLDEN_TOK).read_bytes()
-    ck.reset_launches()
-    back = ft.decompress_bytes(golden, device=DEV)
-    counts = ck.launches.as_dict()
-    check(hashlib.sha256(back).hexdigest() == GOLDEN_TOK_SHA256 and counts[ck.TOK_DECODE] == 1,
-          f"{GOLDEN_TOK}: decoded on the card to its FASTQ, its TAG_TOK stream by the kernel")
-    print(f"phase=tokens golden={GOLDEN_TOK} output_bytes={len(back)} "
-          f"tok_decode_launches={counts[ck.TOK_DECODE]} sha256_equal=true")
+    golden_ctx(ft, ck)
     data = ordered_illumina_fastq(TOKEN_BLOCKS * BLOCK_RECORDS, seed=args.seed + 19)
     times = tokens_timed(ft, ck, rans, tokenize, data, args.seed + 19)
     run = tokens_round_trip(ft, ck, data, cpu_ref)
     return {"edges": edges, "times": times, "run": run}
+
+
+# ---------------------------------------------------------------------------
+# phase ctxcoder: the runtime's context coders (csrc/ctxcoder.cu)
+# ---------------------------------------------------------------------------
+
+CTX_BLOCKS = 4  # the markov151 v3 run: blocks of BLOCK_RECORDS records
+CTX_PREFIX = 10_000  # records of the full-width streams that the plain versions code
+CTX_ROUTES = ("qctx_encode", "qctx_decode", "sctx_encode", "sctx_decode")
+# each wrapper's device operations a call (scripts/ctxcoder_ab.py --ops-only):
+# the encodes one kernel, the qctx decode its slot table and its walk
+CTX_CODER_OPS = {"qctx_encode": 1, "qctx_decode": 2, "sctx_encode": 1, "sctx_decode": 1}
+
+
+def tensors_err(got, want) -> int:
+    """Max abs difference of two tuples of tensors, or -1 where a shape
+    differs."""
+    err = 0
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.shape != w.shape:
+            return -1
+        err = max(err, max_err(g, w))
+    return err
+
+
+def ctxcoder_edges(ck, qualctx, seqctx, ctxprep, ci) -> dict:
+    """Each case of ``tests/torch_ctxcoder_inputs.py`` through the four
+    kernels against their plain versions, byte for byte: the qctx cases at
+    models 0 and 1 (both decode check modes), the sctx cases at orders 2, 4
+    and 6; each decode fault's string on the card equal to the CPU's (with
+    and without the whole-file checks), and an encode table with no
+    frequency for a present symbol. Returns the cases held per route."""
+    held = dict.fromkeys((*CTX_ROUTES, "decode_faults", "encode_faults"), 0)
+    for stream, name, syms_in, lengths, arg in ci.coder_cases():
+        cpu = ci.coder_inputs(stream, syms_in, lengths, "cpu", arg)
+        want = ci.empty_encode()
+        if len(cpu["syms"]):
+            want = ci.coder_encode(stream, cpu)
+            got = ci.coder_encode(stream, ci.coder_inputs(stream, syms_in, lengths, DEV, arg))
+            check(tensors_err(got, want) == 0, f"{stream} encode {name} at {arg}: kernel == plain")
+            held[f"{stream}_encode"] += 1
+        for checks in ((False, True) if stream == "qctx" else (False,)):
+            ref = ci.coder_decode(stream, ci.coder_decode_args(stream, cpu, want, "cpu", checks))
+            got = ci.coder_decode(stream, ci.coder_decode_args(stream, cpu, want, DEV, checks))
+            check(tensors_err(got, ref) == 0 and not ref[1][:, 0].any(),
+                  f"{stream} decode {name} at {arg} checks={checks}: kernel == plain")
+            held[f"{stream}_decode"] += 1
+    for stream, mod, (payloads, lengths) in (("qctx", qualctx, ci.qctx_fault_payloads()),
+                                             ("sctx", seqctx, ci.sctx_fault_payloads())):
+        for name, payload in payloads.items():
+            for kw in (({}, {"runtime_checks": True}) if stream == "qctx" else ({},)):
+                got = outcome(lambda p: mod.decode(p, lengths, device=DEV, **kw), payload)
+                want = outcome(lambda p: mod.decode(p, lengths, device="cpu", **kw), payload)
+                said = [o[1] if o[0] == "error" else "decoded" for o in (got, want)]
+                check(got == want, f"{stream} fault {name} {kw}: {said[0]!r} on the card, "
+                                   f"{said[1]!r} on the CPU")
+                held["decode_faults"] += 1
+    for stream, name, err in (("qctx", "varlen", qualctx.QctxError),
+                              ("sctx", "markov-40x151", seqctx.SctxError)):
+        case = next(c for c in ci.coder_cases() if c[0] == stream and c[1] == name)
+        outs = []
+        for dev in (DEV, "cpu"):
+            inp = ci.coder_inputs(stream, case[2], case[3], dev)
+            freq = inp["freq"].copy()
+            # the context of every record's first symbol (qctx: the sentinels)
+            q = ci.qualctx
+            freq[(q.NUM_QBINS - 1) * (q.NUM_Q2B if inp["arg"] else 1)
+                 + (q.NUM_Q2B - 1) * inp["arg"] if stream == "qctx" else 0] = 0
+            outs.append(outcome(lambda: ci.ctxcoder.launch_encode(
+                ck.qctx_encode if stream == "qctx" else ck.sctx_encode,
+                ctxprep.Symbols(inp["syms"]), case[3], freq, inp["arg"],
+                err(f"invalid {stream} frequency table")).result()))
+        check(outs[0] == outs[1] == ("error", f"invalid {stream} frequency table"),
+              f"{stream} encode with no frequency for a present symbol: {outs}")
+        held["encode_faults"] += 1
+    print(f"phase=ctxcoder edges={json.dumps(held, sort_keys=True)}")
+    return held
+
+
+def chain_steps(plan: torch.Tensor, ci, decode: bool) -> int:
+    """The longest chain of a call: a chunk's symbols (decode), or the
+    symbols of its fullest (chunk, state) chain (encode)."""
+    sb = plan.numpy()[ci.ctxcoder.PLAN_SB : ci.ctxcoder.PLAN_SB + 5]
+    n = np.diff(sb)
+    return int(n.max()) if decode else int(((n + 3) // 4).max())
+
+
+def coder_bytes(inp: dict, words: int, decode: bool, out_bytes: int = 0) -> int:
+    """The bytes a context coder's function must move (each input read once,
+    each output written once). Encode: the symbols, the record starts, the
+    table's f and cum (4 B an entry; the reciprocals are the design's), the
+    emitted words (u16), the 16 states and counts. Decode: the words, the
+    record starts, the decode table, the output and the 4 chunks' info."""
+    starts = inp["starts"].numel() * 8
+    if decode:
+        return 2 * words + starts + inp["dtab"].numel() * inp["dtab"].element_size() \
+            + out_bytes + 4 * 2 * 8
+    return inp["syms"].numel() + starts + 4 * inp["tab"].numel() + 2 * words + 16 * (4 + 8)
+
+
+def ctxcoder_timed(ck, ci, label: str, streams: dict, ops: dict, iters: int = 3) -> dict:
+    """The four kernels at one block's streams (``streams``: stream ->
+    (host deltas or packed rows, lengths)): each held against its plain
+    version on the first CTX_PREFIX records and timed there beside it (the
+    plain versions are Python walks: host ms; the kernel: device ms over
+    ``iters`` launches; the bound and the host µs of one wrapper call at the
+    same inputs), then timed at the whole block (``full_width``: device ms,
+    its bound, its µs a step of its longest chain)."""
+    rows = {}
+    for stream, (syms_in, lengths) in streams.items():
+        lengths = np.asarray(lengths, np.int64)
+        per = ((lengths + 3) >> 2) if stream == "sctx" else lengths
+        cut = int(per[:CTX_PREFIX].sum())
+        full = ci.coder_inputs(stream, syms_in, lengths, DEV)
+        arg = full["arg"]
+        pre_card = ci.coder_inputs(stream, syms_in[:cut], lengths[:CTX_PREFIX], DEV, arg)
+        pre_cpu = ci.coder_inputs(stream, syms_in[:cut], lengths[:CTX_PREFIX], "cpu", arg)
+        t0 = time.perf_counter()
+        want = ci.coder_encode(stream, pre_cpu)
+        enc_plain_ms = (time.perf_counter() - t0) * 1e3
+        got = ci.coder_encode(stream, pre_card)
+        enc_err = tensors_err(got, want)
+        check(enc_err == 0, f"{label} {stream} encode on {CTX_PREFIX} records: kernel == plain")
+        dargs = ci.coder_decode_args(stream, pre_cpu, want, "cpu")
+        t0 = time.perf_counter()
+        dref = ci.coder_decode(stream, dargs)
+        dec_plain_ms = (time.perf_counter() - t0) * 1e3
+        dargs_card = ci.coder_decode_args(stream, pre_cpu, want, DEV)
+        dec_err = tensors_err(ci.coder_decode(stream, dargs_card), dref)
+        check(dec_err == 0 and not dref[1][:, 0].any(),
+              f"{label} {stream} decode on {CTX_PREFIX} records: kernel == plain")
+        pre_words = dargs_card[0].numel()
+        pre_enc_ms = gpu_ms(lambda: ci.coder_encode(stream, pre_card), [()], iters)
+        pre_dec_ms = gpu_ms(lambda: ci.coder_decode(stream, dargs_card), [()], iters)
+
+        enc = ci.coder_encode(stream, full)
+        n = full["syms"].numel()
+        dec_args = ci.coder_decode_args(stream, full, enc, DEV)
+        out, info = ci.coder_decode(stream, dec_args)
+        want_out = np.frombuffer(syms_in, np.uint8)
+        check(not info[:, 0].any().item() and np.array_equal(out.cpu().numpy(), want_out),
+              f"{label} {stream}: the kernels' round trip at full width")
+        words = dec_args[0].numel()
+        nrec = len(lengths)
+        # the round trip above ran both at these shapes
+        enc_ms = gpu_ms(lambda: ci.coder_encode(stream, full), [()], iters, warm=False)
+        dec_ms = gpu_ms(lambda: ci.coder_decode(stream, dec_args), [()], iters, warm=False)
+        steps_e = chain_steps(full["plan"], ci, False)
+        steps_d = chain_steps(dec_args[2], ci, True)
+        name_e = ck.QCTX_ENCODE if stream == "qctx" else ck.SCTX_ENCODE
+        name_d = ck.QCTX_DECODE if stream == "qctx" else ck.SCTX_DECODE
+        what = "model" if stream == "qctx" else "order"
+        pre_shape = (f"{label} {what}={arg} symbols={pre_card['syms'].numel()} "
+                     f"words={pre_words} records={CTX_PREFIX}")
+        shape = f"{label} {what}={arg} symbols={n} words={words} records={nrec}"
+        for route, name, ms, pms, pre_ms, steps, pre_bytes, nbytes, err, call in (
+                (f"{stream}_encode", name_e, enc_ms, enc_plain_ms, pre_enc_ms, steps_e,
+                 coder_bytes(pre_card, pre_words, False), coder_bytes(full, words, False),
+                 enc_err, (lambda: ci.coder_encode(stream, pre_card))),
+                (f"{stream}_decode", name_d, dec_ms, dec_plain_ms, pre_dec_ms, steps_d,
+                 coder_bytes(pre_card, pre_words, True, dref[0].numel()),
+                 coder_bytes(full, words, True, out.numel()), dec_err,
+                 (lambda: ci.coder_decode(stream, dargs_card)))):
+            hus = host_us(call, (), 3)
+            kms, pms, bms, bby, lms = report(name, pre_shape, pre_ms, pms, None, pre_bytes, 0,
+                                             err)
+            full_bound, full_by = bound(nbytes, 0)
+            full_row = {"ms": ms, "bound_ms": full_bound, "bound_by": full_by, "bytes": nbytes,
+                        "symbols": n, "words": words, "records": nrec, "steps": steps,
+                        "us_per_step": ms * 1e3 / steps}
+            rows[route] = (kms, pms, bms, bby, lms, {
+                "err": err, "shape": pre_shape, what: arg, "bytes": pre_bytes,
+                "plain_records": CTX_PREFIX, "plain_ms_clock": "host (the plain version is "
+                "Python on the CPU)", "host_us_per_call": hus, "full_width": full_row,
+                "device_ops_per_call": len(ops[route]), "device_ops": ops[route]})
+            print(f"phase=ctxcoder kernel={name} {shape} steps={steps} kernel_ms={ms:.6f} "
+                  f"bound_us={full_bound * 1e3:.3f} bound_by={full_by} bytes={nbytes} "
+                  f"us_per_step={ms * 1e3 / steps:.5f} ms_at_{CTX_PREFIX}_records={pre_ms:.4f} "
+                  f"plain_ms_at_{CTX_PREFIX}_records={pms:.1f} host_us_per_call={hus:.1f} "
+                  f"device_ops_per_call={len(ops[route])} ops={json.dumps(ops[route])}")
+        del full, pre_card, pre_cpu, enc, dec_args
+    return rows
+
+
+def binned_timed(ci, seed: int, iters: int = 3) -> dict:
+    """The qctx kernels on a binned 15.1 M-symbol quality stream (RTA3
+    levels, sticky runs: far fewer words than symbols), round trip checked."""
+    lengths = np.full(BLOCK_RECORDS, READ_LEN, np.int64)
+    raw = ci.binned(np.random.default_rng(seed), lengths)
+    delta = np.frombuffer(ci.qualctx.deintegrate(raw, lengths), np.uint8)
+    inp = ci.coder_inputs("qctx", delta, lengths, DEV)
+    enc = ci.coder_encode("qctx", inp)
+    dargs = ci.coder_decode_args("qctx", inp, enc, DEV)
+    out, info = ci.coder_decode("qctx", dargs)
+    check(not info[:, 0].any().item() and np.array_equal(out.cpu().numpy(), delta),
+          "binned quality stream: the qctx kernels' round trip")
+    enc_ms = gpu_ms(lambda: ci.coder_encode("qctx", inp), [()], iters, warm=False)
+    dec_ms = gpu_ms(lambda: ci.coder_decode("qctx", dargs), [()], iters, warm=False)
+    n, words = delta.size, dargs[0].numel()
+    steps_e = chain_steps(inp["plan"], ci, False)
+    steps_d = chain_steps(dargs[2], ci, True)
+    row = {"symbols": n, "words": words, "model": inp["arg"],
+           "encode": {"ms": enc_ms, "steps": steps_e, "us_per_step": enc_ms * 1e3 / steps_e,
+                      "bound_ms": bound(coder_bytes(inp, words, False), 0)[0]},
+           "decode": {"ms": dec_ms, "steps": steps_d, "us_per_step": dec_ms * 1e3 / steps_d,
+                      "bound_ms": bound(coder_bytes(inp, words, True, n), 0)[0]}}
+    print(f"phase=ctxcoder stream=binned_qual {json.dumps(row, sort_keys=True)}")
+    return row
+
+
+def ctxcoder_device_ops() -> subprocess.Popen:
+    """Start counting each wrapper's device operations a call in a process
+    of its own (``scripts/ctxcoder_ab.py --ops-only``); read by
+    :func:`ctxcoder_ops_result`."""
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, str(root / "scripts" / "ctxcoder_ab.py"), "--root",
+                             str(root), "--ops-only", "--records", "20000"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ctxcoder_ops_result(proc: subprocess.Popen) -> dict:
+    """Route -> device operations of one wrapper call, from
+    :func:`ctxcoder_device_ops`'s process."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"ctxcoder_ab.py --ops-only: {err[-2000:]}")
+    ops = {c["route"]: c["device_ops"] for c in json.loads(out.strip().splitlines()[-1])["cases"]}
+    for route, want in CTX_CODER_OPS.items():
+        check(len(ops[route]) == want, f"{route}: {want} device operations a call, got {ops[route]}")
+    return ops
+
+
+def golden_ctx(ft, ck) -> dict:
+    """``tests/testdata/golden/golden_ctx_v3.fqz`` decoded on the card to its
+    FASTQ's SHA-256, its TAG_TOK, TAG_QCTX and TAG_SCTX streams by the
+    kernels (one decode each)."""
+    golden = Path(__file__).resolve().parent.joinpath(GOLDEN_TOK).read_bytes()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    back = ft.decompress_bytes(golden, device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ck.launches.as_dict()
+    check(hashlib.sha256(back).hexdigest() == GOLDEN_TOK_SHA256,
+          f"{GOLDEN_TOK}: decoded on the card to its FASTQ")
+    check(counts[ck.TOK_DECODE] == counts[ck.QCTX_DECODE] == counts[ck.SCTX_DECODE] == 1,
+          f"{GOLDEN_TOK}: its TAG_TOK, TAG_QCTX and TAG_SCTX streams by the kernels ({counts})")
+    print(f"phase=ctxcoder golden={GOLDEN_TOK} output_bytes={len(back)} decode_s={secs:.4f} "
+          f"tok_decode_launches={counts[ck.TOK_DECODE]} qctx_decode_launches="
+          f"{counts[ck.QCTX_DECODE]} sctx_decode_launches={counts[ck.SCTX_DECODE]} "
+          f"sha256_equal=true")
+    return counts
+
+
+def check_ctx_launches(ck, label: str, tags: dict, c: dict, d: dict) -> None:
+    """The context coders' launches follow the tags: at least one encode a
+    TAG_QCTX / TAG_SCTX stream (a candidate can lose on its real size), one
+    decode a stream, none in the wrong direction, and one compaction an
+    encode of any coder."""
+    n_q, n_s = tags["qual"].get("qctx", 0), tags["seq"].get("sctx", 0)
+    check(c[ck.QCTX_ENCODE] >= n_q and c[ck.SCTX_ENCODE] >= n_s,
+          f"{label}: an encode launch per TAG_QCTX / TAG_SCTX stream")
+    check(d[ck.QCTX_DECODE] == n_q and d[ck.SCTX_DECODE] == n_s,
+          f"{label}: one decode launch per TAG_QCTX / TAG_SCTX stream")
+    check(c[ck.QCTX_DECODE] == c[ck.SCTX_DECODE] == d[ck.QCTX_ENCODE] == d[ck.SCTX_ENCODE] == 0,
+          f"{label}: no context coder launch in the wrong direction")
+    check(c[ck.RANS_COMPACT] == c[ck.RANS_ENCODE] + c[ck.WCTX_ENCODE] + c[ck.QCTX_ENCODE]
+          + c[ck.SCTX_ENCODE], f"{label}: one compaction per encode launch")
+
+
+def first_block(comp: bytes, ft) -> bytes:
+    """The bytes of a container's first block (its header and payload)."""
+    c = ft.container
+    r = io.BytesIO(comp)
+    fh = c.read_file_header(r)
+    start = r.tell()
+    hdr = c.read_block_header(r, fh.version)
+    r.seek(sum(hdr.stream_sizes(c.VERSION_2)), io.SEEK_CUR)
+    return comp[start : r.tell()]
+
+
+def ctxcoder_round_trip(ft, ck, data: bytes, cpu_ref) -> dict:
+    """v3 round trip of the context-model corpus at the default block size
+    on the card (the default workers, a CUDA stream each; counters reset
+    before each direction): the data back, TAG_SCTX and TAG_QCTX on every
+    block, the launches following the tags, the first block equal to the
+    CPU's container of the first BLOCK_RECORDS records (made by a subprocess
+    started before the first phase), MB/s each way."""
+    opts = ft.Options(version=ft.container.VERSION_3_NATIVE, block_size=BLOCK_RECORDS)
+    label = f"markov151_v3_{CTX_BLOCKS}x{BLOCK_RECORDS}"
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    comp = ft.compress_bytes(data, opts, device=DEV)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    c_counts = ck.launches.as_dict()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = ft.decompress_bytes(comp, device=DEV)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    d_counts = ck.launches.as_dict()
+    check(out == data, f"{label}: decompressed output equals the input")
+    blocks, tags = stream_tags(comp, ft)
+    check(blocks == CTX_BLOCKS and tags["seq"].get("sctx", 0) == tags["qual"].get("qctx", 0)
+          == blocks, f"{label}: TAG_SCTX and TAG_QCTX on every block ({tags})")
+    check_ctx_launches(ck, label, tags, c_counts, d_counts)
+    check(c_counts[ck.QCTX_PREPARE] >= blocks and c_counts[ck.SCTX_PREPARE] >= blocks,
+          f"{label}: the qctx and sctx prepare passes of every block (and the sampled "
+          f"estimates' prefixes) on the card")
+    cpu, cpu_s = cpu_ref.result()
+    check(first_block(comp, ft) == first_block(cpu, ft),
+          f"{label}: the card's first block equals the CPU's")
+    mb = len(data) / 1e6
+    print(f"phase=ctxcoder run={label} input_bytes={len(data)} container_bytes={len(comp)} "
+          f"blocks={blocks} tags={json.dumps(tags, sort_keys=True)} compress_s={t_c:.4f} "
+          f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
+          f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
+          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} round_trip=true "
+          f"first_block_identical_to_cpu=true cpu_reference_s={cpu_s:.1f}")
+    return {"compress": c_counts, "decompress": d_counts, "comp": comp, "label": label}
+
+
+def phase_ctxcoder(ft, ck, args, cpu_ref) -> dict:
+    """fq_qctx_encode, fq_qctx_decode, fq_sctx_encode and fq_sctx_decode: their
+    edges and faults against the plain versions, the golden ctx container on
+    the card, their times at the full-width streams of the context-model
+    corpus (100,000 x 151) and at a binned quality stream, and the
+    markov151 v3 round trip."""
+    from fastqpacker_tpu_torch.ops import ctxprep, qualctx, seqctx
+
+    t0 = time.perf_counter()
+
+    def step(name: str) -> None:
+        print(f"phase=time ctxcoder_step={name} elapsed_s={time.perf_counter() - t0:.1f}")
+
+    ci = load_tests_module("torch_ctxcoder_inputs")
+    ops_proc = ctxcoder_device_ops()  # its own process, while the edges run here
+    try:
+        edges = ctxcoder_edges(ck, qualctx, seqctx, ctxprep, ci)
+        step("edges")
+        golden = golden_ctx(ft, ck)
+        data = context_corpus(CTX_BLOCKS * BLOCK_RECORDS, args.seed + 23)
+        packed, delta, lengths = corpus_block(data)
+        step("golden_and_corpus")
+    except BaseException:
+        ops_proc.kill()
+        ops_proc.wait()
+        raise
+    ops = ctxcoder_ops_result(ops_proc)
+    step("device_ops")
+    times = ctxcoder_timed(ck, ci, "markov151",
+                           {"qctx": (delta, lengths), "sctx": (packed, lengths)}, ops)
+    step("timed")
+    times["qctx_decode"][5]["binned_qual"] = binned_timed(ci, args.seed + 24)
+    step("binned")
+    run = ctxcoder_round_trip(ft, ck, data, cpu_ref)
+    step("round_trip")
+    run["data"] = data
+    return {"edges": edges, "golden": golden, "times": times, "run": run}
 
 
 # the per-stage breakdowns phase e2e prints: format -> --mb (v2: a few
@@ -2338,6 +2741,14 @@ def surface_container(ft, ck, inspect, ranges, label, kind, data, comp, workdir)
         check(counts[ck.WCTX_DECODE] == 2 * blocks
               == block_streams(by_block, range(blocks), "wctx"),
               f"check {label}: two wctx decodes per block")
+    if kind in ("v3", "ctx"):
+        check(counts[ck.QCTX_DECODE] == block_streams(by_block, range(blocks), "qctx")
+              and counts[ck.SCTX_DECODE] == block_streams(by_block, range(blocks), "sctx"),
+              f"check {label}: one qctx / sctx decode per TAG_QCTX / TAG_SCTX stream")
+    if kind == "ctx":
+        check(counts[ck.QCTX_DECODE] == counts[ck.SCTX_DECODE] == blocks
+              and counts[ck.CRC32] > 0,
+              f"check {label}: a qctx and an sctx decode per block, CRC32 launched")
     runs[f"check_{kind}"] = counts
 
     bad = bytearray(comp)
@@ -2377,6 +2788,10 @@ def surface_container(ft, ck, inspect, ranges, label, kind, data, comp, workdir)
         if kind == "mesh":
             check(counts[ck.WCTX_DECODE] == block_streams(by_block, covering, "wctx"),
                   f"cat {label} {name}: wctx decodes of the covering blocks only")
+        if kind in ("v3", "ctx"):
+            check(counts[ck.QCTX_DECODE] == block_streams(by_block, covering, "qctx")
+                  and counts[ck.SCTX_DECODE] == block_streams(by_block, covering, "sctx"),
+                  f"cat {label} {name}: qctx / sctx decodes of the covering blocks only")
         text = int(ends[min(covering.stop * block, n) - 1]) - (
             int(ends[covering.start * block - 1]) if covering.start else 0)
         runs[f"cat_{kind}_{name}"] = counts
@@ -2654,7 +3069,7 @@ def phase_wctx(ck, wctx, rans, rng) -> dict:
               "shared_bytes": geo.shared}),
         ):
             kms = gpu_ms(fn, sets, 10)
-            pms = gpu_ms(plain, sets[:1], 1)
+            pms = gpu_ms(plain, sets[:1], 1, warm=False)  # wctx_case ran it at these shapes
             extra = {"lanes": N, "steps": S, "step_us": kms * 1e3 / S, **launch}
             print(f"phase=kernels kernel={name} {shape} step_us={extra['step_us']:.4f} "
                   f"geometry={json.dumps(launch, sort_keys=True)}")
@@ -2794,15 +3209,14 @@ def phase_mesh(ft, ck, args) -> dict:
     n_rans = tags["qual"].get("rans", 0)
     check(tags["qual"].get("wctx", 0) == blocks,
           f"{label}: every block's quality stream is TAG_WCTX")
-    check(tags["qual"].get("qctx", 0) == 0, f"{label}: no block took the host qctx coder")
+    check(tags["qual"].get("qctx", 0) == 0, f"{label}: no block's quality stream took qctx")
     # compress launches every candidate that its estimate lets through, and
     # a candidate can still lose on its real size; decompress launches one
     # decode per stream that carries the tag
     check(c_counts[ck.WCTX_ENCODE] >= n_wctx > 0,
           f"{label}: at least one wctx encode launch per TAG_WCTX stream")
     check(c_counts[ck.WCTX_ENCODE] <= 2 * blocks, f"{label}: at most two candidates a block")
-    check(c_counts[ck.RANS_COMPACT] == c_counts[ck.WCTX_ENCODE] + c_counts[ck.RANS_ENCODE],
-          f"{label}: one compaction per encode launch")
+    check_ctx_launches(ck, label, tags, c_counts, d_counts)
     check(c_counts[ck.RANS_ENCODE] >= n_rans, f"{label}: rANS launches cover TAG_RANS streams")
     check(d_counts[ck.WCTX_DECODE] == n_wctx and d_counts[ck.RANS_DECODE] == n_rans,
           f"{label}: one decode launch per TAG_WCTX / TAG_RANS stream")
@@ -3435,9 +3849,9 @@ def main() -> int:
     ap.add_argument("--mesh-blocks", type=int, default=4)
     ap.add_argument("--varlen-mb", type=float, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("all", "tokens"), default="all",
-                    help="tokens: the build and phase=tokens alone (the three kernels' "
-                         "line with the ordered-name run's launches)")
+    ap.add_argument("--phase", choices=("all", "tokens", "ctxcoder"), default="all",
+                    help="tokens / ctxcoder: the build and that phase alone (its kernels' "
+                         "line with the launches of its v3 run)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3472,17 +3886,27 @@ def main() -> int:
             print(f"phase=build {name}: {entry_label(row.pop('entry'))} "
                   f"{json.dumps(row, sort_keys=True)}")
 
-    # the CPU's container of phase tokens' corpus, made while the card works
+    # the CPU's containers of phase tokens' and phase ctxcoder's corpora,
+    # made while the card works
     tokens_dir = Path(__file__).resolve().parent / "fastqpacker_tpu_torch" / "_build" / "tokens"
     tokens_dir.mkdir(parents=True, exist_ok=True)
-    cpu_ref = CpuReference(TOKEN_BLOCKS * BLOCK_RECORDS, args.seed + 19, tokens_dir)
+    refs = {}
     try:
+        if args.phase in ("all", "tokens"):
+            refs["tokens"] = CpuReference("ordered", TOKEN_BLOCKS * BLOCK_RECORDS,
+                                          args.seed + 19, tokens_dir)
+        if args.phase in ("all", "ctxcoder"):
+            refs["ctxcoder"] = CpuReference("context", CTX_BLOCKS * BLOCK_RECORDS,
+                                            args.seed + 23, tokens_dir, keep=BLOCK_RECORDS)
         if args.phase == "tokens":
-            return tokens_only(args, ft, ck, kind, count, smi, cpu_ref)
+            return tokens_only(args, ft, ck, kind, count, smi, refs["tokens"])
+        if args.phase == "ctxcoder":
+            return ctxcoder_only(args, ft, ck, kind, count, smi, refs["ctxcoder"])
         return run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx,
-                          synth_fastq, kind, count, smi, cpu_ref)
+                          synth_fastq, kind, count, smi, refs)
     finally:
-        cpu_ref.stop()
+        for ref in refs.values():
+            ref.stop()
         shutil.rmtree(tokens_dir, ignore_errors=True)
 
 
@@ -3509,17 +3933,69 @@ def tokens_only(args, ft, ck, kind, count, smi, cpu_ref) -> int:
     return 0
 
 
+CTX_KERNELS = {  # kernel -> (route, the direction of the run that launches it)
+    "fq_qctx_encode": ("qctx_encode", "compress"), "fq_qctx_decode": ("qctx_decode", "decompress"),
+    "fq_sctx_encode": ("sctx_encode", "compress"), "fq_sctx_decode": ("sctx_decode", "decompress"),
+}
+
+
+def ctxcoder_rows(ctx: dict) -> list:
+    """The four context coders' entries of the ``kernels`` line: launches
+    from the markov151 v3 run; ms, plain_ms and bound_ms at the first
+    CTX_PREFIX records of its streams (the plain versions' size), the whole
+    block's in ``full_width``."""
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for name, (route, direction) in CTX_KERNELS.items():
+        *times, extra = ctx["times"][route]
+        extra = dict(extra)
+        err = extra.pop("err")
+        launches = ctx["run"][direction][name]
+        check(launches > 0, f"{name} launched on the {ctx['run']['label']} run")
+        more = {**extra, "edge_cases_checked": ctx["edges"],
+                "launches_golden_ctx": ctx["golden"][name],
+                "launches_ctx_run": {d: ctx["run"][d][name] for d in ("compress", "decompress")}}
+        rows.append((name, launches, err, (*times, None), more))
+    return rows
+
+
+def ctxcoder_only(args, ft, ck, kind, count, smi, cpu_ref) -> int:
+    """``--phase ctxcoder``: phase ctxcoder alone; each of its kernels'
+    entries takes its launches from the markov151 v3 run."""
+    ctx = phase_ctxcoder(ft, ck, args, cpu_ref)
+    kernels = []
+    for name, launches, err, (kms, pms, bound_ms, bound_by, lms, _), extra in ctxcoder_rows(ctx):
+        source, replaces = KERNELS[name]
+        kernels.append({"name": name, "route": "cuda", "source": CSRC + source,
+                        "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        "ms": kms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lms, **extra})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
 def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, synth_fastq,
-               kind, count, smi, cpu_ref) -> int:
+               kind, count, smi, refs) -> int:
+    t_start = time.perf_counter()
+
+    def lap(done: str) -> None:  # the run's seconds so far, after each phase
+        print(f"phase=time done={done} elapsed_s={time.perf_counter() - t_start:.1f}")
+
     rng = np.random.default_rng(args.seed)
     kern = phase_kernels(ck, devops, refops, rng)
     kern_rans = phase_rans(ck, rans, rng, rans_decode_registers(build.builds["rans_codec"].log))
     kern_rans["extra"]["qual"]["by_geometry"] = phase_rans_variant(
         kern_rans["extra"]["qual"], kern_rans["times"][(ck.RANS_DECODE, "qual")][0])
     kern_crc = phase_crc(ck, crc32, rng)
+    lap("kernels")
     kern_wctx = phase_wctx(ck, wctx, rans, rng)
+    lap("wctx")
     kern_records = phase_records(ft, ck, recops, rng)
+    lap("records")
     kern_ctx = phase_ctxprep(ft, ck, args)
+    lap("ctxprep")
 
     # warm-up: a round trip of the same size (kernel loads, the worker
     # threads' streams, page-locked buffers of the block sizes), so the
@@ -3537,6 +4013,7 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
                          seed=args.seed + 2)
     round_trip(ft, ck, varlen, f"varlen50_300_{args.varlen_mb:g}MiB")
     del varlen
+    lap("e2e_v2")
 
     # FQZ v3: warm up (codecs, streams), then the rANS-picking data
     warm = synth_fastq(1, seed=args.seed + 3, qual_model="walk")
@@ -3548,10 +4025,18 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
     v3_label = f"walk151_v3_{args.mb:g}MiB"
     v3_launches = round_trip_v3(ft, ck, v3_data, v3_label)
     print(f"phase=e2e v3_max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    lap("e2e_v3")
 
     mesh_run = phase_mesh(ft, ck, args)
+    lap("mesh")
     phase_stages(args)
-    tokens = phase_tokens(ft, ck, args, cpu_ref)
+    lap("stages")
+    # phase ctxcoder first: it runs while the CPU's ordered-name container is
+    # still being made, which phase tokens waits for
+    ctx = phase_ctxcoder(ft, ck, args, refs["ctxcoder"])
+    lap("ctxcoder")
+    tokens = phase_tokens(ft, ck, args, refs["tokens"])
+    lap("tokens")
 
     mesh_data = mesh_run.pop("data")
     surfaces = phase_surfaces(ft, ck, {
@@ -3559,8 +4044,11 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
         "v3": (v3_label, v3_data, v3_launches.pop("comp")),
         "mesh": (f"markov151_mesh_{args.mesh_blocks}x{BLOCK_RECORDS}",
                  mesh_data, mesh_run.pop("comp")),
+        "ctx": (ctx["run"]["label"], ctx["run"].pop("data"), ctx["run"].pop("comp")),
     })
+    lap("surfaces")
     parallel = phase_parallel(ft, ck, args, count, v2_data, v3_data, mesh_data)
+    lap("parallel")
     del v2_data, v3_data, mesh_data
     rt = kern_rans["times"]
     bench = phase_bench(ck, {
@@ -3574,6 +4062,7 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
         "wctx-entropy-decode": (kern_wctx["times"][(ck.WCTX_DECODE, 1, 0)][0],
                                 "qual order 0, 15.1 M symbols at 2048 lanes"),
     })
+    lap("bench")
 
     # launches: the count from the main path's run that drives the kernel
     # (dense: the v2 run, per direction; rANS and CRC32: the v3 run)
@@ -3724,6 +4213,12 @@ def run_phases(args, ft, build, crc32, ck, devops, rans, recops, refops, wctx, s
         else:
             launches = trun[direction][name]
         rows.append((name, launches, err, (kms, pms, bound_ms, bound_by, lms, None), more))
+    # the context coders: the counts of the markov151 v3 run; the v3, mesh
+    # and golden runs beside
+    for name, launches, err, times, more in ctxcoder_rows(ctx):
+        for run, counts in (("v3", v3_launches), ("mesh", mesh_run)):
+            more[f"launches_{run}"] = {d: counts[d][name] for d in ("compress", "decompress")}
+        rows.append((name, launches, err, times, more))
     for row in rows[:6]:  # the earlier kernels run on the mesh path too
         name = row[0]
         direction = "decompress" if name in (ck.DECODE, ck.RANS_DECODE) else "compress"

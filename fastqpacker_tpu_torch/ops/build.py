@@ -119,6 +119,17 @@ SIGNATURES = {
         # the decode's second call: data .. info of its first call, out, stream
         "fq_tok_decode_write": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "ctxcoder": {
+        # syms, starts, plan (host int64), tab, model or order, words, flags,
+        # states, counts, stream
+        "fq_qctx_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "fq_sctx_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        # words, starts, plan (host int64), fcum, contexts, model, checks,
+        # slot scratch, out, info, stream
+        "fq_qctx_decode": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        # words, starts, plan (host int64), freq, order, out, info, stream
+        "fq_sctx_decode": [_P, _P, _P, _P, _I, _P, _P, _P],
+    },
 }
 
 # The second call of a kernel whose wrapper calls its library twice, with a

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ctxcoder import chunk_bounds_arrays
 from .device import to_device
 
 # qctx context geometry (ops/qualctx.py)
@@ -78,8 +79,6 @@ def lane_layout(lengths: np.ndarray, lanes: int) -> tuple[np.ndarray, int, np.nd
     lane's first symbol (row 0, ``wctx.lane_bounds``'s ``sb``) and first
     record (row 1), the step count S (the longest lane) and the (lanes,)
     int32 symbols per lane."""
-    from .qualctx import chunk_bounds_arrays
-
     rb, sb = chunk_bounds_arrays(np.asarray(lengths, np.int64), lanes)
     seg = np.diff(sb)
     return np.stack([sb, rb]), int(seg.max()) if len(seg) else 0, seg.astype(np.int32)
@@ -278,12 +277,15 @@ def wctx_unlayout_plain(
 
 
 class Symbols:
-    """A prepare pass's symbols on their device, and their host copy, made
-    on first use (:meth:`numpy`): only the host coders read it. ``ready``
-    is the event after the pass on a card (None on the CPU)."""
+    """A prepare pass's symbols on their device, the records' starts there
+    (``bounds``: (nrec + 1,) int64, the pass's own upload, or None), and the
+    symbols' host copy, made on first use (:meth:`numpy`): only the host
+    coders read it (the sequence coverage candidate, ``sldm``). ``ready`` is
+    the event after the pass on a card (None on the CPU)."""
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, bounds: torch.Tensor | None = None):
         self.tensor = tensor
+        self.bounds = bounds
         self.ready = None
         if tensor.device.type == "cuda":
             self.ready = torch.cuda.Event()
@@ -293,17 +295,26 @@ class Symbols:
     def __len__(self) -> int:
         return self.tensor.numel()
 
-    def on(self, dev: torch.device) -> torch.Tensor:
-        """The symbols on ``dev``, for work on its current stream. The
-        stream that reads them (a copy to another card runs on the current
-        stream of the symbols' own) waits for the pass, and the tensor is
-        recorded on it."""
-        t = self.tensor
+    def _onto(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
         if self.ready is not None:
             stream = torch.cuda.current_stream(t.device)
             stream.wait_event(self.ready)
             t.record_stream(stream)
         return t if t.device == dev else t.to(dev)
+
+    def on(self, dev: torch.device) -> torch.Tensor:
+        """The symbols on ``dev``, for work on its current stream. The
+        stream that reads them (a copy to another card runs on the current
+        stream of the symbols' own) waits for the pass, and the tensor is
+        recorded on it."""
+        return self._onto(self.tensor, dev)
+
+    def starts_on(self, dev: torch.device, lengths: np.ndarray) -> torch.Tensor:
+        """The records' starts on ``dev`` as :meth:`on` gives the symbols:
+        the pass's own, else uploaded from ``lengths``."""
+        if self.bounds is None:
+            return to_device(dev, record_bounds(lengths))
+        return self._onto(self.bounds, dev)
 
     def numpy(self) -> np.ndarray:
         if self._host is None:
@@ -318,9 +329,9 @@ def qctx_prepare(dev: torch.device, delta: np.ndarray, lengths: np.ndarray):
     -> (:class:`Symbols` raw, (3072, 256) int64 host histogram)."""
     from . import cuda_kernels
 
-    raw, hist = cuda_kernels.qctx_prepare(
-        to_device(dev, np.asarray(delta, np.uint8)), to_device(dev, record_bounds(lengths)))
-    return Symbols(raw), hist.cpu().numpy().astype(np.int64)
+    bounds = to_device(dev, record_bounds(lengths))
+    raw, hist = cuda_kernels.qctx_prepare(to_device(dev, np.asarray(delta, np.uint8)), bounds)
+    return Symbols(raw, bounds), hist.cpu().numpy().astype(np.int64)
 
 
 def sctx_prepare(dev: torch.device, packed: np.ndarray, lengths: np.ndarray):
@@ -329,7 +340,7 @@ def sctx_prepare(dev: torch.device, packed: np.ndarray, lengths: np.ndarray):
     from . import cuda_kernels
 
     bounds = record_bounds(lengths, packed=True)
+    on_dev = to_device(dev, bounds)
     bases, hist = cuda_kernels.sctx_prepare(
-        to_device(dev, np.asarray(packed, np.uint8)), to_device(dev, bounds),
-        int(bounds[0, -1]))
-    return Symbols(bases), hist.cpu().numpy().astype(np.int64)
+        to_device(dev, np.asarray(packed, np.uint8)), on_dev, int(bounds[0, -1]))
+    return Symbols(bases, on_dev[0]), hist.cpu().numpy().astype(np.int64)

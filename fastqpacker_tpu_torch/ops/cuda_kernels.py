@@ -26,12 +26,16 @@ the quality delta transform (``_raw_to_delta``) of
 ``fastqpacker_tpu/pipeline/native.py``. Byte histogram
 (``csrc/hist256.cu``): ``hist256`` replaces the runtime's ``fq_hist256``.
 Header tokenizer (``csrc/tokens.cu``): ``tok_encode`` and ``tok_decode``
-replace its ``fq_tok_encode`` and ``fq_tok_decode``.
+replace its ``fq_tok_encode`` and ``fq_tok_decode``. Context coders
+(``csrc/ctxcoder.cu``): ``qctx_encode``, ``qctx_decode``, ``sctx_encode`` and
+``sctx_decode`` replace its ``fq_qctx_encode``, ``fq_qctx_decode``,
+``fq_sctx_encode`` and ``fq_sctx_decode``.
 
 Each wrapper checks its tensors, allocates the outputs on their device and
 launches on the current CUDA stream. A CPU tensor goes to the plain PyTorch
 version (:mod:`.device`, :mod:`.rans`, :mod:`.crc32`, :mod:`.wctx`,
-:mod:`.records`, :mod:`.ctxprep`, :mod:`.tokenize`); a CUDA
+:mod:`.records`, :mod:`.ctxprep`, :mod:`.tokenize`, :mod:`.qualctx`,
+:mod:`.seqctx`); a CUDA
 tensor launches the kernel or raises.
 
 ``launches`` counts kernel launches per kernel, so a run can show that its
@@ -52,7 +56,7 @@ from .crc32 import crc32_chunks_plain
 from .device import DenseEncoded, decode_arrays_plain, encode_arrays_plain
 from .rans import MAX_LANES as RANS_MAX_LANES
 from .rans import RANS_L, hist256_plain, rans_compact_plain, rans_decode_plain, rans_encode_plain
-from . import ctxprep, records, tokenize
+from . import ctxcoder, ctxprep, qualctx, records, seqctx, tokenize
 from .wctx import MAX_DECODE_LANES as WCTX_MAX_DECODE_LANES
 from .wctx import wctx_decode_plain, wctx_encode_plain
 
@@ -76,6 +80,10 @@ HIST256 = "fq_hist256"
 TOK_ENCODE = "fq_tok_encode"
 TOK_DECODE = "fq_tok_decode"
 TOK_DECODE_WRITE = "fq_tok_decode_write"
+QCTX_ENCODE = "fq_qctx_encode"
+QCTX_DECODE = "fq_qctx_decode"
+SCTX_ENCODE = "fq_sctx_encode"
+SCTX_DECODE = "fq_sctx_decode"
 
 # which library (csrc/<name>.cu) exports each launcher
 _LIBRARY = {
@@ -1105,3 +1113,130 @@ def tok_decode_write(call: TokDecodeCall, size: int) -> torch.Tensor:
     if size:
         _launch(TOK_DECODE_WRITE, call.info.device, *call.args, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the runtime's context coders: qctx / sctx encode and decode
+# ---------------------------------------------------------------------------
+
+
+def _check_plan(plan: torch.Tensor) -> tuple[int, int]:
+    """A host int64 plan (:func:`..ops.ctxcoder.coder_plan`) -> (symbols,
+    packed bytes) of its stream."""
+    if (plan.dtype != torch.int64 or plan.device.type != "cpu" or not plan.is_contiguous()
+            or tuple(plan.shape) != (ctxcoder.PLAN_WORDS,)):
+        raise ValueError(f"plan: expected a contiguous ({ctxcoder.PLAN_WORDS},) int64 CPU "
+                         f"tensor, got {plan.dtype} {tuple(plan.shape)} on {plan.device}")
+    return int(plan[ctxcoder.PLAN_SB + 4]), int(plan[ctxcoder.PLAN_PSTART + 4])
+
+
+def _check_starts(starts: torch.Tensor, plan: torch.Tensor, dev) -> None:
+    _check_1d("starts", starts, torch.int64, dev)
+    if not starts.is_contiguous() or starts.numel() != int(plan[ctxcoder.PLAN_RB + 4]) + 1:
+        raise ValueError(f"starts: {starts.numel()} entries for "
+                         f"{int(plan[ctxcoder.PLAN_RB + 4])} records")
+
+
+def _coder_encode(name: str, syms, starts, plan, tab, arg: int, contexts: int, width: int,
+                  plain):
+    n = syms.numel()
+    dev = syms.device
+    _check("syms", syms, torch.uint8, (n,), dev)
+    if n == 0 or _check_plan(plan)[0] != n:
+        raise ValueError(f"{name}: {n} symbols, a plan of {_check_plan(plan)[0]}")
+    _check_starts(starts, plan, dev)
+    _check("tab", tab, torch.int64, (contexts, width), dev)
+    if _plain_or_cuda(dev):
+        return plain(syms, starts, plan, tab, arg)
+    words = torch.empty((n,), dtype=torch.int16, device=dev)
+    flags = torch.empty((n,), dtype=torch.uint8, device=dev)
+    states = torch.empty((ctxcoder.CHAINS,), dtype=torch.int32, device=dev)
+    counts = torch.empty((ctxcoder.CHAINS,), dtype=torch.int64, device=dev)
+    _launch(name, dev, syms, starts, plan, tab, arg, words, flags, states, counts)
+    return words, flags, states, counts
+
+
+def qctx_encode(raw: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                tab: torch.Tensor, model: int):
+    """Backward qctx encode of the (n,) raw qualities (n >= 1) of records
+    starting at ``starts`` ((nrec + 1,) int64, on their device), the chunks
+    of the host ``plan``, ``tab`` the model's (contexts, 256) int64 entries
+    (:func:`..ops.ctxcoder.encode_table`) -> (words int16 (n,), flags uint8 (n,), states int32
+    (16,), counts int64 (16,), -1 where a chain met a present symbol with no
+    frequency); see :func:`..ops.qualctx.qctx_encode_plain`. One launch: a
+    CTA a (chunk, state) chain."""
+    if model not in qualctx.MODELS:
+        raise ValueError(f"unsupported qctx model {model}")
+    contexts = qualctx.NUM_CTX2 if model else qualctx.NUM_CTX
+    return _coder_encode(QCTX_ENCODE, raw, starts, plan, tab, model, contexts, 256,
+                         qualctx.qctx_encode_plain)
+
+
+def sctx_encode(bases: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                tab: torch.Tensor, order: int):
+    """Backward sctx encode of (n,) bases 0-3 at ``order``, ``tab`` the
+    (4**order, 4) int64 entries; as :func:`qctx_encode`, see
+    :func:`..ops.seqctx.sctx_encode_plain`. One launch."""
+    if order not in seqctx.ORDERS:
+        raise ValueError(f"unsupported sctx order {order}")
+    return _coder_encode(SCTX_ENCODE, bases, starts, plan, tab, order, 4**order, 4,
+                         seqctx.sctx_encode_plain)
+
+
+def _check_words(words: torch.Tensor, plan: torch.Tensor, dev) -> None:
+    _check("words", words, torch.int16, (words.numel(),), dev)
+    p = plan[ctxcoder.PLAN_WSTART : ctxcoder.PLAN_WCOUNT + 4].tolist()
+    if p[3] + p[7] > words.numel() or min(p) < 0:
+        raise ValueError(f"words: {words.numel()} words, the plan's chunks end at {p[3] + p[7]}")
+
+
+def qctx_decode(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                fcum: torch.Tensor, model: int, checks: bool):
+    """Forward qctx decode of the payload's (W,) int16 words (its chunks'
+    runs back to back) with the host ``plan`` (word counts and states), the
+    model's (contexts, 256) int32 entries ``fcum``; ``checks``: the JAX
+    package's whole-file decoder's checks -> (the delta stream uint8 (n,),
+    info int64 (4, 2): each chunk's first fault code and symbol index); see
+    :func:`..ops.qualctx.qctx_decode_plain`. Two launches (the slot table on
+    the card, a CTA a chunk), counted as one call."""
+    dev = words.device
+    n, _ = _check_plan(plan)
+    _check_words(words, plan, dev)
+    _check_starts(starts, plan, dev)
+    if model not in qualctx.MODELS:
+        raise ValueError(f"unsupported qctx model {model}")
+    contexts = qualctx.NUM_CTX2 if model else qualctx.NUM_CTX
+    _check("fcum", fcum, torch.int32, (contexts, 256), dev)
+    if _plain_or_cuda(dev):
+        return qualctx.qctx_decode_plain(words, starts, plan, fcum, model, checks)
+    if words.numel() == 0:  # a valid pointer for the kernel (never read)
+        words = torch.empty((8,), dtype=torch.int16, device=dev)
+    slot = torch.empty((contexts * qualctx.PROB_SCALE,), dtype=torch.uint8, device=dev)
+    out = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+    info = torch.empty((ctxcoder.NUM_CHUNKS, 2), dtype=torch.int64, device=dev)
+    _launch(QCTX_DECODE, dev, words, starts, plan, fcum, contexts, model, int(checks), slot,
+            out, info)
+    return out[:n], info
+
+
+def sctx_decode(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                freq: torch.Tensor, order: int):
+    """Forward sctx decode straight to the packed rows: ``freq`` the
+    (4**order, 4) int16 table -> (packed uint8 (m,), info int64 (4, 2)); as
+    :func:`qctx_decode`, see :func:`..ops.seqctx.sctx_decode_plain`. One
+    launch, a CTA a chunk (the context rows in its shared memory)."""
+    dev = words.device
+    n, m = _check_plan(plan)
+    _check_words(words, plan, dev)
+    _check_starts(starts, plan, dev)
+    if order not in seqctx.ORDERS:
+        raise ValueError(f"unsupported sctx order {order}")
+    _check("freq", freq, torch.int16, (4**order, 4), dev)
+    if _plain_or_cuda(dev):
+        return seqctx.sctx_decode_plain(words, starts, plan, freq, order)
+    if words.numel() == 0:
+        words = torch.empty((8,), dtype=torch.int16, device=dev)
+    out = torch.empty((max(m, 1),), dtype=torch.uint8, device=dev)
+    info = torch.empty((ctxcoder.NUM_CHUNKS, 2), dtype=torch.int64, device=dev)
+    _launch(SCTX_DECODE, dev, words, starts, plan, freq, order, out, info)
+    return out[:m], info

@@ -25,15 +25,18 @@ independently decodable and the coder parallelizes):
   (16-bit renorm words, backward encode / forward decode) — the
   intra-block parallelism knob for both host threads and ILP.
 
-The port's copy of the numpy/Python reference paths of
-``fastqpacker_tpu/ops/qualctx.py``. It is a host coder by wire format (4
-chunks x 4 sequential states), not a device program; the per-symbol Python
-walks are slow (seconds per block) and stand until the host stages get
-native code. Its prepare pass (integration and the max-model histogram)
-runs on a device, the CUDA card unless the caller names the CPU
-(``fq_qctx_prepare``, :mod:`.ctxprep`).
-Every size estimate keeps that module's float arithmetic, so the picks are
-the same.
+The port's copy of ``fastqpacker_tpu/ops/qualctx.py``. Its passes run on a
+device, the CUDA card unless the caller names the CPU: the prepare pass
+(integration and the max-model histogram, ``fq_qctx_prepare``,
+:mod:`.ctxprep`), the encode (``fq_qctx_encode``: the 16 (chunk, state)
+chains walked backward, a word and a flag per symbol, then
+``fq_rans_compact``) and the decode (``fq_qctx_decode``: a chain a chunk,
+straight to the delta stream), all in ``csrc/ctxcoder.cu``; tables, payload
+and faults stay host code. The plan and the host steps around a launch,
+which both coders share, are :mod:`.ctxcoder`. On the CPU the walks below
+are the plain versions (per-symbol Python loops, ~1.4 us a symbol). The
+wire allows no more than 16 chains to encode and 4 to decode. Every size
+estimate keeps that module's float arithmetic, so the picks are the same.
 """
 
 from __future__ import annotations
@@ -41,9 +44,16 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from . import rans
-from .device import resolve_device
+from .ctxcoder import (
+    NUM_CHUNKS, NUM_STATES, PLAN_RB, PLAN_SB, chain_outputs, chunk_bounds_arrays, coder_plan,
+    decode_chunks, entry_table, launch_encode, raise_fault, read_chunk_heads, split_encode_table,
+    split_entry_table,
+)
+from .ctxprep import Symbols, record_bounds
+from .device import resolve_device, to_device
 
 NUM_QBINS = 48  # prev-quality bins; 47 doubles as the record-start sentinel
 NUM_PBUCKETS = 8
@@ -51,9 +61,8 @@ NUM_Q2B = 8  # prev2 buckets (model 1): min(prev2,46)>>3 in 0-5, sentinel 7
 NUM_CTX = NUM_PBUCKETS * NUM_QBINS  # 384 (model 0)
 NUM_CTX2 = NUM_CTX * NUM_Q2B  # 3072 (model 1); ctx0 = ctx1 // NUM_Q2B
 MODELS = (0, 1)  # order-1 and order-2 context models
-NUM_CHUNKS = 4
-NUM_STATES = 4  # interleaved rANS states per chunk (breaks the serial
-# x-update dependency chain; symbol t of a chunk belongs to state t%4)
+# NUM_CHUNKS record-aligned chunks of NUM_STATES interleaved rANS states each
+# (:mod:`.ctxcoder`; the states break the serial x-update dependency chain)
 PROB_BITS = rans.PROB_BITS
 PROB_SCALE = rans.PROB_SCALE
 RANS_L = rans.RANS_L
@@ -97,30 +106,6 @@ def contexts(
     m2 = p > 1
     q2b[m2] = np.minimum(raw[np.flatnonzero(m2) - 2], 46) >> 3
     return (ctx * NUM_Q2B + q2b).astype(np.int32)
-
-
-def chunk_bounds_arrays(
-    lengths: np.ndarray, num_chunks: int = NUM_CHUNKS
-) -> tuple[np.ndarray, np.ndarray]:
-    """:func:`chunk_bounds` as two int64 arrays, computed without a loop
-    over the chunks (a wctx stream has up to 8,192 lanes): each boundary is
-    the record after the one that holds symbol ``total * k // num_chunks``,
-    clamped to the record count and to the boundary before it."""
-    lengths = lengths.astype(np.int64)
-    csum = np.cumsum(lengths)
-    total = int(csum[-1]) if len(csum) else 0
-    n = len(lengths)
-    if total:
-        targets = total * np.arange(1, num_chunks, dtype=np.int64) // num_chunks
-        b = np.searchsorted(csum, targets, side="left") + 1
-    else:
-        b = np.zeros(num_chunks - 1, np.int64)
-    rb = np.empty(num_chunks + 1, np.int64)
-    rb[0] = 0
-    rb[1:-1] = np.maximum.accumulate(np.minimum(b, n))
-    rb[-1] = n
-    sb = np.concatenate(([0], csum))[rb]
-    return rb, sb
 
 
 def chunk_bounds(lengths: np.ndarray, num_chunks: int = NUM_CHUNKS):
@@ -261,31 +246,56 @@ def deserialize_tables(blob: bytes, num_ctx: int = NUM_CTX) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# rANS walks (per-symbol Python loops)
+# rANS walks (per-symbol Python loops): the kernels' plain versions
 # ---------------------------------------------------------------------------
+
+QCTX_FAULTS = {
+    1: "qctx slot of a symbol with no frequency",
+    2: "truncated qctx words",
+    3: "trailing qctx words",
+}
 
 
 def _encode_chunk(
     raw: np.ndarray, ctx: np.ndarray, lo: int, hi: int,
-    freq: np.ndarray, cum: np.ndarray,
-) -> tuple[list[int], np.ndarray]:
+    freq: np.ndarray, cum: np.ndarray, words: np.ndarray, flags: np.ndarray,
+) -> list[int] | None:
     """Backward-encode symbols [lo, hi) over NUM_STATES interleaved
-    states (symbol at chunk-local index t belongs to state t % 4);
-    returns (final_states, words in forward consumption order)."""
+    states (symbol at chunk-local index t belongs to state t % 4); each
+    word and its flag go to its symbol's index in ``words`` / ``flags``
+    (flat order is the decoder's). -> the final states, or None where a
+    present symbol has no frequency."""
     xs = [RANS_L] * NUM_STATES
-    words = []
     for j in range(hi - 1, lo - 1, -1):
         si = (j - lo) & (NUM_STATES - 1)
         x = xs[si]
         c = int(ctx[j])
         s = int(raw[j])
         f = int(freq[c, s])
+        if f == 0:
+            return None
         cm = int(cum[c, s])
         if x >= (f << 20):
-            words.append(x & 0xFFFF)
+            words[j] = x & 0xFFFF
+            flags[j] = 1
             x >>= 16
         xs[si] = ((x // f) << PROB_BITS) + (x % f) + cm
-    return xs, np.array(words[::-1], dtype=np.uint16)
+    return xs
+
+
+def qctx_encode_plain(raw: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                      tab: torch.Tensor, model: int) -> tuple:
+    """The plain version of ``fq_qctx_encode`` (CPU tensors): the (n,) raw
+    qualities of records starting at ``starts`` ((nrec + 1,) int64), the
+    host ``plan`` (:func:`.ctxcoder.coder_plan`), ``tab`` the (contexts, 256)
+    int64 entries (:func:`.ctxcoder.encode_table`) -> see
+    :func:`.ctxcoder.chain_outputs`. Chunks after a faulting one are not
+    walked."""
+    r = raw.numpy()
+    ctx = contexts(r, np.diff(starts.numpy()), model)
+    freq, cum = split_encode_table(tab)
+    return chain_outputs(r.size, plan, lambda k, lo, hi, w, f: _encode_chunk(
+        r, ctx, lo, hi, freq, cum, w, f))
 
 
 def _decode_chunk(
@@ -294,9 +304,10 @@ def _decode_chunk(
     freq: np.ndarray, cum: np.ndarray, slot_sym: np.ndarray,
     model: int = 0,
     zero_freq_fails: bool = False,
-) -> int:
-    """Forward-decode records [rec_lo, rec_hi) into out_raw[sym_lo:];
-    returns the number of words read."""
+) -> tuple[int, int, int]:
+    """Forward-decode records [rec_lo, rec_hi) into out_raw[sym_lo:] ->
+    (words read, fault code of :data:`QCTX_FAULTS` or 0, symbol index of
+    the fault or of the chunk's end)."""
     # Python ints: numpy scalars would turn the slot compares into
     # np.bool_ (whose + is logical OR in numpy 2) and wrap at 32 bits
     xs = [int(v) for v in state]
@@ -320,12 +331,12 @@ def _decode_chunk(
             s = int(slot_sym[c, slot])
             f = int(freq[c, s])
             if f == 0 and zero_freq_fails:
-                raise QctxError("qctx slot of a symbol with no frequency")
+                return wi, 1, j
             cm = int(cum[c, s])
             x = f * (x >> PROB_BITS) + slot - cm
             if x < RANS_L:
                 if wi >= len(words):
-                    raise QctxError("truncated qctx words")
+                    return wi, 2, j
                 x = (x << 16) | int(words[wi])
                 wi += 1
             xs[si] = x
@@ -333,7 +344,7 @@ def _decode_chunk(
             prev2 = prev
             prev = s
             j += 1
-    return wi
+    return wi, 0, j
 
 
 def _slot_syms(freq: np.ndarray) -> np.ndarray:
@@ -344,6 +355,26 @@ def _slot_syms(freq: np.ndarray) -> np.ndarray:
         if f.sum():
             out[c] = np.repeat(np.arange(256, dtype=np.uint8), f)
     return out
+
+
+def qctx_decode_plain(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                      tab: torch.Tensor, model: int, checks: bool) -> tuple:
+    """The plain version of ``fq_qctx_decode`` (CPU tensors): the payload's
+    (W,) int16 words, record ``starts``, the host ``plan`` with the chunks'
+    word counts and states, ``tab`` the (contexts, 256) int32 entries;
+    ``checks``: the whole-file decoder's checks (a slot of a symbol with no
+    frequency, words left over) -> (delta uint8 (n,), info int64 (4, 2); see
+    :func:`.ctxcoder.decode_chunks`)."""
+    p = plan.numpy()
+    lengths = np.diff(starts.numpy())
+    freq, cum = split_entry_table(tab)
+    slot_sym = _slot_syms(freq)
+    raw = np.zeros(int(p[PLAN_SB + NUM_CHUNKS]), np.uint8)
+    info = decode_chunks(plan, words, lambda k, state, w: _decode_chunk(
+        raw, lengths, int(p[PLAN_RB + k]), int(p[PLAN_RB + k + 1]), int(p[PLAN_SB + k]),
+        state, w, freq, cum, slot_sym, model, checks), checks)
+    delta = np.frombuffer(deintegrate(raw, lengths), np.uint8).copy()
+    return torch.from_numpy(delta), info
 
 
 def prepare(delta: np.ndarray, lengths: np.ndarray, device=None):
@@ -374,35 +405,35 @@ def _assemble_payload(total, blob, states, word_runs, model) -> bytes:
 
 
 def encode_prepared(
-    raw: np.ndarray,
+    raw: Symbols,
     lengths: np.ndarray,
     hist2: np.ndarray,
 ) -> bytes:
     """Encode from a :func:`prepare` result (lets callers reuse the
     histogram they computed for the size estimate); picks the context
-    model with the smaller estimated size."""
+    model with the smaller estimated size. ``raw``: the prepared symbols,
+    coded where they lie (``fq_qctx_encode`` and ``fq_rans_compact`` on a
+    card, the walks below on the CPU)."""
+    from . import cuda_kernels
+
+    lengths = np.asarray(lengths, np.int64)
     model, _ = pick_model(hist2)
     hist = hist_for_model(hist2, model)
     freq = normalize_tables(hist)
-    cum = np.zeros_like(freq, dtype=np.uint32)
-    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
-    ctx = contexts(raw, lengths, model)
-    _, sb = chunk_bounds(lengths)
-    states, word_runs = [], []
-    for k in range(NUM_CHUNKS):
-        x, words = _encode_chunk(raw, ctx, sb[k], sb[k + 1], freq, cum)
-        states.append(x)
-        word_runs.append(words)
+    pending = launch_encode(cuda_kernels.qctx_encode, raw, lengths, freq, model,
+                            QctxError("invalid qctx frequency table"))
 
     from ..entropy import zstd as zstd_entropy
 
+    # the table blob is made on the host while the card codes
     blob = zstd_entropy.get_codec().compress(serialize_tables(freq))
-    return _assemble_payload(len(raw), blob, states, word_runs, model)
+    states, word_runs = pending.result()
+    return _assemble_payload(int(lengths.sum()), blob, states, word_runs, model)
 
 
 def encode(delta: bytes | np.ndarray, lengths: np.ndarray, device=None) -> bytes:
     """delta qual stream + record lengths -> qctx payload (the prepare
-    pass on ``device``, default: the CUDA card)."""
+    pass and the coder on ``device``, default: the CUDA card)."""
     d = (
         np.frombuffer(delta, np.uint8)
         if isinstance(delta, (bytes, bytearray))
@@ -410,7 +441,7 @@ def encode(delta: bytes | np.ndarray, lengths: np.ndarray, device=None) -> bytes
     )
     lengths = np.asarray(lengths, dtype=np.int64)
     raw, hist = prepare(d, lengths, device)
-    return encode_prepared(raw.numpy(), lengths, hist)
+    return encode_prepared(raw, lengths, hist)
 
 
 # The JAX package's whole-file decoder takes a table blob of at most this
@@ -419,15 +450,20 @@ RUNTIME_BLOB_MAX = 1 << 23
 
 
 def decode(
-    payload: bytes, lengths: np.ndarray, runtime_checks: bool = False
+    payload: bytes, lengths: np.ndarray, runtime_checks: bool = False, device=None,
 ) -> bytes:
-    """qctx payload + record lengths -> delta qual stream.
+    """qctx payload + record lengths -> delta qual stream, decoded on
+    ``device`` (default: the CUDA card; ``fq_qctx_decode``), the payload
+    parsed and its tables read on the host.
 
     ``runtime_checks``: also refuse what the JAX package's whole-file
     decoder refuses and its per-block decoders pass on to the block CRC
     (``fq_qctx_decode`` in its runtime): a table blob whose frame does not
     declare a size of at most :data:`RUNTIME_BLOB_MAX`, a slot of a
     symbol with no frequency, and words left over at the end of a chunk."""
+    from . import cuda_kernels
+
+    dev = resolve_device(device)
     lengths = np.asarray(lengths, dtype=np.int64)
     buf = memoryview(payload)
     if len(buf) < 12:
@@ -459,44 +495,16 @@ def decode(
     freq = deserialize_tables(blob, NUM_CTX2 if model == 1 else NUM_CTX)
     off += blob_size
 
-    states = []
-    counts = []
-    step = 4 * NUM_STATES + 4
-    for _ in range(nchunks):
-        if len(buf) < off + step:
-            raise QctxError("truncated qctx stream")
-        xs = np.frombuffer(
-            buf[off : off + 4 * NUM_STATES], "<u4"
-        ).astype(np.uint32)
-        (nw,) = struct.unpack_from("<I", buf, off + 4 * NUM_STATES)
-        states.append(xs)
-        counts.append(nw)
-        off += step
-    total_words = sum(counts)
-    if len(buf) < off + 2 * total_words:
+    states, counts, off = read_chunk_heads(buf, off, nchunks, QctxError("truncated qctx stream"))
+    if len(buf) < off + 2 * sum(counts):
         raise QctxError("truncated qctx words")
-
-    word_runs = []
-    for nw in counts:
-        word_runs.append(
-            np.frombuffer(buf[off : off + 2 * nw], dtype="<u2").astype(
-                np.uint16
-            )
-        )
-        off += 2 * nw
-    cum = np.zeros_like(freq, dtype=np.uint32)
-    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
-    slot_sym = _slot_syms(freq)
-    rb, sb = chunk_bounds(lengths)
-    raw = np.zeros(total, dtype=np.uint8)
-    for k in range(NUM_CHUNKS):
-        used = _decode_chunk(
-            raw, lengths, rb[k], rb[k + 1], sb[k], states[k],
-            word_runs[k], freq, cum, slot_sym, model, runtime_checks,
-        )
-        if runtime_checks and used != len(word_runs[k]):
-            raise QctxError("trailing qctx words")
-    return deintegrate(raw, lengths)
+    words = np.frombuffer(buf[off : off + 2 * sum(counts)], "<u2")
+    delta, info = cuda_kernels.qctx_decode(
+        to_device(dev, words.view(np.int16)), to_device(dev, record_bounds(lengths)),
+        coder_plan(lengths, counts, states), to_device(dev, entry_table(freq).view(np.int32)),
+        model, runtime_checks)
+    raise_fault(info, QCTX_FAULTS, QctxError)
+    return delta.cpu().numpy().tobytes()
 
 
 def deintegrate(raw: np.ndarray, lengths: np.ndarray) -> bytes:

@@ -26,7 +26,7 @@ Model:
   decode needs no slot tables: 3 compares against the cumulative
   boundaries resolve the symbol.
 - The walk splits into :data:`NUM_CHUNKS` record-aligned chunks with
-  independent rANS states (:func:`.qualctx.chunk_bounds`), 32-bit
+  independent rANS states (:func:`.ctxcoder.chunk_bounds_arrays`), 32-bit
   states, 16-bit renorm words — identical conventions to ops/rans.py.
 
 The decoder re-packs bases into the wire's packed-row layout
@@ -34,12 +34,16 @@ The decoder re-packs bases into the wire's packed-row layout
 padding bits) byte-identically — the block CRC32 is computed over the
 packed stream, so padding must reproduce exactly.
 
-The port's copy of the numpy/Python reference paths of
-``fastqpacker_tpu/ops/seqctx.py``: a host coder by wire format, with slow
-per-symbol Python walks (see :mod:`.qualctx`). Its prepare pass (unpack and
-the order-6 histogram) runs on a device, the CUDA card unless the caller
-names the CPU (``fq_sctx_prepare``, :mod:`.ctxprep`). Every size estimate keeps that
-module's float arithmetic, so the picks are the same.
+The port's copy of ``fastqpacker_tpu/ops/seqctx.py``. Its passes run on a
+device, the CUDA card unless the caller names the CPU: the prepare pass
+(unpack and the order-6 histogram, ``fq_sctx_prepare``, :mod:`.ctxprep`), the
+encode (``fq_sctx_encode`` + ``fq_rans_compact``, as :mod:`.qualctx`'s) and
+the decode (``fq_sctx_decode``: a chain a chunk over the context rows in
+shared memory, straight to the packed rows), all in ``csrc/ctxcoder.cu``, with
+:mod:`.ctxcoder`'s plan and launch steps; tables, payload and faults stay host
+code. On the CPU the walks below are the plain versions (per-symbol Python
+loops). Every size estimate keeps that module's
+float arithmetic, so the picks are the same.
 """
 
 from __future__ import annotations
@@ -47,15 +51,18 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from . import rans
-from .device import resolve_device
-from .qualctx import chunk_bounds
+from .ctxcoder import (
+    NUM_CHUNKS, NUM_STATES, PLAN_RB, PLAN_SB, chain_outputs, coder_plan, decode_chunks,
+    launch_encode, raise_fault, read_chunk_heads, split_encode_table,
+)
+from .ctxprep import Symbols, record_bounds
+from .device import resolve_device, to_device
 
 MAX_ORDER = 6
 ORDERS = (2, 4, 6)
-NUM_CHUNKS = 4
-NUM_STATES = 4  # interleaved rANS states per chunk (symbol t -> state t%4)
 PROB_BITS = rans.PROB_BITS
 PROB_SCALE = rans.PROB_SCALE
 RANS_L = rans.RANS_L
@@ -279,17 +286,25 @@ def deserialize_tables(blob: bytes, order: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# rANS walks (per-symbol Python loops)
+# rANS walks (per-symbol Python loops): the kernels' plain versions
 # ---------------------------------------------------------------------------
+
+SCTX_FAULTS = {
+    1: "corrupted sctx sequence data",
+    2: "truncated sctx words",
+    3: "trailing sctx words",
+}
 
 
 def _encode_chunk(
     bases: np.ndarray, lengths: np.ndarray, rec_lo: int, rec_hi: int,
     sym_lo: int, sym_hi: int, order: int,
-    freq: np.ndarray, cum: np.ndarray,
-) -> tuple[list[int], np.ndarray]:
+    freq: np.ndarray, cum: np.ndarray, words: np.ndarray, flags: np.ndarray,
+) -> list[int] | None:
+    """Backward-encode records [rec_lo, rec_hi) (symbols [sym_lo, sym_hi));
+    each word and its flag go to its symbol's index -> the final states, or
+    None where a present symbol has no frequency."""
     xs = [RANS_L] * NUM_STATES
-    words = []
     j = sym_hi
     for r in range(rec_hi - 1, rec_lo - 1, -1):
         L = int(lengths[r])
@@ -304,21 +319,39 @@ def _encode_chunk(
             s = int(bases[j])
             f = int(freq[ctx, s])
             if f == 0:
-                raise SctxError("invalid sctx frequency table")
+                return None
             cm = int(cum[ctx, s])
             if x >= (f << 20):
-                words.append(x & 0xFFFF)
+                words[j] = x & 0xFFFF
+                flags[j] = 1
                 x >>= 16
             xs[si] = ((x // f) << PROB_BITS) + (x % f) + cm
     assert j == sym_lo
-    return xs, np.array(words[::-1], dtype=np.uint16)
+    return xs
+
+
+def sctx_encode_plain(bases: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                      tab: torch.Tensor, order: int) -> tuple:
+    """The plain version of ``fq_sctx_encode`` (CPU tensors): the (n,) bases
+    of records starting at ``starts``, the host ``plan``
+    (:func:`.ctxcoder.coder_plan`), ``tab`` the (4**order, 4) int64 entries
+    (:func:`.ctxcoder.encode_table`) -> see :func:`.ctxcoder.chain_outputs`."""
+    b = bases.numpy()
+    lengths = np.diff(starts.numpy())
+    freq, cum = split_encode_table(tab)
+    rb = plan.numpy()[PLAN_RB : PLAN_RB + 5]
+    return chain_outputs(b.size, plan, lambda k, lo, hi, w, f: _encode_chunk(
+        b, lengths, int(rb[k]), int(rb[k + 1]), lo, hi, order, freq, cum, w, f))
 
 
 def _decode_chunk(
     out: np.ndarray, lengths: np.ndarray, rec_lo: int, rec_hi: int,
     sym_lo: int, state, words: np.ndarray, order: int,
     freq: np.ndarray, cum: np.ndarray,
-) -> None:
+) -> tuple[int, int, int]:
+    """Forward-decode records [rec_lo, rec_hi) into out[sym_lo:] -> (words
+    read, fault code of :data:`SCTX_FAULTS` or 0, symbol index of the fault
+    or of the chunk's end)."""
     # Python ints: numpy scalars would turn the slot compares into
     # np.bool_ (whose + is logical OR in numpy 2) and wrap at 32 bits
     xs = [int(v) for v in state]
@@ -337,19 +370,37 @@ def _decode_chunk(
             s = (slot >= c1) + (slot >= c2) + (slot >= c3)
             f = int(freq[ctx, s])
             if f == 0:
-                raise SctxError("corrupted sctx sequence data")
+                return wi, 1, j
             x = f * (x >> PROB_BITS) + slot - int(cum[ctx, s])
             if x < RANS_L:
                 if wi >= len(words):
-                    raise SctxError("truncated sctx words")
+                    return wi, 2, j
                 x = (x << 16) | int(words[wi])
                 wi += 1
             xs[si] = x
             out[j] = s
             j += 1
             ctx = ((ctx << 2) | s) & mask
-    if wi != len(words):
-        raise SctxError("trailing sctx words")
+    return wi, 0, j
+
+
+def sctx_decode_plain(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
+                      freq: torch.Tensor, order: int) -> tuple:
+    """The plain version of ``fq_sctx_decode`` (CPU tensors): the payload's
+    (W,) int16 words, record ``starts``, the host ``plan`` with the chunks'
+    word counts and states, ``freq`` the (4**order, 4) int16 table ->
+    (packed rows uint8 (m,), info int64 (4, 2); see
+    :func:`.ctxcoder.decode_chunks`)."""
+    p = plan.numpy()
+    lengths = np.diff(starts.numpy())
+    f = freq.numpy().view(np.uint16)
+    cum = np.zeros(f.shape, np.uint32)
+    np.cumsum(f[:, :-1], axis=1, out=cum[:, 1:])
+    bases = np.zeros(int(p[PLAN_SB + NUM_CHUNKS]), np.uint8)
+    info = decode_chunks(plan, words, lambda k, state, w: _decode_chunk(
+        bases, lengths, int(p[PLAN_RB + k]), int(p[PLAN_RB + k + 1]), int(p[PLAN_SB + k]),
+        state, w, order, f, cum), True)
+    return torch.from_numpy(pack_stream(bases, lengths)), info
 
 
 # ---------------------------------------------------------------------------
@@ -372,31 +423,30 @@ def prepare(packed: np.ndarray, lengths: np.ndarray, device=None):
 
 
 def encode_prepared(
-    bases: np.ndarray,
+    bases: Symbols,
     lengths: np.ndarray,
     hist6: np.ndarray,
 ) -> bytes:
+    """Encode from a :func:`prepare` result at the order with the smallest
+    estimate. ``bases``: the prepared symbols, coded where they lie
+    (``fq_sctx_encode`` and ``fq_rans_compact`` on a card, the walks below on
+    the CPU)."""
+    from . import cuda_kernels
+
+    lengths = np.asarray(lengths, np.int64)
     order, _ = pick_order(hist6)
     hist = marginalize(hist6, order) if order < MAX_ORDER else hist6
     freq = normalize_tables(hist)
-    cum = np.zeros_like(freq, dtype=np.uint32)
-    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
-
-    rb, sb = chunk_bounds(lengths, NUM_CHUNKS)
-    states, word_runs = [], []
-    for k in range(NUM_CHUNKS):
-        x, words = _encode_chunk(
-            bases, lengths, rb[k], rb[k + 1], sb[k], sb[k + 1],
-            order, freq, cum,
-        )
-        states.append(x)
-        word_runs.append(words)
+    pending = launch_encode(cuda_kernels.sctx_encode, bases, lengths, freq, order,
+                            SctxError("invalid sctx frequency table"))
 
     from ..entropy import zstd as zstd_entropy
 
+    # the table blob is made on the host while the card codes
     blob = zstd_entropy.get_codec().compress(serialize_tables(freq))
+    states, word_runs = pending.result()
     out = bytearray()
-    out += struct.pack(HEADER_FMT, len(bases), order, NUM_CHUNKS)
+    out += struct.pack(HEADER_FMT, int(lengths.sum()), order, NUM_CHUNKS)
     out += struct.pack("<I", len(blob))
     out += blob
     for xs, words in zip(states, word_runs):
@@ -408,8 +458,8 @@ def encode_prepared(
 
 
 def encode(packed: bytes | np.ndarray, lengths: np.ndarray, device=None) -> bytes:
-    """packed rows + record lengths -> sctx payload (the prepare pass on
-    ``device``, default: the CUDA card)."""
+    """packed rows + record lengths -> sctx payload (the prepare pass and
+    the coder on ``device``, default: the CUDA card)."""
     p = (
         np.frombuffer(packed, np.uint8)
         if isinstance(packed, (bytes, bytearray))
@@ -417,11 +467,16 @@ def encode(packed: bytes | np.ndarray, lengths: np.ndarray, device=None) -> byte
     )
     lengths = np.asarray(lengths, dtype=np.int64)
     bases, hist6 = prepare(p, lengths, device)
-    return encode_prepared(bases.numpy(), lengths, hist6)
+    return encode_prepared(bases, lengths, hist6)
 
 
-def decode(payload: bytes, lengths: np.ndarray) -> bytes:
-    """sctx payload + record lengths -> packed seq stream bytes."""
+def decode(payload: bytes, lengths: np.ndarray, device=None) -> bytes:
+    """sctx payload + record lengths -> packed seq stream bytes, decoded on
+    ``device`` (default: the CUDA card; ``fq_sctx_decode``), the payload
+    parsed and its tables read on the host."""
+    from . import cuda_kernels
+
+    dev = resolve_device(device)
     lengths = np.asarray(lengths, dtype=np.int64)
     buf = memoryview(payload)
     if len(buf) < 12:
@@ -449,37 +504,12 @@ def decode(payload: bytes, lengths: np.ndarray) -> bytes:
     freq = deserialize_tables(blob, order)
     off += blob_size
 
-    states, counts = [], []
-    step = 4 * NUM_STATES + 4
-    for _ in range(nchunks):
-        if len(buf) < off + step:
-            raise SctxError("truncated sctx stream")
-        xs = np.frombuffer(
-            buf[off : off + 4 * NUM_STATES], "<u4"
-        ).astype(np.uint32)
-        (nw,) = struct.unpack_from("<I", buf, off + 4 * NUM_STATES)
-        states.append(xs)
-        counts.append(nw)
-        off += step
-    total_words = sum(counts)
-    if len(buf) < off + 2 * total_words:
+    states, counts, off = read_chunk_heads(buf, off, nchunks, SctxError("truncated sctx stream"))
+    if len(buf) < off + 2 * sum(counts):
         raise SctxError("truncated sctx words")
-
-    cum = np.zeros_like(freq, dtype=np.uint32)
-    np.cumsum(freq[:, :-1], axis=1, out=cum[:, 1:])
-    rb, sb = chunk_bounds(lengths, NUM_CHUNKS)
-    bases = np.zeros(total, dtype=np.uint8)
-    word_runs = []
-    for nw in counts:
-        word_runs.append(
-            np.frombuffer(buf[off : off + 2 * nw], dtype="<u2").astype(
-                np.uint16
-            )
-        )
-        off += 2 * nw
-    for k in range(NUM_CHUNKS):
-        _decode_chunk(
-            bases, lengths, rb[k], rb[k + 1], sb[k], states[k],
-            word_runs[k], order, freq, cum,
-        )
-    return pack_stream(bases, lengths).tobytes()
+    words = np.frombuffer(buf[off : off + 2 * sum(counts)], "<u2")
+    packed, info = cuda_kernels.sctx_decode(
+        to_device(dev, words.view(np.int16)), to_device(dev, record_bounds(lengths)),
+        coder_plan(lengths, counts, states), to_device(dev, freq.view(np.int16)), order)
+    raise_fault(info, SCTX_FAULTS, SctxError)
+    return packed.cpu().numpy().tobytes()

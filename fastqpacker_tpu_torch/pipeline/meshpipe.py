@@ -110,8 +110,8 @@ def _plan_seq(ordereds, lengths_l, codec, seq_dict, devs):
 
 
 def _plan_qual(ordereds, views, lengths_l, codec, devs):
-    """Per-block quality-slot pick: device context coder (order-1 and
-    order-2 models, like host qctx) vs device order-0 rANS vs host
+    """Per-block quality-slot pick: the lane context coder (order-1 and
+    order-2 models, like qctx) vs order-0 rANS vs qctx vs host
     adaptive zstd, by estimated size (mirrors
     native._encode_tagged_qual). Block i's prepare pass runs on ``devs[i]``
     (``fq_qctx_prepare``), where its raw qualities stay; its order-0
@@ -147,14 +147,13 @@ def _plan_qual(ordereds, views, lengths_l, codec, devs):
                             hists={0: hist0, 1: hist2}, est=est,
                         )
                         bar = min(bar, est_w)
-                # host qctx as a FALLBACK candidate: its 16-state
-                # layout has no per-lane cost, so on tiny/constant
-                # quals it can be far smaller than the 4 B/lane wctx
-                # states. The device coder keeps priority — qctx only
-                # competes when it beats the device estimate by > 5%
-                # (paying ~1-2% to keep the entropy stage on-device is
-                # the mesh path's documented trade) or when wctx is not
-                # viable at all.
+                # qctx as a FALLBACK candidate (coded on devs[i] too,
+                # fq_qctx_encode): its 16-state layout has no per-lane
+                # cost, so on tiny/constant quals it can be far smaller
+                # than the 4 B/lane wctx states. The lane coder keeps
+                # priority — qctx only competes when it beats the wctx
+                # estimate by > 5% (its decode is 4 chains, wctx's
+                # thousands of lanes) or when wctx is not viable at all.
                 _, est_q = qualctx.pick_model(hist2)
                 w_est = (
                     min(info["est"].values())
@@ -164,7 +163,7 @@ def _plan_qual(ordereds, views, lengths_l, codec, devs):
                 if est_q < bar and (
                     w_est is None or est_q < w_est * 0.95
                 ):
-                    hq = qualctx.encode_prepared(raw_q.numpy(), lens, hist2)
+                    hq = qualctx.encode_prepared(raw_q, lens, hist2)
                     if len(hq) + 1 < len(info["host"]):
                         info["host"] = bytes([native.TAG_QCTX]) + hq
                         if len(hq) + 1 < bar:

@@ -193,7 +193,7 @@ def _encode_tagged_seq(
     except seqctx.SctxError:
         est_s = None
     if est_s is not None and est_s < bar * margin:
-        q = seqctx.encode_prepared(bases.numpy(), lengths, hist6)
+        q = seqctx.encode_prepared(bases, lengths, hist6)
         if len(q) < bar:
             best, bar = bytes([TAG_SCTX]) + q, len(q)
     # coverage-redundancy candidate: unpacked codes + zstd-LDM.
@@ -289,7 +289,7 @@ def _decode_tagged(
                 "qctx stream outside the quality slot"
             )
         try:
-            return qualctx.decode(payload, lengths, runtime_checks=runtime)
+            return qualctx.decode(payload, lengths, runtime_checks=runtime, device=dev)
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     if tag == TAG_SCTX:
@@ -298,7 +298,7 @@ def _decode_tagged(
                 "sctx stream outside the sequence slot"
             )
         try:
-            return seqctx.decode(payload, lengths)
+            return seqctx.decode(payload, lengths, device=dev)
         except ValueError as e:
             raise container.FormatError(str(e)) from None
     if tag == TAG_SLDM:
@@ -333,7 +333,8 @@ def _encode_tagged_qual(
     device, for its histogram).
 
     The order-1 candidate is always allowed to replace a would-be order-0
-    rANS pick (it is then both smaller and faster to decode on host);
+    rANS pick when it is smaller (its decode is a chain a chunk on the
+    card, ``fq_qctx_decode``, slower than the order-0 decode's lanes);
     with ``order1`` (--max-ratio) it may also replace zstd on estimated
     size alone — the speed-for-ratio trade the user asked for.
     """
@@ -359,7 +360,7 @@ def _encode_tagged_qual(
             est1 = None
         margin = 1.0 if (order1 or r0 < len(z)) else SCTX_WIN_MARGIN
         if est1 is not None and est1 < bar * margin:
-            q = qualctx.encode_prepared(raw.numpy(), lengths, hist2)
+            q = qualctx.encode_prepared(raw, lengths, hist2)
             if len(q) < bar:
                 return bytes([TAG_QCTX]) + q
     if r0 < len(z):

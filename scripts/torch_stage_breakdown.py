@@ -23,7 +23,11 @@ decode (with their copies), the context prepare passes (the kernels
 their copies), and the context coders and tokenizer when they run; ``--corpus ordered``
 runs it on names in instrument order (``utils/synth.py``
 ``ordered_illumina_fastq``), whose header streams the tokenizer codes
-(``c.tok_encode``, ``d.tok_decode`` and their kernels). Every order-0
+(``c.tok_encode``, ``d.tok_decode`` and their kernels); ``--corpus markov`` on
+whole 100,000-record blocks of the context-model corpus (Markov bases, Phred
+walks), whose streams the context coders code (``c.qctx_encode``,
+``c.sctx_encode``, ``d.qctx_decode``, ``d.sctx_decode``, and their kernels
+``*.kernel``; the encodes' compaction is ``c.rans_encode.compact_kernel``). Every order-0
 histogram of the v3 and mesh picks is ``fq_hist256`` (``*.hist256.kernel``).
 ``--format mesh`` does the same for the ``--mesh`` path
 (``pipeline/meshpipe.py`` on a one-device list) on whole 100,000-record
@@ -35,8 +39,14 @@ decode (``d.wctx_layout`` for the start matrices, ``d.wctx_unlayout`` for
 the wire bytes). A stage named ``x(incl. ...)`` contains the stages named
 ``x.*``.
 
+``--root DIR`` imports the package from another checkout (for example the
+parent commit unpacked with ``git archive`` into a git-ignored directory), so
+two checkouts can be compared in one call, in turns; a stage that the
+checkout lacks is not timed.
+
 Usage: python3 scripts/torch_stage_breakdown.py [--format v2|v3|mesh] [--mb 64]
-                                                [--seed 0] [--corpus walk|ordered]
+                                                [--seed 0] [--corpus walk|ordered|markov]
+                                                [--root DIR]
 """
 
 from __future__ import annotations
@@ -52,7 +62,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+if "--root" in sys.argv[:-1]:
+    ROOT = Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
+sys.path.insert(0, str(ROOT))
 
 from fastqpacker_tpu_torch.entropy import zstd as zstd_entropy  # noqa: E402
 from fastqpacker_tpu_torch.ops import cuda_kernels  # noqa: E402
@@ -113,7 +126,9 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
     direction = ["c."]
 
     def wrap(kind, owner, attr, label):
-        fn = getattr(owner, attr)
+        fn = getattr(owner, attr, None)
+        if fn is None:  # a checkout without this stage
+            return
         timer = c.host if kind == "host" else c.device
 
         def timed(*args, **kwargs):
@@ -164,6 +179,10 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "sctx_prepare", "sctx_prepare"),
         (cuda_kernels, "wctx_layout", "wctx_layout"),
         (cuda_kernels, "wctx_unlayout", "wctx_unlayout"),
+        (cuda_kernels, "qctx_encode", "qctx_encode.kernel"),
+        (cuda_kernels, "sctx_encode", "sctx_encode.kernel"),
+        (cuda_kernels, "qctx_decode", "qctx_decode.kernels(slot table, walk)"),
+        (cuda_kernels, "sctx_decode", "sctx_decode.kernel"),
         (rans, "to_device", "rans.h2d"),
         (crc32, "to_device", "crc32.h2d"),
     ):
@@ -197,7 +216,17 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
             c.settle()
         if warm:
             c.ms = {k: v for k, v in c.ms.items() if not k.startswith("d.")}
+    c.ms["tags(seq, qual) per block"] = block_tags(comps)
     return c.ms, len(blocks), block_size
+
+
+def block_tags(comps: list) -> list:
+    """(seq, qual) codec tags of each v3 block's bytes (header and payload)."""
+    from fastqpacker_tpu_torch.format import container
+
+    at = container.BLOCK_HEADER_SIZE_V3
+    return [[TAGS[comp[at]], TAGS[comp[at + container.parse_block_header(comp, 3).seq_data_size]]]
+            for comp in comps]
 
 
 def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
@@ -301,11 +330,7 @@ def breakdown_mesh(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
             c.ms = {k: v for k, v in c.ms.items() if not k.startswith("d.")}
     if out.getvalue() != data:
         raise RuntimeError("mesh breakdown: the round trip differs from the input")
-    tags = [[TAGS[comp[container.BLOCK_HEADER_SIZE_V3]],
-             TAGS[comp[container.BLOCK_HEADER_SIZE_V3
-                       + container.parse_block_header(comp, 3).seq_data_size]]]
-            for comp in comps]
-    c.ms["tags(seq, qual) per block"] = tags
+    c.ms["tags(seq, qual) per block"] = block_tags(comps)
     return c.ms, len(blocks), block_size
 
 
@@ -324,9 +349,11 @@ def main() -> int:
     ap.add_argument("--format", choices=["v2", "v3", "mesh"], default="v2", dest="fmt")
     ap.add_argument("--mb", type=float, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--corpus", choices=["walk", "ordered"], default="walk",
-                    help="v3: walk qualities (every quality stream TAG_RANS) or names in "
-                         "instrument order (every header stream TAG_TOK)")
+    ap.add_argument("--corpus", choices=["walk", "ordered", "markov"], default="walk",
+                    help="v3: walk qualities (every quality stream TAG_RANS), names in "
+                         "instrument order (every header stream TAG_TOK) or whole blocks of "
+                         "the context-model corpus (TAG_SCTX / TAG_QCTX)")
+    ap.add_argument("--root", default=None, help="the checkout whose package runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stage_breakdown: no CUDA device", file=sys.stderr)
@@ -356,17 +383,27 @@ def main() -> int:
         if args.corpus == "ordered":
             one = len(ordered_illumina_fastq(1000, seed=args.seed)) / 1000
             data = ordered_illumina_fastq(int(args.mb * (1 << 20) / one), seed=args.seed)
+        elif args.corpus == "markov":
+            one = len(synth_fastq(0))
+            n_blocks = max(1, int(args.mb * (1 << 20) / one) // api.DEFAULT_BLOCK_SIZE)
+            data = synth_fastq(
+                (n_blocks * api.DEFAULT_BLOCK_SIZE * one + one // 2) / (1 << 20),
+                seed=args.seed, qual_model="phredwalk", seq_model="markov",
+            )
         else:
             data = synth_fastq(args.mb, seed=args.seed, qual_model="walk")
         ms, n, block_records = breakdown_v3(data, dev)
+        tags = ms.pop("tags(seq, qual) per block")
         print(json.dumps({
             "format": "v3",
             "corpus": args.corpus,
+            "root": str(ROOT),
             "device": torch.cuda.get_device_name(0),
             "nvidia_smi": smi_line(),
             "input_bytes": len(data),
             "blocks": n,
             "block_records": block_records,
+            "tags": tags,
             "ms_per_block": {k: v / n for k, v in sorted(ms.items())},
         }))
         return 0

@@ -2506,3 +2506,242 @@ def test_tok_decode_device_operations_do_not_grow_with_count(cuda):
         assert proc.returncode == 0, proc.stderr[-2000:]
         cases = json.loads(proc.stdout.strip().splitlines()[-1])["cases"]
         assert {c["route"]: c["device_ops_per_call"] for c in cases} == want, cases
+
+
+# ---------------------------------------------------------------------------
+# the runtime's context coders (csrc/ctxcoder.cu)
+# ---------------------------------------------------------------------------
+
+import torch_ctxcoder_inputs as cci  # noqa: E402
+
+CODER_CASES = {f"{c[0]}-{c[1]}-{c[4]}": c for c in cci.coder_cases()}
+GOLDEN_CTX = REPO / "tests" / "testdata" / "golden" / "golden_ctx_v3.fqz"
+GOLDEN_CTX_SHA256 = "173eef211411531f4ccf343a983fe62ed4756ccd8254e230aae710e655dea76a"
+
+
+def _tensors_equal(got, want) -> bool:
+    return all(g.shape == w.shape and torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+def _coder_round(stream, syms_in, lengths, arg, cuda):
+    """The encode kernel against its plain version on the same stream, then
+    the decode kernel against its plain version on the plain encode's words
+    (both qctx check modes); returns the plain encode's outputs."""
+    cpu = cci.coder_inputs(stream, syms_in, lengths, "cpu", arg)
+    want = cci.empty_encode()
+    if len(cpu["syms"]):
+        want = cci.coder_encode(stream, cpu)
+        got = cci.coder_encode(stream, cci.coder_inputs(stream, syms_in, lengths, cuda, arg))
+        torch.cuda.synchronize()
+        assert _tensors_equal(got, want)
+    for checks in ((False, True) if stream == "qctx" else (False,)):
+        ref = cci.coder_decode(stream, cci.coder_decode_args(stream, cpu, want, "cpu", checks))
+        got = cci.coder_decode(stream, cci.coder_decode_args(stream, cpu, want, cuda, checks))
+        assert _tensors_equal(got, ref) and not ref[1][:, 0].any()
+    return want
+
+
+@pytest.mark.parametrize("case", sorted(CODER_CASES))
+def test_ctxcoder_kernels_match_plain(case, cuda):
+    """Every CPU case (the JAX coder tests' cases, chunks with no record, one
+    symbol, a binned stream's scarce words) at qctx models 0 and 1 and sctx
+    orders 2, 4 and 6: the encode's words, flags, states and counts and the
+    decode's output and fault info byte-equal to the plain versions."""
+    stream, _, syms_in, lengths, arg = CODER_CASES[case]
+    _coder_round(stream, syms_in, lengths, arg, cuda)
+
+
+@pytest.mark.parametrize("stream", ["qctx", "sctx"])
+def test_ctxcoder_kernels_match_plain_at_a_full_block(stream, cuda):
+    """A 100,000 x 151 block of the context-model corpus (Markov bases,
+    Phred walks) at the model or order the v3 pick takes: the kernels equal
+    the plain versions (Python walks, tens of seconds each), and the card's
+    encode and decode round-trip through the payload wrappers."""
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx
+
+    rng = np.random.default_rng(151)
+    lengths = cci.block_lengths(100_000)
+    if stream == "qctx":
+        raw = np.clip(30 + np.cumsum(rng.integers(-2, 3, (100_000, 151)), axis=1) // 3,
+                      0, 41).astype(np.uint8).reshape(-1)
+        syms_in = qualctx.deintegrate(raw, lengths)
+        mod = qualctx
+    else:
+        syms_in = seqctx.pack_stream(cci.markov(rng, 100_000, 151), lengths).tobytes()
+        mod = seqctx
+    _coder_round(stream, syms_in, lengths, None, cuda)
+    payload = mod.encode(syms_in, lengths, device=cuda)
+    assert payload == mod.encode(syms_in, lengths, device="cpu")
+    assert mod.decode(payload, lengths, device=cuda) == syms_in
+
+
+@pytest.mark.parametrize("stream", ["qctx", "sctx"])
+def test_ctxcoder_fault_strings_on_the_card_equal_the_cpu(stream, cuda):
+    """Each decode fault (a chunk that runs out of words, one with a word
+    left over, faults in two chunks, an empty context row), with and
+    without the whole-file checks: the card raises the CPU's string, or
+    decodes where the CPU does. A present symbol with no frequency in the
+    encode's table raises the JAX runtime's string on both."""
+    from fastqpacker_tpu_torch.ops import ctxcoder, ctxprep, qualctx, seqctx
+
+    mod = qualctx if stream == "qctx" else seqctx
+    payloads, lengths = (cci.qctx_fault_payloads() if stream == "qctx"
+                         else cci.sctx_fault_payloads())
+    for name, payload in payloads.items():
+        for kw in (({}, {"runtime_checks": True}) if stream == "qctx" else ({},)):
+            outs = []
+            for dev in (cuda, "cpu"):
+                try:
+                    outs.append(("ok", mod.decode(payload, lengths, device=dev, **kw)))
+                except ValueError as e:
+                    outs.append(("error", str(e)))
+            assert outs[0] == outs[1], (name, kw)
+    case = CODER_CASES[f"{stream}-varlen-{1 if stream == 'qctx' else 4}"]
+    err = qualctx.QctxError if stream == "qctx" else seqctx.SctxError
+    for dev in (cuda, "cpu"):
+        inp = cci.coder_inputs(stream, case[2], case[3], dev, case[4])
+        freq = inp["freq"].copy()
+        # the context of every record's first symbol (qctx model 1: the sentinels)
+        freq[(qualctx.NUM_QBINS - 1) * qualctx.NUM_Q2B + qualctx.NUM_Q2B - 1
+             if stream == "qctx" else 0] = 0
+        pending = ctxcoder.launch_encode(
+            cuda_kernels.qctx_encode if stream == "qctx" else cuda_kernels.sctx_encode,
+            ctxprep.Symbols(inp["syms"]), case[3], freq, case[4],
+            err(f"invalid {stream} frequency table"))
+        with pytest.raises(err, match=f"^invalid {stream} frequency table$"):
+            pending.result()
+
+
+def test_ctxcoder_device_operations_per_wrapper_call(cuda):
+    """One wrapper call runs its own kernels and nothing else: one a qctx or
+    sctx encode, two a qctx decode (the slot table, the walk), one an sctx
+    decode; counted by ``torch.profiler`` in a process of its own
+    (``scripts/ctxcoder_ab.py --ops-only``) at a 20,000-record block."""
+    cmd = [sys.executable, str(REPO / "scripts" / "ctxcoder_ab.py"), "--root", str(REPO),
+           "--ops-only", "--records", "20000"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    cases = {c["route"]: c["device_ops"] for c in
+             json.loads(proc.stdout.strip().splitlines()[-1])["cases"]}
+    assert {r: len(o) for r, o in cases.items()} == {
+        "qctx_encode": 1, "qctx_decode": 2, "sctx_encode": 1, "sctx_decode": 1}, cases
+    for route, ops in cases.items():
+        assert all("encode_kernel" in o or "decode_kernel" in o or "slots_kernel" in o
+                   for o in ops), (route, ops)
+
+
+def _ctx_tags(comp: bytes) -> list:
+    r = io.BytesIO(comp)
+    fh = tfq.container.read_file_header(r)
+    tags = []
+    while (hdr := tfq.container.read_block_header(r, fh.version)) is not None:
+        sizes = hdr.stream_sizes(tfq.container.VERSION_2)
+        payload = r.read(sum(sizes))
+        tags.append((payload[0], payload[sizes[0]]))
+    return tags
+
+
+def test_ctxcoder_v3_container_equals_the_cpu_with_launches_by_tag(cuda, monkeypatch):
+    """Two v3 blocks of the context-model corpus: the card's container
+    equals the CPU's, every block TAG_SCTX / TAG_QCTX; at least one encode a
+    tagged stream, one compaction an encode, one decode a stream, and no
+    prepared symbols copied back to the host (``Symbols._host`` stays
+    None)."""
+    from fastqpacker_tpu_torch.ops import ctxprep
+    from fastqpacker_tpu_torch.pipeline import native
+
+    made = []
+    init = ctxprep.Symbols.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    monkeypatch.setattr(ctxprep.Symbols, "__init__", record)
+    data = synth_fastq(0.9, seed=5, qual_model="phredwalk", seq_model="markov")
+    nrec = data.count(b"\n") // 4
+    v3 = tfq.Options(version=3, workers=1, block_size=-(-nrec // 2))
+    cuda_kernels.reset_launches()
+    comp = tfq.compress_bytes(data, v3, device=cuda)
+    c = cuda_kernels.launches.as_dict()
+    on_card = [s for s in made if s.tensor.is_cuda]
+    assert on_card and all(s._host is None for s in on_card)
+    assert comp == tfq.compress_bytes(data, v3, device="cpu")
+    assert _ctx_tags(comp) == [(native.TAG_SCTX, native.TAG_QCTX)] * 2
+    assert c[cuda_kernels.QCTX_ENCODE] >= 2 and c[cuda_kernels.SCTX_ENCODE] >= 2
+    assert c[cuda_kernels.RANS_COMPACT] == (c[cuda_kernels.QCTX_ENCODE] + c[cuda_kernels.SCTX_ENCODE]
+                                            + c[cuda_kernels.RANS_ENCODE])
+    assert c[cuda_kernels.QCTX_DECODE] == c[cuda_kernels.SCTX_DECODE] == 0
+    cuda_kernels.reset_launches()
+    assert tfq.decompress_bytes(comp, device=cuda) == data
+    d = cuda_kernels.launches.as_dict()
+    assert d[cuda_kernels.QCTX_DECODE] == d[cuda_kernels.SCTX_DECODE] == 2
+    assert d[cuda_kernels.QCTX_ENCODE] == d[cuda_kernels.SCTX_ENCODE] == 0
+
+
+def test_ctxcoder_golden_ctx_decodes_on_the_card(cuda):
+    """``golden_ctx_v3.fqz`` decodes on the card to its FASTQ's SHA-256,
+    its TAG_QCTX and TAG_SCTX streams by one decode launch each."""
+    import hashlib
+
+    cuda_kernels.reset_launches()
+    back = tfq.decompress_bytes(GOLDEN_CTX.read_bytes(), device=cuda)
+    counts = cuda_kernels.launches.as_dict()
+    assert hashlib.sha256(back).hexdigest() == GOLDEN_CTX_SHA256
+    assert counts[cuda_kernels.QCTX_DECODE] == counts[cuda_kernels.SCTX_DECODE] == 1
+
+
+def test_ctxcoder_kernels_from_two_threads_on_own_streams(cuda):
+    """Two threads, each on a CUDA stream of its own, encode and decode
+    their own streams at once (scratch and fault info are per call): each
+    equals its single-threaded result."""
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx
+
+    jobs = [(qualctx, *CODER_CASES["qctx-varlen-1"][2:4]),
+            (seqctx, *CODER_CASES["sctx-varlen-6"][2:4]),
+            (qualctx, *CODER_CASES["qctx-varlen-binned-0"][2:4]),
+            (seqctx, *CODER_CASES["sctx-markov-40x151-2"][2:4])]
+    want = [mod.encode(s, lengths, device="cpu") for mod, s, lengths in jobs]
+    results = {}
+
+    def work(i):
+        mod, s, lengths = jobs[i]
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(5):
+                p = mod.encode(s, lengths, device=cuda)
+                results.setdefault(i, []).append((p, mod.decode(p, lengths, device=cuda)))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, (_, s, _) in enumerate(jobs):
+        assert results[i] == [(want[i], bytes(s))] * 5
+
+
+def test_ctxcoder_failing_build_raises_and_never_runs_the_plain_version(cuda, monkeypatch):
+    """No fallback: when the context coders' library does not build, the
+    encode and the decode raise; nothing runs the plain versions."""
+    from fastqpacker_tpu_torch.ops import build, qualctx, seqctx
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed to build {name}.cu")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    _, lengths, delta = cci.qctx_case("varlen")
+    payload = qualctx.encode(delta, lengths, device="cpu")
+    monkeypatch.setattr(build, "_libs", {k: v for k, v in build._libs.items() if k != "ctxcoder"})
+    monkeypatch.setattr(build, "_compile", fail)
+    for mod, name in ((qualctx, "qctx_encode_plain"), (qualctx, "qctx_decode_plain"),
+                      (seqctx, "sctx_encode_plain"), (seqctx, "sctx_decode_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    with pytest.raises(RuntimeError, match="nvcc failed to build ctxcoder.cu"):
+        qualctx.encode(delta, lengths, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed to build ctxcoder.cu"):
+        qualctx.decode(payload, lengths, device=cuda)
+    _, lengths, packed = cci.sctx_cases()["markov-40x151"]
+    with pytest.raises(RuntimeError, match="nvcc failed to build ctxcoder.cu"):
+        seqctx.encode(packed, lengths, device=cuda)

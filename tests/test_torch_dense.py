@@ -185,7 +185,8 @@ def test_launch_counters_are_thread_safe():
         cuda_kernels.RECORDS_SCAN, cuda_kernels.ROWS_GATHER, cuda_kernels.STREAMS_BUILD,
         cuda_kernels.FASTQ_ASSEMBLE, cuda_kernels.QCTX_PREPARE, cuda_kernels.SCTX_PREPARE,
         cuda_kernels.WCTX_LAYOUT, cuda_kernels.WCTX_UNLAYOUT, cuda_kernels.HIST256,
-        cuda_kernels.TOK_ENCODE, cuda_kernels.TOK_DECODE,
+        cuda_kernels.TOK_ENCODE, cuda_kernels.TOK_DECODE, cuda_kernels.QCTX_ENCODE,
+        cuda_kernels.QCTX_DECODE, cuda_kernels.SCTX_ENCODE, cuda_kernels.SCTX_DECODE,
     }
 
 

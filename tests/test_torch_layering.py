@@ -89,8 +89,9 @@ def test_the_mesh_slice_modules_are_in_the_package():
     assert set(build.SIGNATURES["wctx_codec"]) == {"fq_wctx_encode", "fq_wctx_decode"}
     assert {"fq_wctx_encode", "fq_wctx_decode"} <= set(cuda_kernels.launches.as_dict())
     # the eight kernels of the three paths, the four block stages, the
-    # four context-model passes, the byte histogram and the tokenizer's two
-    assert len(cuda_kernels.launches.as_dict()) == 19
+    # four context-model passes, the byte histogram, the tokenizer's two and
+    # the four context coders
+    assert len(cuda_kernels.launches.as_dict()) == 23
 
 
 def test_the_block_stage_modules_are_in_the_package():
@@ -302,6 +303,8 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: port_seqctx.prepare(np.zeros(3, np.uint8), np.array([9])),
         lambda: port_seqctx.sample_estimate(np.zeros(16, np.uint8), np.full(4, 16), 8),
         lambda: port_seqctx.encode(bytes(3), np.array([9])),
+        lambda: port_qualctx.decode(b"x" * 100, np.array([9])),
+        lambda: port_seqctx.decode(b"x" * 100, np.array([9])),
         lambda: port_mesh.make_mesh(),
         lambda: port_mesh.entropy_encode_streams([b"x" * 100]),
         lambda: port_meshpipe.compress_mesh_bytes(data),
