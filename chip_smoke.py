@@ -196,14 +196,20 @@ Phases, each fatal on failure:
    ``fq_qctx_encode``, ``fq_qctx_decode``, ``fq_sctx_encode`` and ``fq_sctx_decode`` against
    their plain versions (the Python walks), byte-equal, on every case of
    ``tests/torch_ctxcoder_inputs.py`` (the JAX coder tests' cases, chunks with no record, one
-   symbol, a binned stream) at qctx models 0 and 1 (both decode check modes) and sctx orders 2,
-   4 and 6; each decode fault's string on the card equal to the CPU's, and an encode table with
-   no frequency for a present symbol; ``golden_ctx_v3.fqz`` decoded on the card (one qctx, sctx
-   and tokenizer decode); the device operations of one wrapper call (``scripts/ctxcoder_ab.py
-   --ops-only``: 1 / 2 / 1 / 1); each kernel held against its plain version on the first
-   10,000 records of a 100,000 x 151 block of the context-model corpus and timed at the whole
-   block (the model and order the v3 pick takes) beside its bound, its µs a step of its longest
-   chain and the host µs of a wrapper call, and the qctx pair at a binned 15.1 M-symbol quality
+   symbol, a binned stream, records and renorms across the decodes' tile edges, chunks shorter
+   than a tile, empty records on tile edges) at qctx models 0 and 1 (both decode check modes;
+   the dense route and, at 94 symbols, the L2 route) and sctx orders 2, 4 and 6; each decode
+   fault's string on the card equal to the CPU's, a chunk that runs out of words at a tile's
+   last symbol (the fault's code and symbol index equal to the plain version's), and an encode
+   table with no frequency for a present symbol; ``golden_ctx_v3.fqz`` decoded on the card (one
+   qctx, sctx and tokenizer decode); the device operations of one wrapper call
+   (``scripts/ctxcoder_ab.py --ops-only``: 1 / 1 (dense route) / 2 (L2 route) / 1 / 1); each
+   kernel held against its plain version on the first 10,000 records of a 100,000 x 151 block
+   of the context-model corpus and timed at the whole block (the model and order the v3 pick
+   takes) beside its bound, its µs a step of its longest chain, ``chain_bound_ms`` (that chain's
+   steps x the dependent step of ``scripts/ctx_step_probe.py`` measured in this run: a shared
+   load for the decodes, the encode's ALU step for the encodes) and the host µs of a wrapper
+   call, the qctx decode's route a call, and the qctx pair at a binned 15.1 M-symbol quality
    stream (scarce words); then ``markov151_v3_4x100000``: a v3 round trip of 4 blocks of that
    corpus at the default block size, ``TAG_SCTX`` / ``TAG_QCTX`` on every block, the launches
    following the tags (an encode at least and one compaction an encode, one decode a stream),
@@ -2212,6 +2218,7 @@ def tokens_round_trip(ft, ck, data: bytes, cpu_ref: CpuReference) -> dict:
     torch.cuda.synchronize()
     t_d = time.perf_counter() - t0
     d_counts = ck.launches.as_dict()
+    routes = ck.qctx_routes.as_dict()
     check(out == data, f"{label}: decompressed output equals the input")
     blocks, tags = stream_tags(comp, ft)
     want = stream_counts(comp, ft, READ_LEN)
@@ -2230,7 +2237,8 @@ def tokens_round_trip(ft, ck, data: bytes, cpu_ref: CpuReference) -> dict:
           f"blocks={blocks} tags={json.dumps(tags, sort_keys=True)} compress_s={t_c:.4f} "
           f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
           f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
-          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} round_trip=true "
+          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} "
+          f"qctx_decode_routes={json.dumps(routes, sort_keys=True)} round_trip=true "
           f"byte_identical_to_cpu=true cpu_reference_s={cpu_s:.1f}")
     return {"compress": c_counts, "decompress": d_counts}
 
@@ -2259,8 +2267,10 @@ CTX_BLOCKS = 4  # the markov151 v3 run: blocks of BLOCK_RECORDS records
 CTX_PREFIX = 10_000  # records of the full-width streams that the plain versions code
 CTX_ROUTES = ("qctx_encode", "qctx_decode", "sctx_encode", "sctx_decode")
 # each wrapper's device operations a call (scripts/ctxcoder_ab.py --ops-only):
-# the encodes one kernel, the qctx decode its slot table and its walk
-CTX_CODER_OPS = {"qctx_encode": 1, "qctx_decode": 2, "sctx_encode": 1, "sctx_decode": 1}
+# the encodes one kernel, the qctx decode one on its dense route and two (its
+# slot table, its walk) on the L2 route, the sctx decode one
+CTX_CODER_OPS = {"qctx_encode": 1, "qctx_decode": 1, "qctx_decode_l2": 2, "sctx_encode": 1,
+                 "sctx_decode": 1}
 
 
 def tensors_err(got, want) -> int:
@@ -2282,7 +2292,8 @@ def ctxcoder_edges(ck, qualctx, seqctx, ctxprep, ci) -> dict:
     and 6; each decode fault's string on the card equal to the CPU's (with
     and without the whole-file checks), and an encode table with no
     frequency for a present symbol. Returns the cases held per route."""
-    held = dict.fromkeys((*CTX_ROUTES, "decode_faults", "encode_faults"), 0)
+    held = dict.fromkeys((*CTX_ROUTES, "decode_faults", "tile_faults", "encode_faults"), 0)
+    ck.reset_launches()
     for stream, name, syms_in, lengths, arg in ci.coder_cases():
         cpu = ci.coder_inputs(stream, syms_in, lengths, "cpu", arg)
         want = ci.empty_encode()
@@ -2307,6 +2318,17 @@ def ctxcoder_edges(ck, qualctx, seqctx, ctxprep, ci) -> dict:
                 check(got == want, f"{stream} fault {name} {kw}: {said[0]!r} on the card, "
                                    f"{said[1]!r} on the CPU")
                 held["decode_faults"] += 1
+    routes = ck.qctx_routes.as_dict()
+    check(routes["shared"] > 0 and routes["l2"] > 0, f"both qctx decode routes held: {routes}")
+    for stream, (payload, lengths, k, j) in ci.tile_fault_payloads().items():
+        mod = qualctx if stream == "qctx" else seqctx
+        got = outcome(lambda p: mod.decode(p, lengths, device=DEV), payload)
+        want = outcome(lambda p: mod.decode(p, lengths, device="cpu"), payload)
+        info = ci.coder_decode(stream, ci.payload_decode_args(stream, payload, lengths, DEV))[1]
+        check(got == want and info[k].tolist() == [2, j],
+              f"{stream}: chunk {k} runs out of words at symbol {j}, a tile's last: "
+              f"{info.tolist()}, {got} on the card, {want} on the CPU")
+        held["tile_faults"] += 1
     for stream, name, err in (("qctx", "varlen", qualctx.QctxError),
                               ("sctx", "markov-40x151", seqctx.SctxError)):
         case = next(c for c in ci.coder_cases() if c[0] == stream and c[1] == name)
@@ -2325,7 +2347,8 @@ def ctxcoder_edges(ck, qualctx, seqctx, ctxprep, ci) -> dict:
         check(outs[0] == outs[1] == ("error", f"invalid {stream} frequency table"),
               f"{stream} encode with no frequency for a present symbol: {outs}")
         held["encode_faults"] += 1
-    print(f"phase=ctxcoder edges={json.dumps(held, sort_keys=True)}")
+    print(f"phase=ctxcoder edges={json.dumps(held, sort_keys=True)} "
+          f"qctx_decode_routes={json.dumps(routes, sort_keys=True)}")
     return held
 
 
@@ -2350,14 +2373,50 @@ def coder_bytes(inp: dict, words: int, decode: bool, out_bytes: int = 0) -> int:
     return inp["syms"].numel() + starts + 4 * inp["tab"].numel() + 2 * words + 16 * (4 + 8)
 
 
-def ctxcoder_timed(ck, ci, label: str, streams: dict, ops: dict, iters: int = 3) -> dict:
+def ctx_probe() -> dict:
+    """``scripts/ctx_step_probe.py``'s dependent steps on this card, now:
+    the shared-load chain (the decodes' floor), the encode's ALU step, the
+    qctx dense and sctx steps' critical paths."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "ctx_step_probe.py"
+    spec = importlib.util.spec_from_file_location("ctx_step_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = mod.measure((0, 3, 6, 7))
+    print(f"phase=ctxcoder probe={json.dumps(res, sort_keys=True)}")
+    return res
+
+
+def chain_bound_ms(probe: dict | None, steps: int, decode: bool) -> float | None:
+    """The longest chain's steps x the probe's dependent step (a shared load
+    for a decode, the encode's ALU step), in ms at the clock of this run."""
+    if probe is None:
+        return None
+    return steps * probe["shared" if decode else "encode_step"]["ns_per_step"] / 1e6
+
+
+def qctx_route(ck, call) -> str:
+    """The qctx decode's route in one call (a checkout before the dense
+    route has only the L2 one)."""
+    if not hasattr(ck, "qctx_routes"):
+        call()
+        return "l2"
+    ck.qctx_routes.reset()
+    call()
+    return next(r for r, n in ck.qctx_routes.as_dict().items() if n)
+
+
+def ctxcoder_timed(ck, ci, label: str, streams: dict, ops: dict, iters: int = 3,
+                   probe: dict | None = None) -> dict:
     """The four kernels at one block's streams (``streams``: stream ->
     (host deltas or packed rows, lengths)): each held against its plain
     version on the first CTX_PREFIX records and timed there beside it (the
     plain versions are Python walks: host ms; the kernel: device ms over
     ``iters`` launches; the bound and the host µs of one wrapper call at the
     same inputs), then timed at the whole block (``full_width``: device ms,
-    its bound, its µs a step of its longest chain)."""
+    its bound, its µs a step of its longest chain, ``chain_bound_ms`` from
+    ``probe``, the qctx decode's route)."""
     rows = {}
     for stream, (syms_in, lengths) in streams.items():
         lengths = np.asarray(lengths, np.int64)
@@ -2417,24 +2476,29 @@ def ctxcoder_timed(ck, ci, label: str, streams: dict, ops: dict, iters: int = 3)
             kms, pms, bms, bby, lms = report(name, pre_shape, pre_ms, pms, None, pre_bytes, 0,
                                              err)
             full_bound, full_by = bound(nbytes, 0)
+            chain_ms = chain_bound_ms(probe, steps, route.endswith("decode"))
             full_row = {"ms": ms, "bound_ms": full_bound, "bound_by": full_by, "bytes": nbytes,
                         "symbols": n, "words": words, "records": nrec, "steps": steps,
-                        "us_per_step": ms * 1e3 / steps}
+                        "us_per_step": ms * 1e3 / steps, "chain_bound_ms": chain_ms}
+            if route == "qctx_decode":
+                full_row["route"] = qctx_route(ck, lambda: ci.coder_decode(stream, dec_args))
             rows[route] = (kms, pms, bms, bby, lms, {
                 "err": err, "shape": pre_shape, what: arg, "bytes": pre_bytes,
+                "chain_bound_ms": chain_ms,
                 "plain_records": CTX_PREFIX, "plain_ms_clock": "host (the plain version is "
                 "Python on the CPU)", "host_us_per_call": hus, "full_width": full_row,
                 "device_ops_per_call": len(ops[route]), "device_ops": ops[route]})
             print(f"phase=ctxcoder kernel={name} {shape} steps={steps} kernel_ms={ms:.6f} "
                   f"bound_us={full_bound * 1e3:.3f} bound_by={full_by} bytes={nbytes} "
-                  f"us_per_step={ms * 1e3 / steps:.5f} ms_at_{CTX_PREFIX}_records={pre_ms:.4f} "
+                  f"us_per_step={ms * 1e3 / steps:.5f} chain_bound_ms={chain_ms} "
+                  f"route={full_row.get('route', 'none')} ms_at_{CTX_PREFIX}_records={pre_ms:.4f} "
                   f"plain_ms_at_{CTX_PREFIX}_records={pms:.1f} host_us_per_call={hus:.1f} "
                   f"device_ops_per_call={len(ops[route])} ops={json.dumps(ops[route])}")
         del full, pre_card, pre_cpu, enc, dec_args
     return rows
 
 
-def binned_timed(ci, seed: int, iters: int = 3) -> dict:
+def binned_timed(ck, ci, seed: int, iters: int = 3, probe: dict | None = None) -> dict:
     """The qctx kernels on a binned 15.1 M-symbol quality stream (RTA3
     levels, sticky runs: far fewer words than symbols), round trip checked."""
     lengths = np.full(BLOCK_RECORDS, READ_LEN, np.int64)
@@ -2453,9 +2517,12 @@ def binned_timed(ci, seed: int, iters: int = 3) -> dict:
     steps_d = chain_steps(dargs[2], ci, True)
     row = {"symbols": n, "words": words, "model": inp["arg"],
            "encode": {"ms": enc_ms, "steps": steps_e, "us_per_step": enc_ms * 1e3 / steps_e,
-                      "bound_ms": bound(coder_bytes(inp, words, False), 0)[0]},
+                      "bound_ms": bound(coder_bytes(inp, words, False), 0)[0],
+                      "chain_bound_ms": chain_bound_ms(probe, steps_e, False)},
            "decode": {"ms": dec_ms, "steps": steps_d, "us_per_step": dec_ms * 1e3 / steps_d,
-                      "bound_ms": bound(coder_bytes(inp, words, True, n), 0)[0]}}
+                      "bound_ms": bound(coder_bytes(inp, words, True, n), 0)[0],
+                      "chain_bound_ms": chain_bound_ms(probe, steps_d, True),
+                      "route": qctx_route(ck, lambda: ci.coder_decode("qctx", dargs))}}
     print(f"phase=ctxcoder stream=binned_qual {json.dumps(row, sort_keys=True)}")
     return row
 
@@ -2557,11 +2624,14 @@ def ctxcoder_round_trip(ft, ck, data: bytes, cpu_ref) -> dict:
     torch.cuda.synchronize()
     t_d = time.perf_counter() - t0
     d_counts = ck.launches.as_dict()
+    routes = ck.qctx_routes.as_dict()
     check(out == data, f"{label}: decompressed output equals the input")
     blocks, tags = stream_tags(comp, ft)
     check(blocks == CTX_BLOCKS and tags["seq"].get("sctx", 0) == tags["qual"].get("qctx", 0)
           == blocks, f"{label}: TAG_SCTX and TAG_QCTX on every block ({tags})")
     check_ctx_launches(ck, label, tags, c_counts, d_counts)
+    check(routes["shared"] == d_counts[ck.QCTX_DECODE] and not routes["l2"],
+          f"{label}: every qctx decode on the dense route ({routes})")
     check(c_counts[ck.QCTX_PREPARE] >= blocks and c_counts[ck.SCTX_PREPARE] >= blocks,
           f"{label}: the qctx and sctx prepare passes of every block (and the sampled "
           f"estimates' prefixes) on the card")
@@ -2573,9 +2643,11 @@ def ctxcoder_round_trip(ft, ck, data: bytes, cpu_ref) -> dict:
           f"blocks={blocks} tags={json.dumps(tags, sort_keys=True)} compress_s={t_c:.4f} "
           f"compress_MBps={mb / t_c:.2f} decompress_s={t_d:.4f} decompress_MBps={mb / t_d:.2f} "
           f"compress_launches={json.dumps(c_counts, sort_keys=True)} "
-          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} round_trip=true "
+          f"decompress_launches={json.dumps(d_counts, sort_keys=True)} "
+          f"qctx_decode_routes={json.dumps(routes, sort_keys=True)} round_trip=true "
           f"first_block_identical_to_cpu=true cpu_reference_s={cpu_s:.1f}")
-    return {"compress": c_counts, "decompress": d_counts, "comp": comp, "label": label}
+    return {"compress": c_counts, "decompress": d_counts, "comp": comp, "label": label,
+            "qctx_decode_routes": routes}
 
 
 def phase_ctxcoder(ft, ck, args, cpu_ref) -> dict:
@@ -2606,10 +2678,14 @@ def phase_ctxcoder(ft, ck, args, cpu_ref) -> dict:
         raise
     ops = ctxcoder_ops_result(ops_proc)
     step("device_ops")
+    probe = ctx_probe()
+    step("probe")
     times = ctxcoder_timed(ck, ci, "markov151",
-                           {"qctx": (delta, lengths), "sctx": (packed, lengths)}, ops)
+                           {"qctx": (delta, lengths), "sctx": (packed, lengths)}, ops,
+                           probe=probe)
     step("timed")
-    times["qctx_decode"][5]["binned_qual"] = binned_timed(ci, args.seed + 24)
+    times["qctx_decode"][5]["binned_qual"] = binned_timed(ck, ci, args.seed + 24, probe=probe)
+    times["qctx_decode"][5]["device_ops_per_call_l2_route"] = len(ops["qctx_decode_l2"])
     step("binned")
     run = ctxcoder_round_trip(ft, ck, data, cpu_ref)
     step("round_trip")
@@ -3953,6 +4029,8 @@ def ctxcoder_rows(ctx: dict) -> list:
         launches = ctx["run"][direction][name]
         check(launches > 0, f"{name} launched on the {ctx['run']['label']} run")
         more = {**extra, "edge_cases_checked": ctx["edges"],
+                **({"routes_ctx_run": ctx["run"]["qctx_decode_routes"]}
+                   if name == "fq_qctx_decode" else {}),
                 "launches_golden_ctx": ctx["golden"][name],
                 "launches_ctx_run": {d: ctx["run"][d][name] for d in ("compress", "decompress")}}
         rows.append((name, launches, err, (*times, None), more))

@@ -125,8 +125,9 @@ SIGNATURES = {
         "fq_qctx_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
         "fq_sctx_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
         # words, starts, plan (host int64), fcum, contexts, model, checks,
-        # slot scratch, out, info, stream
-        "fq_qctx_decode": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        # alphabet (host u8, or 0), its symbols (0: the L2 route), the dense
+        # route's tile, slot scratch (the L2 route's, or 0), out, info, stream
+        "fq_qctx_decode": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],
         # words, starts, plan (host int64), freq, order, out, info, stream
         "fq_sctx_decode": [_P, _P, _P, _P, _I, _P, _P, _P],
     },
@@ -153,6 +154,10 @@ QUERIES = {
     "wctx_codec": {
         # lanes, contexts, width, out (four int32)
         "fq_wctx_decode_geometry": [_I, _I, _I, _P],
+    },
+    "ctxcoder": {
+        # symbols, model, tile -> the qctx dense route's shared bytes
+        "fq_qctx_dense_bytes": [_I, _I, _I],
     },
     "hist256": {
         # n, misalignment (data address % 16), SMs -> CTAs of a launch

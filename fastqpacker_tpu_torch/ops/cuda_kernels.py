@@ -120,10 +120,15 @@ class LaunchCounts:
 # one count per kernel: a wrapper's second call of its library is not counted
 _UNCOUNTED = frozenset(build.SECOND_CALLS)
 launches = LaunchCounts(fn for fn in _LIBRARY if fn not in _UNCOUNTED)
+# the qctx decode's route a call: the dense rows in shared memory, or the
+# slot table through the L2 (:func:`qctx_decode`)
+QCTX_ROUTES = ("shared", "l2")
+qctx_routes = LaunchCounts(QCTX_ROUTES)
 
 
 def reset_launches() -> None:
     launches.reset()
+    qctx_routes.reset()
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -1191,14 +1196,19 @@ def _check_words(words: torch.Tensor, plan: torch.Tensor, dev) -> None:
 
 
 def qctx_decode(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
-                fcum: torch.Tensor, model: int, checks: bool):
+                fcum: torch.Tensor, model: int, checks: bool, alphabet=None):
     """Forward qctx decode of the payload's (W,) int16 words (its chunks'
     runs back to back) with the host ``plan`` (word counts and states), the
     model's (contexts, 256) int32 entries ``fcum``; ``checks``: the JAX
     package's whole-file decoder's checks -> (the delta stream uint8 (n,),
     info int64 (4, 2): each chunk's first fault code and symbol index); see
-    :func:`..ops.qualctx.qctx_decode_plain`. Two launches (the slot table on
-    the card, a CTA a chunk), counted as one call."""
+    :func:`..ops.qualctx.qctx_decode_plain`. ``alphabet``: every symbol with
+    a frequency in ``fcum`` (:func:`..ops.qualctx.table_alphabet`, on the
+    host); on the card it picks the route by the table's size
+    (:func:`..ops.qualctx.dense_layout`): the dense rows in shared memory, a
+    CTA a chunk, one launch; else the slot table through the L2, two
+    launches (the table, the walk). Either counts as one call, and
+    ``qctx_routes`` counts the route."""
     dev = words.device
     n, _ = _check_plan(plan)
     _check_words(words, plan, dev)
@@ -1209,13 +1219,24 @@ def qctx_decode(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
     _check("fcum", fcum, torch.int32, (contexts, 256), dev)
     if _plain_or_cuda(dev):
         return qualctx.qctx_decode_plain(words, starts, plan, fcum, model, checks)
+    if alphabet is None:
+        raise ValueError("qctx_decode: the table's alphabet (qualctx.table_alphabet) picks "
+                         "the route on the card")
+    layout = qualctx.dense_layout(alphabet, model)
     if words.numel() == 0:  # a valid pointer for the kernel (never read)
         words = torch.empty((8,), dtype=torch.int16, device=dev)
-    slot = torch.empty((contexts * qualctx.PROB_SCALE,), dtype=torch.uint8, device=dev)
     out = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
     info = torch.empty((ctxcoder.NUM_CHUNKS, 2), dtype=torch.int64, device=dev)
-    _launch(QCTX_DECODE, dev, words, starts, plan, fcum, contexts, model, int(checks), slot,
-            out, info)
+    if layout is not None:
+        syms = torch.zeros((qualctx.DENSE_MAX_COLUMNS,), dtype=torch.uint8)
+        syms[: len(layout.symbols)] = torch.from_numpy(layout.symbols)
+        _launch(QCTX_DECODE, dev, words, starts, plan, fcum, contexts, model, int(checks), syms,
+                len(layout.symbols), layout.tile, 0, out, info)
+    else:
+        slot = torch.empty((contexts * qualctx.PROB_SCALE,), dtype=torch.uint8, device=dev)
+        _launch(QCTX_DECODE, dev, words, starts, plan, fcum, contexts, model, int(checks), 0, 0,
+                0, slot, out, info)
+    qctx_routes.bump("shared" if layout is not None else "l2")
     return out[:n], info
 
 
@@ -1224,7 +1245,8 @@ def sctx_decode(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
     """Forward sctx decode straight to the packed rows: ``freq`` the
     (4**order, 4) int16 table -> (packed uint8 (m,), info int64 (4, 2)); as
     :func:`qctx_decode`, see :func:`..ops.seqctx.sctx_decode_plain`. One
-    launch, a CTA a chunk (the context rows in its shared memory)."""
+    launch, a CTA a chunk: the context rows in its shared memory, a chain
+    warp fed tiles of words and record starts by the CTA's other warps."""
     dev = words.device
     n, m = _check_plan(plan)
     _check_words(words, plan, dev)

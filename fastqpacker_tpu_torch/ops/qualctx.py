@@ -31,7 +31,9 @@ device, the CUDA card unless the caller names the CPU: the prepare pass
 :mod:`.ctxprep`), the encode (``fq_qctx_encode``: the 16 (chunk, state)
 chains walked backward, a word and a flag per symbol, then
 ``fq_rans_compact``) and the decode (``fq_qctx_decode``: a chain a chunk,
-straight to the delta stream), all in ``csrc/ctxcoder.cu``; tables, payload
+straight to the delta stream: rows of the table's present symbols in shared
+memory, searched by a warp's ballots, where they fit (:func:`dense_layout`),
+else the slot table through the L2), all in ``csrc/ctxcoder.cu``; tables, payload
 and faults stay host code. The plan and the host steps around a launch,
 which both coders share, are :mod:`.ctxcoder`. On the CPU the walks below
 are the plain versions (per-symbol Python loops, ~1.4 us a symbol). The
@@ -42,6 +44,7 @@ estimate keeps that module's float arithmetic, so the picks are the same.
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -357,6 +360,110 @@ def _slot_syms(freq: np.ndarray) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the decode's shared-memory route (csrc/ctxcoder.cu qctx_dense_decode_kernel)
+# ---------------------------------------------------------------------------
+
+# The card's dense route holds a row of u16 cums per (pb, qb', q2') in shared
+# memory: pb the in-record position bucket, qb' the previous symbol's dense
+# index (its index among the present symbols, 0 always among them; n the
+# record start), q2' the bucket min(prev2, 46) >> 3 of the symbol before it
+# (model 1; 6 at p < 2). The kernel's constants (kHead, kMetaPad, kMaxDense):
+DENSE_HEAD = 512
+DENSE_META_PAD = 16
+DENSE_MAX_COLUMNS = 64  # the present symbols and the sentinel column: a warp's 2 x 32
+DENSE_TILES = (4096, 2048, 1024, 512, 256)  # the largest that fits is taken
+SHARED_OPTIN = 227 * 1024  # sm_90's dynamic shared memory a block may ask for
+DENSE_ABSENT = 8192  # an absent context's row: {0, 8192, ...}
+DENSE_Q2_NONE = 6
+
+
+class DenseLayout(NamedTuple):
+    """The dense route's geometry for a table's present symbols."""
+
+    symbols: np.ndarray  # uint8, ascending, 0 first
+    width: int  # u16 columns a row: the symbols and the sentinel, even
+    q2rows: int  # rows a (pb, qb') group: 7 (model 1) or 1
+    tile: int  # symbols a tile
+    shared: int  # dynamic shared bytes of a CTA (fq_qctx_dense_bytes)
+
+    @property
+    def rows(self) -> int:
+        return NUM_PBUCKETS * (len(self.symbols) + 1) * self.q2rows
+
+
+def table_alphabet(freq: np.ndarray) -> np.ndarray:
+    """The symbols with a frequency in any context of ``freq``, ascending
+    (uint8): what the card's dense route is sized by."""
+    return np.flatnonzero(np.asarray(freq).any(axis=0)).astype(np.uint8)
+
+
+def dense_shared_bytes(nsyms: int, model: int, tile: int) -> int:
+    """``csrc/ctxcoder.cu dense_geom(...).total``: the header, the word ring
+    (2 x tile u16), the rows (and a lane's 128-byte reach past the last),
+    then S, M and G (u32 each) and the symbols' counts (u8) of two tiles
+    and their pads."""
+    width = (nsyms + 2) & ~1
+    rows = NUM_PBUCKETS * (nsyms + 1) * (7 if model else 1)
+    span = tile + DENSE_META_PAD
+    return DENSE_HEAD + 4 * tile + ((rows * 2 * width + 128 + 15) & ~15) + 26 * span
+
+
+def dense_layout(alphabet, model: int) -> DenseLayout | None:
+    """The dense route's layout for a table whose present symbols are
+    ``alphabet`` (symbol 0 is added: an absent context decodes to it), or
+    None where the columns exceed a warp's 64 or no tile fits the shared
+    memory: the decode then takes the L2 route (the slot table). Depends on
+    the table's size alone."""
+    syms = np.union1d(np.asarray(alphabet, np.int64), [0]).astype(np.uint8)
+    n = len(syms)
+    if n + 1 > DENSE_MAX_COLUMNS:
+        return None
+    for tile in DENSE_TILES:
+        shared = dense_shared_bytes(n, model, tile)
+        if shared <= SHARED_OPTIN:
+            return DenseLayout(syms, (n + 2) & ~1, 7 if model else 1, tile, shared)
+    return None
+
+
+def dense_row_context(layout: DenseLayout, row: int, model: int) -> int:
+    """The context of the table that dense row ``row`` copies."""
+    n = len(layout.symbols)
+    q2, t = row % layout.q2rows, row // layout.q2rows
+    qb, pb = t % (n + 1), t // (n + 1)
+    prev = NUM_QBINS - 1 if qb == n else min(int(layout.symbols[qb]), 46)
+    c = pb * NUM_QBINS + prev
+    if model:
+        c = c * NUM_Q2B + (NUM_Q2B - 1 if q2 == DENSE_Q2_NONE else q2)
+    return c
+
+
+def dense_rows(freq: np.ndarray, model: int, layout: DenseLayout) -> np.ndarray:
+    """(rows, width) uint16: the rows the kernel builds in each CTA's shared
+    memory from the table's entries: column c < n the cum of symbol
+    ``symbols[c]`` in the row's context, the columns after 4096; a context
+    with no frequency {0, 8192, ...}."""
+    n = len(layout.symbols)
+    f = np.asarray(freq, np.int64)
+    cum = np.zeros_like(f)
+    np.cumsum(f[:, :-1], axis=1, out=cum[:, 1:])
+    ctx = np.array([dense_row_context(layout, r, model) for r in range(layout.rows)])
+    out = np.full((layout.rows, layout.width), PROB_SCALE, np.uint16)
+    out[:, :n] = cum[ctx][:, layout.symbols]
+    absent = f[ctx].sum(axis=1) == 0
+    out[absent] = DENSE_ABSENT
+    out[absent, 0] = 0
+    return out
+
+
+def dense_lookup(row: np.ndarray, slot: int) -> tuple[int, int, int]:
+    """A dense row's search at ``slot``, as the kernel's two ballots do it ->
+    (cnt: the dense index + 1, f, cum)."""
+    cnt = int((row.astype(np.int64) <= slot).sum())
+    cum = int(row[cnt - 1])
+    return cnt, (int(row[cnt]) - cum) & 0x1FFF, cum
+
+
 def qctx_decode_plain(words: torch.Tensor, starts: torch.Tensor, plan: torch.Tensor,
                       tab: torch.Tensor, model: int, checks: bool) -> tuple:
     """The plain version of ``fq_qctx_decode`` (CPU tensors): the payload's
@@ -502,7 +609,7 @@ def decode(
     delta, info = cuda_kernels.qctx_decode(
         to_device(dev, words.view(np.int16)), to_device(dev, record_bounds(lengths)),
         coder_plan(lengths, counts, states), to_device(dev, entry_table(freq).view(np.int32)),
-        model, runtime_checks)
+        model, runtime_checks, table_alphabet(freq))
     raise_fault(info, QCTX_FAULTS, QctxError)
     return delta.cpu().numpy().tobytes()
 

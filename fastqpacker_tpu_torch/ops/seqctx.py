@@ -63,6 +63,7 @@ from .device import resolve_device, to_device
 
 MAX_ORDER = 6
 ORDERS = (2, 4, 6)
+DECODE_TILE = 4096  # bases a tile of the card's decode (csrc/ctxcoder.cu kSctxTile)
 PROB_BITS = rans.PROB_BITS
 PROB_SCALE = rans.PROB_SCALE
 RANS_L = rans.RANS_L

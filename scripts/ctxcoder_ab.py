@@ -12,11 +12,14 @@ corpus (``synth_fastq(qual_model="phredwalk", seq_model="markov")``), the
 tables at the model and order the v3 pick takes. Each kernel is held against
 its plain version on the first 10,000 records and timed at the whole block
 (``chip_smoke.py``'s ``ctxcoder_timed``: device ms, the bound, µs a step of
-the longest chain, host µs a wrapper call). ``--ops-only`` times nothing and
-counts the device operations of one wrapper call of each route
-(``torch.profiler``; the ``cuda`` tests and ``chip_smoke.py`` take them so,
-from a fresh process: in a long one the profiler can miss kernels). Prints
-one JSON line.
+the longest chain, ``chain_bound_ms`` from ``scripts/ctx_step_probe.py`` run in
+the same process, host µs a wrapper call, the qctx decode's route), then the
+qctx pair at a binned 15.1 M-symbol quality stream (``binned_timed``).
+``--ops-only`` times nothing and counts the device operations of one wrapper
+call of each route, the qctx decode also at a stream of 94 quality symbols
+(its L2 route) (``torch.profiler``; the ``cuda`` tests and ``chip_smoke.py``
+take them so, from a fresh process: in a long one the profiler can miss
+kernels). Prints one JSON line.
 
 Usage: python3 scripts/ctxcoder_ab.py --root DIR [--records 100000] [--seed 23]
        [--iters 3] [--ops-only] [--label NAME]
@@ -30,6 +33,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -77,12 +82,20 @@ def main() -> int:
     label = args.label or str(root)
     if args.ops_only:
         cases = []
-        for stream, (syms_in, lens) in streams.items():
-            inp = ci.coder_inputs(stream, syms_in, lens, cs.DEV)
+        # a quality stream of 94 symbols: the qctx decode's L2 route
+        rng = np.random.default_rng(args.seed)
+        l2_lengths = np.full(args.records // 10, 151, np.int64)
+        l2 = ci.qualctx.deintegrate(rng.integers(0, 94, int(l2_lengths.sum())).astype(np.uint8),
+                                    l2_lengths)
+        for stream, (syms_in, lens), suffix in (*((k, v, "") for k, v in streams.items()),
+                                                ("qctx", (l2, l2_lengths), "_l2")):
+            inp = ci.coder_inputs(stream, syms_in, lens, cs.DEV, 0 if suffix else None)
             enc = ci.coder_encode(stream, inp)
             dargs = ci.coder_decode_args(stream, inp, enc, cs.DEV)
-            for route, call in ((f"{stream}_encode", lambda: ci.coder_encode(stream, inp)),
-                                (f"{stream}_decode", lambda: ci.coder_decode(stream, dargs))):
+            calls = ((f"{stream}_decode{suffix}", lambda: ci.coder_decode(stream, dargs)),)
+            if not suffix:
+                calls = ((f"{stream}_encode", lambda: ci.coder_encode(stream, inp)), *calls)
+            for route, call in calls:
                 ops = cs.device_ops(call)
                 cases.append({"route": route, "device_ops_per_call": len(ops),
                               "device_ops": ops})
@@ -90,12 +103,15 @@ def main() -> int:
                           "cases": cases}))
         return 0
     ops = dict.fromkeys(cs.CTX_ROUTES, [])  # counted by --ops-only, in a process of its own
+    probe = cs.ctx_probe()
     rows = cs.ctxcoder_timed(ck, ci, f"markov151x{args.records}",
-                             streams, ops, args.iters)
+                             streams, ops, args.iters, probe=probe)
+    binned = cs.binned_timed(ck, ci, args.seed + 1, args.iters, probe=probe)
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     cases = [{"route": route, **dict(zip(fields, row[:5])), **row[5]}
              for route, row in rows.items()]
-    print(json.dumps({"label": label, "card": smi, "records": args.records, "cases": cases}))
+    print(json.dumps({"label": label, "card": smi, "records": args.records, "cases": cases,
+                      "binned_qual": binned}))
     return 0
 
 

@@ -181,7 +181,7 @@ def breakdown_v3(data: bytes, dev: torch.device) -> tuple[dict, int, int]:
         (cuda_kernels, "wctx_unlayout", "wctx_unlayout"),
         (cuda_kernels, "qctx_encode", "qctx_encode.kernel"),
         (cuda_kernels, "sctx_encode", "sctx_encode.kernel"),
-        (cuda_kernels, "qctx_decode", "qctx_decode.kernels(slot table, walk)"),
+        (cuda_kernels, "qctx_decode", "qctx_decode.kernel"),
         (cuda_kernels, "sctx_decode", "sctx_decode.kernel"),
         (rans, "to_device", "rans.h2d"),
         (crc32, "to_device", "crc32.h2d"),

@@ -334,3 +334,125 @@ def test_encode_table_reciprocals_divide_exactly():
         for xs in (x, np.minimum(x // f * f, (1 << 32) - 1), np.maximum(x // f * f, 1) - 1):
             q = (xs + ((xs * m) >> np.uint64(32))) >> s
             assert np.array_equal(q, xs // f)
+
+
+# ---------------------------------------------------------------------------
+# the card's tiled decodes: the qctx dense route's host half, the tile edges
+# ---------------------------------------------------------------------------
+
+
+def _table(name, model):
+    raw, lengths, _ = _qctx_case(name)
+    hist = jq.hist_for_model(jq.histogram(raw, jq.contexts(raw, lengths, 1)), model)
+    return jq.normalize_tables(hist)
+
+
+@pytest.mark.parametrize("model", [0, 1])
+@pytest.mark.parametrize("name", ["varlen-binned", "varlen", "tile-straddle", "absent-rows"])
+def test_dense_rows_give_the_slot_tables_symbol_f_and_cum(name, model):
+    """Every dense row at every slot: the count of its columns <= the slot
+    (the kernel's two ballots) names the symbol, and the next column less
+    this one, masked, its f; both and the cum equal the JAX package's slot
+    table (``ops/qualctx.py:352 _slot_syms``) and cumulative frequencies for
+    the context the row copies. Binned (5 symbols with 0), walk (41), Phred
+    walks per record (symbol 0 absent: the route adds it); "absent-rows"
+    empties the contexts of one previous symbol, which decode to symbol 0
+    with f = cum = 0 as the slot table's 0 does. Every context the dense
+    route can reach (previous symbol in the alphabet or the record start)
+    has a row."""
+    freq = _table("tile-straddle" if name == "absent-rows" else name, model).copy()
+    if name == "absent-rows":
+        ctx = np.arange(freq.shape[0])
+        qbin = (ctx // jq.NUM_Q2B if model else ctx) % jq.NUM_QBINS
+        freq[qbin == 30] = 0
+    layout = tq.dense_layout(tq.table_alphabet(freq), model)
+    assert layout is not None and layout.shared <= tq.SHARED_OPTIN
+    assert layout.symbols[0] == 0 and set(tq.table_alphabet(freq)) <= set(layout.symbols)
+    rows = tq.dense_rows(freq, model, layout)
+    slot_sym = jq._slot_syms(freq)
+    cum = np.zeros(freq.shape, np.int64)
+    np.cumsum(freq[:, :-1].astype(np.int64), axis=1, out=cum[:, 1:])
+    slots = np.arange(tq.PROB_SCALE)
+    seen = set()
+    for r in range(layout.rows):
+        c = tq.dense_row_context(layout, r, model)
+        seen.add(c)
+        cnt = np.searchsorted(rows[r], slots, side="right")
+        sym = layout.symbols[cnt - 1]
+        f = (rows[r][np.minimum(cnt, layout.width - 1)].astype(np.int64) - rows[r][cnt - 1]) & 0x1FFF
+        want = slot_sym[c]
+        assert np.array_equal(sym, want), (r, c)
+        assert np.array_equal(f, freq[c, want]) and np.array_equal(rows[r][cnt - 1], cum[c, want])
+        assert tq.dense_lookup(rows[r], 4095) == (int(cnt[-1]), int(f[-1]), int(cum[c, want[-1]]))
+    prevs = {jq.NUM_QBINS - 1} | {min(int(s), 46) for s in layout.symbols}
+    reach = {c for c in range(freq.shape[0])
+             if ((c // jq.NUM_Q2B if model else c) % jq.NUM_QBINS) in prevs
+             and (not model or c % jq.NUM_Q2B != 6)}
+    assert reach == seen
+    if name == "absent-rows":
+        assert (rows[:, 0] == 0).all() and (rows == tq.DENSE_ABSENT).any()
+
+
+@pytest.mark.parametrize("model", [0, 1])
+def test_dense_route_is_taken_by_the_table_size_alone(model):
+    """The route: the dense rows where the alphabet (0 added) and the
+    sentinel column fit a warp's 64 and a tile fits the shared memory, else
+    the L2 slot table (``uniform-random``'s 94 symbols); the largest tile
+    that fits; the same for any table of the same alphabet."""
+    assert tq.dense_layout(tq.table_alphabet(_table("uniform-random", model)), model) is None
+    assert tq.dense_layout(tq.table_alphabet(_table("varlen-binned", model)), model).tile == 4096
+    assert tq.dense_layout(tq.table_alphabet(_table("varlen", model)), model).tile == \
+        (1024 if model else 4096)
+    limit = 43 if model else 63  # symbols a dense table may have (0 among them)
+    for n in (limit - 1, limit):
+        lay = tq.dense_layout(np.arange(n), model)
+        assert lay is not None and lay.shared <= tq.SHARED_OPTIN
+        assert lay.shared == tq.dense_shared_bytes(n, model, lay.tile)
+    assert tq.dense_layout(np.arange(1, limit + 1), model) is None  # 0 added: one more
+    assert tq.dense_layout(np.arange(limit + 1), model) is None
+
+
+def test_dense_geometry_equals_the_source():
+    """The host's layout constants are ``csrc/ctxcoder.cu``'s."""
+    text = SRC.read_text()
+    for name, value in (("kHead", tq.DENSE_HEAD), ("kMetaPad", tq.DENSE_META_PAD),
+                        ("kMaxDense", tq.DENSE_MAX_COLUMNS), ("kSctxTile", ts.DECODE_TILE),
+                        ("kAbsent", tq.DENSE_ABSENT)):
+        assert re.search(rf"\b{name} = {value}\b", text), name
+
+
+@pytest.mark.parametrize("stream", ["qctx", "sctx"])
+@pytest.mark.parametrize("name", list(cci.TILE_CASES))
+def test_tile_edge_cases_take_renorms_at_tile_ends(stream, name):
+    """The tile-edge inputs do what they are for: records straddle the
+    tiles of every route (a renorm word at some tile's last symbol), the
+    short chunks lie inside one tile, the empty records sit on tile edges."""
+    case = next(c for c in cci.coder_cases() if c[0] == stream and c[1] == name)
+    inp = cci.coder_inputs(stream, case[2], case[3], "cpu", case[4])
+    flags = cci.coder_encode(stream, inp)[1].numpy()
+    tile = cci.decode_tile(stream, inp["freq"], inp["arg"])
+    sb = inp["plan"].numpy()[ctxcoder.PLAN_SB : ctxcoder.PLAN_SB + 5]
+    if name == "tile-straddle":
+        assert cci.tile_last_renorms(stream, inp, flags)
+        assert all((sb[k] + tile) % 151 for k in range(4))
+    elif name == "short-chunks":
+        assert (np.diff(sb) < tile).all() and (np.diff(sb) > 0).all()
+    else:
+        ends = np.cumsum(case[3])
+        assert all(((ends == sb[k] + tile) & (case[3] == 0)).any() for k in range(3))
+
+
+TILE_FAULTS = cci.tile_fault_payloads()
+
+
+@pytest.mark.parametrize("stream", ["qctx", "sctx"])
+def test_tile_edge_faults_give_the_jax_strings(stream):
+    """A chunk that runs out of words at the last symbol of a tile: the
+    JAX reference's string, and the plain version's fault at that symbol."""
+    payload, lengths, k, j = TILE_FAULTS[stream]
+    mod, ref = (tq, jq) if stream == "qctx" else (ts, js)
+    got = _outcome(mod.decode, payload, lengths, device="cpu")
+    assert got == _outcome(ref.decode_reference, payload, lengths)
+    assert got == ("error", f"truncated {stream} words")
+    info = cci.coder_decode(stream, cci.payload_decode_args(stream, payload, lengths, "cpu"))[1]
+    assert info[k].tolist() == [2, j] and not info[:k, 0].any()

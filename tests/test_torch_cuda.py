@@ -2614,9 +2614,10 @@ def test_ctxcoder_fault_strings_on_the_card_equal_the_cpu(stream, cuda):
 
 def test_ctxcoder_device_operations_per_wrapper_call(cuda):
     """One wrapper call runs its own kernels and nothing else: one a qctx or
-    sctx encode, two a qctx decode (the slot table, the walk), one an sctx
-    decode; counted by ``torch.profiler`` in a process of its own
-    (``scripts/ctxcoder_ab.py --ops-only``) at a 20,000-record block."""
+    sctx encode, one a qctx decode on its dense route and two on its L2
+    route (the slot table, the walk), one an sctx decode; counted by
+    ``torch.profiler`` in a process of its own (``scripts/ctxcoder_ab.py
+    --ops-only``) at a 20,000-record block."""
     cmd = [sys.executable, str(REPO / "scripts" / "ctxcoder_ab.py"), "--root", str(REPO),
            "--ops-only", "--records", "20000"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
@@ -2624,10 +2625,63 @@ def test_ctxcoder_device_operations_per_wrapper_call(cuda):
     cases = {c["route"]: c["device_ops"] for c in
              json.loads(proc.stdout.strip().splitlines()[-1])["cases"]}
     assert {r: len(o) for r, o in cases.items()} == {
-        "qctx_encode": 1, "qctx_decode": 2, "sctx_encode": 1, "sctx_decode": 1}, cases
+        "qctx_encode": 1, "qctx_decode": 1, "qctx_decode_l2": 2, "sctx_encode": 1,
+        "sctx_decode": 1}, cases
     for route, ops in cases.items():
         assert all("encode_kernel" in o or "decode_kernel" in o or "slots_kernel" in o
                    for o in ops), (route, ops)
+
+
+def test_ctxcoder_qctx_decode_route_follows_the_table_size(cuda):
+    """The dense route for the walk and binned tables at both models, the
+    L2 route for 94 symbols (``uniform-random``): each call counted on its
+    route, both byte-equal to the plain version (``_coder_round``)."""
+    from fastqpacker_tpu_torch.ops import qualctx
+
+    for name, route in (("varlen", "shared"), ("varlen-binned", "shared"),
+                        ("uniform-random", "l2")):
+        for model in qualctx.MODELS:
+            stream, _, syms_in, lengths, arg = CODER_CASES[f"qctx-{name}-{model}"]
+            cpu = cci.coder_inputs(stream, syms_in, lengths, "cpu", arg)
+            want = (qualctx.dense_layout(cpu["alphabet"], model) is not None)
+            assert want == (route == "shared")
+            cuda_kernels.reset_launches()
+            _coder_round(stream, syms_in, lengths, arg, cuda)
+            assert cuda_kernels.qctx_routes.as_dict() == {
+                "shared": 2 * (route == "shared"), "l2": 2 * (route == "l2")}, name
+
+
+def test_ctxcoder_dense_bytes_equal_the_host_layout(cuda):
+    """``fq_qctx_dense_bytes`` (the kernel's shared layout) equals the
+    host's ``qualctx.dense_shared_bytes``, by which the route is chosen."""
+    from fastqpacker_tpu_torch.ops import build, qualctx
+
+    lib = build.load("ctxcoder")
+    for n in (1, 5, 41, 43, 63):
+        for model in qualctx.MODELS:
+            for tile in qualctx.DENSE_TILES:
+                assert lib.fq_qctx_dense_bytes(n, model, tile) == qualctx.dense_shared_bytes(
+                    n, model, tile), (n, model, tile)
+
+
+@pytest.mark.parametrize("stream", ["qctx", "sctx"])
+def test_ctxcoder_tile_edge_fault_on_the_card_equals_the_cpu(stream, cuda):
+    """A chunk that runs out of words at the last symbol of a tile: the
+    card's fault code and symbol index equal the plain version's, and its
+    string the CPU's."""
+    from fastqpacker_tpu_torch.ops import qualctx, seqctx
+
+    payload, lengths, k, j = cci.tile_fault_payloads()[stream]
+    got = cci.coder_decode(stream, cci.payload_decode_args(stream, payload, lengths, cuda))[1]
+    want = cci.coder_decode(stream, cci.payload_decode_args(stream, payload, lengths, "cpu"))[1]
+    assert got[: k + 1].tolist() == want[: k + 1].tolist() and want[k].tolist() == [2, j]
+    mod = qualctx if stream == "qctx" else seqctx
+    outs = []
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError) as e:
+            mod.decode(payload, lengths, device=dev)
+        outs.append(str(e.value))
+    assert outs[0] == outs[1] == f"truncated {stream} words"
 
 
 def _ctx_tags(comp: bytes) -> list:

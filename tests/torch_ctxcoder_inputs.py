@@ -1,13 +1,16 @@
 """Seeded inputs of the context coders' tests (``csrc/ctxcoder.cu``): the
 JAX coder tests' cases (``tests/test_qualctx.py:41``,
-``tests/test_seqctx.py:37``) plus chunks with no record and one-symbol
-streams, and payloads with each decode fault. numpy and the port only (the
+``tests/test_seqctx.py:37``) plus chunks with no record, one-symbol
+streams and the card decodes' tile edges (``TILE_CASES``), and payloads with
+each decode fault (``tile_fault_payloads``: one at a tile's last symbol).
+numpy and the port only (the
 ``cuda`` tests and ``chip_smoke.py`` import it without JAX); the faulty
 payloads are cut from the port's CPU encodes, which
 ``tests/test_torch_ctxcoder.py`` holds equal to the JAX package's."""
 
 from __future__ import annotations
 
+import inspect
 import struct
 
 import numpy as np
@@ -19,6 +22,18 @@ from fastqpacker_tpu_torch.ops import ctxcoder, qualctx, seqctx
 def walk(rng, lengths, lo=2, hi=41):
     steps = rng.integers(-2, 3, int(lengths.sum()))
     return np.clip(np.cumsum(steps) + 30, lo, hi).astype(np.uint8)
+
+
+def record_walk(rng, lengths, lo=2, hi=41):
+    """A Phred walk from 30 in each record (the mesh corpus's qualities):
+    the symbols of a long stream stay spread, so its words stay dense."""
+    lengths = np.asarray(lengths, np.int64)
+    steps = rng.integers(-2, 3, int(lengths.sum()))
+    run = np.cumsum(steps)
+    starts = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+    nz = lengths > 0
+    base = np.repeat(np.concatenate(([0], run))[starts[nz]], lengths[nz])
+    return np.clip(run - base + 30, lo, hi).astype(np.uint8)
 
 
 def binned(rng, lengths):
@@ -44,6 +59,24 @@ def markov(rng, nrec, length, sticky=0.6):
     return m.reshape(-1)
 
 
+def tile_edge_lengths() -> np.ndarray:
+    """Records of 128 symbols with three zero-length records after every
+    eighth: every 1,024 symbols of each chunk (32,768 symbols, chunks of
+    8,192 starting at a multiple of 1,024) a tile of the card's decodes ends
+    on a record end followed by empty records."""
+    block = np.concatenate([np.full(8, 128), np.zeros(3)]).astype(np.int64)
+    return np.tile(block, 32)
+
+
+# the card's decodes cut a chunk into tiles (qctx: the dense layout's 4,096 or
+# 1,024 symbols at the walk qualities; sctx: 4,096): records of 151 straddle
+# every tile edge, four records of 100 give chunks shorter than a tile
+TILE_CASES = {
+    "tile-straddle": np.full(330, 151, np.int64),
+    "short-chunks": np.full(4, 100, np.int64),
+    "empties-at-tile-edges": tile_edge_lengths(),
+}
+
 QCTX_CASES = {
     "empty": (np.zeros(0, np.int64), None),
     "all-zero-lengths": (np.zeros(7, np.int64), None),
@@ -54,6 +87,7 @@ QCTX_CASES = {
     "two-records": (np.array([40, 9], np.int64), "walk"),
     "three-records-and-empties": (np.array([0, 30, 0, 12, 25, 0], np.int64), "walk"),
     "one-symbol": (np.array([1], np.int64), "walk"),
+    **{name: (lengths, "record-walk") for name, lengths in TILE_CASES.items()},
 }
 
 
@@ -69,6 +103,8 @@ def qctx_case(name: str):
         raw = binned(rng, lengths)
     elif kind == "walk":
         raw = walk(rng, lengths)
+    elif kind == "record-walk":
+        raw = record_walk(rng, lengths)
     else:
         raw = np.zeros(0, np.uint8)
     return raw, lengths, qualctx.deintegrate(raw, lengths)
@@ -87,6 +123,8 @@ def sctx_cases() -> dict:
         "two-records": ([20, 0, 9], rng.integers(0, 4, 29)),
         "one-base": ([1], np.array([2])),
     }
+    for name, lengths in TILE_CASES.items():
+        cases[name] = (lengths, markov(rng, 1, int(lengths.sum())))
     out = {}
     for name, (lengths, bases) in cases.items():
         lengths = np.asarray(lengths, np.int64)
@@ -171,6 +209,74 @@ def sctx_fault_payloads() -> tuple[dict, np.ndarray]:
     return out, lengths
 
 
+def decode_tile(stream: str, freq: np.ndarray, arg: int) -> int:
+    """The symbols a tile of the card's decode of a table: sctx a constant,
+    qctx the dense layout's (0 on the L2 route, which has no tiles)."""
+    if stream == "sctx":
+        return seqctx.DECODE_TILE
+    layout = qualctx.dense_layout(qualctx.table_alphabet(freq), arg)
+    return 0 if layout is None else layout.tile
+
+
+def tile_last_renorms(stream: str, inp: dict, flags: np.ndarray) -> list:
+    """(chunk, symbol) of every tile's last symbol that takes a renorm word
+    in the decode (the encode flagged a word there), for the table of
+    :func:`coder_inputs` ``inp`` and its encode's ``flags``."""
+    tile = decode_tile(stream, inp["freq"], inp["arg"])
+    if not tile:
+        return []
+    sb = inp["plan"].numpy()[ctxcoder.PLAN_SB : ctxcoder.PLAN_SB + 5]
+    return [(k, j) for k in range(4) for j in range(int(sb[k]) + tile - 1, int(sb[k + 1]), tile)
+            if flags[j]]
+
+
+def tile_fault_payloads() -> dict:
+    """stream -> (payload, lengths, chunk, symbol): the "tile-straddle"
+    case's stream with the first chunk that takes a renorm word at a tile's
+    last symbol cut to the words before it: the decode runs out of words at
+    that symbol, the last of its tile."""
+    out = {}
+    for stream in ("qctx", "sctx"):
+        if stream == "qctx":
+            _, lengths, syms_in = qctx_case("tile-straddle")
+        else:
+            _, lengths, syms_in = sctx_cases()["tile-straddle"]
+        inp = coder_inputs(stream, syms_in, lengths, "cpu")  # the v3 pick's model or order
+        flags = coder_encode(stream, inp)[1].numpy()
+        k, j = tile_last_renorms(stream, inp, flags)[0]
+        sb = inp["plan"].numpy()[ctxcoder.PLAN_SB : ctxcoder.PLAN_SB + 5]
+        head, states, runs = split_payload(
+            (qualctx if stream == "qctx" else seqctx).encode(syms_in, lengths, device="cpu"))
+        runs[k] = runs[k][: 2 * int(flags[int(sb[k]) : j].sum())]
+        out[stream] = (join_payload(head, states, runs), lengths, k, j)
+    return out
+
+
+def payload_decode_args(stream: str, payload: bytes, lengths, dev, checks: bool = False):
+    """The decode wrapper's arguments on ``dev`` from a payload (its table,
+    states and word runs)."""
+    import torch
+
+    from fastqpacker_tpu_torch.ops import ctxprep
+
+    lengths = np.asarray(lengths, np.int64)
+    head, states, runs = split_payload(payload)
+    blob = zstd.get_codec().decompress(head[12:])
+    counts = [len(r) // 2 for r in runs]
+    plan = ctxcoder.coder_plan(lengths, counts,
+                               np.frombuffer(b"".join(states), "<u4").reshape(4, 4))
+    words = torch.from_numpy(np.frombuffer(b"".join(runs), np.int16).copy()).to(dev)
+    starts = torch.from_numpy(ctxprep.record_bounds(lengths)).to(dev)
+    if stream == "qctx":
+        model = payload[5]
+        freq = qualctx.deserialize_tables(blob, qualctx.NUM_CTX2 if model else qualctx.NUM_CTX)
+        fcum = torch.from_numpy(ctxcoder.entry_table(freq).view(np.int32)).to(dev)
+        return words, starts, plan, fcum, model, checks, qualctx.table_alphabet(freq)
+    order = payload[4]
+    freq = seqctx.deserialize_tables(blob, order)
+    return words, starts, plan, torch.from_numpy(freq.view(np.int16).copy()).to(dev), order
+
+
 def block_lengths(records: int, read_len: int = 151) -> np.ndarray:
     return np.full(records, read_len, np.int64)
 
@@ -208,7 +314,9 @@ def coder_inputs(stream: str, syms_in, lengths, dev, arg=None) -> dict:
     return {"syms": syms.on(torch.device(dev)), "starts": t(ctxprep.record_bounds(lengths)),
             "plan": ctxcoder.coder_plan(lengths),
             "tab": t(ctxcoder.encode_table(freq).view(np.int64)), "dtab": t(dtab), "arg": arg,
-            "freq": freq, "lengths": lengths}
+            "freq": freq, "lengths": lengths,
+            # the qctx decode's route on the card (qualctx.table_alphabet)
+            "alphabet": np.flatnonzero(freq.any(axis=0)).astype(np.uint8)}
 
 
 def coder_encode(stream: str, inp: dict):
@@ -231,7 +339,13 @@ def coder_decode_args(stream: str, inp: dict, enc, dev, checks: bool = False) ->
                               states.view(np.uint32).reshape(4, 4))
     args = (torch.from_numpy(words[flags.astype(bool)].copy()).to(dev), inp["starts"].to(dev),
             plan, inp["dtab"].to(dev), inp["arg"])
-    return args + (checks,) if stream == "qctx" else args
+    if stream != "qctx":
+        return args
+    # a checkout before the dense route (scripts/ctxcoder_ab.py's parent) takes no alphabet
+    from fastqpacker_tpu_torch.ops import cuda_kernels
+
+    takes = "alphabet" in inspect.signature(cuda_kernels.qctx_decode).parameters
+    return args + ((checks, inp["alphabet"]) if takes else (checks,))
 
 
 def coder_decode(stream: str, args: tuple):
